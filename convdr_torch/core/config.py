@@ -10,6 +10,8 @@ set of flags means the same model and search in both.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
+
 
 @dataclasses.dataclass(frozen=True)
 class EncoderArchConfig:
@@ -90,6 +92,44 @@ class ModelConfig:
     multi_chunk: bool = False
     chunk_len: int = 512
     tokenizer_kind: str = "roberta"  # "roberta" (byte BPE) | "bert" (WordPiece)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """KD + ranking training hyperparameters.
+
+    Defaults track the reference's run_convdr_train.py:255-435 and
+    README.md:160-164 (bs 4/device, lr 1e-5, clip 1.0, 9 negatives).
+    """
+
+    learning_rate: float = 1e-5
+    weight_decay: float = 0.0
+    adam_epsilon: float = 1e-8
+    max_grad_norm: float = 1.0
+    warmup_steps: int = 0
+    num_train_epochs: float = 1.0
+    max_steps: int = -1
+    per_device_batch_size: int = 4
+    gradient_accumulation_steps: int = 1
+    num_negatives: int = 9
+    ranking_task: bool = False
+    no_mse: bool = False
+    max_concat_length: int = 256
+    max_query_length: int = 64
+    max_doc_length: int = 512
+    seed: int = 42
+    log_steps: int = 1
+    save_steps: int = -1
+    # Reference parity: torch model.train() keeps dropout active during KD
+    # (run_convdr_train.py:107); off by default (deterministic KD). Training
+    # with dropout is not ported yet (ROADMAP.md).
+    use_dropout: bool = False
+    # Ranking-doc length rungs: each batch's doc tensor is trimmed to the
+    # smallest rung covering its longest document. Teacher doc embeddings
+    # are unchanged -- pads never reach valid tokens -- but short-doc
+    # corpora skip most of the doc-encode work, the dominant cost of a
+    # ranking step. None = fixed max_doc_length (reference behavior).
+    doc_length_buckets: Optional[Tuple[int, ...]] = None
 
 
 @dataclasses.dataclass(frozen=True)

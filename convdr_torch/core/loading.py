@@ -66,10 +66,17 @@ def load_tokenizer_for(config: ModelConfig, path: Optional[str]) -> Any:
 
 
 def _is_orbax_dir(path: str) -> bool:
+    """A directory the JAX package's orbax checkpointer wrote (itself or its
+    ``final/``): orbax's ``_CHECKPOINT_METADATA``, or the JAX package's
+    ``convdr_meta.json`` side file without the port's own ``train_state.pt``
+    beside it (:mod:`convdr_torch.train.checkpoint` writes both)."""
+    def has(cand, name):
+        return os.path.exists(os.path.join(cand, name))
+
     return any(
-        os.path.exists(os.path.join(cand, marker))
+        has(cand, "_CHECKPOINT_METADATA")
+        or (has(cand, "convdr_meta.json") and not has(cand, "train_state.pt"))
         for cand in (path, os.path.join(path, "final"))
-        for marker in ("convdr_meta.json", "_CHECKPOINT_METADATA")
     )
 
 
@@ -139,6 +146,7 @@ def load_model_and_params(
     dtype: torch.dtype = torch.float32,
     arch_preset: Optional[str] = None,
     arch_overrides: Optional[dict] = None,
+    extra_tokens: Tuple[str, ...] = (),
     seed: int = 0,
 ) -> Tuple[ModelConfig, Any, nn.Module]:
     """Returns (config, tokenizer, model): the model in eval mode on
@@ -146,9 +154,13 @@ def load_model_and_params(
 
     arch_preset "tiny" swaps in the miniature architecture (hermetic tests /
     smoke runs); None keeps the registry's base architecture.
+    ``extra_tokens`` are added to the tokenizer (``<response>`` for the
+    man_can / auto_can query modes) and the word embeddings grow to match.
     """
     config = get_model_config(model_type)
     tokenizer = load_tokenizer_for(config, tokenizer_path or checkpoint_path)
+    for tok in extra_tokens:
+        tokenizer.add_tokens([tok])
 
     arch = config.arch
     if arch_preset == "tiny":
@@ -194,11 +206,14 @@ def load_model_and_params(
     return config, tokenizer, model
 
 
-def make_apply_fn(model: nn.Module) -> Callable:
-    """(ids, mask, is_query) -> f32 embeddings, without autograd."""
+def make_apply_fn(model: nn.Module, *, grad: bool = False) -> Callable:
+    """(ids, mask, is_query) -> f32 embeddings.
 
-    @torch.inference_mode()
+    Without autograd by default (inference, the frozen teacher);
+    ``grad=True`` keeps autograd on, for the student of a train step.
+    """
+
     def apply_fn(ids, mask, is_query: bool):
         return model.query_emb(ids, mask) if is_query else model.body_emb(ids, mask)
 
-    return apply_fn
+    return apply_fn if grad else torch.inference_mode()(apply_fn)

@@ -35,7 +35,10 @@
 // * f32 (the query encoder): f32 FMA on the CUDA cores, one thread per query
 //   row, 32-key tiles staged in shared memory as f32 and read by all threads
 //   at once (a broadcast); the tile's 32 scores accumulate as independent FMA
-//   chains. Full f32 products, no TF32.
+//   chains. Full f32 products, no TF32. For training it also writes each
+//   row's log-sum-exp of the scaled scores, lse [B, H, T] f32, which the
+//   backward (flash_attention_bwd.cu) uses to recompute P; inference passes
+//   a null lse and the kernel writes nothing more.
 //
 // TMA, wgmma and pipelining of the tile loads are later work.
 
@@ -314,8 +317,8 @@ template <int D>
 __global__ void __launch_bounds__(kFmaRows)
 flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int* __restrict__ seg,
-                     float* __restrict__ out, int seq, int heads,
-                     float scale) {
+                     float* __restrict__ out, float* __restrict__ lse,
+                     int seq, int heads, float scale) {
   __shared__ __align__(16) float ks[kFmaKeys][D];
   __shared__ __align__(16) float vs[kFmaKeys][D];
   __shared__ int segk[kFmaKeys];
@@ -430,13 +433,16 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* op = out + base + row * tok;
 #pragma unroll
     for (int d = 0; d < D; ++d) op[d] = acc[d] * inv;
+    // a live row always sees its own key, so l > 0 and lse is finite
+    if (lse != nullptr)
+      lse[(static_cast<long long>(b) * heads + h) * seq + row] = m + logf(l);
   }
 }
 
 template <int D>
 void launch(const void* q, const void* k, const void* v, const void* seg,
-            void* out, int batch, int seq, int heads, float scale, int dtype,
-            cudaStream_t stream) {
+            void* out, void* lse, int batch, int seq, int heads, float scale,
+            int dtype, cudaStream_t stream) {
   const int* sg = static_cast<const int*>(seg);
   if (dtype == 1) {
     const dim3 grid((seq + kMmaRows - 1) / kMmaRows, heads, batch);
@@ -449,33 +455,36 @@ void launch(const void* q, const void* k, const void* v, const void* seg,
     const dim3 grid((seq + kFmaRows - 1) / kFmaRows, heads, batch);
     flash_fwd_fma_kernel<D><<<grid, kFmaRows, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), sg, static_cast<float*>(out), seq,
-        heads, scale);
+        static_cast<const float*>(v), sg, static_cast<float*>(out),
+        static_cast<float*>(lse), seq, heads, scale);
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim 16, 32 or 64. Returns a
-// cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; head_dim 16, 32 or 64. lse: null, or
+// [B, H, T] f32 for the backward (float32 only). Returns a cudaError_t
+// (0 = launched).
 extern "C" int convdr_flash_attention_fwd(const void* q, const void* k,
                                           const void* v, const void* seg,
-                                          void* out, int batch, int seq,
-                                          int heads, int head_dim, float scale,
-                                          int dtype, void* stream) {
+                                          void* out, void* lse, int batch,
+                                          int seq, int heads, int head_dim,
+                                          float scale, int dtype,
+                                          void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0 || batch > 65535 || heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && lse != nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16:
-      launch<16>(q, k, v, seg, out, batch, seq, heads, scale, dtype, s);
+      launch<16>(q, k, v, seg, out, lse, batch, seq, heads, scale, dtype, s);
       break;
     case 32:
-      launch<32>(q, k, v, seg, out, batch, seq, heads, scale, dtype, s);
+      launch<32>(q, k, v, seg, out, lse, batch, seq, heads, scale, dtype, s);
       break;
     case 64:
-      launch<64>(q, k, v, seg, out, batch, seq, heads, scale, dtype, s);
+      launch<64>(q, k, v, seg, out, lse, batch, seq, heads, scale, dtype, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

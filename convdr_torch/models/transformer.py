@@ -15,8 +15,10 @@ Numerics follow the JAX package: post-LN layers; every LayerNorm computes in
 f32 on f32 parameters and the layer casts the result back to the compute
 dtype; linear layers and embeddings run in the compute dtype (f32, or bf16
 via :func:`to_compute_dtype`). Attention takes the [B, T] 0/1 mask as
-segment ids (:mod:`convdr_torch.models.attention`). Inference only: the
-dropout of training waits for the training slice.
+segment ids (:mod:`convdr_torch.models.attention`); in training its
+gradient goes through the flash backward. The modules hold no dropout:
+the deterministic step is the JAX package's default, and training with
+dropout is not ported yet.
 """
 
 from __future__ import annotations

@@ -1,0 +1,127 @@
+"""KD + ranking training step: student encode, frozen teacher, MSE + ranking
+NLL, clipped AdamW.
+
+The counterpart of ``convdr_tpu/train/trainer.py`` (reference
+run_convdr_train.py:41-252). The student's attention runs forward and
+backward through the flash kernels (``models/attention.py``); the teacher
+runs under ``torch.no_grad()`` in ``eval()`` mode, which is what
+``stop_gradient`` on frozen parameters does in the JAX step. Documents
+arrive tokenized and sampled by the input pipeline (``ranking_data.py``) as
+``doc_ids/doc_mask [B, 1+num_negatives, L]``. Eager PyTorch has no ``jit``:
+one call runs the step. Data-parallel training is not ported yet
+(ROADMAP.md, Slice C).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Tuple
+
+import torch
+from torch import nn
+
+from convdr_torch.core.config import TrainConfig
+from convdr_torch.core.loading import make_apply_fn
+from convdr_torch.train.losses import (
+    kd_mse_loss,
+    ranking_nll_loss,
+    ranking_nll_multichunk_loss,
+)
+from convdr_torch.train.optimizer import ClipAdamW, global_norm, make_optimizer
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The student (its parameters), the optimizer state and the number of
+    micro-steps taken."""
+
+    model: nn.Module
+    opt_state: dict
+    step: int = 0
+
+
+def create_train_state(
+    model: nn.Module, config: TrainConfig, total_steps: int
+) -> Tuple[TrainState, ClipAdamW]:
+    tx = make_optimizer(config, total_steps, model)
+    return TrainState(model=model, opt_state=tx.init(dict(model.named_parameters()))), tx
+
+
+def make_train_step(student: nn.Module, teacher: nn.Module, tx: ClipAdamW,
+                    config: TrainConfig) -> Callable:
+    """Build the train step ``step(state, batch) -> (state, metrics)``.
+
+    ``batch`` holds ``concat_ids/concat_mask/target_ids/target_mask`` and,
+    for the ranking task, ``doc_ids/doc_mask [B, K, L]``, all tensors on the
+    student's device. ``state.model`` is ``student``. Metrics (0-dim
+    tensors): ``loss``, ``mse_loss`` and/or ``ranking_loss``, and
+    ``grad_norm``, the global norm of this micro-step's gradients. After the
+    step each parameter's ``.grad`` holds those gradients.
+    """
+    if config.use_dropout:
+        raise NotImplementedError(
+            "training with dropout (use_dropout) is not yet ported to "
+            "convdr_torch, see ROADMAP.md"
+        )
+    student_apply = make_apply_fn(student, grad=True)
+    use_mse = not config.no_mse
+    use_ranking = config.ranking_task
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        model = state.model
+        model.train()
+        teacher.eval()
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        embs = student_apply(batch["concat_ids"], batch["concat_mask"], True)
+        metrics: Dict[str, torch.Tensor] = {}
+        loss = torch.zeros((), device=embs.device)
+        if use_mse:
+            with torch.no_grad():
+                teacher_embs = teacher.query_emb(batch["target_ids"], batch["target_mask"])
+            mse = kd_mse_loss(embs, teacher_embs)
+            loss = loss + mse
+            metrics["mse_loss"] = mse.detach()
+        if use_ranking:
+            b, k, length = batch["doc_ids"].shape
+            with torch.no_grad():
+                doc_embs = teacher.body_emb(
+                    batch["doc_ids"].reshape(b * k, length),
+                    batch["doc_mask"].reshape(b * k, length),
+                )
+            if doc_embs.dim() == 3:
+                # multi-chunk teacher: [B*K, C, E] -> max-over-chunk scores
+                # (NLL_MultiChunk semantics, models.py:100-118)
+                c = doc_embs.shape[1]
+                rank_loss = ranking_nll_multichunk_loss(
+                    embs, doc_embs.reshape(b, k, c, -1), batch["doc_mask"],
+                    length // c,
+                )
+            else:
+                rank_loss = ranking_nll_loss(embs, doc_embs.reshape(b, k, -1))
+            loss = loss + rank_loss
+            metrics["ranking_loss"] = rank_loss.detach()
+        metrics["loss"] = loss.detach()
+        loss.backward()
+        grads = {
+            n: p.grad if p.grad is not None else torch.zeros_like(p)
+            for n, p in params.items()
+        }
+        metrics["grad_norm"] = global_norm(grads.values())
+        tx.update(grads, state.opt_state, params)
+        state.step += 1
+        return state, metrics
+
+    return step
+
+
+def make_query_encode_fn(model: nn.Module) -> Callable:
+    """Inference-time query encoder (reference evaluate(), inference.py:116-154):
+    ``encode(ids, mask) -> [B, E]`` without autograd."""
+    apply_fn = make_apply_fn(model)
+
+    def encode(ids, mask):
+        return apply_fn(ids, mask, True)
+
+    return encode

@@ -9,7 +9,9 @@ the card does not have; this file imports nothing of JAX.)
 
 Tolerances: attention f32 1e-5 absolute (same softmax, another summation
 order), bf16 one bf16 ulp (2^-7 relative; both versions round one f32
-result); scores 1e-5 * |q| * max|p| (f32 dot products of another order).
+result); scores 1e-5 * |q| * max|p| (f32 dot products of another order);
+the attention backward 1e-5 * max|ref| per gradient (f32 sums of up to T
+terms in another order, P recomputed from the forward's log-sum-exp).
 """
 
 import numpy as np
@@ -18,7 +20,13 @@ import torch
 
 from convdr_torch.core.config import SearchConfig
 from convdr_torch.core.device import set_exact_matmul
-from convdr_torch.models.attention import flash_attention, flash_attention_plain
+from convdr_torch.models.attention import (
+    FlashAttentionFn,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_plain,
+)
 from convdr_torch.ops import exact_search as es
 from convdr_torch.ops.fused_search import (
     fused_flat_ip_topk,
@@ -165,3 +173,66 @@ def test_encoder_on_card_matches_cpu(cuda, dtype):
     assert flash_attention.launches == before + 2  # tiny arch: two layers
     atol = 1e-5 if dtype == torch.float32 else 5e-2
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=atol)
+
+
+@pytest.mark.parametrize(
+    "b,t,h,d",
+    [(3, 100, 2, 64), (2, 77, 3, 32), (2, 40, 2, 16), (4, 64, 12, 64), (4, 256, 12, 64),
+     (5, 200, 12, 64)],
+)
+def test_flash_bwd_kernel_matches_plain(cuda, b, t, h, d):
+    q, k, v, mask = attention_problem(b, t, h, d, torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    do = torch.randn(q.shape, generator=gen, device="cuda")
+    before = flash_attention_bwd.launches
+    out = FlashAttentionFn.apply(q.requires_grad_(), k.requires_grad_(),
+                                 v.requires_grad_(), mask)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2  # dK/dV and dQ
+    want = flash_attention_bwd_plain(q, k, v, out.detach(), do, mask)
+    for g, r in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+
+
+def test_flash_bwd_rejects_bf16(cuda):
+    q, k, v, mask = attention_problem(2, 16, 2, 64, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        FlashAttentionFn.apply(q.requires_grad_(), k, v, mask)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One KD + ranking step of the tiny model: the card's gradients (both
+    flash kernels) against the CPU's (both plain versions)."""
+    import dataclasses
+
+    from convdr_torch.core.config import TrainConfig
+    from convdr_torch.core.loading import load_model_and_params
+    from convdr_torch.train.trainer import create_train_state, make_train_step
+
+    rng = np.random.RandomState(5)
+    b, k, t, length = 3, 4, 40, 56
+    ids = rng.randint(5, 200, size=(b, t)).astype(np.int32)
+    mask = (np.arange(t)[None, :] < np.asarray([40, 17, 3])[:, None]).astype(np.int32)
+    doc_ids = rng.randint(5, 200, size=(b, k, length)).astype(np.int32)
+    doc_mask = (np.arange(length) < rng.randint(1, length + 1, size=(b, k, 1))).astype(np.int32)
+    batch = {"concat_ids": ids, "concat_mask": mask, "target_ids": ids[:, :16],
+             "target_mask": mask[:, :16], "doc_ids": doc_ids, "doc_mask": doc_mask}
+    cfg = dataclasses.replace(TrainConfig(ranking_task=True, num_negatives=k - 1),
+                              learning_rate=1e-3)
+    grads = {}
+    for dev in (torch.device("cpu"), cuda):
+        _, _, student = load_model_and_params("rdot_nll", None, device=dev,
+                                              arch_preset="tiny", seed=1)
+        _, _, teacher = load_model_and_params("rdot_nll", None, device=dev,
+                                              arch_preset="tiny", seed=2)
+        state, tx = create_train_state(student, cfg, 10)
+        step = make_train_step(student, teacher, tx, cfg)
+        _, metrics = step(state, {n: torch.from_numpy(a).to(dev) for n, a in batch.items()})
+        grads[dev.type] = ({n: p.grad.cpu() for n, p in student.named_parameters()},
+                           float(metrics["loss"]))
+    (g_cpu, l_cpu), (g_gpu, l_gpu) = grads["cpu"], grads["cuda"]
+    assert abs(l_cpu - l_gpu) <= 1e-5 * abs(l_cpu)
+    for name, ref in g_cpu.items():
+        assert (g_gpu[name] - ref).abs().max().item() <= 1e-4 * ref.abs().max().item() + 1e-9, name

@@ -16,6 +16,8 @@ for name in names:
     importlib.import_module(name)
 assert "convdr_torch.drivers.run_convdr_inference" in names, names
 assert "convdr_torch.drivers.gen_passage_embeddings" in names, names
+assert "convdr_torch.drivers.run_convdr_train" in names, names
+assert "convdr_torch.train.loop" in names, names
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "convdr_tpu")
