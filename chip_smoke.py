@@ -12,7 +12,17 @@
    f32; its backward (dQ, dK, dV, f32) at the student's B=4 T=256, at T=64,
    at T=200 and at B=40 T=512, each with ragged lengths and an all-pad row;
    and the fused score + group-max kernel at Q=512, N=524288, D=768 with
-   f32 and bf16 storage (scores in f32, top-100 sets).
+   f32, bf16 and int8 storage (scores in f32, top-100 sets; int8 equal to
+   its integer-exact plain version).
+2b. The rest of the exact-search layer at the same width (one 524288-row
+   block, D=768): the streaming search's two passes and
+   ``streaming_flat_ip_topk`` with f32, bf16 and int8 passages, G=128 and
+   32, Q=512 and 64 (pass A's maxima and pass B's candidates equal to the
+   score kernel's, the streaming top-100 equal to ``flat_ip_topk``'s, and
+   near-tie sets against the plain versions), and the group gather kernel
+   (equal to ``torch.gather`` at Q=512, K=101, G=32; ``flat_ip_topk(
+   gather="dma")`` equal to ``gather="auto"``). Their launch counts are
+   zeroed just before and read just after the entry points' calls.
 3. Drives the inference path at full RoBERTa-base width (12 layers, hidden
    768, vocab 50265, seeded random weights): a synthetic 8192-passage token
    cache (lengths 16-512) -> ``gen_passage_embeddings.main`` (bf16) -> two
@@ -21,6 +31,14 @@
    ~1.06M rows) -> metrics. The kernels' launch counts are zeroed just
    before and read just after; both must be > 0. The run file is then held
    against an exact plain-PyTorch search of the same rows.
+3b. The int8 (SQ8) user path through the same drivers:
+   ``gen_passage_embeddings.main --storage_dtype int8`` (int8 blocks + the
+   scales sidecar; the two extra blocks quantized with it), then
+   ``run_convdr_inference.main --storage_dtype int8``, whose run must equal
+   an integer-exact plain search of the same quantized rows index for
+   index, and ``--storage_dtype int8 --rescore_factor 2`` over the f32
+   blocks (device SQ8, host refine; the refined ranks must follow the f32
+   scores). The score kernel's count is zeroed before and read after.
 4. Then (the backward's checks of 2 run here, after the inference path)
    holds one full-width KD + ranking train step with the kernels against
    the same step with the plain attention forward and backward (swapped in
@@ -72,10 +90,24 @@ from convdr_torch.models.attention import (
     flash_attention_plain,
 )
 from convdr_torch.ops import cuda_build
-from convdr_torch.ops.exact_search import select_from_groupmax, stable_topk
+from convdr_torch.ops.exact_search import (
+    flat_ip_topk,
+    grouped_topk_last_axis,
+    select_from_groupmax,
+    stable_topk,
+)
 from convdr_torch.ops.fused_search import (
     fused_scores_groupmax,
     fused_scores_groupmax_plain,
+)
+from convdr_torch.ops.gather_groups import dma_gather_groups, dma_gather_groups_plain
+from convdr_torch.ops.quant import Int8Quantizer, quantize_passages_dev
+from convdr_torch.ops.streaming_search import (
+    extract_candidate_scores,
+    extract_candidate_scores_plain,
+    streaming_flat_ip_topk,
+    streaming_groupmax,
+    streaming_groupmax_plain,
 )
 from convdr_torch.retrieval.blocks import iter_embedding_blocks, write_embedding_block
 from convdr_torch.train.losses import kd_mse_loss, ranking_nll_loss
@@ -94,10 +126,15 @@ ATTN_SHAPES = [(512, 64), (256, 128), (128, 256), (64, 384), (64, 512)]
 HEADS, HEAD_DIM = 12, 64
 N_PASSAGES, N_EXTRA, N_TOPICS, N_TURNS = 8192, 524288, 64, 8
 SEARCH_Q, SEARCH_N, SEARCH_D, GROUP, TOP_N = 512, 524288, 768, 32, 100
+# the streaming search: a small query batch beside 512, its groups; the
+# candidate groups of a masked block (k + 1) for timing passes B and the gather
+SMALL_Q, STREAM_GROUPS, CAND_GROUPS = 64, (128, 32), TOP_N + 1
+STORAGE = (torch.float32, torch.bfloat16, torch.int8)
 # the training path: batch, negatives, concat / target / doc lengths, steps
 TRAIN_B, TRAIN_NEG, TRAIN_T, TARGET_T, DOC_T, TRAIN_STEPS = 4, 9, 256, 64, 512, 16
 BWD_SHAPES = [(TRAIN_B, TRAIN_T), (TRAIN_B, TARGET_T), (5, 200), (40, DOC_T)]
-KERNELS = ["flash_attention", "scores_groupmax", "flash_attention_bwd"]
+KERNELS = ["flash_attention", "scores_groupmax", "flash_attention_bwd",
+           "streaming_search", "gather_groups"]
 
 
 def log(*parts):
@@ -349,19 +386,47 @@ def top_sets_agree(s_a, s_b, qnorm, pnorm_max, k=TOP_N):
     return exact
 
 
-def check_and_time_search(gen):
-    q = torch.randn(SEARCH_Q, SEARCH_D, generator=gen, device="cuda")
-    p32 = torch.randn(SEARCH_N, SEARCH_D, generator=gen, device="cuda")
-    qnorm = q.norm(dim=1)
+def kernel_bound(flops, nbytes):
+    """The least time (ms) for ``flops`` f32 operations and ``nbytes`` moved,
+    and which of the two bounds it."""
+    ops_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
+
+
+def search_operands(q32, p32, dtype):
+    """The queries and passages of one storage dtype. int8 passages are the
+    device SQ8 of the f32 rows with scales fitted on their first 65536, and
+    come with the int-valued queries of the same quantizer."""
+    if dtype != torch.int8:
+        return q32, p32.to(dtype)
+    quant = Int8Quantizer.fit(p32[:65536].cpu().numpy())
+    p = quantize_passages_dev(p32, torch.from_numpy(quant.scales).cuda())
+    q = torch.from_numpy(quant.quantize_queries(q32.cpu().numpy())[0]).cuda()
+    return q, p
+
+
+def dtype_name(dtype):
+    return str(dtype)[6:]
+
+
+def check_and_time_search(q32, p32):
+    """Kernel 2 vs plain at Q=512 N=524288 D=768 G=32. f32 and bf16: scores
+    within 1e-5*|q|*max|p|, top-100 sets equal up to near-ties; int8: equal
+    (integer-exact in both)."""
     entry = None
-    for dtype in (torch.float32, torch.bfloat16):
-        p = p32.to(dtype)
+    for dtype in STORAGE:
+        q, p = search_operands(q32, p32, dtype)
+        qnorm = q.norm(dim=1)
         s, g = fused_scores_groupmax(q, p, GROUP)
         torch.cuda.synchronize()
         s_ref, g_ref = fused_scores_groupmax_plain(q, p, GROUP)
         pnorm_max = p.float().norm(dim=1).max().item()
         tol = 1e-5 * qnorm[:, None] * pnorm_max
         err = (s - s_ref).abs()
+        if dtype == torch.int8 and not (torch.equal(s, s_ref) and torch.equal(g, g_ref)):
+            raise AssertionError(f"int8 scores differ from the integer-exact plain version: "
+                                 f"{err.max().item()}")
         if not bool((err <= tol).all()):
             raise AssertionError(f"fused scores disagree ({dtype}): {err.max().item()}")
         if not torch.equal(g, s.view(SEARCH_Q, -1, GROUP).amax(-1)):
@@ -370,8 +435,9 @@ def check_and_time_search(gen):
         sel_s, sel_i = select_from_groupmax(s.view(SEARCH_Q, -1, GROUP), g, TOP_N, GROUP)
         if not torch.equal(sel_s, stable_topk(s, TOP_N)[0]):
             raise AssertionError("group-max selection != full top-k")
-        log(f"  scores+groupmax {str(dtype)[6:]} Q={SEARCH_Q} N={SEARCH_N}: "
-            f"max_abs_err {err.max().item():.3e} (tol 1e-5*|q|*max|p|), "
+        log(f"  scores+groupmax {dtype_name(dtype)} Q={SEARCH_Q} N={SEARCH_N}: "
+            f"max_abs_err {err.max().item():.3e} (tol 1e-5*|q|*max|p|"
+            f"{'; int8: equal' if dtype == torch.int8 else ''}), "
             f"top-{TOP_N} sets equal in {exact_rows}/{SEARCH_Q} rows, near-ties only otherwise")
         ms = cuda_ms(lambda: fused_scores_groupmax(q, p, GROUP))
         plain_ms = cuda_ms(lambda: fused_scores_groupmax_plain(q, p, GROUP), iters=5)
@@ -381,14 +447,12 @@ def check_and_time_search(gen):
         )
         nbytes = (q.numel() * 4 + p.numel() * p.element_size()
                   + SEARCH_Q * SEARCH_N * 4 + SEARCH_Q * (SEARCH_N // GROUP) * 4)
-        ops_ms = 2.0 * SEARCH_Q * SEARCH_N * SEARCH_D / PEAK_FLOPS[torch.float32] * 1e3
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = kernel_bound(2.0 * SEARCH_Q * SEARCH_N * SEARCH_D, nbytes)
         log(f"    kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, matmul+amax {lib_ms:.3f} ms, "
-            f"bound {max(ops_ms, bytes_ms):.3f} ms")
+            f"bound {bound_ms:.3f} ms")
         result = {
             "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         }
         if dtype == torch.float32:  # the main path's storage
             entry = {
@@ -399,8 +463,201 @@ def check_and_time_search(gen):
                 "shape": f"Q={SEARCH_Q} N={SEARCH_N} D={SEARCH_D} G={GROUP} f32",
             }
         else:
-            entry["bf16_storage"] = result
+            entry[f"{dtype_name(dtype)}_storage"] = result
         del s, g, s_ref, g_ref, pf, p
+    return entry
+
+
+def topk_near_ties(top_i, s_ref, qnorm, pnorm_max, k=TOP_N):
+    """Top-k indices of a kernel path against the stable top-k of the plain
+    scores, as sets: a row may differ only in near-ties at the k-th score,
+    within the f32 tolerance 1e-5*|q|*max|p|. Returns the rows equal as sets."""
+    ref_s, ref_i = stable_topk(s_ref, k)
+    got, ref = top_i.cpu().tolist(), ref_i.cpu().tolist()
+    exact = 0
+    for r in range(top_i.shape[0]):
+        a, b = set(got[r]), set(ref[r])
+        if a == b:
+            exact += 1
+            continue
+        tol = 1e-5 * qnorm[r].item() * pnorm_max
+        kth = ref_s[r, -1].item()
+        for idx in a ^ b:
+            if abs(s_ref[r, idx].item() - kth) > tol:
+                raise AssertionError(f"top-{k} sets differ in row {r} beyond near-ties")
+    return exact
+
+
+def check_streaming(q32, p32):
+    """Kernels 3 and 4 and ``streaming_flat_ip_topk`` over one 524288-row
+    block, f32/bf16/int8 passages, G=128 and 32, Q=512 and 64: pass A's
+    maxima and pass B's candidates (at 101 groups) equal to kernel 2's; the
+    streaming top-100 equal to ``flat_ip_topk``'s in scores and indices;
+    against the plain versions within 1e-5*|q|*max|p| (int8: equal) and
+    top-100 sets equal up to near-ties. The two counts are zeroed just
+    before each ``streaming_flat_ip_topk`` call and read just after."""
+    launches = {"streaming_groupmax": 0, "extract_candidate_scores": 0}
+    worst = {}
+    for dtype in STORAGE:
+        q_all, p = search_operands(q32, p32, dtype)
+        pnorm_max = p.float().norm(dim=1).max().item()
+        for qn in (SEARCH_Q, SMALL_Q):
+            q = q_all[:qn]
+            qnorm = q.norm(dim=1)
+            flat_s, flat_i = flat_ip_topk(q, p, TOP_N, block_rows=SEARCH_N)
+            s_plain = fused_scores_groupmax_plain(q, p, STREAM_GROUPS[0])[0]
+            for group in STREAM_GROUPS:
+                scores, gmax = fused_scores_groupmax(q, p, group)
+                g = streaming_groupmax(q, p, group)
+                gsel = torch.sort(grouped_topk_last_axis(g, CAND_GROUPS, 32)[1], dim=1)[0]
+                cand = extract_candidate_scores(q, p, gsel, group)
+                torch.cuda.synchronize()
+                want = torch.gather(scores.view(qn, -1, group), 1,
+                                    gsel[:, :, None].expand(-1, -1, group))
+                if not torch.equal(g, gmax):
+                    raise AssertionError(f"pass A maxima != kernel 2's ({dtype}, Q={qn}, G={group})")
+                if not torch.equal(cand, want):
+                    raise AssertionError(f"pass B scores != kernel 2's ({dtype}, Q={qn}, G={group})")
+                err_g = (g - s_plain.view(qn, -1, group).amax(-1)).abs()
+                err_c = (cand - extract_candidate_scores_plain(q, p, gsel, group)).abs()
+                tol = 1e-5 * qnorm * pnorm_max
+                limit = 0.0 if dtype == torch.int8 else None
+                for name, err, t in (("maxima", err_g, tol[:, None]),
+                                     ("candidates", err_c, tol[:, None, None])):
+                    bad = (err.max().item() > limit) if limit is not None else not bool((err <= t).all())
+                    if bad:
+                        raise AssertionError(f"streaming {name} vs plain ({dtype}, Q={qn}, "
+                                             f"G={group}): {err.max().item()}")
+                streaming_groupmax.launches = 0
+                extract_candidate_scores.launches = 0
+                top_s, top_i = streaming_flat_ip_topk(q, p, TOP_N, group=group)
+                torch.cuda.synchronize()
+                launches["streaming_groupmax"] += streaming_groupmax.launches
+                launches["extract_candidate_scores"] += extract_candidate_scores.launches
+                if not (torch.equal(top_s, flat_s) and torch.equal(top_i, flat_i)):
+                    raise AssertionError(f"streaming top-{TOP_N} != flat_ip_topk "
+                                         f"({dtype}, Q={qn}, G={group})")
+                exact = topk_near_ties(top_i, s_plain, qnorm, pnorm_max)
+                if dtype == torch.int8 and exact != qn:
+                    raise AssertionError("int8 streaming top-k sets differ from the plain search")
+                log(f"  streaming {dtype_name(dtype)} Q={qn} G={group}: maxima and "
+                    f"{CAND_GROUPS}-group candidates equal kernel 2's; top-{TOP_N} equals "
+                    f"flat_ip_topk; vs plain max_abs_err {err_g.max().item():.3e}/"
+                    f"{err_c.max().item():.3e}, sets equal in {exact}/{qn} rows")
+                worst[(dtype, qn, group)] = max(err_g.max().item(), err_c.max().item())
+                del scores, gmax, g, cand, want
+            del s_plain
+        del p, q_all
+    torch.cuda.empty_cache()
+    return launches, worst
+
+
+def time_streaming(q, p, worst, launches):
+    """Kernels 3 and 4 at Q=512 G=128 f32 (kernel 4 at the 101 groups pass A
+    picks), with the kernel-2 counterparts and the whole streaming top-100
+    against flat_ip_topk at Q=512 and 64."""
+    group = STREAM_GROUPS[0]
+    n_groups = SEARCH_N // group
+    gmax = streaming_groupmax(q, p, group)
+    gsel = torch.sort(grouped_topk_last_axis(gmax, CAND_GROUPS, 32)[1], dim=1)[0]
+    idx = gsel[:, :, None].expand(-1, -1, group)
+    picked = int(torch.unique(gsel).numel())
+    bound3 = kernel_bound(2.0 * SEARCH_Q * SEARCH_N * SEARCH_D,
+                          q.numel() * 4 + p.numel() * 4 + SEARCH_Q * n_groups * 4)
+    k3 = {
+        "name": "streaming_groupmax", "route": "cuda",
+        "source": "convdr_torch/csrc/scores_groupmax.cu (convdr_streaming_groupmax)",
+        "replaces": "convdr_tpu/ops/pallas_search.py:366",
+        "launches": launches["streaming_groupmax"],
+        "max_abs_err": worst[(torch.float32, SEARCH_Q, group)],
+        "ms": cuda_ms(lambda: streaming_groupmax(q, p, group)),
+        "plain_ms": cuda_ms(lambda: streaming_groupmax_plain(q, p, group), iters=5),
+        "library_ms": cuda_ms(
+            lambda: torch.matmul(q, p.T).view(SEARCH_Q, -1, group).amax(-1), iters=5),
+        "bound_ms": bound3[0], "bound_by": bound3[1],
+        "shape": f"Q={SEARCH_Q} N={SEARCH_N} D={SEARCH_D} G={group} f32",
+        "ms_by_config": {
+            f"Q{SMALL_Q}_G{group}_f32": cuda_ms(lambda: streaming_groupmax(q[:SMALL_Q], p, group)),
+            f"Q{SEARCH_Q}_G32_f32": cuda_ms(lambda: streaming_groupmax(q, p, 32)),
+        },
+    }
+    cand_bytes = (picked * group * SEARCH_D * 4 + q.numel() * 4 + gsel.numel() * 8
+                  + SEARCH_Q * CAND_GROUPS * group * 4)
+    bound4 = kernel_bound(2.0 * SEARCH_Q * CAND_GROUPS * group * SEARCH_D, cand_bytes)
+    k4 = {
+        "name": "extract_candidate_scores", "route": "cuda",
+        "source": "convdr_torch/csrc/streaming_search.cu",
+        "replaces": "convdr_tpu/ops/pallas_search.py:462",
+        "launches": launches["extract_candidate_scores"],
+        "max_abs_err": worst[(torch.float32, SEARCH_Q, group)],
+        "ms": cuda_ms(lambda: extract_candidate_scores(q, p, gsel, group)),
+        "plain_ms": cuda_ms(lambda: extract_candidate_scores_plain(q, p, gsel, group), iters=3),
+        "library_ms": cuda_ms(lambda: torch.gather(
+            torch.matmul(q, p.T).view(SEARCH_Q, -1, group), 1, idx), iters=5),
+        "library": "torch.matmul + torch.gather (the score-matrix path)",
+        "bound_ms": bound4[0], "bound_by": bound4[1],
+        "shape": f"Q={SEARCH_Q} kg={CAND_GROUPS} G={group} D={SEARCH_D} f32, "
+                 f"{picked} of {n_groups} groups picked",
+    }
+    e2e = {}
+    for qn in (SEARCH_Q, SMALL_Q):
+        e2e[f"Q{qn}"] = {
+            "streaming_G128_ms": cuda_ms(lambda: streaming_flat_ip_topk(q[:qn], p, TOP_N), iters=5),
+            "streaming_G32_ms": cuda_ms(
+                lambda: streaming_flat_ip_topk(q[:qn], p, TOP_N, group=32), iters=5),
+            "flat_ip_topk_ms": cuda_ms(
+                lambda: flat_ip_topk(q[:qn], p, TOP_N, block_rows=SEARCH_N), iters=5),
+        }
+    k3["top100_ms"] = e2e
+    log(f"  pass A {k3['ms']:.3f} ms (bound {bound3[0]:.3f}), pass B {k4['ms']:.3f} ms "
+        f"(bound {bound4[0]:.3f}, {bound4[1]}; {picked}/{n_groups} groups picked); top-{TOP_N} "
+        + "; ".join(f"{k}: " + ", ".join(f"{n} {v:.2f}" for n, v in d.items())
+                    for k, d in e2e.items()))
+    return k3, k4
+
+
+def check_and_time_gather(q, p):
+    """Kernel 5 against ``torch.gather`` at Q=512, B=524288, K=101, G=32 on
+    kernel 2's scores and the groups its maxima pick; then the entry point,
+    ``flat_ip_topk(gather="dma")``, over the same block (count zeroed before,
+    read after), equal to ``gather="auto"``."""
+    scores, gmax = fused_scores_groupmax(q, p, GROUP)
+    gsel = torch.sort(grouped_topk_last_axis(gmax, CAND_GROUPS, 32)[1], dim=1)[0]
+    out = dma_gather_groups(scores, gsel, group=GROUP)
+    torch.cuda.synchronize()
+    if not torch.equal(out, dma_gather_groups_plain(scores, gsel, group=GROUP)):
+        raise AssertionError("the group gather differs from torch.gather")
+    dma_gather_groups.launches = 0
+    dma = flat_ip_topk(q, p, TOP_N, block_rows=SEARCH_N, gather="dma")
+    torch.cuda.synchronize()
+    launches = dma_gather_groups.launches
+    auto = flat_ip_topk(q, p, TOP_N, block_rows=SEARCH_N)
+    if launches == 0 or not (torch.equal(dma[0], auto[0]) and torch.equal(dma[1], auto[1])):
+        raise AssertionError(f"flat_ip_topk(gather='dma') != 'auto' (launches {launches})")
+    moved = out.numel() * 4
+    bound = kernel_bound(0.0, 2 * moved + gsel.numel() * 8)
+    plain_ms = cuda_ms(lambda: dma_gather_groups_plain(scores, gsel, group=GROUP))
+    entry = {
+        "name": "dma_gather_groups", "route": "cuda",
+        "source": "convdr_torch/csrc/gather_groups.cu",
+        "replaces": "convdr_tpu/ops/pallas_search.py:256",
+        "launches": launches, "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: dma_gather_groups(scores, gsel, group=GROUP)),
+        "plain_ms": plain_ms,
+        "library_ms": plain_ms,  # the plain version is one torch.gather
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "shape": f"Q={SEARCH_Q} B={SEARCH_N} K={CAND_GROUPS} G={GROUP} f32",
+        "flat_ip_topk_ms": {
+            "dma": cuda_ms(lambda: flat_ip_topk(q, p, TOP_N, block_rows=SEARCH_N, gather="dma"),
+                           iters=5),
+            "auto": cuda_ms(lambda: flat_ip_topk(q, p, TOP_N, block_rows=SEARCH_N), iters=5),
+        },
+    }
+    log(f"  group gather Q={SEARCH_Q} K={CAND_GROUPS} G={GROUP}: equals torch.gather; "
+        f"kernel {entry['ms'] * 1e3:.1f} us, torch.gather {plain_ms * 1e3:.1f} us, bound "
+        f"{bound[0] * 1e3:.1f} us; flat_ip_topk dma/auto equal, "
+        f"{entry['flat_ip_topk_ms']['dma']:.2f}/{entry['flat_ip_topk_ms']['auto']:.2f} ms")
+    del scores, gmax, out
     return entry
 
 
@@ -446,18 +703,24 @@ def write_extra_blocks(emb_dir, gen):
         write_embedding_block(emb_dir, b, rows, offsets)
 
 
+def load_rows(emb_dir):
+    """All blocks of a dir on the card, in block order: rows (f32) and offsets."""
+    rows, offs = [], []
+    for _b, emb, ids in iter_embedding_blocks(emb_dir):
+        rows.append(torch.from_numpy(emb).cuda().float())
+        offs.append(torch.from_numpy(ids.astype(np.int64)).cuda())
+    return torch.cat(rows), torch.cat(offs)
+
+
 def reference_check(work, processed, raw, emb_dir, trec):
     """The inference run file against an exact plain-PyTorch search: the same
-    query encoder, one f32 matmul over all rows, a stable sort."""
+    query encoder, one f32 matmul over all rows, a stable sort. Returns the
+    qids and query embeddings."""
     args = run_convdr_inference.get_arguments(inference_argv(work, processed, raw, emb_dir))
     qids, q_embs, _ = run_convdr_inference.encode_queries(
         args, args.model_path, args.eval_file, torch.float32, torch.device("cuda")
     )
-    rows, offs = [], []
-    for _b, emb, ids in iter_embedding_blocks(emb_dir):
-        rows.append(torch.from_numpy(emb).cuda())
-        offs.append(torch.from_numpy(ids.astype(np.int64)).cuda())
-    rows, offs = torch.cat(rows), torch.cat(offs)
+    rows, offs = load_rows(emb_dir)
     q = torch.from_numpy(q_embs).cuda()
     scores = q @ rows.T
     top_s, top_i = stable_topk(scores, TOP_N)
@@ -479,16 +742,16 @@ def reference_check(work, processed, raw, emb_dir, trec):
                 raise AssertionError(f"{qid}: run differs from the exact search")
     log(f"  run vs exact plain search: top-{TOP_N} sets equal for {exact}/{len(qids)} "
         "queries, near-ties at the cut otherwise")
-    return q_embs.shape
+    return qids, q_embs
 
 
-def inference_argv(work, processed, raw, emb_dir):
+def inference_argv(work, processed, raw, emb_dir, run_name="run"):
     return [
         "--model_path", "init", "--model_type", "rdot_nll",
         "--eval_file", os.path.join(raw, "eval_topics.jsonl"),
         "--ann_data_dir", emb_dir, "--processed_data_dir", processed,
         "--raw_data_dir", raw, "--qrels", os.path.join(raw, "qrels.tsv"),
-        "--output_trec_file", os.path.join(work, "run.trec"),
+        "--output_trec_file", os.path.join(work, f"{run_name}.trec"),
         "--output_query_type", "raw", "--query", "no_res",
         "--max_concat_length", "256", "--top_n", str(TOP_N),
     ]
@@ -529,8 +792,83 @@ def main_path(gen):
         n_lines = sum(1 for _ in f)
     if n_lines != N_TOPICS * N_TURNS * TOP_N:
         raise AssertionError(f"run file has {n_lines} lines")
-    reference_check(WORK, processed, raw, emb_dir, trec)
-    return launches, metrics, t_embed, t_infer
+    qids, q_embs = reference_check(WORK, processed, raw, emb_dir, trec)
+    paths = {"processed": processed, "raw": raw, "emb_dir": emb_dir, "trec": trec}
+    return launches, metrics, t_embed, t_infer, (paths, qids, q_embs)
+
+
+def int8_path(paths, qids, q_embs):
+    """The SQ8 user path at the same width: int8 embed (block 0 through the
+    driver, the two extra blocks quantized with its sidecar), an int8 search
+    held index for index to an integer-exact plain search of the same rows,
+    and an int8 search of the f32 blocks refined on the host. The score
+    kernel's count is zeroed before the two searches and read after."""
+    processed, raw, emb_dir = paths["processed"], paths["raw"], paths["emb_dir"]
+    emb_i8 = os.path.join(WORK, "embeddings_i8")
+    t0 = time.time()
+    gen_passage_embeddings.main([
+        "--data_dir", processed, "--checkpoint", "init", "--model_type", "rdot_nll",
+        "--output_dir", emb_i8, "--per_gpu_eval_batch_size", "64",
+        "--dtype", "bfloat16", "--num_blocks", "1", "--storage_dtype", "int8",
+    ])
+    t_embed = time.time() - t0
+    quant = Int8Quantizer.load(emb_i8)  # the driver's sidecar
+    for block_id, emb, ids in iter_embedding_blocks(emb_dir):
+        if block_id == 0:
+            continue
+        write_embedding_block(emb_i8, block_id, quant.quantize_passages(emb), ids)
+    blocks = [(b, emb.dtype, emb.shape) for b, emb, _ in iter_embedding_blocks(emb_i8)]
+    if [d for _, d, _ in blocks] != [np.int8] * 3 or blocks[0][2] != (N_PASSAGES, SEARCH_D):
+        raise AssertionError(f"int8 blocks: {blocks}")
+
+    fused_scores_groupmax.launches = 0
+    t0 = time.time()
+    run_convdr_inference.main(inference_argv(WORK, processed, raw, emb_i8, "run_i8")
+                              + ["--storage_dtype", "int8"])
+    torch.cuda.synchronize()
+    t_i8 = time.time() - t0
+    t0 = time.time()
+    run_convdr_inference.main(inference_argv(WORK, processed, raw, emb_dir, "run_rs")
+                              + ["--storage_dtype", "int8", "--rescore_factor", "2"])
+    torch.cuda.synchronize()
+    t_rescore = time.time() - t0
+    launches = fused_scores_groupmax.launches
+    if launches == 0:
+        raise AssertionError("the int8 searches did not launch the score kernel")
+
+    # int8: the integer-exact plain search of the same rows, index for index
+    rows, offs = load_rows(emb_i8)
+    q_int = torch.from_numpy(quant.quantize_queries(q_embs)[0]).cuda()
+    _s, top_i = stable_topk(q_int @ rows.T, TOP_N)
+    want = (offs[top_i] + 1000).cpu().numpy()
+    run = parse_trec_run(os.path.join(WORK, "run_i8.trec"))
+    for r, qid in enumerate(qids):
+        if [pid for pid, _ in run[qid]] != want[r].tolist():
+            raise AssertionError(f"{qid}: int8 run differs from the integer-exact search")
+    log(f"  int8 run equals the integer-exact plain search index for index for "
+        f"{len(qids)}/{len(qids)} queries")
+
+    # int8 + rescore over the f32 blocks: the refined ranks follow the f32
+    # scores (within the f32 tolerance); overlap with the exact f32 run
+    rows, offs = load_rows(emb_dir)
+    row_of = torch.empty(int(offs.max()) + 1, dtype=torch.int64, device="cuda")
+    row_of[offs] = torch.arange(offs.numel(), device="cuda")
+    q = torch.from_numpy(q_embs).cuda()
+    pmax = rows.norm(dim=1).max().item()
+    rescored = parse_trec_run(os.path.join(WORK, "run_rs.trec"))
+    exact = parse_trec_run(paths["trec"])
+    overlap = []
+    for r, qid in enumerate(qids):
+        pids = [pid for pid, _ in rescored[qid]]
+        s = rows[row_of[torch.tensor(pids, device="cuda") - 1000]] @ q[r]
+        tol = 1e-5 * q[r].norm().item() * pmax
+        if len(pids) != TOP_N or not bool((s[1:] <= s[:-1] + tol).all()):
+            raise AssertionError(f"{qid}: the refined run is not in f32 score order")
+        overlap.append(len(set(pids) & {pid for pid, _ in exact[qid]}) / TOP_N)
+    log(f"  int8 + rescore 2: ranks follow the f32 scores for all {len(qids)} queries; "
+        f"top-{TOP_N} overlap with the exact f32 run {float(np.mean(overlap)):.4f}")
+    return {"score_kernel_launches": launches, "embed_s": t_embed, "inference_s": t_i8,
+            "inference_rescore_s": t_rescore, "rescore_overlap": float(np.mean(overlap))}
 
 
 # ---------------------------------------------------------------------------
@@ -784,11 +1122,24 @@ def main(argv=None):
     gen = torch.Generator(device="cuda").manual_seed(0)
     log("kernel checks against the plain versions:")
     worst = check_attention(gen)
-    kernels = [time_attention(gen, worst), check_and_time_search(gen)]
+    kernels = [time_attention(gen, worst)]
+    q32 = torch.randn(SEARCH_Q, SEARCH_D, generator=gen, device="cuda")
+    p32 = torch.randn(SEARCH_N, SEARCH_D, generator=gen, device="cuda")
+    kernels.append(check_and_time_search(q32, p32))
+    log("the streaming search and the group gather (one 524288-row block, D=768):")
+    t0 = time.time()
+    stream_launches, stream_worst = check_streaming(q32, p32)
+    kernels.extend(time_streaming(q32, p32, stream_worst, stream_launches))
+    kernels.append(check_and_time_gather(q32, p32))
+    t_stream = time.time() - t0
+    del q32, p32
     torch.cuda.empty_cache()
     log("inference path (full RoBERTa-base width, seeded weights):")
     try:
-        launches, metrics, t_embed, t_infer = main_path(gen)
+        launches, metrics, t_embed, t_infer, (paths, qids, q_embs) = main_path(gen)
+        torch.cuda.empty_cache()
+        log("int8 (SQ8) path through the same drivers:")
+        int8 = int8_path(paths, qids, q_embs)
         torch.cuda.empty_cache()
         # the backward's checks come after the inference path, which then
         # runs in the same device-memory state as before training existed
@@ -802,12 +1153,18 @@ def main(argv=None):
         shutil.rmtree(WORK, ignore_errors=True)
     # each kernel's count on the path of the slice that ported it; the
     # forward runs on both paths
-    fwd, search, bwd = kernels
+    fwd, search, k3, k4, k5, bwd = kernels
     fwd["launches"] = launches["flash_attention_fwd"]
     fwd["launches_by_path"] = {"inference": launches["flash_attention_fwd"],
                                "train": train_launches["flash_attention_fwd"]}
     search["launches"] = launches["fused_scores_groupmax"]
+    search["launches_by_path"] = {"inference_f32": launches["fused_scores_groupmax"],
+                                  "inference_int8_and_rescore": int8["score_kernel_launches"]}
     bwd["launches"] = train_launches["flash_attention_bwd"]
+    log(f"inference + search over {N_PASSAGES + 2 * N_EXTRA} rows, same call: f32 "
+        f"{t_infer:.2f} s, int8 {int8['inference_s']:.2f} s, int8 + rescore 2 over the f32 "
+        f"blocks {int8['inference_rescore_s']:.2f} s; embed f32 {t_embed:.2f} s, int8 "
+        f"{int8['embed_s']:.2f} s; streaming + gather phase {t_stream:.1f} s")
     attn_ms = bwd["train_step_attention_ms"]["x12_layers"]
     log(f"training: {train['ms_per_step']:.1f} ms/step, {train['examples_per_s']:.1f} "
         f"examples/s (batch {TRAIN_B}, {TRAIN_NEG} negatives, concat {TRAIN_T}, docs <= "
@@ -815,12 +1172,16 @@ def main(argv=None):
         f"({100 * attn_ms / train['ms_per_step']:.1f}% of a step); the step's device parts "
         f"{sum(step_check['phases_ms'].values()):.1f} ms, the rest (input pipeline, "
         f"metrics, host) {train['ms_per_step'] - sum(step_check['phases_ms'].values()):.1f} ms")
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']}: no launch on its path")
     result = {"kernels": kernels}
     log(json.dumps(result))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({**result, "card": smi, "metrics": metrics, "embed_s": t_embed,
-                       "inference_s": t_infer, "train": train, "train_step_check": step_check,
+                       "inference_s": t_infer, "int8": int8, "streaming_phase_s": t_stream,
+                       "train": train, "train_step_check": step_check,
                        "total_s": time.time() - t_start}, f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

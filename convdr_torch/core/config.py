@@ -138,17 +138,23 @@ class SearchConfig:
 
     Passage blocks mirror the reference's sequential block design
     (README.md:216). Products are always full f32 (no TF32): the JAX
-    package's "high"/"default" matmul precisions, int8 storage and
-    re-ranking are not ported yet (ROADMAP.md).
+    package's "high"/"default" matmul precisions are not ported yet
+    (ROADMAP.md).
     """
 
     # Passages per scan block: the [Q, block] f32 score buffer of one scan
     # step is Q * passage_block_size * 4 bytes (1 GiB at Q=512).
     passage_block_size: int = 524288
-    # Embedding storage on the device: "float32" (FAISS-bit exact) or
+    # Embedding storage on the device: "float32" (FAISS-bit exact),
     # "bfloat16" (half the device memory; a cast on upload, scores still
-    # accumulate in f32). "int8" (SQ8) is not ported yet (ROADMAP.md).
+    # accumulate in f32) or "int8" (SQ8 scalar quantization, ops/quant.py:
+    # a quarter of the device memory, bit-exact vs the int8 oracle).
     storage_dtype: str = "float32"
+    # int8/bf16 storage only: re-rank the top (rescore_factor * top_n)
+    # quantized candidates of each block with full-precision host-side
+    # inner products before the final cut (FAISS IndexRefineFlat's
+    # k_factor). Needs the original float rows (float block files). 0 = off.
+    rescore_factor: int = 0
     # Device-side capacity cap: an on-disk block whose embedding matrix
     # exceeds this many bytes is searched as sequential sub-blocks (results
     # merged in order, preserving the lower-index tie preference).

@@ -6,11 +6,24 @@
 // function (ops/exact_search.py `_chunked_topk`: matmul, then per-group max).
 //
 // Computes S = Q P^T in f32 ([Q, N]) and the maximum of every run of G
-// consecutive columns ([Q, N/G]). Q is f32 [Q, D]; P is f32 or bf16 [N, D]
-// (bf16 is upcast to f32 as it is loaded). Products and sums are plain f32
+// consecutive columns ([Q, N/G]). Q is f32 [Q, D]; P is f32, bf16 or int8
+// [N, D] (upcast to f32 as it is loaded). Products and sums are plain f32
 // FMAs on the CUDA cores: no TF32 tensor-core path, because the exact-search
 // contract (scores the f32 oracle would give, ops/exact_search.py) does not
-// survive TF32's 10-bit mantissa.
+// survive TF32's 10-bit mantissa. With int8 passages (SQ8 storage,
+// ops/quant.py) the queries are int-valued f32 rows: every product is at
+// most 127^2 and every partial sum stays below 2^24 for D <= 1040, so the
+// f32 FMAs are exact integer arithmetic and the scores equal the integer
+// oracle.
+//
+// The same source also holds pass A of the streaming search
+// (convdr_streaming_groupmax; replaces pallas_search.py:366-416,
+// `streaming_groupmax`, kernel `_groupmax_only_kernel` at :352): this kernel
+// with the score store compiled out, so only the [Q, N/G] maxima reach
+// device memory. Both are one template, so the maxima of the two are
+// bit-identical: each output is one sequential fmaf chain over k = 0..D-1,
+// zero padding only after the last k. Pass B (streaming_search.cu) keeps
+// that order too.
 //
 // What bounds it on an H100: 2*Q*N*D operations at the 67 TFLOP/s f32
 // (non-tensor) peak; at Q=512, N=524288, D=768 that is 412 GFLOP, ~6.2 ms,
@@ -37,8 +50,13 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(signed char x) {
+  return static_cast<float>(x);
+}
 
-template <typename P>
+// kStore: write the score tile (kernel 2) or only the group maxima (pass A
+// of the streaming search; `scores` is then unused and may be null).
+template <typename P, bool kStore>
 __global__ void __launch_bounds__(kThreads)
 scores_groupmax_kernel(const float* __restrict__ q, const P* __restrict__ p,
                        float* __restrict__ scores, float* __restrict__ gmax,
@@ -110,24 +128,21 @@ scores_groupmax_kernel(const float* __restrict__ q, const P* __restrict__ p,
     for (int off = 1; off < lanes; off <<= 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     if (row < nq) {
-      float4* sp = reinterpret_cast<float4*>(
-          scores + static_cast<long long>(row) * n + col);
-      sp[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      sp[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+      if constexpr (kStore) {
+        float4* sp = reinterpret_cast<float4*>(
+            scores + static_cast<long long>(row) * n + col);
+        sp[0] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        sp[1] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+      }
       if (tx % lanes == 0)
         gmax[static_cast<long long>(row) * groups_per_row + col / group] = mx;
     }
   }
 }
 
-}  // namespace
-
-// p_dtype: 0 = float32, 1 = bfloat16. group in {8, 16, 32, 64, 128};
-// n % 128 == 0. Returns a cudaError_t (0 = launched).
-extern "C" int convdr_scores_groupmax(const void* q, const void* p,
-                                      void* scores, void* gmax, int nq, int n,
-                                      int d, int group, int p_dtype,
-                                      void* stream) {
+template <bool kStore>
+int launch(const void* q, const void* p, void* scores, void* gmax, int nq,
+           int n, int d, int group, int p_dtype, void* stream) {
   if (nq <= 0 || n <= 0 || d <= 0 || n % kTileN != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (group != 8 && group != 16 && group != 32 && group != 64 && group != 128)
@@ -135,18 +150,40 @@ extern "C" int convdr_scores_groupmax(const void* q, const void* p,
   const dim3 grid(n / kTileN, (nq + kTileM - 1) / kTileM);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* qf = static_cast<const float*>(q);
+  float* sf = static_cast<float*>(scores);
+  float* gf = static_cast<float*>(gmax);
   if (p_dtype == 0) {
-    scores_groupmax_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(p),
-        static_cast<float*>(scores), static_cast<float*>(gmax), nq, n, d,
-        group);
+    scores_groupmax_kernel<float, kStore><<<grid, kThreads, 0, s>>>(
+        qf, static_cast<const float*>(p), sf, gf, nq, n, d, group);
   } else if (p_dtype == 1) {
-    scores_groupmax_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const __nv_bfloat16*>(p),
-        static_cast<float*>(scores), static_cast<float*>(gmax), nq, n, d,
-        group);
+    scores_groupmax_kernel<__nv_bfloat16, kStore><<<grid, kThreads, 0, s>>>(
+        qf, static_cast<const __nv_bfloat16*>(p), sf, gf, nq, n, d, group);
+  } else if (p_dtype == 2) {
+    scores_groupmax_kernel<signed char, kStore><<<grid, kThreads, 0, s>>>(
+        qf, static_cast<const signed char*>(p), sf, gf, nq, n, d, group);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// p_dtype: 0 = float32, 1 = bfloat16, 2 = int8. group in {8, 16, 32, 64,
+// 128}; n % 128 == 0. Returns a cudaError_t (0 = launched).
+extern "C" int convdr_scores_groupmax(const void* q, const void* p,
+                                      void* scores, void* gmax, int nq, int n,
+                                      int d, int group, int p_dtype,
+                                      void* stream) {
+  return launch<true>(q, p, scores, gmax, nq, n, d, group, p_dtype, stream);
+}
+
+// Pass A of the streaming search: the group maxima only, the same
+// arguments less the scores.
+extern "C" int convdr_streaming_groupmax(const void* q, const void* p,
+                                         void* gmax, int nq, int n, int d,
+                                         int group, int p_dtype,
+                                         void* stream) {
+  return launch<false>(q, p, nullptr, gmax, nq, n, d, group, p_dtype, stream);
 }

@@ -5,8 +5,10 @@ same flags plus the reference's ``--no_cuda``: the encoder runs on the card
 unless ``--no_cuda`` asks for the CPU, and without a card it raises. One
 process drives one GPU (``--no_mesh`` is accepted; multi-GPU encode waits
 for a later slice). Blocks are written in the reference's f32 pickle
-format; ``--storage_dtype bfloat16/int8`` and ``--block_format native`` are
-not ported yet and raise.
+format, or with ``--storage_dtype int8`` as SQ8 int8 pickles plus the
+``int8_scales.npy`` sidecar (a quarter of the disk and device memory; see
+``ops/quant.py``). ``--storage_dtype bfloat16`` and ``--block_format
+native`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -64,8 +66,9 @@ def get_arguments(argv=None):
     parser.add_argument(
         "--storage_dtype", default="float32",
         choices=["float32", "bfloat16", "int8"],
-        help="on-disk block dtype; only float32 (reference-format blocks) "
-        "is ported",
+        help="on-disk block dtype: float32 (reference-format blocks) or int8 "
+        "(SQ8 scalar quantization, quarter disk+device memory; writes an "
+        "int8_scales.npy sidecar). bfloat16 is not ported yet",
     )
     parser.add_argument("--block_format", default="pickle",
                         choices=["pickle", "native"],
@@ -113,7 +116,7 @@ def main(argv=None):
         level=logging.INFO,
     )
     args = get_arguments(argv)
-    if args.storage_dtype != "float32":
+    if args.storage_dtype == "bfloat16":
         raise NotImplementedError(f"--storage_dtype {args.storage_dtype} {NOT_PORTED}")
     if args.block_format != "pickle":
         raise NotImplementedError(f"--block_format {args.block_format} {NOT_PORTED}")
@@ -148,6 +151,7 @@ def main(argv=None):
         batch_size=args.per_gpu_eval_batch_size,
         num_blocks=args.num_blocks,
         length_buckets=buckets,
+        storage_dtype=args.storage_dtype,
     )
     logger.info("wrote %d embedding rows to %s", rows, args.output_dir)
     return rows

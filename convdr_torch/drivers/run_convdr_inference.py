@@ -9,10 +9,16 @@ flat search run on the card unless ``--no_cuda`` asks for the CPU; without
 a card it raises. NDCG@3 / MRR / recall@top_n are computed in-process and
 printed as one JSON line.
 
+``--storage_dtype int8`` searches SQ8 blocks (or quantizes float blocks on
+the device) with the scales of the blocks' ``int8_scales.npy`` sidecar;
+``--rescore_factor N`` with int8 or bfloat16 storage re-ranks each block's
+top ``N * top_n`` with full-precision scores from float block files, and
+exits with an error with float32 storage, whose flat search is exact
+already.
+
 Not ported yet (they raise, see ROADMAP.md): ``--ivf_dir``, ``--pq_dir``,
-``--storage_dtype int8``, ``--rescore_factor``, ``--matmul_precision
-high/default`` and ``--profile_dir``. ``--no_mesh`` and ``--use_gpu`` are
-accepted; this package runs on one device.
+``--matmul_precision high/default`` and ``--profile_dir``. ``--no_mesh``
+and ``--use_gpu`` are accepted; this package runs on one device.
 """
 
 from __future__ import annotations
@@ -79,12 +85,20 @@ def get_arguments(argv=None):
     parser.add_argument(
         "--storage_dtype", default="float32",
         choices=["float32", "bfloat16", "int8"],
-        help="device dtype for embedding blocks during search (f32 "
-        "accumulation either way); bfloat16 is a cast on upload. int8 is "
-        "not ported yet",
+        help="device dtype for embedding blocks during search (match the "
+        "gen_passage_embeddings --storage_dtype; f32 accumulation either "
+        "way); bfloat16 is a cast on upload. int8 = SQ8 scalar quantization "
+        "(quarter the device memory; scales come from the blocks' "
+        "int8_scales.npy sidecar)",
     )
-    parser.add_argument("--rescore_factor", default=0, type=int,
-                        help="not ported yet; must stay 0")
+    parser.add_argument(
+        "--rescore_factor", default=0, type=int,
+        help="re-rank the top (rescore_factor * top_n) approximate "
+        "candidates of each block with full-precision scores before the "
+        "final cut (FAISS IndexRefineFlat's k_factor); works with "
+        "--storage_dtype int8/bfloat16 over float block files. 0 = off. "
+        "Errors with float32 flat search (exact already)",
+    )
     parser.add_argument(
         "--matmul_precision", default="highest",
         choices=["highest", "high", "default"],
@@ -120,12 +134,11 @@ def get_arguments(argv=None):
 
 
 def check_ported(args) -> None:
-    """Raise on the options of the JAX driver this package lacks."""
+    """Raise on the options of the JAX driver this package lacks, and exit,
+    as the JAX driver does, on a rescore that has nothing to refine."""
     unported = [
         ("--ivf_dir", bool(args.ivf_dir)),
         ("--pq_dir", bool(args.pq_dir)),
-        ("--storage_dtype int8", args.storage_dtype == "int8"),
-        ("--rescore_factor", args.rescore_factor != 0),
         (f"--matmul_precision {args.matmul_precision}",
          args.matmul_precision != "highest"),
         ("--profile_dir", bool(args.profile_dir)),
@@ -133,6 +146,12 @@ def check_ported(args) -> None:
     for flag, used in unported:
         if used:
             raise NotImplementedError(f"{flag} {NOT_PORTED}")
+    if args.rescore_factor > 0 and args.storage_dtype == "float32":
+        raise SystemExit(
+            "--rescore_factor refines approximate candidates; the float32 "
+            "flat search is already exact. Combine it with --storage_dtype "
+            "int8/bfloat16"
+        )
 
 
 def encode_queries(args, model_path, eval_file, dtype, device):
@@ -214,6 +233,7 @@ def main(argv=None):
         SearchConfig(
             storage_dtype=args.storage_dtype,
             max_device_block_bytes=args.max_device_block_bytes,
+            rescore_factor=args.rescore_factor,
         ),
         device=device,
     )

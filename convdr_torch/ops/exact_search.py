@@ -6,6 +6,8 @@ The counterpart of ``convdr_tpu/ops/exact_search.py``:
   * :func:`flat_ip_topk`    -- blocked scan: per block, the fused score +
     group-max kernel (:mod:`convdr_torch.ops.fused_search`), then an exact
     top-k through group-max candidate selection; O(k) running state;
+  * :func:`~convdr_torch.ops.streaming_search.streaming_flat_ip_topk` --
+    the same top-k without the [Q, N] score matrix (two passes);
   * :func:`merge_topk`      -- stable merge of sorted candidate lists with
     the reference's tie rule (earlier block / lower passage index wins,
     run_convdr_inference.py:217-229).
@@ -26,6 +28,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from convdr_torch.ops.gather_groups import dma_gather_groups
 
 NEG_INF = float(np.finfo(np.float32).min)
 
@@ -77,6 +81,25 @@ def _gather_groups(x3: torch.Tensor, gsel: torch.Tensor) -> torch.Tensor:
     )
 
 
+def _gather_candidate_groups(
+    s3: torch.Tensor, gsel: torch.Tensor, gather: str
+) -> torch.Tensor:
+    """s3[q, gsel[q, j], :] -> [Q, kg, G] by the requested gather.
+
+    "auto" and "onehot" (the JAX package's one-hot MXU matmul, which a GPU
+    has no reason to imitate) take ``torch.gather``; "dma" takes the
+    hand-written gather kernel (:func:`convdr_torch.ops.gather_groups.
+    dma_gather_groups`), the counterpart of the JAX ``gather="dma"``. All
+    three copy the same values.
+    """
+    if gather not in ("auto", "onehot", "dma"):
+        raise ValueError(f"unknown gather impl {gather!r}")
+    if gather == "dma":
+        qn, n_groups, g = s3.shape
+        return dma_gather_groups(s3.reshape(qn, n_groups * g), gsel, group=g)
+    return _gather_groups(s3, gsel)
+
+
 def grouped_topk_last_axis(
     x: torch.Tensor, k: int, group: int = 32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,14 +135,17 @@ def select_from_groupmax(
     k: int,
     group: int,
     valid: Optional[int] = None,
+    *,
+    gather: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Candidate selection given grouped scores [Q, NG, G] + maxima [Q, NG].
 
     Stable top-k of the maxima picks candidate groups (+1 absorber when
     validity-masked: a group straddling ``valid`` may be picked for its
     masked tail), group ids sort ascending to preserve the global tie
-    order, the groups are gathered, and indices are recovered from the
-    final stable top-k's positions.
+    order, the groups are gathered (``gather``: "auto", "onehot" or "dma",
+    see :func:`_gather_candidate_groups`), and indices are recovered from
+    the final stable top-k's positions.
     """
     qn, n_groups, _g = s3.shape
     k_grp = k
@@ -130,7 +156,7 @@ def select_from_groupmax(
     k_grp = min(k_grp, n_groups)
     _, gsel = grouped_topk_last_axis(group_max, k_grp, group)
     gsel, _ = torch.sort(gsel, dim=-1)  # ascending group ids => global order
-    cand = _gather_groups(s3, gsel)  # [Q, kg, G]
+    cand = _gather_candidate_groups(s3, gsel, gather)  # [Q, kg, G]
     if valid is not None:
         cand_idx = gsel[:, :, None] * group + torch.arange(
             group, device=s3.device
@@ -171,12 +197,20 @@ def flat_ip_topk(
     block_rows: int = 65536,
     valid_rows: int = -1,
     group: int = 32,
+    gather: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact FlatIP top-k: scan over row blocks of the passage matrix.
 
     queries  [Q, D] (any float dtype; scored as f32)
-    passages [N, D] (f32 or bf16 storage; f32 accumulation)
+    passages [N, D] (f32 or bf16 storage; f32 accumulation).
+        int8 passages select the SQ8 path (:mod:`convdr_torch.ops.quant`):
+        queries must then be the int-valued f32 rows of
+        ``quantize_queries``, and the scores are unscaled integer inner
+        products, equal to ``int8_topk_oracle``'s bit for bit (the f32
+        products and sums of int8 values are exact at dim <= 1040).
     valid_rows: logical corpus size if ``passages`` is padded (-1 = N).
+    gather: the candidate gather of each block ("auto", "onehot", "dma";
+        :func:`select_from_groupmax`); the results are the same.
 
     Returns (scores [Q, k] f32 desc, indices [Q, k] int64, -1 padded).
     Memory: one [Q, block_rows] f32 score block + O(Q*k) running state.
@@ -197,6 +231,7 @@ def flat_ip_topk(
             min(k_eff, block_rows),
             group=group,
             valid_rows=-1 if blk_valid == hi - lo else blk_valid,
+            gather=gather,
         )
         blk_i = torch.where(blk_i >= 0, blk_i + lo, blk_i)
         if out_s is None:

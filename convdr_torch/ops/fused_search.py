@@ -8,7 +8,10 @@ exact_search.flat_ip_topk`): the kernel writes the [Q, N] f32 scores and the
 [Q, N/G] group maxima in one pass, and the candidate selection stays in
 PyTorch (:func:`~convdr_torch.ops.exact_search.select_from_groupmax`), as the
 JAX kernel leaves it to XLA. G = 32 is the group of the JAX package's XLA
-search path (``exact_search._chunked_topk``).
+search path (``exact_search._chunked_topk``). int8 passages (SQ8 storage,
+:mod:`convdr_torch.ops.quant`) take the int-valued f32 queries of
+``quantize_queries``; their scores are then exact integers, equal to
+``int8_topk_oracle``'s.
 """
 
 from __future__ import annotations
@@ -26,7 +29,34 @@ from convdr_torch.ops.exact_search import NEG_INF, select_from_groupmax
 # callers pad rows to it (padded rows are masked through ``valid_rows``).
 ROW_TILE = 128
 GROUPS = (8, 16, 32, 64, 128)
-_P_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_P_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def check_score_operands(
+    name: str, queries: torch.Tensor, passages: torch.Tensor, group: int
+) -> None:
+    """Raise unless the score kernels take these operands: [Q, D] queries
+    and contiguous [N, D] f32/bf16/int8 passages on one CUDA device, N a
+    multiple of :data:`ROW_TILE`, ``group`` in :data:`GROUPS`."""
+    if passages.device.type != "cuda" or queries.device != passages.device:
+        raise ValueError(
+            f"{name}: queries on {queries.device}, passages on "
+            f"{passages.device}; both must be on one CUDA device"
+        )
+    if queries.dim() != 2 or passages.dim() != 2:
+        raise ValueError(f"{name} wants [Q, D] and [N, D]")
+    if passages.shape[1] != queries.shape[1]:
+        raise ValueError(
+            f"dims differ: queries {queries.shape[1]}, passages {passages.shape[1]}"
+        )
+    if passages.shape[0] % ROW_TILE:
+        raise ValueError(f"rows {passages.shape[0]} not a multiple of the tile {ROW_TILE}")
+    if group not in GROUPS:
+        raise ValueError(f"group {group} not in {GROUPS}")
+    if passages.dtype not in _P_DTYPE_CODES:
+        raise ValueError(f"passages must be f32, bf16 or int8, got {passages.dtype}")
+    if not passages.is_contiguous():
+        raise ValueError(f"{name} needs contiguous passages")
 
 
 def fused_scores_groupmax_plain(
@@ -34,7 +64,8 @@ def fused_scores_groupmax_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(scores [Q, N] f32, group maxima [Q, N/group] f32) in PyTorch: an
     f32 matmul of f32 queries and f32-upcast passages, then a max over each
-    run of ``group`` columns."""
+    run of ``group`` columns (exact for int8 passages and int-valued
+    queries: every partial sum is an integer below 2^24)."""
     n = passages.shape[0]
     if n % group:
         raise ValueError(f"rows {n} not a multiple of group {group}")
@@ -48,32 +79,16 @@ def fused_scores_groupmax(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(scores [Q, N] f32, group maxima [Q, N/group] f32).
 
-    CUDA tensors go through ``csrc/scores_groupmax.cu`` (passages f32 or
-    bf16, N a multiple of :data:`ROW_TILE`, ``group`` in :data:`GROUPS`);
-    CPU tensors through :func:`fused_scores_groupmax_plain`.
+    CUDA tensors go through ``csrc/scores_groupmax.cu`` (passages f32,
+    bf16 or int8, N a multiple of :data:`ROW_TILE`, ``group`` in
+    :data:`GROUPS`); CPU tensors through :func:`fused_scores_groupmax_plain`.
     ``fused_scores_groupmax.launches`` counts kernel launches.
     """
     if passages.device.type == "cpu":
         return fused_scores_groupmax_plain(queries, passages, group)
-    if passages.device.type != "cuda" or queries.device != passages.device:
-        raise ValueError(
-            f"fused_scores_groupmax: queries on {queries.device}, passages "
-            f"on {passages.device}; both must be on one CUDA device"
-        )
-    if queries.dim() != 2 or passages.dim() != 2:
-        raise ValueError("fused_scores_groupmax wants [Q, D] and [N, D]")
+    check_score_operands("fused_scores_groupmax", queries, passages, group)
     qn, d = queries.shape
     n = passages.shape[0]
-    if passages.shape[1] != d:
-        raise ValueError(f"dims differ: queries {d}, passages {passages.shape[1]}")
-    if n % ROW_TILE:
-        raise ValueError(f"rows {n} not a multiple of the tile {ROW_TILE}")
-    if group not in GROUPS:
-        raise ValueError(f"group {group} not in {GROUPS}")
-    if passages.dtype not in _P_DTYPE_CODES:
-        raise ValueError(f"passages must be f32 or bf16, got {passages.dtype}")
-    if not passages.is_contiguous():
-        raise ValueError("fused_scores_groupmax needs contiguous passages")
     q = queries.to(torch.float32).contiguous()
     scores = torch.empty((qn, n), dtype=torch.float32, device=passages.device)
     gmax = torch.empty((qn, n // group), dtype=torch.float32, device=passages.device)
@@ -104,13 +119,15 @@ def fused_flat_ip_topk(
     *,
     group: int = 32,
     valid_rows: int = -1,
+    gather: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact FlatIP top-k of one passage block through the fused kernel.
 
     Same contract as :func:`convdr_torch.ops.exact_search.flat_ip_topk`
     (score desc, lower index first on ties; slots past the valid rows hold
     (NEG_INF, -1)). Rows are zero-padded to :data:`ROW_TILE` when needed
-    and masked through ``valid_rows``.
+    and masked through ``valid_rows``. ``gather`` picks the candidate
+    gather (:func:`~convdr_torch.ops.exact_search.select_from_groupmax`).
     """
     qn = queries.shape[0]
     n = passages.shape[0]
@@ -125,7 +142,7 @@ def fused_flat_ip_topk(
     n_groups = n_padded // group
     k_eff = min(k, n)
     s3 = scores.view(qn, n_groups, group)
-    top_s, top_i = select_from_groupmax(s3, gmax, k_eff, group, valid)
+    top_s, top_i = select_from_groupmax(s3, gmax, k_eff, group, valid, gather=gather)
     if k_eff < k:
         top_s = F.pad(top_s, (0, k - k_eff), value=NEG_INF)
         top_i = F.pad(top_i, (0, k - k_eff), value=-1)

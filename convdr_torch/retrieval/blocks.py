@@ -10,9 +10,11 @@ so with the JAX package's pickle blocks. A block is a pair:
   * ``passage__embid_p__data_obj_{b}.pb`` -- pickled int64  [N_b] token-cache
     offsets (NOT pids; offset -> pid goes through offset2pid at eval time)
 
-This package writes f32 blocks only. On-disk bf16/int8 blocks and the
-native ``.cnb`` block store are not ported yet (ROADMAP.md): a bf16 pickle
-needs ``ml_dtypes``, a package the port does not depend on.
+Blocks hold float32 rows, or int8 rows (SQ8 storage, ``ops/quant.py``)
+paired with the ``int8_scales.npy`` sidecar in the same directory; both are
+plain numpy pickles, as the JAX package writes them. On-disk bf16 blocks
+and the native ``.cnb`` block store are not ported yet (ROADMAP.md): a bf16
+pickle needs ``ml_dtypes``, a package the port does not depend on.
 """
 
 from __future__ import annotations
@@ -38,13 +40,17 @@ def write_embedding_block(
     embeddings: np.ndarray,
     offsets: np.ndarray,
 ) -> None:
-    """Write one reference-format block (f32 embeddings, float64 downcast)."""
+    """Write one reference-format block (f32 or int8 embeddings; float64 is
+    downcast to f32)."""
     os.makedirs(data_dir, exist_ok=True)
     emb = np.asarray(embeddings)
     if emb.dtype == np.float64:
         emb = emb.astype(np.float32)
-    if emb.dtype != np.float32:
-        raise ValueError(f"{emb.dtype} blocks are not ported yet; write float32")
+    if emb.dtype not in (np.float32, np.int8):
+        raise NotImplementedError(
+            f"writing {emb.dtype} blocks is not yet ported to convdr_torch, "
+            "see ROADMAP.md; write float32 or int8"
+        )
     with open(_block_path(data_dir, EMB_PREFIX, block_id), "wb") as f:
         pickle.dump(emb, f, protocol=4)
     with open(_block_path(data_dir, EMBID_PREFIX, block_id), "wb") as f:

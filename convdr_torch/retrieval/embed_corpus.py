@@ -10,6 +10,10 @@ BlockedSearcher` consumes. Block ``b`` holds records ``i % num_blocks == b``
 Multi-chunk models return ``[B, C, E]``; chunk rows are flattened into extra
 block rows sharing the same token-cache offset
 (gen_passage_embeddings.py:117-123), deduped later at run-writing time.
+
+``storage_dtype="int8"`` writes SQ8 blocks (:mod:`convdr_torch.ops.quant`):
+the scales are fitted on the first non-empty block and saved beside the
+blocks as ``int8_scales.npy``, and every block is quantized with them.
 """
 
 from __future__ import annotations
@@ -20,7 +24,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from convdr_torch.core.config import NOT_PORTED
 from convdr_torch.data.token_cache import TokenCache
+from convdr_torch.ops.quant import Int8Quantizer
 from convdr_torch.retrieval.blocks import write_embedding_block
 
 logger = logging.getLogger(__name__)
@@ -114,8 +120,9 @@ def generate_embeddings(
     batch_size: int = 64,
     num_blocks: int = 1,
     length_buckets: Optional[tuple] = None,
+    storage_dtype: str = "float32",
 ) -> int:
-    """Encode the whole cache into ``num_blocks`` reference-format f32 blocks.
+    """Encode the whole cache into ``num_blocks`` reference-format blocks.
 
     ``apply_fn(ids, mask, is_query)`` (the passage side) is :func:`convdr_torch.core.loading.
     make_apply_fn`'s encoder. Returns the total number of embedding rows
@@ -128,7 +135,16 @@ def generate_embeddings(
     consumers map rows through the block's offset array. For multi-chunk
     models pass chunk-multiple rungs (each record encodes only the chunks
     its rung covers; empty chunks are skipped instead of indexed).
+
+    ``storage_dtype``: "float32" (the reference's blocks) or "int8" (SQ8,
+    a quarter of the disk and device memory, with the scales sidecar).
+    "bfloat16" blocks are not ported yet and raise.
     """
+    if storage_dtype not in ("float32", "bfloat16", "int8"):
+        raise ValueError(f"unknown storage_dtype {storage_dtype!r}")
+    if storage_dtype == "bfloat16":
+        raise NotImplementedError(f"bfloat16 embedding blocks {NOT_PORTED}")
+    quantizer = None  # int8: fitted on the first non-empty block
     if length_buckets is not None:
         length_buckets = tuple(sorted(length_buckets))
         if length_buckets[-1] < cache.max_seq_length:
@@ -187,10 +203,20 @@ def generate_embeddings(
         if embs_out:
             block_embs = np.concatenate(embs_out, axis=0).astype(np.float32, copy=False)
             emb_dim = block_embs.shape[-1]
+            if storage_dtype == "int8":
+                # fit on the first non-empty block (an unbiased i % num_blocks
+                # shard, the sample FAISS trains its quantizer on), save the
+                # sidecar the searcher folds into queries, clip later blocks'
+                # rare out-of-range values
+                if quantizer is None:
+                    quantizer = Int8Quantizer.fit(block_embs)
+                    quantizer.save(out_dir)
+                block_embs = quantizer.quantize_passages(block_embs)
         else:
             # empty round-robin shard (num_blocks > record count): keep the
             # real embedding dim so downstream loads/search stay well-typed
-            block_embs = np.zeros((0, emb_dim), np.float32)
+            empty = np.int8 if storage_dtype == "int8" else np.float32
+            block_embs = np.zeros((0, emb_dim), empty)
         block_ids = (
             np.concatenate(ids_out, axis=0) if ids_out else np.zeros((0,), np.int64)
         )

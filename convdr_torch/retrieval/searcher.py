@@ -13,6 +13,16 @@ padded rows are masked. (The JAX package pads to a 1.25x ladder of sizes to
 bound XLA compiles; eager PyTorch compiles nothing, so the ladder would only
 add padded work.) bf16 storage is a device-side cast on upload; scores
 still accumulate in f32.
+
+int8 storage (SQ8, :mod:`convdr_torch.ops.quant`): int8 blocks upload as
+they are, float blocks are quantized on the device
+(:func:`~convdr_torch.ops.quant.quantize_passages_dev`, bit-identical to the
+host quantizer); the queries carry the per-dimension scales, the scan runs
+on exact integer scores, and each query's scale ``tq`` rescales the merged
+result once. ``rescore_factor`` (int8 or bf16 storage, float block files)
+re-ranks each block's top ``rescore_factor * top_n`` with full-precision
+host scores before the merge (FAISS ``IndexRefineFlat``). bf16 block files
+on disk and the native ``.cnb`` store are not ported and raise.
 """
 
 from __future__ import annotations
@@ -27,11 +37,18 @@ import torch
 from convdr_torch.core.config import NOT_PORTED, SearchConfig
 from convdr_torch.ops.exact_search import NEG_INF, flat_ip_topk, merge_topk
 from convdr_torch.ops.fused_search import ROW_TILE
-from convdr_torch.retrieval.blocks import iter_embedding_blocks
+from convdr_torch.ops.quant import (
+    Int8Quantizer,
+    quantize_passages_dev,
+    rescore_candidates,
+)
+from convdr_torch.retrieval.blocks import iter_embedding_blocks, load_embedding_block
 
 logger = logging.getLogger(__name__)
 
-_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+# block file dtypes the searcher reads (bf16 pickles are not ported)
+_BLOCK_DTYPES = (np.float32, np.int8)
 # Host staging chunk for uploads: two pinned buffers of this size alternate.
 UPLOAD_CHUNK_BYTES = 256 << 20
 
@@ -134,23 +151,70 @@ def upload_rows(
 class BlockedSearcher:
     """Exact top-N retrieval over on-disk embedding blocks, on one device."""
 
-    def __init__(self, config: SearchConfig = SearchConfig(), *, device: torch.device):
+    def __init__(
+        self,
+        config: SearchConfig = SearchConfig(),
+        *,
+        device: torch.device,
+        quantizer: Optional[Int8Quantizer] = None,
+    ):
         if config.storage_dtype not in _STORAGE:
-            raise NotImplementedError(
-                f"storage_dtype {config.storage_dtype!r} {NOT_PORTED}"
-            )
+            raise ValueError(f"unknown storage_dtype {config.storage_dtype!r}")
         self.config = config
         self.device = device
+        # int8 storage needs the fitted per-dimension scales to fold into
+        # queries; pass one here, or search_blocks loads the sidecar from
+        # the block directory, or search_arrays fits on the passed corpus.
+        self.quantizer = quantizer
 
-    def _queries(self, query_embs: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(query_embs, np.float32)).to(self.device)
+    # -- int8 (SQ8) plumbing -------------------------------------------
+    @property
+    def _int8(self) -> bool:
+        return self.config.storage_dtype == "int8"
+
+    @property
+    def _rescoring(self) -> bool:
+        return self.config.rescore_factor > 0 and self.config.storage_dtype in (
+            "int8", "bfloat16"
+        )
+
+    def _require_quantizer(self) -> Int8Quantizer:
+        if self.quantizer is None:
+            raise ValueError(
+                "storage_dtype='int8' needs fitted scales: pass "
+                "quantizer=Int8Quantizer(...) or search a block dir with "
+                "an int8_scales.npy sidecar (generate_embeddings writes it)"
+            )
+        return self.quantizer
+
+    def _prepare_queries(self, query_embs: np.ndarray):
+        """-> (device queries, per-query score scale [Q, 1] or None).
+
+        int8 storage folds the passage scales into the queries and
+        quantizes them; the int-valued f32 rows drive an integer-exact scan
+        whose scores are rescaled by ``tq`` only at the end (a positive
+        per-query scale: the ranking is unaffected).
+        """
+        tq = None
+        if self._int8:
+            query_embs, tq = self._require_quantizer().quantize_queries(query_embs)
+        q = torch.from_numpy(np.asarray(query_embs, np.float32)).to(self.device)
+        return q, tq
+
+    @staticmethod
+    def _scale_scores(s: np.ndarray, i: np.ndarray, tq) -> np.ndarray:
+        if tq is None:
+            return s
+        return np.where(i >= 0, s * tq, NEG_INF).astype(np.float32)
 
     def search_block(
         self, query_embs: np.ndarray, block_embs: np.ndarray, top_n: int
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-N of one block; returns (scores, local row indices)."""
-        s, i = self._search_block_device(self._queries(query_embs), block_embs, top_n)
-        return s.cpu().numpy(), i.cpu().numpy()
+        q, tq = self._prepare_queries(query_embs)
+        s, i = self._search_block_device(q, block_embs, top_n)
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        return self._scale_scores(s, i, tq), i
 
     def _search_block_device(
         self, q: torch.Tensor, block_embs: np.ndarray, top_n: int
@@ -163,10 +227,14 @@ class BlockedSearcher:
         argument on ties, so the result is bit-identical to a single-shot
         search (lower row index wins ties either way).
         """
-        if block_embs.dtype != np.float32:
+        if block_embs.dtype not in _BLOCK_DTYPES:
             raise NotImplementedError(
                 f"searching {block_embs.dtype} blocks {NOT_PORTED}; the port "
-                "reads float32 blocks (bf16 storage is a cast on upload)"
+                "reads float32 and int8 blocks (bf16 storage is a cast on upload)"
+            )
+        if block_embs.dtype == np.int8 and not self._int8:
+            raise ValueError(
+                "int8 blocks need storage_dtype='int8' (and their scales sidecar)"
             )
         n = block_embs.shape[0]
         storage = _STORAGE[self.config.storage_dtype]
@@ -186,7 +254,16 @@ class BlockedSearcher:
                     merged_s, merged_i = merge_topk(merged_s, merged_i, s, i, top_n)
             return merged_s, merged_i
         padded_n = -(-n // ROW_TILE) * ROW_TILE
-        p = upload_rows(block_embs, padded_n, storage, self.device)
+        if self._int8 and block_embs.dtype != np.int8:
+            # float block under an int8 config: upload in source precision
+            # (a plain int8 cast would truncate, not quantize), quantize on
+            # the device, free the float copy
+            scales = torch.from_numpy(self._require_quantizer().scales).to(self.device)
+            p_float = upload_rows(block_embs, padded_n, torch.float32, self.device)
+            p = quantize_passages_dev(p_float, scales)
+            del p_float
+        else:
+            p = upload_rows(block_embs, padded_n, storage, self.device)
         return flat_ip_topk(
             q,
             p,
@@ -195,6 +272,39 @@ class BlockedSearcher:
             valid_rows=n,
         )
 
+    def _search_rescored(
+        self, q: torch.Tensor, q_orig: np.ndarray, block_embs: np.ndarray, top_n: int
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """The block's top ``rescore_factor * top_n`` quantized candidates,
+        re-ranked on the host with full-precision scores."""
+        if block_embs.dtype != np.float32:
+            raise ValueError(
+                "rescore_factor needs float block files (the original rows "
+                f"are the refinement source); these blocks are already {block_embs.dtype}"
+            )
+        m = self.config.rescore_factor * top_n
+        _s, i_m = self._search_block_device(q, block_embs, m)
+        return rescore_candidates(q_orig, block_embs, i_m.cpu().numpy(), top_n)
+
+    def _ensure_quantizer(self, ann_data_dir: str) -> None:
+        """int8 storage: the sidecar of the block dir, else (float blocks
+        only) scales fitted on block 0, an unbiased round-robin shard."""
+        if not self._int8 or self.quantizer is not None:
+            return
+        self.quantizer = Int8Quantizer.load_optional(ann_data_dir)
+        if self.quantizer is not None:
+            return
+        blk = load_embedding_block(ann_data_dir, 0)
+        if blk is None:
+            raise FileNotFoundError(f"No embedding blocks found in {ann_data_dir}")
+        if blk[0].dtype == np.int8:
+            raise FileNotFoundError(
+                f"int8 blocks in {ann_data_dir} have no int8_scales.npy "
+                "sidecar; regenerate with generate_embeddings(storage_dtype='int8')"
+            )
+        logger.warning("no int8_scales.npy in %s; fitting scales on block 0", ann_data_dir)
+        self.quantizer = Int8Quantizer.fit(blk[0])
+
     def search_blocks(
         self,
         ann_data_dir: str,
@@ -202,8 +312,19 @@ class BlockedSearcher:
         top_n: int,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Search all blocks under ``ann_data_dir``; returns
-        (scores [Q, top_n] desc, token-cache offsets [Q, top_n], -1 padded)."""
-        q = self._queries(query_embs)
+        (scores [Q, top_n] desc, token-cache offsets [Q, top_n], -1 padded).
+
+        int8 storage: the scales come from the dir's ``int8_scales.npy``
+        (unless a quantizer was passed); float blocks without one self-fit
+        on block 0 with a warning, int8 blocks without one raise. With
+        ``config.rescore_factor`` > 0 (int8 or bf16 storage) the blocks
+        must be float files; each block's quantized top ``rescore_factor *
+        top_n`` is re-ranked on the host before the cross-block merge.
+        """
+        self._ensure_quantizer(ann_data_dir)
+        q, tq = self._prepare_queries(query_embs)
+        rescoring = self._rescoring
+        q_orig = np.asarray(query_embs, np.float32) if rescoring else None
         merged_s: Optional[torch.Tensor] = None
         merged_i: Optional[torch.Tensor] = None
         t_start = time.time()
@@ -214,7 +335,11 @@ class BlockedSearcher:
                 logger.info("block %d is empty; skipping", block_id)
                 continue
             logger.info("searching block %d: %s passages", block_id, emb.shape[0])
-            s, i = self._search_block_device(q, emb, top_n)
+            if rescoring:
+                s, i = self._search_rescored(q, q_orig, emb, top_n)
+                s, i = (torch.from_numpy(x).to(self.device) for x in (s, i.astype(np.int64)))
+            else:
+                s, i = self._search_block_device(q, emb, top_n)
             # local row -> token-cache offset on device; -1 rows stay -1
             offs = torch.from_numpy(emb2offset.astype(np.int64)).to(self.device)
             o_j = torch.where(i >= 0, offs[i.clamp(min=0)], i)
@@ -232,6 +357,8 @@ class BlockedSearcher:
             elapsed, q.shape[0], elapsed / max(q.shape[0], 1),
         )
         out_i = np.where(out_s <= NEG_INF, -1, out_i)
+        if not rescoring:
+            out_s = self._scale_scores(out_s, out_i, tq)
         return out_s, out_i
 
     def search_arrays(
@@ -241,7 +368,28 @@ class BlockedSearcher:
         emb2offset: np.ndarray,
         top_n: int,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """In-memory single-block convenience path."""
-        s, i = self.search_block(query_embs, passage_embs, top_n)
+        """In-memory single-block convenience path.
+
+        int8 storage: the scales fit on the passed corpus when no quantizer
+        is set (float input); ``config.rescore_factor`` > 0 (int8 or bf16
+        storage) re-ranks the quantized top ``factor * top_n`` with
+        full-precision host scores.
+        """
+        if self._int8 and self.quantizer is None:
+            if passage_embs.dtype == np.int8:
+                self._require_quantizer()  # raises with guidance
+            self.quantizer = Int8Quantizer.fit(passage_embs)
+        if self._rescoring:
+            if passage_embs.dtype != np.float32:
+                raise ValueError(
+                    "rescore_factor needs the original float rows; the "
+                    f"passed corpus is already {passage_embs.dtype}"
+                )
+            q, _tq = self._prepare_queries(query_embs)
+            s, i = self._search_rescored(
+                q, np.asarray(query_embs, np.float32), passage_embs, top_n
+            )
+        else:
+            s, i = self.search_block(query_embs, passage_embs, top_n)
         offsets = np.where(i >= 0, emb2offset[np.clip(i, 0, None)], -1)
         return s, offsets

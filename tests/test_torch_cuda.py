@@ -12,6 +12,9 @@ order), bf16 one bf16 ulp (2^-7 relative; both versions round one f32
 result); scores 1e-5 * |q| * max|p| (f32 dot products of another order);
 the attention backward 1e-5 * max|ref| per gradient (f32 sums of up to T
 terms in another order, P recomputed from the forward's log-sum-exp).
+Equal, not close: the streaming passes against the score kernel (the same
+f32 FMA chain per score), int8 scores against the plain version (exact
+integer arithmetic), and the gathers against ``torch.gather`` (copies).
 """
 
 import numpy as np
@@ -32,6 +35,20 @@ from convdr_torch.ops.fused_search import (
     fused_flat_ip_topk,
     fused_scores_groupmax,
     fused_scores_groupmax_plain,
+)
+from convdr_torch.ops.gather_groups import dma_gather_groups, dma_gather_groups_plain
+from convdr_torch.ops.quant import (
+    Int8Quantizer,
+    fit_int8_scales,
+    quantize_passages,
+    quantize_passages_dev,
+)
+from convdr_torch.ops.streaming_search import (
+    extract_candidate_scores,
+    extract_candidate_scores_plain,
+    streaming_flat_ip_topk,
+    streaming_groupmax,
+    streaming_groupmax_plain,
 )
 from convdr_torch.retrieval.searcher import BlockedSearcher
 
@@ -115,7 +132,7 @@ def test_scores_groupmax_kernel_rejects_bad_shapes(cuda):
         fused_scores_groupmax(q, torch.randn(100, 32, device="cuda"), 32)
     with pytest.raises(ValueError, match="group"):
         fused_scores_groupmax(q, torch.randn(128, 32, device="cuda"), 24)
-    with pytest.raises(ValueError, match="f32 or bf16"):
+    with pytest.raises(ValueError, match="f32, bf16 or int8"):
         fused_scores_groupmax(q, torch.randn(128, 32, device="cuda").half(), 32)
 
 
@@ -236,3 +253,129 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert abs(l_cpu - l_gpu) <= 1e-5 * abs(l_cpu)
     for name, ref in g_cpu.items():
         assert (g_gpu[name] - ref).abs().max().item() <= 1e-4 * ref.abs().max().item() + 1e-9, name
+
+
+# ---------------------------------------------------------------------------
+# the streaming search, the group gather and int8 passages
+# ---------------------------------------------------------------------------
+SEARCH_SHAPES = [(70, 384, 100), (512, 524288, 768)]  # small, the main path's
+
+
+def search_problem(qn, n, d, dtype, seed=0):
+    """Queries and passages on the card; int8 passages come with the
+    int-valued f32 queries of their quantizer."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(qn, d, generator=gen, device="cuda")
+    p = torch.randn(n, d, generator=gen, device="cuda")
+    if dtype == torch.int8:
+        quant = Int8Quantizer.fit(p[:4096].cpu().numpy())
+        q = torch.from_numpy(quant.quantize_queries(q.cpu().numpy())[0]).cuda()
+        p = quantize_passages_dev(p, torch.from_numpy(quant.scales).cuda())
+    return q, p.to(dtype)
+
+
+def random_gsel(qn, n_groups, kg, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    keys = torch.rand(qn, n_groups, generator=gen, device="cuda")
+    return torch.sort(torch.topk(keys, kg, dim=1).indices, dim=1)[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("group", [8, 32, 128])
+@pytest.mark.parametrize("qn,n,d", SEARCH_SHAPES)
+def test_streaming_passes_equal_score_kernel(cuda, dtype, group, qn, n, d):
+    q, p = search_problem(qn, n, d, dtype)
+    scores, gmax = fused_scores_groupmax(q, p, group)
+    before = (streaming_groupmax.launches, extract_candidate_scores.launches)
+    g = streaming_groupmax(q, p, group)
+    gsel = random_gsel(qn, n // group, min(101, n // group))
+    cand = extract_candidate_scores(q, p, gsel, group)
+    torch.cuda.synchronize()
+    assert (streaming_groupmax.launches, extract_candidate_scores.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(g, gmax)
+    want = torch.gather(scores.view(qn, -1, group), 1,
+                        gsel[:, :, None].expand(-1, -1, group))
+    assert torch.equal(cand, want)
+    tol = 1e-5 * q.norm(dim=1) * p.float().norm(dim=1).max()
+    assert bool(((g - streaming_groupmax_plain(q, p, group)).abs() <= tol[:, None]).all())
+    plain = extract_candidate_scores_plain(q, p, gsel, group)
+    assert bool(((cand - plain).abs() <= tol[:, None, None]).all())
+    if dtype == torch.int8:  # integer-exact: the plain version is equal
+        assert torch.equal(scores, fused_scores_groupmax_plain(q, p, group)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("group", [32, 128])
+@pytest.mark.parametrize("qn,n,d", [(70, 1000, 100), (64, 524288, 768)])
+def test_streaming_topk_equals_flat_ip_topk(cuda, dtype, group, qn, n, d):
+    q, p = search_problem(qn, n, d, dtype, seed=1)
+    want_s, want_i = es.flat_ip_topk(q, p, 100)
+    got_s, got_i = streaming_flat_ip_topk(q, p, 100, group=group)
+    assert torch.equal(got_s, want_s) and torch.equal(got_i, want_i)
+    got_s, got_i = streaming_flat_ip_topk(q, p[: n - 37], 100, group=group, valid_rows=n - 60)
+    want_s, want_i = es.flat_ip_topk(q, p[: n - 37], 100, valid_rows=n - 60)
+    assert torch.equal(got_s, want_s) and torch.equal(got_i, want_i)
+
+
+def test_streaming_topk_on_card_matches_oracle(cuda):
+    rng = np.random.RandomState(6)
+    q = rng.randn(6, 48).astype(np.float32)
+    p = rng.randn(3000, 48).astype(np.float32)
+    p[[7, 900, 2999]] = p[100]  # exact ties
+    s, i = streaming_flat_ip_topk(torch.from_numpy(q).cuda(), torch.from_numpy(p).cuda(), 40)
+    os_, oi = es.topk_oracle(q, p, 40)
+    np.testing.assert_array_equal(i.cpu().numpy(), oi)
+    np.testing.assert_allclose(s.cpu().numpy(), os_, rtol=1e-5)
+
+
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("qn,b,k,group", [(15, 1000, 7, 8), (512, 524288, 101, 32)])
+def test_gather_groups_kernel_equals_torch_gather(cuda, idx_dtype, qn, b, k, group):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    scores = torch.randn(qn, b, generator=gen, device="cuda")
+    gsel = random_gsel(qn, b // group, k).to(idx_dtype)
+    before = dma_gather_groups.launches
+    out = dma_gather_groups(scores, gsel, group=group)
+    torch.cuda.synchronize()
+    assert dma_gather_groups.launches == before + 1
+    assert torch.equal(out, dma_gather_groups_plain(scores, gsel, group=group))
+    with pytest.raises(ValueError, match="f32"):
+        dma_gather_groups(scores.bfloat16(), gsel, group=group)
+
+
+def test_flat_ip_topk_dma_gather_equals_auto(cuda):
+    q, p = search_problem(64, 100000, 768, torch.float32, seed=3)
+    before = dma_gather_groups.launches
+    dma = es.flat_ip_topk(q, p, 100, gather="dma")
+    assert dma_gather_groups.launches > before
+    auto = es.flat_ip_topk(q, p, 100)
+    assert torch.equal(dma[0], auto[0]) and torch.equal(dma[1], auto[1])
+
+
+def test_device_sq8_equals_numpy(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    p = torch.randn(524288, 768, generator=gen, device="cuda")
+    p[:64] = torch.round(p[:64] * 4) / 4  # values on and near .5 steps
+    scales = fit_int8_scales(p[:50000].cpu().numpy())
+    scales[:8] = 0.5  # p / 0.5 lands on exact halves: round half to even
+    got = quantize_passages_dev(p, torch.from_numpy(scales).cuda())
+    want = quantize_passages(p.cpu().numpy(), scales)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("rescore", [0, 3])
+def test_blocked_searcher_int8_on_card_matches_cpu(cuda, rescore):
+    rng = np.random.RandomState(5)
+    q = rng.randn(5, 32).astype(np.float32)
+    p = rng.randn(5000, 32).astype(np.float32)
+    emb2offset = np.arange(5000, dtype=np.int64) + 7
+    cfg = SearchConfig(passage_block_size=1024, storage_dtype="int8",
+                       max_device_block_bytes=1, rescore_factor=rescore)
+    quant = Int8Quantizer.fit(p)
+    outs = [
+        BlockedSearcher(cfg, device=dev, quantizer=quant).search_arrays(q, p, emb2offset, 30)
+        for dev in (cuda, torch.device("cpu"))
+    ]
+    np.testing.assert_array_equal(outs[0][1], outs[1][1])
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])

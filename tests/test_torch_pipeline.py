@@ -209,9 +209,9 @@ def test_drivers_need_a_card_or_no_cuda(chain, monkeypatch):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--ivf_dir", "x"], ["--pq_dir", "x"], ["--storage_dtype", "int8"],
-        ["--rescore_factor", "2"], ["--matmul_precision", "high"],
-        ["--profile_dir", "x"],
+        ["--ivf_dir", "x"], ["--pq_dir", "x"], ["--matmul_precision", "default"],
+        ["--storage_dtype", "int8", "--rescore_factor", "2", "--pq_dir", "x"],
+        ["--matmul_precision", "high"], ["--profile_dir", "x"],
     ],
 )
 def test_unported_inference_options_raise(chain, flags):

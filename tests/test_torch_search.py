@@ -263,7 +263,16 @@ def test_oversized_block_splits_and_matches_single_shot():
 
 
 def test_search_missing_dir_and_unported_options(tmp_path):
+    import ml_dtypes
+
     with pytest.raises(FileNotFoundError):
         BlockedSearcher(device=CPU).search_blocks(str(tmp_path), np.zeros((1, 4), np.float32), 5)
+    # bf16 block files (the JAX package writes them with ml_dtypes) are not
+    # ported; bf16 search storage is, as a cast of float blocks on upload
+    bf16_rows = np.zeros((8, 4), ml_dtypes.bfloat16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BlockedSearcher(SearchConfig(storage_dtype="int8"), device=CPU)
+        BlockedSearcher(device=CPU).search_block(np.zeros((1, 4), np.float32), bf16_rows, 5)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        write_embedding_block(str(tmp_path), 0, bf16_rows, np.arange(8))
+    with pytest.raises(ValueError, match="storage_dtype"):
+        BlockedSearcher(SearchConfig(storage_dtype="float16"), device=CPU)
