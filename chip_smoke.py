@@ -19,26 +19,32 @@
    ``streaming_flat_ip_topk`` with f32, bf16 and int8 passages, G=128 and
    32, Q=512 and 64 (pass A's maxima and pass B's candidates equal to the
    score kernel's, the streaming top-100 equal to ``flat_ip_topk``'s, and
-   near-tie sets against the plain versions), and the group gather kernel
+   near-tie sets against the plain versions; the peak device memory of the
+   streaming search and of ``flat_ip_topk``), and the group gather kernel
    (equal to ``torch.gather`` at Q=512, K=101, G=32; ``flat_ip_topk(
-   gather="dma")`` equal to ``gather="auto"``). Their launch counts are
-   zeroed just before and read just after the entry points' calls.
+   gather="dma")`` equal to ``gather="auto"``: both take the kernel). The
+   streaming kernels' launch counts are zeroed just before and read just
+   after the entry point's calls; the gather's come from the main path (3).
 3. Drives the inference path at full RoBERTa-base width (12 layers, hidden
    768, vocab 50265, seeded random weights): a synthetic 8192-passage token
    cache (lengths 16-512) -> ``gen_passage_embeddings.main`` (bf16) -> two
    more seeded blocks of 524288 rows -> ``run_convdr_inference.main`` over
    512 CAsT-style queries (max_concat_length 256, exact f32 top-100 over
-   ~1.06M rows) -> metrics. The kernels' launch counts are zeroed just
-   before and read just after; both must be > 0. The run file is then held
-   against an exact plain-PyTorch search of the same rows.
+   ~1.06M rows) -> metrics. The kernels' launch counts (attention, score
+   kernel, candidate gather) are zeroed just before and read just after;
+   each must be > 0. The run file is then held against an exact
+   plain-PyTorch search of the same rows.
 3b. The int8 (SQ8) user path through the same drivers:
    ``gen_passage_embeddings.main --storage_dtype int8`` (int8 blocks + the
    scales sidecar; the two extra blocks quantized with it), then
    ``run_convdr_inference.main --storage_dtype int8``, whose run must equal
    an integer-exact plain search of the same quantized rows index for
    index, and ``--storage_dtype int8 --rescore_factor 2`` over the f32
-   blocks (device SQ8, host refine; the refined ranks must follow the f32
-   scores). The score kernel's count is zeroed before and read after.
+   blocks (device SQ8, host refine), whose run must equal, index for index,
+   one built without the searcher: scales self-fitted on block 0, each
+   block quantized on the host, its integer-exact top 200 by a plain
+   matmul, those rows refined in f32, the blocks merged in order. The
+   score kernel's count is zeroed before and read after.
 4. Then (the backward's checks of 2 run here, after the inference path)
    holds one full-width KD + ranking train step with the kernels against
    the same step with the plain attention forward and backward (swapped in
@@ -101,7 +107,7 @@ from convdr_torch.ops.fused_search import (
     fused_scores_groupmax_plain,
 )
 from convdr_torch.ops.gather_groups import dma_gather_groups, dma_gather_groups_plain
-from convdr_torch.ops.quant import Int8Quantizer, quantize_passages_dev
+from convdr_torch.ops.quant import Int8Quantizer, quantize_passages_dev, rescore_candidates
 from convdr_torch.ops.streaming_search import (
     extract_candidate_scores,
     extract_candidate_scores_plain,
@@ -153,6 +159,33 @@ def cuda_ms(fn, iters=10, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20):
+    """Mean device time of ``fn()`` in ms: the calls are queued behind a
+    ~50 ms spin kernel, so the host's work for each call overlaps the spin
+    and the events time the kernels back to back. ``fn`` must not sync."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def peak_mib(fn):
+    """Device memory (MiB) one call of ``fn`` holds at its peak, above what
+    was allocated before it (the caching allocator's count)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
 
 
 def gpu_header():
@@ -607,6 +640,10 @@ def time_streaming(q, p, worst, launches):
                 lambda: streaming_flat_ip_topk(q[:qn], p, TOP_N, group=32), iters=5),
             "flat_ip_topk_ms": cuda_ms(
                 lambda: flat_ip_topk(q[:qn], p, TOP_N, block_rows=SEARCH_N), iters=5),
+            # the searcher's default scan block is the whole 524288-row block
+            "streaming_G128_peak_mib": peak_mib(lambda: streaming_flat_ip_topk(q[:qn], p, TOP_N)),
+            "flat_ip_topk_peak_mib": peak_mib(
+                lambda: flat_ip_topk(q[:qn], p, TOP_N, block_rows=SEARCH_N)),
         }
     k3["top100_ms"] = e2e
     log(f"  pass A {k3['ms']:.3f} ms (bound {bound3[0]:.3f}), pass B {k4['ms']:.3f} ms "
@@ -618,22 +655,20 @@ def time_streaming(q, p, worst, launches):
 
 def check_and_time_gather(q, p):
     """Kernel 5 against ``torch.gather`` at Q=512, B=524288, K=101, G=32 on
-    kernel 2's scores and the groups its maxima pick; then the entry point,
-    ``flat_ip_topk(gather="dma")``, over the same block (count zeroed before,
-    read after), equal to ``gather="auto"``."""
+    kernel 2's scores and the groups its maxima pick; then
+    ``flat_ip_topk(gather="dma")`` over the same block equal to
+    ``gather="auto"`` (the argument selects no code: both launch the
+    kernel). Its launches on the path are counted in ``main_path``."""
     scores, gmax = fused_scores_groupmax(q, p, GROUP)
     gsel = torch.sort(grouped_topk_last_axis(gmax, CAND_GROUPS, 32)[1], dim=1)[0]
     out = dma_gather_groups(scores, gsel, group=GROUP)
     torch.cuda.synchronize()
     if not torch.equal(out, dma_gather_groups_plain(scores, gsel, group=GROUP)):
         raise AssertionError("the group gather differs from torch.gather")
-    dma_gather_groups.launches = 0
     dma = flat_ip_topk(q, p, TOP_N, block_rows=SEARCH_N, gather="dma")
-    torch.cuda.synchronize()
-    launches = dma_gather_groups.launches
     auto = flat_ip_topk(q, p, TOP_N, block_rows=SEARCH_N)
-    if launches == 0 or not (torch.equal(dma[0], auto[0]) and torch.equal(dma[1], auto[1])):
-        raise AssertionError(f"flat_ip_topk(gather='dma') != 'auto' (launches {launches})")
+    if not (torch.equal(dma[0], auto[0]) and torch.equal(dma[1], auto[1])):
+        raise AssertionError("flat_ip_topk(gather='dma') != 'auto'")
     moved = out.numel() * 4
     bound = kernel_bound(0.0, 2 * moved + gsel.numel() * 8)
     plain_ms = cuda_ms(lambda: dma_gather_groups_plain(scores, gsel, group=GROUP))
@@ -641,12 +676,15 @@ def check_and_time_gather(q, p):
         "name": "dma_gather_groups", "route": "cuda",
         "source": "convdr_torch/csrc/gather_groups.cu",
         "replaces": "convdr_tpu/ops/pallas_search.py:256",
-        "launches": launches, "max_abs_err": 0.0,
+        "launches": 0, "max_abs_err": 0.0,
         "ms": cuda_ms(lambda: dma_gather_groups(scores, gsel, group=GROUP)),
         "plain_ms": plain_ms,
         "library_ms": plain_ms,  # the plain version is one torch.gather
         "bound_ms": bound[0], "bound_by": bound[1],
         "shape": f"Q={SEARCH_Q} B={SEARCH_N} K={CAND_GROUPS} G={GROUP} f32",
+        # ms above is host-paced at this size; these are the device's times
+        "device_ms": device_ms(lambda: dma_gather_groups(scores, gsel, group=GROUP)),
+        "plain_device_ms": device_ms(lambda: dma_gather_groups_plain(scores, gsel, group=GROUP)),
         "flat_ip_topk_ms": {
             "dma": cuda_ms(lambda: flat_ip_topk(q, p, TOP_N, block_rows=SEARCH_N, gather="dma"),
                            iters=5),
@@ -654,7 +692,8 @@ def check_and_time_gather(q, p):
         },
     }
     log(f"  group gather Q={SEARCH_Q} K={CAND_GROUPS} G={GROUP}: equals torch.gather; "
-        f"kernel {entry['ms'] * 1e3:.1f} us, torch.gather {plain_ms * 1e3:.1f} us, bound "
+        f"kernel {entry['ms'] * 1e3:.1f} us (device {entry['device_ms'] * 1e3:.1f}), "
+        f"torch.gather {plain_ms * 1e3:.1f} us (device {entry['plain_device_ms'] * 1e3:.1f}), bound "
         f"{bound[0] * 1e3:.1f} us; flat_ip_topk dma/auto equal, "
         f"{entry['flat_ip_topk_ms']['dma']:.2f}/{entry['flat_ip_topk_ms']['auto']:.2f} ms")
     del scores, gmax, out
@@ -763,6 +802,7 @@ def main_path(gen):
     emb_dir = os.path.join(WORK, "embeddings")
     flash_attention.launches = 0
     fused_scores_groupmax.launches = 0
+    dma_gather_groups.launches = 0
     t0 = time.time()
     rows = gen_passage_embeddings.main([
         "--data_dir", processed, "--checkpoint", "init", "--model_type", "rdot_nll",
@@ -776,11 +816,12 @@ def main_path(gen):
     torch.cuda.synchronize()
     t_infer = time.time() - t0
     launches = {"flash_attention_fwd": flash_attention.launches,
-                "fused_scores_groupmax": fused_scores_groupmax.launches}
+                "fused_scores_groupmax": fused_scores_groupmax.launches,
+                "dma_gather_groups": dma_gather_groups.launches}
     log(f"  embedded {rows} passages in {t_embed:.1f} s; inference + search over "
         f"{rows + 2 * N_EXTRA} rows in {t_infer:.1f} s; launches {launches}")
     if rows != N_PASSAGES or min(launches.values()) == 0:
-        raise AssertionError(f"main path did not run through both kernels: {launches}")
+        raise AssertionError(f"main path did not run through its kernels: {launches}")
     for block_id, emb, _ids in iter_embedding_blocks(emb_dir, max_blocks=1):
         if emb.shape != (N_PASSAGES, 768) or not np.isfinite(emb).all():
             raise AssertionError(f"block {block_id}: bad embeddings {emb.shape}")
@@ -848,27 +889,45 @@ def int8_path(paths, qids, q_embs):
     log(f"  int8 run equals the integer-exact plain search index for index for "
         f"{len(qids)}/{len(qids)} queries")
 
-    # int8 + rescore over the f32 blocks: the refined ranks follow the f32
-    # scores (within the f32 tolerance); overlap with the exact f32 run
-    rows, offs = load_rows(emb_dir)
-    row_of = torch.empty(int(offs.max()) + 1, dtype=torch.int64, device="cuda")
-    row_of[offs] = torch.arange(offs.numel(), device="cuda")
-    q = torch.from_numpy(q_embs).cuda()
-    pmax = rows.norm(dim=1).max().item()
+    # int8 + rescore over the f32 blocks, index for index against a run
+    # built without the searcher; overlap with the exact f32 run
+    want = rescore_reference(emb_dir, q_embs)
     rescored = parse_trec_run(os.path.join(WORK, "run_rs.trec"))
     exact = parse_trec_run(paths["trec"])
     overlap = []
     for r, qid in enumerate(qids):
         pids = [pid for pid, _ in rescored[qid]]
-        s = rows[row_of[torch.tensor(pids, device="cuda") - 1000]] @ q[r]
-        tol = 1e-5 * q[r].norm().item() * pmax
-        if len(pids) != TOP_N or not bool((s[1:] <= s[:-1] + tol).all()):
-            raise AssertionError(f"{qid}: the refined run is not in f32 score order")
+        if pids != want[r].tolist():
+            raise AssertionError(f"{qid}: the int8 + rescore run differs from the reference")
         overlap.append(len(set(pids) & {pid for pid, _ in exact[qid]}) / TOP_N)
-    log(f"  int8 + rescore 2: ranks follow the f32 scores for all {len(qids)} queries; "
-        f"top-{TOP_N} overlap with the exact f32 run {float(np.mean(overlap)):.4f}")
+    log(f"  int8 + rescore 2 run equals the host-quantized, integer-exact, f32-refined "
+        f"reference index for index for {len(qids)}/{len(qids)} queries; top-{TOP_N} "
+        f"overlap with the exact f32 run {float(np.mean(overlap)):.4f}")
     return {"score_kernel_launches": launches, "embed_s": t_embed, "inference_s": t_i8,
             "inference_rescore_s": t_rescore, "rescore_overlap": float(np.mean(overlap))}
+
+
+def rescore_reference(emb_dir, q_embs, factor=2):
+    """The ``--storage_dtype int8 --rescore_factor`` run over float blocks,
+    built without the searcher: scales self-fitted on block 0, each block
+    quantized on the host (numpy), its integer-exact top ``factor * k`` by
+    an f32 matmul of the int-valued operands (exact) and a stable sort,
+    those rows refined in f32 on the host, then a stable merge of the
+    blocks in order (an earlier block first on ties). Returns pids [Q, k]."""
+    blocks = list(iter_embedding_blocks(emb_dir))
+    quant = Int8Quantizer.fit(blocks[0][1])
+    q_int = torch.from_numpy(quant.quantize_queries(q_embs)[0]).cuda()
+    scores, pids = [], []
+    for _b, emb, ids in blocks:
+        p_int = torch.from_numpy(quant.quantize_passages(emb)).cuda().float()
+        cand = stable_topk(q_int @ p_int.T, factor * TOP_N)[1].cpu().numpy()
+        del p_int
+        s, i = rescore_candidates(q_embs, emb, cand, TOP_N)
+        scores.append(s)
+        pids.append(ids.astype(np.int64)[i] + 1000)
+    scores, pids = np.concatenate(scores, 1), np.concatenate(pids, 1)
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :TOP_N]
+    return np.take_along_axis(pids, order, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -1154,6 +1213,7 @@ def main(argv=None):
     # each kernel's count on the path of the slice that ported it; the
     # forward runs on both paths
     fwd, search, k3, k4, k5, bwd = kernels
+    k5["launches"] = launches["dma_gather_groups"]
     fwd["launches"] = launches["flash_attention_fwd"]
     fwd["launches_by_path"] = {"inference": launches["flash_attention_fwd"],
                                "train": train_launches["flash_attention_fwd"]}

@@ -1,8 +1,9 @@
 // Candidate group gather out of a score block, for Hopper (sm_90a).
 //
 // Replaces: convdr_tpu/ops/pallas_search.py:256-346, `dma_gather_groups`
-// (kernel `_dma_gather_kernel` at :234-250), the opt-in `gather="dma"` of
-// the exact search's candidate selection (ops/exact_search.py:182-200).
+// (kernel `_dma_gather_kernel` at :234-250), the JAX package's opt-in
+// `gather="dma"` (ops/exact_search.py:182-200). Here it is the candidate
+// gather of every exact search on the card.
 //
 // Computes out[q, j, c] = scores[q, g * G + c] for g = gsel[q, j]: the
 // [Q, K, G] candidate groups of a [Q, B] f32 score block. The TPU kernel
@@ -25,22 +26,36 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <typename I>
+// N is the type of the flat element index: 32-bit when the output has
+// fewer than 2^31 values (the search's case), so the two divisions per
+// value are not 64-bit ones.
+template <typename I, typename N>
 __global__ void __launch_bounds__(kThreads)
 gather_groups_kernel(const float* __restrict__ scores,
                      const I* __restrict__ gsel, float* __restrict__ out,
-                     long long total, int b, int k, int group) {
+                     N total, int b, int k, int group) {
   const long long n_groups = b / group;
-  for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * kThreads) {
-    const long long slot = i / group;  // q * k + j
+  for (N i = blockIdx.x * static_cast<N>(kThreads) + threadIdx.x; i < total;
+       i += static_cast<N>(gridDim.x) * kThreads) {
+    const N slot = i / group;  // q * k + j
     const int c = static_cast<int>(i - slot * group);
     const long long g = static_cast<long long>(gsel[slot]);
     const long long row = slot / k;
     out[i] = (g >= 0 && g < n_groups)
                  ? scores[row * b + g * group + c]
                  : __int_as_float(0x7fc00000);
+  }
+}
+
+template <typename I>
+void launch(const float* sc, const I* ids, float* o, long long total, int b,
+            int k, int group, int blocks, cudaStream_t s) {
+  if (total < (1LL << 31)) {
+    gather_groups_kernel<I, unsigned int><<<blocks, kThreads, 0, s>>>(
+        sc, ids, o, static_cast<unsigned int>(total), b, k, group);
+  } else {
+    gather_groups_kernel<I, long long><<<blocks, kThreads, 0, s>>>(
+        sc, ids, o, total, b, k, group);
   }
 }
 
@@ -60,11 +75,10 @@ extern "C" int convdr_gather_groups(const void* scores, const void* gsel,
   const float* sc = static_cast<const float*>(scores);
   float* o = static_cast<float*>(out);
   if (idx_bytes == 4) {
-    gather_groups_kernel<int><<<blocks, kThreads, 0, s>>>(
-        sc, static_cast<const int*>(gsel), o, total, b, k, group);
+    launch(sc, static_cast<const int*>(gsel), o, total, b, k, group, blocks, s);
   } else if (idx_bytes == 8) {
-    gather_groups_kernel<long long><<<blocks, kThreads, 0, s>>>(
-        sc, static_cast<const long long*>(gsel), o, total, b, k, group);
+    launch(sc, static_cast<const long long*>(gsel), o, total, b, k, group,
+           blocks, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -84,20 +84,22 @@ def _gather_groups(x3: torch.Tensor, gsel: torch.Tensor) -> torch.Tensor:
 def _gather_candidate_groups(
     s3: torch.Tensor, gsel: torch.Tensor, gather: str
 ) -> torch.Tensor:
-    """s3[q, gsel[q, j], :] -> [Q, kg, G] by the requested gather.
+    """s3[q, gsel[q, j], :] -> [Q, kg, G], the candidate groups of a block.
 
-    "auto" and "onehot" (the JAX package's one-hot MXU matmul, which a GPU
-    has no reason to imitate) take ``torch.gather``; "dma" takes the
-    hand-written gather kernel (:func:`convdr_torch.ops.gather_groups.
-    dma_gather_groups`), the counterpart of the JAX ``gather="dma"``. All
+    CUDA tensors always go through the hand-written gather kernel
+    (:func:`convdr_torch.ops.gather_groups.dma_gather_groups`, the
+    counterpart of the JAX ``gather="dma"``); CPU tensors through
+    ``torch.gather``. ``gather`` is checked for parity with the JAX
+    signature ("auto", "onehot" or "dma") and selects no code: the JAX
+    package's one-hot MXU matmul has no reason to exist on a GPU, and all
     three copy the same values.
     """
     if gather not in ("auto", "onehot", "dma"):
         raise ValueError(f"unknown gather impl {gather!r}")
-    if gather == "dma":
-        qn, n_groups, g = s3.shape
-        return dma_gather_groups(s3.reshape(qn, n_groups * g), gsel, group=g)
-    return _gather_groups(s3, gsel)
+    if s3.device.type == "cpu":
+        return _gather_groups(s3, gsel)
+    qn, n_groups, g = s3.shape
+    return dma_gather_groups(s3.reshape(qn, n_groups * g), gsel, group=g)
 
 
 def grouped_topk_last_axis(
@@ -143,9 +145,9 @@ def select_from_groupmax(
     Stable top-k of the maxima picks candidate groups (+1 absorber when
     validity-masked: a group straddling ``valid`` may be picked for its
     masked tail), group ids sort ascending to preserve the global tie
-    order, the groups are gathered (``gather``: "auto", "onehot" or "dma",
-    see :func:`_gather_candidate_groups`), and indices are recovered from
-    the final stable top-k's positions.
+    order, the groups are gathered (by the gather kernel on the card; see
+    :func:`_gather_candidate_groups` for ``gather``), and indices are
+    recovered from the final stable top-k's positions.
     """
     qn, n_groups, _g = s3.shape
     k_grp = k
@@ -209,8 +211,8 @@ def flat_ip_topk(
         products, equal to ``int8_topk_oracle``'s bit for bit (the f32
         products and sums of int8 values are exact at dim <= 1040).
     valid_rows: logical corpus size if ``passages`` is padded (-1 = N).
-    gather: the candidate gather of each block ("auto", "onehot", "dma";
-        :func:`select_from_groupmax`); the results are the same.
+    gather: "auto", "onehot" or "dma", accepted for parity with the JAX
+        signature; it selects no code (:func:`_gather_candidate_groups`).
 
     Returns (scores [Q, k] f32 desc, indices [Q, k] int64, -1 padded).
     Memory: one [Q, block_rows] f32 score block + O(Q*k) running state.

@@ -126,8 +126,8 @@ def fused_flat_ip_topk(
     Same contract as :func:`convdr_torch.ops.exact_search.flat_ip_topk`
     (score desc, lower index first on ties; slots past the valid rows hold
     (NEG_INF, -1)). Rows are zero-padded to :data:`ROW_TILE` when needed
-    and masked through ``valid_rows``. ``gather`` picks the candidate
-    gather (:func:`~convdr_torch.ops.exact_search.select_from_groupmax`).
+    and masked through ``valid_rows``. ``gather`` is checked and selects
+    no code (:func:`~convdr_torch.ops.exact_search.select_from_groupmax`).
     """
     qn = queries.shape[0]
     n = passages.shape[0]

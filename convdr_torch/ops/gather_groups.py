@@ -2,9 +2,9 @@
 kernel and its plain PyTorch version.
 
 The counterpart of ``dma_gather_groups`` in
-``convdr_tpu/ops/pallas_search.py`` (lines 234-346): the ``gather="dma"``
-option of the exact search's candidate selection
-(:func:`convdr_torch.ops.exact_search.select_from_groupmax`). The TPU
+``convdr_tpu/ops/pallas_search.py`` (lines 234-346), there the opt-in
+``gather="dma"``; here the candidate gather of every exact search on the
+card (:func:`convdr_torch.ops.exact_search.select_from_groupmax`). The TPU
 kernel's tiling constraints (Q % 8, B % 128, G dividing 128) came from
 Mosaic's (8, 128) tiles and are not part of the function: the port takes
 any Q, any G that divides B, int32 or int64 ids, and keeps the one real

@@ -88,11 +88,24 @@ def streaming_groupmax(
 streaming_groupmax.launches = 0
 
 
+def _check_group_ids(gsel: torch.Tensor, n_groups: int) -> None:
+    """Raise IndexError unless every id of ``gsel`` is in [0, n_groups)."""
+    if gsel.numel() == 0:
+        return
+    lo, hi = torch.stack(torch.aminmax(gsel)).tolist()
+    if lo < 0 or hi >= n_groups:
+        raise IndexError(
+            f"gsel holds group ids in [{lo}, {hi}]; the passages have "
+            f"{n_groups} groups"
+        )
+
+
 def extract_candidate_scores_plain(
     queries: torch.Tensor, passages: torch.Tensor, gsel: torch.Tensor, group: int = 128
 ) -> torch.Tensor:
     """cand [Q, kg, group] f32 in PyTorch: the selected rows gathered (a
     few queries at a time) and multiplied with their query in f32."""
+    _check_group_ids(gsel, passages.shape[0] // group)
     qn, kg = gsel.shape
     d = queries.shape[1]
     out = torch.empty((qn, kg, group), dtype=torch.float32, device=passages.device)
@@ -112,7 +125,8 @@ def extract_candidate_scores(
 ) -> torch.Tensor:
     """cand [Q, kg, group] f32 with cand[q, j] the scores of rows
     ``gsel[q, j] * group ...`` of ``passages``: pass B of the streaming
-    search. ``gsel`` [Q, kg] holds group ids in [0, N / group).
+    search. ``gsel`` [Q, kg] holds group ids in [0, N / group); any other
+    id raises IndexError, on the card as on the CPU.
 
     CUDA tensors go through ``csrc/streaming_search.cu`` (the same operand
     rules as :func:`streaming_groupmax`); CPU tensors through
@@ -131,6 +145,7 @@ def extract_candidate_scores(
     qn, d = queries.shape
     kg = gsel.shape[1]
     n_groups = passages.shape[0] // group
+    _check_group_ids(gsel, n_groups)
     cand = torch.empty((qn, kg, group), dtype=torch.float32, device=passages.device)
     if cand.numel() == 0:
         return cand

@@ -345,12 +345,25 @@ def test_gather_groups_kernel_equals_torch_gather(cuda, idx_dtype, qn, b, k, gro
 
 
 def test_flat_ip_topk_dma_gather_equals_auto(cuda):
+    # every exact search on the card gathers its candidates with the kernel;
+    # ``gather`` selects no code
     q, p = search_problem(64, 100000, 768, torch.float32, seed=3)
     before = dma_gather_groups.launches
     dma = es.flat_ip_topk(q, p, 100, gather="dma")
     assert dma_gather_groups.launches > before
+    before = dma_gather_groups.launches
     auto = es.flat_ip_topk(q, p, 100)
+    assert dma_gather_groups.launches > before
     assert torch.equal(dma[0], auto[0]) and torch.equal(dma[1], auto[1])
+
+
+@pytest.mark.parametrize("bad", [-1, 524288 // 128])
+def test_extract_candidates_rejects_out_of_range_ids_on_card(cuda, bad):
+    q, p = search_problem(4, 524288, 768, torch.float32, seed=7)
+    gsel = random_gsel(4, 524288 // 128, 5)
+    gsel[2, 3] = bad
+    with pytest.raises(IndexError, match="group ids"):
+        extract_candidate_scores(q, p, gsel, 128)
 
 
 def test_device_sq8_equals_numpy(cuda):

@@ -210,13 +210,21 @@ def test_drivers_need_a_card_or_no_cuda(chain, monkeypatch):
     "flags",
     [
         ["--ivf_dir", "x"], ["--pq_dir", "x"], ["--matmul_precision", "default"],
-        ["--storage_dtype", "int8", "--rescore_factor", "2", "--pq_dir", "x"],
         ["--matmul_precision", "high"], ["--profile_dir", "x"],
     ],
 )
 def test_unported_inference_options_raise(chain, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_infer.main(infer_args(chain, "jax_emb", "never", "--no_cuda", *flags))
+
+
+@pytest.mark.parametrize(
+    "flags", [["--storage_dtype", "int8"], ["--storage_dtype", "int8", "--rescore_factor", "2"]]
+)
+def test_int8_inference_options_are_ported(chain, flags):
+    # these raised NotImplementedError before SQ8 search was ported
+    args = torch_infer.get_arguments(infer_args(chain, "jax_emb", "never", "--no_cuda", *flags))
+    torch_infer.check_ported(args)
 
 
 @pytest.mark.parametrize(

@@ -6,8 +6,9 @@ runs them; the port's CPU tensors take the plain versions. Group maxima and
 candidate scores within 1e-5 (f32 sums in another order); the streaming
 top-k must give IDENTICAL indices to the JAX streaming search and the numpy
 oracle, the gathers equal values. The JAX ``gather="dma"`` route compiles
-for the TPU and cannot run here, so the port's ``flat_ip_topk(gather="dma")``
-is held to the JAX ``gather="auto"``, which computes the same selection.
+for the TPU and cannot run here, so the port's ``flat_ip_topk`` (whose
+``gather`` selects no code: the card always takes the gather kernel) is held
+to the JAX ``gather="auto"``, which computes the same selection.
 """
 
 import jax.numpy as jnp
@@ -63,6 +64,14 @@ def test_extract_candidates_matches_pallas_interpret(rng, group, kg):
         atol=1e-5, rtol=0,
     )
     assert tss.extract_candidate_scores.launches == 0
+
+
+@pytest.mark.parametrize("bad", [-1, 512 // 16])
+def test_extract_candidates_rejects_out_of_range_ids(rng, bad):
+    q, p = problem(rng, q=3)
+    gsel = torch.tensor([[0, 4], [1, bad], [2, 3]], dtype=torch.int32)
+    with pytest.raises(IndexError, match="group ids"):
+        tss.extract_candidate_scores(t(q), t(p), gsel, 16)
 
 
 @pytest.mark.parametrize("n,valid", [(640, -1), (600, 555)])
@@ -137,7 +146,7 @@ def test_streaming_rejects_bad_group(rng):
 
 
 # ---------------------------------------------------------------------------
-# the group gather (gather="dma")
+# the group gather
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("idx_dtype", [np.int32, np.int64])
 def test_dma_gather_matches_pallas_interpret(rng, idx_dtype):
