@@ -3,17 +3,23 @@
 
     python3 chip_smoke.py [--out results.json]
 
-1. Prints the card's name and power limit, whether ``regex`` imports, and
+1. Prints the card's name and power limit, whether ``regex`` imports,
    ``nvcc -Xptxas -v``'s register / shared-memory / spill lines for each
-   kernel (the three sources of ``convdr_torch/csrc`` are built at once).
+   kernel (the five sources of ``convdr_torch/csrc`` are built at once) and
+   the score kernel's launch configurations (threads, dynamic shared
+   memory, query rows a block, resident blocks an SM).
 2. Holds each hand-written kernel against its plain PyTorch version at the
    main paths' shapes: the flash-attention forward at every corpus length
    rung (32768-token budget; ragged lengths and an all-pad row) in bf16 and
    f32; its backward (dQ, dK, dV, f32) at the student's B=4 T=256, at T=64,
    at T=200 and at B=40 T=512, each with ragged lengths and an all-pad row;
    and the fused score + group-max kernel at Q=512, N=524288, D=768 with
-   f32, bf16 and int8 storage (scores in f32, top-100 sets; int8 equal to
-   its integer-exact plain version).
+   f32, bf16 and int8 storage (scores in f32, top-100 sets; int8, on the
+   tensor cores, equal to its integer-exact plain version), timed at Q=512
+   and 64 beside one library call of the same function (``torch.matmul``,
+   TF32 off, + ``amax``; int8: ``torch._int_mm`` + ``.float()`` + ``amax``)
+   and the library's product alone; the int8 bound is taken at the int8
+   tensor-core peak.
 2b. The rest of the exact-search layer at the same width (one 524288-row
    block, D=768): the streaming search's two passes and
    ``streaming_flat_ip_topk`` with f32, bf16 and int8 passages, G=128 and
@@ -66,6 +72,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import shutil
@@ -124,7 +131,7 @@ WORK = os.path.join(REPO, ".smoke_work")
 
 # Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 
 # (batch, T) of gen_passage_embeddings' length rungs at 64 rows x 512 tokens
 # (retrieval/embed_corpus.py _BucketBuffer), and the query encoder's shape.
@@ -210,7 +217,30 @@ def build_kernels():
     for name in KERNELS:
         for line in cuda_build.ptxas_report(name):
             if "Compiling entry" in line or "registers" in line or "spill" in line:
-                log(f"  {name}: {line.split('ptxas info    : ')[-1]}")
+                log(f"  {name}: {line.split('ptxas info    : ')[-1].strip()}")
+    return score_kernel_configs()
+
+
+def score_kernel_configs():
+    """The score kernel's launch configuration per passage dtype and query
+    count (threads, dynamic shared memory, query rows a block, resident
+    blocks an SM), as ``convdr_scores_groupmax_config`` reports it."""
+    fn = cuda_build.load("scores_groupmax").convdr_scores_groupmax_config
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    configs = {}
+    for code, dtype in enumerate(STORAGE):
+        for qn in (SEARCH_Q, SMALL_Q):
+            out = (ctypes.c_int * 4)()
+            rc = fn(code, qn, ctypes.addressof(out))
+            if rc != 0:
+                raise RuntimeError(f"convdr_scores_groupmax_config: CUDA error {rc}")
+            configs[f"{dtype_name(dtype)}_Q{qn}"] = dict(
+                zip(("threads", "smem_bytes", "block_queries", "blocks_per_sm"), out))
+    log("  scores_groupmax launch configs: " + "; ".join(
+        f"{k} {v['threads']} threads, {v['smem_bytes']} B smem, {v['block_queries']} queries a "
+        f"block, {v['blocks_per_sm']} blocks/SM" for k, v in configs.items()))
+    return configs
 
 
 # ---------------------------------------------------------------------------
@@ -419,10 +449,11 @@ def top_sets_agree(s_a, s_b, qnorm, pnorm_max, k=TOP_N):
     return exact
 
 
-def kernel_bound(flops, nbytes):
-    """The least time (ms) for ``flops`` f32 operations and ``nbytes`` moved,
-    and which of the two bounds it."""
-    ops_ms = flops / PEAK_FLOPS[torch.float32] * 1e3
+def kernel_bound(flops, nbytes, dtype=torch.float32):
+    """The least time (ms) for ``flops`` operations at the peak of
+    ``dtype``'s units (f32: the CUDA cores; int8: the tensor cores) and
+    ``nbytes`` moved, and which of the two bounds it."""
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
 
@@ -473,19 +504,21 @@ def check_and_time_search(q32, p32):
             f"{'; int8: equal' if dtype == torch.int8 else ''}), "
             f"top-{TOP_N} sets equal in {exact_rows}/{SEARCH_Q} rows, near-ties only otherwise")
         ms = cuda_ms(lambda: fused_scores_groupmax(q, p, GROUP))
+        ms_q64 = cuda_ms(lambda: fused_scores_groupmax(q[:SMALL_Q], p, GROUP))
         plain_ms = cuda_ms(lambda: fused_scores_groupmax_plain(q, p, GROUP), iters=5)
-        pf = p.float()
-        lib_ms = cuda_ms(
-            lambda: torch.matmul(q, pf.T).view(SEARCH_Q, -1, GROUP).amax(-1), iters=5
-        )
-        nbytes = (q.numel() * 4 + p.numel() * p.element_size()
+        lib = library_scores(q, p, GROUP)
+        # the kernel's operands: int8 passages take int8 queries
+        q_bytes = q.numel() * (1 if dtype == torch.int8 else 4)
+        nbytes = (q_bytes + p.numel() * p.element_size()
                   + SEARCH_Q * SEARCH_N * 4 + SEARCH_Q * (SEARCH_N // GROUP) * 4)
-        bound_ms, bound_by = kernel_bound(2.0 * SEARCH_Q * SEARCH_N * SEARCH_D, nbytes)
-        log(f"    kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, matmul+amax {lib_ms:.3f} ms, "
-            f"bound {bound_ms:.3f} ms")
+        bound_ms, bound_by = kernel_bound(2.0 * SEARCH_Q * SEARCH_N * SEARCH_D, nbytes,
+                                          torch.int8 if dtype == torch.int8 else torch.float32)
+        log(f"    kernel {ms:.3f} ms (Q={SMALL_Q}: {ms_q64:.3f}), plain {plain_ms:.3f} ms, "
+            f"{lib['library']} {lib['library_ms']:.3f} ms, matmul alone "
+            f"{lib['matmul_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
         result = {
-            "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms, **lib,
+            "bound_ms": bound_ms, "bound_by": bound_by, f"ms_Q{SMALL_Q}": ms_q64,
         }
         if dtype == torch.float32:  # the main path's storage
             entry = {
@@ -497,8 +530,28 @@ def check_and_time_search(q32, p32):
             }
         else:
             entry[f"{dtype_name(dtype)}_storage"] = result
-        del s, g, s_ref, g_ref, pf, p
+        del s, g, s_ref, g_ref, p
     return entry
+
+
+def library_scores(q, p, group):
+    """One PyTorch call computing kernel 2's function (scores and group
+    maxima) and the matrix product alone, both in ms. f32 and bf16:
+    ``torch.matmul`` with TF32 off on f32 operands; int8: ``torch._int_mm``
+    (s8 x s8 -> s32 on the tensor cores), ``.float()``, ``amax``."""
+    qn = q.shape[0]
+    if p.dtype == torch.int8:
+        qi, pt = q.to(torch.int8), p.T
+        mm = lambda: torch._int_mm(qi, pt)  # noqa: E731
+        full = lambda: mm().float().view(qn, -1, group).amax(-1)  # noqa: E731
+        name = "torch._int_mm + .float() + amax"
+    else:
+        pf = p.float()
+        mm = lambda: torch.matmul(q, pf.T)  # noqa: E731
+        full = lambda: mm().view(qn, -1, group).amax(-1)  # noqa: E731
+        name = "torch.matmul (TF32 off) + amax"
+    return {"library_ms": cuda_ms(full, iters=5), "library": name,
+            "matmul_ms": cuda_ms(mm, iters=5)}
 
 
 def topk_near_ties(top_i, s_ref, qnorm, pnorm_max, k=TOP_N):
@@ -605,8 +658,7 @@ def time_streaming(q, p, worst, launches):
         "max_abs_err": worst[(torch.float32, SEARCH_Q, group)],
         "ms": cuda_ms(lambda: streaming_groupmax(q, p, group)),
         "plain_ms": cuda_ms(lambda: streaming_groupmax_plain(q, p, group), iters=5),
-        "library_ms": cuda_ms(
-            lambda: torch.matmul(q, p.T).view(SEARCH_Q, -1, group).amax(-1), iters=5),
+        **library_scores(q, p, group),
         "bound_ms": bound3[0], "bound_by": bound3[1],
         "shape": f"Q={SEARCH_Q} N={SEARCH_N} D={SEARCH_D} G={group} f32",
         "ms_by_config": {
@@ -614,6 +666,12 @@ def time_streaming(q, p, worst, launches):
             f"Q{SEARCH_Q}_G32_f32": cuda_ms(lambda: streaming_groupmax(q, p, 32)),
         },
     }
+    for dtype in STORAGE[1:]:  # bf16 and int8 passages
+        qd, pd = search_operands(q, p, dtype)
+        for qn in (SEARCH_Q, SMALL_Q):
+            k3["ms_by_config"][f"Q{qn}_G{group}_{dtype_name(dtype)}"] = cuda_ms(
+                lambda: streaming_groupmax(qd[:qn], pd, group))
+        del qd, pd
     cand_bytes = (picked * group * SEARCH_D * 4 + q.numel() * 4 + gsel.numel() * 8
                   + SEARCH_Q * CAND_GROUPS * group * 4)
     bound4 = kernel_bound(2.0 * SEARCH_Q * CAND_GROUPS * group * SEARCH_D, cand_bytes)
@@ -646,7 +704,10 @@ def time_streaming(q, p, worst, launches):
                 lambda: flat_ip_topk(q[:qn], p, TOP_N, block_rows=SEARCH_N)),
         }
     k3["top100_ms"] = e2e
-    log(f"  pass A {k3['ms']:.3f} ms (bound {bound3[0]:.3f}), pass B {k4['ms']:.3f} ms "
+    log(f"  pass A {k3['ms']:.3f} ms (bound {bound3[0]:.3f}; {k3['library']} "
+        f"{k3['library_ms']:.3f}, matmul alone {k3['matmul_ms']:.3f}; by config "
+        + ", ".join(f"{c} {v:.3f}" for c, v in k3["ms_by_config"].items())
+        + f"), pass B {k4['ms']:.3f} ms "
         f"(bound {bound4[0]:.3f}, {bound4[1]}; {picked}/{n_groups} groups picked); top-{TOP_N} "
         + "; ".join(f"{k}: " + ", ".join(f"{n} {v:.2f}" for n, v in d.items())
                     for k, d in e2e.items()))
@@ -1177,7 +1238,7 @@ def main(argv=None):
     set_exact_matmul()
     t_start = time.time()
     smi = gpu_header()
-    build_kernels()
+    configs = build_kernels()
     gen = torch.Generator(device="cuda").manual_seed(0)
     log("kernel checks against the plain versions:")
     worst = check_attention(gen)
@@ -1241,6 +1302,7 @@ def main(argv=None):
         with open(args.out, "w") as f:
             json.dump({**result, "card": smi, "metrics": metrics, "embed_s": t_embed,
                        "inference_s": t_infer, "int8": int8, "streaming_phase_s": t_stream,
+                       "score_kernel_configs": configs,
                        "train": train, "train_step_check": step_check,
                        "total_s": time.time() - t_start}, f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,8 +19,10 @@
 //
 // Exactness: each score is one sequential fmaf(q, p, acc) chain over
 // k = 0..D-1 from 0, zero padding only after the last k, which is the order
-// of every output of kernel 2 (scores_groupmax.cu). So each candidate score
-// is bit-identical to kernel 2's score of that (query, row), and pass A's
+// of every f32 and bf16 output of kernel 2 (scores_groupmax.cu); with int8
+// passages every partial sum is an exact integer below 2^24, so the chain
+// equals kernel 2's tensor-core integer sums. So each candidate score is
+// bit-identical to kernel 2's score of that (query, row), and pass A's
 // group maxima are exactly the maxima of these scores: group pruning stays
 // exact. Passages are f32, bf16 or int8 (upcast as loaded).
 //

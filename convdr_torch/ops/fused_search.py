@@ -11,7 +11,8 @@ JAX kernel leaves it to XLA. G = 32 is the group of the JAX package's XLA
 search path (``exact_search._chunked_topk``). int8 passages (SQ8 storage,
 :mod:`convdr_torch.ops.quant`) take the int-valued f32 queries of
 ``quantize_queries``; their scores are then exact integers, equal to
-``int8_topk_oracle``'s.
+``int8_topk_oracle``'s. On the card the kernel takes them as int8 and runs
+the product on the int8 tensor cores.
 """
 
 from __future__ import annotations
@@ -24,12 +25,15 @@ import torch.nn.functional as F
 
 from convdr_torch.ops import cuda_build
 from convdr_torch.ops.exact_search import NEG_INF, select_from_groupmax
+from convdr_torch.ops.quant import INT8_EXACT_MAX_DIM
 
 # Passage rows per kernel tile; the kernel takes N % ROW_TILE == 0 and the
 # callers pad rows to it (padded rows are masked through ``valid_rows``).
 ROW_TILE = 128
 GROUPS = (8, 16, 32, 64, 128)
 _P_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# elements of 16 bytes: the kernel copies rows in 16-byte chunks
+_CHUNK = {torch.float32: 4, torch.bfloat16: 8, torch.int8: 16}
 
 
 def check_score_operands(
@@ -57,6 +61,34 @@ def check_score_operands(
         raise ValueError(f"passages must be f32, bf16 or int8, got {passages.dtype}")
     if not passages.is_contiguous():
         raise ValueError(f"{name} needs contiguous passages")
+
+
+def kernel_operands(
+    queries: torch.Tensor, passages: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q, p) as ``csrc/scores_groupmax.cu`` takes them: contiguous and
+    16-byte aligned, D zero-padded to 16 bytes of the passage dtype (a
+    copy of the passages only where D is not: zeros after the last k leave
+    every score's FMA chain as it was). q is f32, or int8 for int8
+    passages: the int-valued queries of ``quantize_queries``, exact in
+    [-127, 127] (other values are cut toward zero)."""
+    d = passages.shape[1]
+    if passages.dtype == torch.int8 and d > INT8_EXACT_MAX_DIM:
+        raise ValueError(
+            f"int8 scores are exact only at D <= {INT8_EXACT_MAX_DIM}, got {d}"
+        )
+    pad = (-d) % _CHUNK[passages.dtype]
+    if pad:
+        passages = F.pad(passages, (0, pad))
+    elif passages.data_ptr() % 16:
+        passages = passages.clone()
+    q = F.pad(queries.to(torch.float32), (0, pad))
+    if passages.dtype == torch.int8:
+        q = q.to(torch.int8)
+    q = q.contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
+    return q, passages
 
 
 def fused_scores_groupmax_plain(
@@ -87,9 +119,9 @@ def fused_scores_groupmax(
     if passages.device.type == "cpu":
         return fused_scores_groupmax_plain(queries, passages, group)
     check_score_operands("fused_scores_groupmax", queries, passages, group)
-    qn, d = queries.shape
-    n = passages.shape[0]
-    q = queries.to(torch.float32).contiguous()
+    q, p = kernel_operands(queries, passages)
+    qn, d = q.shape
+    n = p.shape[0]
     scores = torch.empty((qn, n), dtype=torch.float32, device=passages.device)
     gmax = torch.empty((qn, n // group), dtype=torch.float32, device=passages.device)
     fn = cuda_build.load("scores_groupmax").convdr_scores_groupmax
@@ -97,7 +129,7 @@ def fused_scores_groupmax(
     fn.restype = ctypes.c_int
     with torch.cuda.device(passages.device):
         rc = fn(
-            q.data_ptr(), passages.data_ptr(), scores.data_ptr(),
+            q.data_ptr(), p.data_ptr(), scores.data_ptr(),
             gmax.data_ptr(), qn, n, d, group, _P_DTYPE_CODES[passages.dtype],
             torch.cuda.current_stream(passages.device).cuda_stream,
         )

@@ -38,6 +38,7 @@ from convdr_torch.ops.fused_search import (
     _P_DTYPE_CODES,
     check_score_operands,
     fused_scores_groupmax_plain,
+    kernel_operands,
 )
 
 # The plain pass B gathers the selected rows of this many bytes at a time.
@@ -66,16 +67,16 @@ def streaming_groupmax(
     if passages.device.type == "cpu":
         return streaming_groupmax_plain(queries, passages, group)
     check_score_operands("streaming_groupmax", queries, passages, group)
-    qn, d = queries.shape
-    n = passages.shape[0]
-    q = queries.to(torch.float32).contiguous()
+    q, p = kernel_operands(queries, passages)
+    qn, d = q.shape
+    n = p.shape[0]
     gmax = torch.empty((qn, n // group), dtype=torch.float32, device=passages.device)
     fn = cuda_build.load("scores_groupmax").convdr_streaming_groupmax
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(passages.device):
         rc = fn(
-            q.data_ptr(), passages.data_ptr(), gmax.data_ptr(), qn, n, d, group,
+            q.data_ptr(), p.data_ptr(), gmax.data_ptr(), qn, n, d, group,
             _P_DTYPE_CODES[passages.dtype],
             torch.cuda.current_stream(passages.device).cuda_stream,
         )

@@ -13,8 +13,9 @@ result); scores 1e-5 * |q| * max|p| (f32 dot products of another order);
 the attention backward 1e-5 * max|ref| per gradient (f32 sums of up to T
 terms in another order, P recomputed from the forward's log-sum-exp).
 Equal, not close: the streaming passes against the score kernel (the same
-f32 FMA chain per score), int8 scores against the plain version (exact
-integer arithmetic), and the gathers against ``torch.gather`` (copies).
+f32 FMA chain per score; int8: exact integer sums, on the tensor cores in
+the score kernel), int8 scores against the plain version (exact integer
+arithmetic), and the gathers against ``torch.gather`` (copies).
 """
 
 import numpy as np
@@ -109,18 +110,25 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention(flat[1:].view(q.shape), k, v, mask)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# (Q, N, D) cutting the kernel's tiles: 64- and 128-query blocks, 128-row
+# tiles, D padded to 16 bytes of the passages; D=1040 is int8's exact limit
+SCORE_SHAPES = [(70, 384, 100), (512, 4096, 768), (1, 128, 8), (63, 384, 768),
+                (64, 4224, 100), (65, 4224, 8), (129, 384, 768), (512, 4224, 100),
+                (65, 384, 1040)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("group", [8, 16, 32, 128])
-@pytest.mark.parametrize("qn,n,d", [(70, 384, 100), (512, 4096, 768)])
+@pytest.mark.parametrize("qn,n,d", SCORE_SHAPES)
 def test_scores_groupmax_kernel_matches_plain(cuda, dtype, group, qn, n, d):
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    q = torch.randn(qn, d, generator=gen, device="cuda")
-    p = torch.randn(n, d, generator=gen, device="cuda").to(dtype)
+    q, p = search_problem(qn, n, d, dtype, seed=1)
     before = fused_scores_groupmax.launches
     s, g = fused_scores_groupmax(q, p, group)
     torch.cuda.synchronize()
     assert fused_scores_groupmax.launches == before + 1
-    s_ref, _ = fused_scores_groupmax_plain(q, p, group)
+    s_ref, g_ref = fused_scores_groupmax_plain(q, p, group)
+    if dtype == torch.int8:  # tensor-core integer sums: equal
+        assert torch.equal(s, s_ref) and torch.equal(g, g_ref)
     tol = 1e-5 * q.norm(dim=1)[:, None] * p.float().norm(dim=1).max()
     assert bool(((s - s_ref).abs() <= tol).all())
     assert torch.equal(g, s.view(qn, n // group, group).amax(-1))
@@ -134,6 +142,40 @@ def test_scores_groupmax_kernel_rejects_bad_shapes(cuda):
         fused_scores_groupmax(q, torch.randn(128, 32, device="cuda"), 24)
     with pytest.raises(ValueError, match="f32, bf16 or int8"):
         fused_scores_groupmax(q, torch.randn(128, 32, device="cuda").half(), 32)
+    with pytest.raises(ValueError, match="exact only"):
+        fused_scores_groupmax(torch.zeros(4, 1056, device="cuda"),
+                              torch.zeros(128, 1056, dtype=torch.int8, device="cuda"), 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_score_kernels_take_unaligned_operands(cuda, dtype):
+    # views 4 bytes (one f32) past a 16-byte boundary: the wrapper copies them
+    q, p = search_problem(65, 384, 96, dtype, seed=2)
+    flat_q = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    flat_p = torch.empty(p.numel() * p.element_size() + 4, dtype=torch.uint8, device="cuda")
+    q_off = flat_q[1:].view(q.shape).copy_(q)
+    p_off = flat_p[4:].view(p.dtype).view(p.shape).copy_(p)
+    assert q_off.data_ptr() % 16 and p_off.data_ptr() % 16
+    s, g = fused_scores_groupmax(q, p, 32)
+    s2, g2 = fused_scores_groupmax(q_off, p_off, 32)
+    assert torch.equal(s, s2) and torch.equal(g, g2)
+    assert torch.equal(streaming_groupmax(q_off, p_off, 32), g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("group", [32, 128])
+@pytest.mark.parametrize("qn,n,d", [(1, 128, 8), (65, 4224, 100), (129, 384, 768)])
+def test_pass_b_over_every_group_equals_score_kernel(cuda, dtype, group, qn, n, d):
+    """Pass B given every group of the block scores every (query, row):
+    equal to kernel 2's whole score matrix, the direct proof that both keep
+    one FMA chain order (f32, bf16) or exact integer sums (int8)."""
+    q, p = search_problem(qn, n, d, dtype, seed=3)
+    scores, gmax = fused_scores_groupmax(q, p, group)
+    gsel = torch.arange(n // group, device="cuda").expand(qn, -1).contiguous()
+    cand = extract_candidate_scores(q, p, gsel, group)
+    torch.cuda.synchronize()
+    assert torch.equal(cand.reshape(qn, n), scores)
+    assert torch.equal(streaming_groupmax(q, p, group), gmax)
 
 
 def test_flat_ip_topk_on_card_matches_oracle_and_cpu(cuda):
