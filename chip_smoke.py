@@ -6,14 +6,18 @@
 1. Prints the card's name and power limit, whether ``regex`` imports,
    ``nvcc -Xptxas -v``'s register / shared-memory / spill lines for each
    kernel (the five sources of ``convdr_torch/csrc`` are built at once) and
-   the score kernel's launch configurations (threads, dynamic shared
-   memory, query rows a block, resident blocks an SM).
+   the launch configurations (threads, dynamic shared memory, query rows a
+   block, resident blocks an SM; keys a tile) of the score kernel and of
+   the flash-attention forward at every shape timed below.
 2. Holds each hand-written kernel against its plain PyTorch version at the
    main paths' shapes: the flash-attention forward at every corpus length
-   rung (32768-token budget; ragged lengths and an all-pad row) in bf16 and
-   f32; its backward (dQ, dK, dV, f32) at the student's B=4 T=256, at T=64,
-   at T=200 and at B=40 T=512, each with ragged lengths and an all-pad row;
-   and the fused score + group-max kernel at Q=512, N=524288, D=768 with
+   rung (32768-token budget; ragged lengths and an all-pad row) and at the
+   train step's f32 shapes (B=4 T=256 and T=64, B=40 T=512), in bf16 and
+   f32, timed beside masked SDPA and its bound at every rung and at the
+   f32 B=4 T=256 and B=40 T=512 shapes (device-only times too at B=4 T=256
+   f32 and B=512 T=64 bf16); its backward (dQ, dK, dV, f32) at the
+   student's B=4 T=256, at T=64, at T=200 and at B=40 T=512, each with
+   ragged lengths and an all-pad row; and the fused score + group-max kernel at Q=512, N=524288, D=768 with
    f32, bf16 and int8 storage (scores in f32, top-100 sets; int8, on the
    tensor cores, equal to its integer-exact plain version), timed at Q=512
    and 64 beside one library call of the same function (``torch.matmul``,
@@ -58,7 +62,10 @@
    ranking task, 9 negatives, batch 4, 16 steps, checkpoints at 8 and 16)
    on a seeded 64-example CAsT-style file whose documents span the 64-512
    length rungs. The forward and backward launch counts are zeroed before
-   and read after (36 and 24 a step); every loss must be finite; the output
+   and read after (36 and 24 a step); the forward's launches are also
+   counted by (dtype, T) on this path and the inference path, through a
+   shim around ``attention.flash_attention_fwd`` that must agree with the
+   kernel's own count; every loss must be finite; the output
    dir must reload through ``load_model_and_params`` and encode a fixed
    batch exactly as the trained in-memory student does.
 5. Prints the training ms per step and examples/s, a ``{"kernels": [...]}``
@@ -72,6 +79,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
 import os
@@ -94,12 +102,13 @@ from convdr_torch.drivers import (
     run_convdr_train,
 )
 from convdr_torch.evaluation.metrics import parse_trec_run
-from convdr_torch.models import transformer
+from convdr_torch.models import attention, transformer
 from convdr_torch.models.attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
     flash_attention_fwd,
+    flash_attention_fwd_config,
     flash_attention_plain,
 )
 from convdr_torch.ops import cuda_build
@@ -146,6 +155,9 @@ STORAGE = (torch.float32, torch.bfloat16, torch.int8)
 # the training path: batch, negatives, concat / target / doc lengths, steps
 TRAIN_B, TRAIN_NEG, TRAIN_T, TARGET_T, DOC_T, TRAIN_STEPS = 4, 9, 256, 64, 512, 16
 BWD_SHAPES = [(TRAIN_B, TRAIN_T), (TRAIN_B, TARGET_T), (5, 200), (40, DOC_T)]
+# the f32 forward's shapes in a train step: the student's concat, the
+# teacher's targets and documents (batch x (negatives + 1) rows of 512)
+F32_SHAPES = [(TRAIN_B, TRAIN_T), (TRAIN_B, TARGET_T), (TRAIN_B * (TRAIN_NEG + 1), DOC_T)]
 KERNELS = ["flash_attention", "scores_groupmax", "flash_attention_bwd",
            "streaming_search", "gather_groups"]
 
@@ -218,7 +230,21 @@ def build_kernels():
         for line in cuda_build.ptxas_report(name):
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.split('ptxas info    : ')[-1].strip()}")
-    return score_kernel_configs()
+    return {"scores_groupmax": score_kernel_configs(), "flash_attention_fwd": attention_configs()}
+
+
+def attention_configs():
+    """The forward kernel's launch configuration at every timed shape, as
+    ``convdr_flash_attention_fwd_config`` reports it."""
+    configs = {}
+    for dtype, shapes in ((torch.bfloat16, ATTN_SHAPES), (torch.float32, F32_SHAPES)):
+        for batch, t in shapes:
+            configs[f"{dtype_name(dtype)}_B{batch}xT{t}"] = flash_attention_fwd_config(
+                batch, t, HEADS, HEAD_DIM, dtype)
+    log("  flash_attention_fwd launch configs: " + "; ".join(
+        f"{k} {v['threads']} threads, {v['smem_bytes']} B smem, {v['block_queries']} queries x "
+        f"{v['tile_keys']} keys, {v['blocks_per_sm']} blocks/SM" for k, v in configs.items()))
+    return configs
 
 
 def score_kernel_configs():
@@ -270,12 +296,13 @@ def attention_bound_ms(q, mask):
 
 
 def check_attention(gen):
-    """Kernel vs plain on every rung, bf16 and f32. Tolerance: f32 1e-5
-    absolute (same softmax, another summation order); bf16 one bf16 ulp
-    (2^-7 relative) -- both round one f32 result to bf16."""
+    """Kernel vs plain on every rung and the train step's f32 shapes, bf16
+    and f32. Tolerance: f32 1e-5 absolute (same softmax, another summation
+    order); bf16 one bf16 ulp (2^-7 relative) -- both round one f32 result
+    to bf16."""
     worst = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for batch, t in ATTN_SHAPES + [(4, 256)]:
+        for batch, t in ATTN_SHAPES + F32_SHAPES:
             q, k, v, mask = attention_inputs(batch, t, dtype, gen)
             out = flash_attention(q, k, v, mask)
             torch.cuda.synchronize()
@@ -295,37 +322,51 @@ def check_attention(gen):
     return worst
 
 
-def time_attention_shape(batch, t, dtype, gen):
-    """Kernel, plain-version and library (masked SDPA) ms, and the bound."""
+def time_attention_shape(batch, t, dtype, gen, plain=True, device=False):
+    """Kernel and library (masked SDPA) ms, the plain version's (``plain``),
+    the bound, the launch configuration and, with ``device``, the kernel's
+    and SDPA's device-only times (queued behind a spin kernel)."""
     q, k, v, mask = attention_inputs(batch, t, dtype, gen)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     allowed = (mask[:, None, :, None] == mask[:, None, None, :])
     bound_ms, bound_by = attention_bound_ms(q, mask)
-    return {
-        "ms": cuda_ms(lambda: flash_attention(q, k, v, mask)),
-        "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, mask), iters=5),
-        "library_ms": cuda_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)
-        ),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-    }
+    kernel = lambda: flash_attention(q, k, v, mask)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)  # noqa: E731
+    result = {"ms": cuda_ms(kernel), "library_ms": cuda_ms(library),
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "config": flash_attention_fwd_config(batch, t, HEADS, HEAD_DIM, dtype)}
+    if plain:
+        result["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, mask), iters=5)
+    if device:
+        result["device_ms"] = device_ms(kernel)
+        result["library_device_ms"] = device_ms(library)
+    return result
 
 
 def time_attention(gen, worst):
     batch, t = ATTN_SHAPES[-1]
     dtype = torch.bfloat16  # the corpus encoder's dtype
     main = time_attention_shape(batch, t, dtype, gen)
-    # the query encoder's shape and dtype (f32 inference, batch 4 x 256)
+    # the query encoder's and student's shape (f32, batch 4 x 256)
     query_f32 = {"shape": f"B=4 T=256 H={HEADS} D={HEAD_DIM} f32",
                  "max_abs_err": worst[(torch.float32, 4, 256)],
-                 **time_attention_shape(4, 256, torch.float32, gen)}
+                 **time_attention_shape(4, 256, torch.float32, gen, device=True)}
+    # the teacher's documents in a train step (f32, 40 x 512)
+    docs_b, docs_t = F32_SHAPES[-1]
+    docs_f32 = {"shape": f"B={docs_b} T={docs_t} H={HEADS} D={HEAD_DIM} f32",
+                "max_abs_err": worst[(torch.float32, docs_b, docs_t)],
+                **time_attention_shape(docs_b, docs_t, torch.float32, gen)}
     per_rung = {}
     for b2, t2 in ATTN_SHAPES:
-        q2, k2, v2, m2 = attention_inputs(b2, t2, dtype, gen)
         per_rung[f"B{b2}xT{t2}"] = {
-            "ms": cuda_ms(lambda: flash_attention(q2, k2, v2, m2)),
-            "bound_ms": attention_bound_ms(q2, m2)[0],
-        }
+            "max_abs_err": worst[(dtype, b2, t2)],
+            **time_attention_shape(b2, t2, dtype, gen, plain=False, device=b2 == 512)}
+    log("  flash_attention_fwd ms (kernel / SDPA / bound): " + "; ".join(
+        f"{name} {r['ms']:.4f} / {r['library_ms']:.4f} / {r['bound_ms']:.4f}"
+        + (f" (device {r['device_ms']:.4f} / {r['library_device_ms']:.4f})"
+           if "device_ms" in r else "")
+        for name, r in [*((f"bf16 {k}", v) for k, v in per_rung.items()),
+                        ("f32 B4xT256", query_f32), (f"f32 B{docs_b}xT{docs_t}", docs_f32)]))
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -337,6 +378,7 @@ def time_attention(gen, worst):
         "shape": f"B={batch} T={t} H={HEADS} D={HEAD_DIM} bf16",
         "rungs_bf16": per_rung,
         "query_f32": query_f32,
+        "teacher_docs_f32": docs_f32,
     }
 
 
@@ -764,6 +806,33 @@ def check_and_time_gather(q, p):
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
+class ForwardShapes:
+    """Counts the forward kernel's launches by (dtype, T) while active,
+    through a shim around ``attention.flash_attention_fwd``, the one
+    function every forward launch goes through (inference and training).
+    The kernel's own count stays ``flash_attention.launches``; on exit the
+    two must agree."""
+
+    def __enter__(self):
+        self.counts = collections.Counter()
+        self.real = attention.flash_attention_fwd
+        self.before = flash_attention.launches
+
+        def counted(q, k, v, mask, with_lse):
+            out = self.real(q, k, v, mask, with_lse)
+            self.counts[f"{dtype_name(q.dtype)}_T{q.shape[1]}"] += 1
+            return out
+
+        attention.flash_attention_fwd = counted
+        return self.counts
+
+    def __exit__(self, *exc):
+        attention.flash_attention_fwd = self.real
+        if exc[0] is None and sum(self.counts.values()) != flash_attention.launches - self.before:
+            raise AssertionError(f"forward launches by shape {dict(self.counts)} != "
+                                 f"{flash_attention.launches - self.before}")
+
+
 def make_inputs(work):
     rng = np.random.default_rng(0)
     processed, raw = os.path.join(work, "processed"), os.path.join(work, "raw")
@@ -864,24 +933,26 @@ def main_path(gen):
     flash_attention.launches = 0
     fused_scores_groupmax.launches = 0
     dma_gather_groups.launches = 0
-    t0 = time.time()
-    rows = gen_passage_embeddings.main([
-        "--data_dir", processed, "--checkpoint", "init", "--model_type", "rdot_nll",
-        "--output_dir", emb_dir, "--per_gpu_eval_batch_size", "64",
-        "--dtype", "bfloat16", "--num_blocks", "1",
-    ])
-    t_embed = time.time() - t0
-    write_extra_blocks(emb_dir, gen)
-    t0 = time.time()
-    metrics = run_convdr_inference.main(inference_argv(WORK, processed, raw, emb_dir))
-    torch.cuda.synchronize()
-    t_infer = time.time() - t0
+    with ForwardShapes() as by_shape:
+        t0 = time.time()
+        rows = gen_passage_embeddings.main([
+            "--data_dir", processed, "--checkpoint", "init", "--model_type", "rdot_nll",
+            "--output_dir", emb_dir, "--per_gpu_eval_batch_size", "64",
+            "--dtype", "bfloat16", "--num_blocks", "1",
+        ])
+        t_embed = time.time() - t0
+        write_extra_blocks(emb_dir, gen)
+        t0 = time.time()
+        metrics = run_convdr_inference.main(inference_argv(WORK, processed, raw, emb_dir))
+        torch.cuda.synchronize()
+        t_infer = time.time() - t0
     launches = {"flash_attention_fwd": flash_attention.launches,
                 "fused_scores_groupmax": fused_scores_groupmax.launches,
-                "dma_gather_groups": dma_gather_groups.launches}
+                "dma_gather_groups": dma_gather_groups.launches,
+                "flash_attention_fwd_by_shape": dict(sorted(by_shape.items()))}
     log(f"  embedded {rows} passages in {t_embed:.1f} s; inference + search over "
         f"{rows + 2 * N_EXTRA} rows in {t_infer:.1f} s; launches {launches}")
-    if rows != N_PASSAGES or min(launches.values()) == 0:
+    if rows != N_PASSAGES or min(v for v in launches.values() if isinstance(v, int)) == 0:
         raise AssertionError(f"main path did not run through its kernels: {launches}")
     for block_id, emb, _ids in iter_embedding_blocks(emb_dir, max_blocks=1):
         if emb.shape != (N_PASSAGES, 768) or not np.isfinite(emb).all():
@@ -1192,19 +1263,21 @@ def train_path():
     try:
         flash_attention.launches = 0
         flash_attention_bwd.launches = 0
-        t0 = time.time()
-        outputs = run_convdr_train.main(argv)
-        torch.cuda.synchronize()
-        t_train = time.time() - t0
+        with ForwardShapes() as by_shape:
+            t0 = time.time()
+            outputs = run_convdr_train.main(argv)
+            torch.cuda.synchronize()
+            t_train = time.time() - t0
         launches = {"flash_attention_fwd": flash_attention.launches,
                     "flash_attention_bwd": flash_attention_bwd.launches}
     finally:
         run_convdr_train.run_training = real_run_training
     log(f"  trained {TRAIN_STEPS} steps in {t_train:.1f} s (model init and "
-        f"checkpoints included); launches {launches}")
+        f"checkpoints included); launches {launches}, forward by shape {dict(by_shape)}")
     want = {"flash_attention_fwd": 36 * TRAIN_STEPS, "flash_attention_bwd": 24 * TRAIN_STEPS}
     if outputs != [out_dir] or launches != want:
         raise AssertionError(f"training path: outputs {outputs}, launches {launches} != {want}")
+    launches["flash_attention_fwd_by_shape"] = dict(sorted(by_shape.items()))
     rows, ms_step = step_times(os.path.join(out_dir, "metrics.jsonl"), save_steps)
     losses = [r["loss"] for r in rows]
     if len(rows) != TRAIN_STEPS or not all(np.isfinite(losses)):
@@ -1278,6 +1351,8 @@ def main(argv=None):
     fwd["launches"] = launches["flash_attention_fwd"]
     fwd["launches_by_path"] = {"inference": launches["flash_attention_fwd"],
                                "train": train_launches["flash_attention_fwd"]}
+    fwd["launches_by_shape"] = {"inference": launches["flash_attention_fwd_by_shape"],
+                                "train": train_launches["flash_attention_fwd_by_shape"]}
     search["launches"] = launches["fused_scores_groupmax"]
     search["launches_by_path"] = {"inference_f32": launches["fused_scores_groupmax"],
                                   "inference_int8_and_rescore": int8["score_kernel_launches"]}
@@ -1302,7 +1377,7 @@ def main(argv=None):
         with open(args.out, "w") as f:
             json.dump({**result, "card": smi, "metrics": metrics, "embed_s": t_embed,
                        "inference_s": t_infer, "int8": int8, "streaming_phase_s": t_stream,
-                       "score_kernel_configs": configs,
+                       "launch_configs": configs,
                        "train": train, "train_step_check": step_check,
                        "total_s": time.time() - t_start}, f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ goes through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -102,13 +103,43 @@ def _check(name, tensors, attention_mask, dtypes):
     return b, t, h, d
 
 
-def _bind(lib, fn_name, n_ptrs, n_ints):
-    fn = getattr(lib, fn_name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [
-        ctypes.c_float, ctypes.c_void_p,
-    ]
+def _bind(source, fn_name, argtypes):
+    fn = getattr(cuda_build.load(source), fn_name)
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_kernel():
+    """``convdr_flash_attention_fwd``, built, loaded and bound once."""
+    return _bind("flash_attention", "convdr_flash_attention_fwd",
+                 [_PTR] * 6 + [_INT] * 4 + [_FLOAT, _INT, _PTR])
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernels():
+    """The backward's dK/dV and dQ entry points, bound once."""
+    tail = [_INT] * 4 + [_FLOAT, _PTR]
+    return (_bind("flash_attention_bwd", "convdr_flash_attention_bwd_dkdv", [_PTR] * 9 + tail),
+            _bind("flash_attention_bwd", "convdr_flash_attention_bwd_dq", [_PTR] * 8 + tail))
+
+
+def flash_attention_fwd_config(batch, seq, heads, head_dim, dtype):
+    """The forward kernel's launch configuration for a problem, as the C
+    query ``convdr_flash_attention_fwd_config`` reports it: threads a
+    block, dynamic shared memory bytes, query rows a block, resident blocks
+    an SM and keys a tile (needs the card)."""
+    fn = _bind("flash_attention", "convdr_flash_attention_fwd_config", [_INT] * 5 + [_PTR])
+    out = (ctypes.c_int * 5)()
+    rc = fn(batch, seq, heads, head_dim, _DTYPE_CODES[dtype], ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"convdr_flash_attention_fwd_config: CUDA error {rc}")
+    return dict(zip(("threads", "smem_bytes", "block_queries", "blocks_per_sm",
+                     "tile_keys"), out))
 
 
 def flash_attention_fwd(q, k, v, attention_mask, with_lse: bool):
@@ -121,13 +152,8 @@ def flash_attention_fwd(q, k, v, attention_mask, with_lse: bool):
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, t), device=q.device, dtype=torch.float32)
            if with_lse else None)
-    fn = cuda_build.load("flash_attention").convdr_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
-        rc = fn(
+        rc = _fwd_kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
             b, t, h, d, 1.0 / d ** 0.5, _DTYPE_CODES[q.dtype],
@@ -163,9 +189,7 @@ def flash_attention_bwd(q, k, v, o, do, attention_mask, lse):
     lse = lse.contiguous()
     delta = (do * o).sum(-1).transpose(1, 2).contiguous()  # [B, H, T]
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    lib = cuda_build.load("flash_attention_bwd")
-    dkdv = _bind(lib, "convdr_flash_attention_bwd_dkdv", 9, 4)
-    dq_fn = _bind(lib, "convdr_flash_attention_bwd_dq", 8, 4)
+    dkdv, dq_fn = _bwd_kernels()
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
               lse.data_ptr(), delta.data_ptr(), seg.data_ptr())
     with torch.cuda.device(q.device):

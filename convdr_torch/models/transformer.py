@@ -174,6 +174,8 @@ class TransformerEncoder(nn.Module):
         token_type_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         hidden = self.embeddings(input_ids, attention_mask, token_type_ids)
+        # the attention kernels take int32 segment ids: made once a forward
+        seg = attention_mask.to(torch.int32).contiguous()
         for layer in self.encoder.layer:
-            hidden = layer(hidden, attention_mask)
+            hidden = layer(hidden, seg)
         return hidden

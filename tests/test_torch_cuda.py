@@ -29,6 +29,7 @@ from convdr_torch.models.attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
+    flash_attention_fwd,
     flash_attention_plain,
 )
 from convdr_torch.ops import exact_search as es
@@ -64,7 +65,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def attention_problem(b, t, h, d, dtype, seed=0):
+def attention_problem(b, t, h, d, dtype, seed=0, mask="right"):
+    """Seeded q/k/v and a [B, T] 0/1 mask whose last row is all pad. The
+    other rows hold a random number of valid tokens: first ("right"), last
+    ("left") or in a run between pads ("middle"); or ("random") each token
+    is valid with probability 1/2."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (
         torch.randn((b, t, h, d), generator=gen, device="cuda").to(dtype)
@@ -72,18 +77,44 @@ def attention_problem(b, t, h, d, dtype, seed=0):
     )
     lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
     lens[-1] = 0  # all-pad row
-    mask = (torch.arange(t, device="cuda")[None, :] < lens[:, None]).int()
-    return q, k, v, mask
+    pos = torch.arange(t, device="cuda")[None, :]
+    if mask == "right":
+        valid = pos < lens[:, None]
+    elif mask == "left":
+        valid = pos >= t - lens[:, None]
+    elif mask == "middle":
+        start = torch.randint(0, t, (b,), generator=gen, device="cuda") % (t - lens + 1)
+        valid = (pos >= start[:, None]) & (pos < (start + lens)[:, None])
+    else:
+        valid = torch.rand((b, t), generator=gen, device="cuda") < 0.5
+        valid[-1] = False
+    return q, k, v, valid.int()
+
+
+# (B, T, H, D, mask): T values that cut the 64-query blocks and the 32-
+# and 64-key tiles; small grids (B=1, 2, 4 at T=256); the teacher's document
+# shape and corpus rungs; masks that are not right-padded, so the tile skip
+# works on segment ranges and not on a prefix; and one long row
+FLASH_CASES = [
+    (3, 100, 2, 64, "right"), (4, 64, 12, 64, "right"), (2, 77, 3, 32, "right"),
+    (2, 40, 2, 16, "right"), (2, 512, 12, 64, "right"),
+    (512, 64, 12, 64, "right"),  # enough outputs near zero to expose rounding of P
+    *[(2, t, 2, 64, "right") for t in (1, 31, 33, 63, 65, 127, 129, 255, 257, 511, 513)],
+    (3, 129, 3, 32, "right"), (3, 65, 2, 16, "right"), (48, 129, 12, 64, "right"),
+    (1, 256, 12, 64, "right"), (2, 256, 12, 64, "right"), (4, 256, 12, 64, "right"),
+    (40, 512, 12, 64, "right"), (64, 384, 12, 64, "right"),
+    (4, 256, 12, 64, "random"), (4, 256, 12, 64, "left"), (4, 256, 12, 64, "middle"),
+    (40, 512, 12, 64, "random"), (40, 512, 12, 64, "left"), (40, 512, 12, 64, "middle"),
+    (3, 200, 2, 16, "middle"), (3, 200, 2, 32, "left"), (24, 300, 12, 32, "random"),
+    # bf16: flushes of the MMA accumulators; f32: a plan past 48 KB of shared memory
+    (1, 30000, 1, 16, "middle"),
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "b,t,h,d",
-    [(3, 100, 2, 64), (4, 64, 12, 64), (2, 77, 3, 32), (2, 40, 2, 16), (2, 512, 12, 64),
-     (512, 64, 12, 64)],  # the last: enough outputs near zero to expose rounding of P
-)
-def test_flash_kernel_matches_plain(cuda, dtype, b, t, h, d):
-    q, k, v, mask = attention_problem(b, t, h, d, dtype)
+@pytest.mark.parametrize("b,t,h,d,mask_kind", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, dtype, b, t, h, d, mask_kind):
+    q, k, v, mask = attention_problem(b, t, h, d, dtype, mask=mask_kind)
     before = flash_attention.launches
     out = flash_attention(q, k, v, mask)
     torch.cuda.synchronize()
@@ -95,6 +126,25 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, t, h, d):
         assert diff.max().item() <= 1e-5
     else:
         assert bool((diff <= 1e-6 + 2.0 ** -7 * ref.float().abs()).all())
+
+
+@pytest.mark.parametrize(
+    "b,t,h,d,mask_kind",
+    [(4, 256, 12, 64, "right"), (40, 512, 12, 64, "middle"), (2, 33, 2, 16, "random"),
+     (3, 129, 3, 32, "left"), (1, 1, 1, 64, "right")],
+)
+def test_flash_forward_lse_matches_logsumexp(cuda, b, t, h, d, mask_kind):
+    """The f32 forward's lse against torch.logsumexp of the masked, scaled
+    scores, 1e-5 absolute (f32 sums of another order)."""
+    q, k, v, mask = attention_problem(b, t, h, d, torch.float32, mask=mask_kind)
+    out, lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
+    torch.cuda.synchronize()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / d ** 0.5
+    allowed = mask[:, None, :, None] == mask[:, None, None, :]
+    want = torch.logsumexp(scores.masked_fill(~allowed, float("-inf")), dim=-1)
+    assert torch.isfinite(lse).all()
+    assert (lse - want).abs().max().item() <= 1e-5
+    assert (out - flash_attention_plain(q, k, v, mask)).abs().max().item() <= 1e-5
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
