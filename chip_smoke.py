@@ -8,16 +8,20 @@
    kernel (the five sources of ``convdr_torch/csrc`` are built at once) and
    the launch configurations (threads, dynamic shared memory, query rows a
    block, resident blocks an SM; keys a tile) of the score kernel and of
-   the flash-attention forward at every shape timed below.
+   the flash-attention forward and backward at every shape timed or
+   checked below.
 2. Holds each hand-written kernel against its plain PyTorch version at the
    main paths' shapes: the flash-attention forward at every corpus length
    rung (32768-token budget; ragged lengths and an all-pad row) and at the
    train step's f32 shapes (B=4 T=256 and T=64, B=40 T=512), in bf16 and
    f32, timed beside masked SDPA and its bound at every rung and at the
    f32 B=4 T=256 and B=40 T=512 shapes (device-only times too at B=4 T=256
-   f32 and B=512 T=64 bf16); its backward (dQ, dK, dV, f32) at the
-   student's B=4 T=256, at T=64, at T=200 and at B=40 T=512, each with
-   ragged lengths and an all-pad row; and the fused score + group-max kernel at Q=512, N=524288, D=768 with
+   f32 and B=512 T=64 bf16); its backward (dQ, dK, dV, f32, one launch) at
+   the student's B=4 T=256, at T=64, at T=200 and at B=40 T=512, each under
+   right-, left-, middle-padded and random masks with an all-pad row, two
+   calls bit-identical, timed at B=4 T=256 host-paced and on the device
+   beside autograd through masked SDPA; and the fused score + group-max
+   kernel at Q=512, N=524288, D=768 with
    f32, bf16 and int8 storage (scores in f32, top-100 sets; int8, on the
    tensor cores, equal to its integer-exact plain version), timed at Q=512
    and 64 beside one library call of the same function (``torch.matmul``,
@@ -62,7 +66,7 @@
    ranking task, 9 negatives, batch 4, 16 steps, checkpoints at 8 and 16)
    on a seeded 64-example CAsT-style file whose documents span the 64-512
    length rungs. The forward and backward launch counts are zeroed before
-   and read after (36 and 24 a step); the forward's launches are also
+   and read after (36 and 12 a step); the forward's launches are also
    counted by (dtype, T) on this path and the inference path, through a
    shim around ``attention.flash_attention_fwd`` that must agree with the
    kernel's own count; every loss must be finite; the output
@@ -106,6 +110,7 @@ from convdr_torch.models import attention, transformer
 from convdr_torch.models.attention import (
     flash_attention,
     flash_attention_bwd,
+    flash_attention_bwd_config,
     flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_fwd_config,
@@ -155,6 +160,7 @@ STORAGE = (torch.float32, torch.bfloat16, torch.int8)
 # the training path: batch, negatives, concat / target / doc lengths, steps
 TRAIN_B, TRAIN_NEG, TRAIN_T, TARGET_T, DOC_T, TRAIN_STEPS = 4, 9, 256, 64, 512, 16
 BWD_SHAPES = [(TRAIN_B, TRAIN_T), (TRAIN_B, TARGET_T), (5, 200), (40, DOC_T)]
+MASK_KINDS = ("right", "left", "middle", "random")
 # the f32 forward's shapes in a train step: the student's concat, the
 # teacher's targets and documents (batch x (negatives + 1) rows of 512)
 F32_SHAPES = [(TRAIN_B, TRAIN_T), (TRAIN_B, TARGET_T), (TRAIN_B * (TRAIN_NEG + 1), DOC_T)]
@@ -230,7 +236,8 @@ def build_kernels():
         for line in cuda_build.ptxas_report(name):
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.split('ptxas info    : ')[-1].strip()}")
-    return {"scores_groupmax": score_kernel_configs(), "flash_attention_fwd": attention_configs()}
+    return {"scores_groupmax": score_kernel_configs(), "flash_attention_fwd": attention_configs(),
+            "flash_attention_bwd": attention_bwd_configs()}
 
 
 def attention_configs():
@@ -244,6 +251,17 @@ def attention_configs():
     log("  flash_attention_fwd launch configs: " + "; ".join(
         f"{k} {v['threads']} threads, {v['smem_bytes']} B smem, {v['block_queries']} queries x "
         f"{v['tile_keys']} keys, {v['blocks_per_sm']} blocks/SM" for k, v in configs.items()))
+    return configs
+
+
+def attention_bwd_configs():
+    """The backward kernel's launch configuration at every checked shape,
+    as ``convdr_flash_attention_bwd_config`` reports it."""
+    configs = {f"f32_B{batch}xT{t}": flash_attention_bwd_config(batch, t, HEADS, HEAD_DIM)
+               for batch, t in BWD_SHAPES}
+    log("  flash_attention_bwd launch configs: " + "; ".join(
+        f"{k} {v['threads']} threads, {v['smem_bytes']} B smem, {v['block_rows']} rows a block x "
+        f"{v['tile_rows']}-row tiles, {v['blocks_per_sm']} blocks/SM" for k, v in configs.items()))
     return configs
 
 
@@ -272,14 +290,28 @@ def score_kernel_configs():
 # ---------------------------------------------------------------------------
 # kernel A: flash attention
 # ---------------------------------------------------------------------------
-def attention_inputs(batch, t, dtype, gen):
+def attention_inputs(batch, t, dtype, gen, mask_kind="right"):
+    """Seeded q/k/v and a [B, T] 0/1 mask: row 0 all valid, the last row all
+    pad, the others a random number of valid tokens first ("right"), last
+    ("left") or in a run between pads ("middle"); or ("random") each token
+    valid with probability 1/2 and the last row all pad."""
     shape = (batch, t, HEADS, HEAD_DIM)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
     lens = torch.randint(1, t + 1, (batch,), generator=gen, device="cuda")
     lens[0] = t
     lens[-1] = 0  # an all-pad row
-    mask = (torch.arange(t, device="cuda")[None, :] < lens[:, None]).to(torch.int32)
-    return q, k, v, mask
+    pos = torch.arange(t, device="cuda")[None, :]
+    if mask_kind == "right":
+        valid = pos < lens[:, None]
+    elif mask_kind == "left":
+        valid = pos >= t - lens[:, None]
+    elif mask_kind == "middle":
+        start = torch.randint(0, t, (batch,), generator=gen, device="cuda") % (t - lens + 1)
+        valid = (pos >= start[:, None]) & (pos < (start + lens)[:, None])
+    else:
+        valid = torch.rand((batch, t), generator=gen, device="cuda") < 0.5
+        valid[-1] = False
+    return q, k, v, valid.to(torch.int32)
 
 
 def attention_bound_ms(q, mask):
@@ -397,50 +429,67 @@ def attention_bwd_bound_ms(q, mask):
     return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
 
 
-def bwd_problem(batch, t, gen):
-    q, k, v, mask = attention_inputs(batch, t, torch.float32, gen)
+def bwd_problem(batch, t, gen, mask_kind="right"):
+    q, k, v, mask = attention_inputs(batch, t, torch.float32, gen, mask_kind)
     do = torch.randn(q.shape, generator=gen, device="cuda")
     out, lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
     return q, k, v, mask, do, out, lse
 
 
 def check_attention_bwd(gen):
-    """Backward kernel vs flash_attention_bwd_plain at the training shapes.
+    """Backward kernel vs flash_attention_bwd_plain at the training shapes,
+    under every mask kind (the tile plan skips on segment ranges), then two
+    calls on the same inputs, which must be bit-identical (no atomics).
     Tolerance, per gradient: 1e-5 * max|ref| -- f32 sums of up to T
     products in another order, with P recomputed from the forward's
     log-sum-exp instead of a fresh softmax."""
     worst = {}
     for batch, t in BWD_SHAPES:
-        q, k, v, mask, do, out, lse = bwd_problem(batch, t, gen)
-        got = flash_attention_bwd(q, k, v, out, do, mask, lse)
-        torch.cuda.synchronize()
-        want = flash_attention_bwd_plain(q, k, v, out, do, mask)
-        errs, rel = [], []
-        for g, r in zip(got, want):
-            if not bool(torch.isfinite(g).all()):
-                raise AssertionError(f"attention backward not finite at B={batch} T={t}")
-            errs.append((g - r).abs().max().item())
-            rel.append(errs[-1] / r.abs().max().item())
-        ok = max(rel) <= 1e-5
-        log(f"  attention bwd f32 B={batch} T={t}: max_abs_err dQ/dK/dV "
-            f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (max {max(rel):.2e} of max|ref|, "
-            f"tol 1e-5) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"flash attention backward disagrees at B={batch} T={t}")
-        worst[(batch, t)] = max(errs)
+        for kind in MASK_KINDS:
+            q, k, v, mask, do, out, lse = bwd_problem(batch, t, gen, kind)
+            got = flash_attention_bwd(q, k, v, out, do, mask, lse)
+            torch.cuda.synchronize()
+            want = flash_attention_bwd_plain(q, k, v, out, do, mask)
+            errs, rel = [], []
+            for g, r in zip(got, want):
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"attention backward not finite at B={batch} T={t} {kind}")
+                errs.append((g - r).abs().max().item())
+                rel.append(errs[-1] / r.abs().max().item())
+            ok = max(rel) <= 1e-5
+            log(f"  attention bwd f32 B={batch} T={t} {kind}: max_abs_err dQ/dK/dV "
+                f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (max {max(rel):.2e} of max|ref|, "
+                f"tol 1e-5) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash attention backward disagrees at B={batch} T={t} {kind}")
+            worst[(batch, t, kind)] = max(errs)
+    q, k, v, mask, do, out, lse = bwd_problem(TRAIN_B, TRAIN_T, gen, "random")
+    first = flash_attention_bwd(q, k, v, out, do, mask, lse)
+    second = flash_attention_bwd(q, k, v, out, do, mask, lse)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError("two backward calls on the same inputs differ")
+    log(f"  attention bwd f32 B={TRAIN_B} T={TRAIN_T}: two calls bit-identical")
     return worst
 
 
 def time_attention_bwd(gen, worst):
-    """Backward ms at the student's shape: kernel, plain version, and the
-    library's (autograd through masked SDPA, f32, backward only)."""
+    """Backward ms at the student's shape (right-padded mask): kernel, plain
+    version, and the library's (autograd through masked SDPA, f32,
+    backward only), the kernel and the library both host-paced and on the
+    device alone (queued behind a spin kernel)."""
     q, k, v, mask, do, out, lse = bwd_problem(TRAIN_B, TRAIN_T, gen)
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     allowed = (mask[:, None, :, None] == mask[:, None, None, :])
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)
     dot = do.transpose(1, 2)
     bound_ms, bound_by = attention_bwd_bound_ms(q, mask)
-    ms = cuda_ms(lambda: flash_attention_bwd(q, k, v, out, do, mask, lse))
+    kernel = lambda: flash_attention_bwd(q, k, v, out, do, mask, lse)  # noqa: E731
+    library = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
+    ms = cuda_ms(kernel, iters=50)
+    timing = {"ms": ms, "device_ms": device_ms(kernel, iters=50),
+              "library_ms": cuda_ms(library, iters=50),
+              "library_device_ms": device_ms(library, iters=50)}
     # one train step's attention: per layer the student's forward (with lse)
     # and backward, the teacher's target and document forwards (f32)
     per_layer = {"student_fwd": cuda_ms(lambda: flash_attention_fwd(q, k, v, mask, True)),
@@ -449,6 +498,11 @@ def time_attention_bwd(gen, worst):
                            ("docs_fwd", (TRAIN_B * (TRAIN_NEG + 1), DOC_T))):
         q2, k2, v2, m2 = attention_inputs(b2, t2, torch.float32, gen)
         per_layer[name] = cuda_ms(lambda: flash_attention(q2, k2, v2, m2))
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, do, mask), iters=5)
+    log(f"  flash_attention_bwd B={TRAIN_B} T={TRAIN_T} f32 ms: kernel {ms:.4f} host-paced, "
+        f"{timing['device_ms']:.4f} on the device; SDPA backward {timing['library_ms']:.4f} / "
+        f"{timing['library_device_ms']:.4f}; plain {plain_ms:.4f}; bound {bound_ms:.4f} "
+        f"({bound_by})")
     return {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -456,14 +510,13 @@ def time_attention_bwd(gen, worst):
         "replaces": "convdr_tpu/models/attention.py:54 (custom VJP: pallas_call "
                     "_flash_attention_bwd_dkv and _flash_attention_bwd_dq)",
         "launches": 0,
-        "max_abs_err": worst[(TRAIN_B, TRAIN_T)],
-        "ms": ms,
-        "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, do, mask), iters=5),
-        "library_ms": cuda_ms(lambda: torch.autograd.grad(
-            lib_out, (qt, kt, vt), dot, retain_graph=True)),
+        "max_abs_err": worst[(TRAIN_B, TRAIN_T, "right")],
+        **timing,
+        "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "shape": f"B={TRAIN_B} T={TRAIN_T} H={HEADS} D={HEAD_DIM} f32",
-        "max_abs_err_by_shape": {f"B{b}xT{t}": e for (b, t), e in worst.items()},
+        "config": flash_attention_bwd_config(TRAIN_B, TRAIN_T, HEADS, HEAD_DIM),
+        "max_abs_err_by_shape": {f"B{b}xT{t}_{kind}": e for (b, t, kind), e in worst.items()},
         "train_step_attention_ms": {"per_layer": per_layer,
                                     "x12_layers": 12 * sum(per_layer.values())},
     }
@@ -1274,7 +1327,7 @@ def train_path():
         run_convdr_train.run_training = real_run_training
     log(f"  trained {TRAIN_STEPS} steps in {t_train:.1f} s (model init and "
         f"checkpoints included); launches {launches}, forward by shape {dict(by_shape)}")
-    want = {"flash_attention_fwd": 36 * TRAIN_STEPS, "flash_attention_bwd": 24 * TRAIN_STEPS}
+    want = {"flash_attention_fwd": 36 * TRAIN_STEPS, "flash_attention_bwd": 12 * TRAIN_STEPS}
     if outputs != [out_dir] or launches != want:
         raise AssertionError(f"training path: outputs {outputs}, launches {launches} != {want}")
     launches["flash_attention_fwd_by_shape"] = dict(sorted(by_shape.items()))

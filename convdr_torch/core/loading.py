@@ -1,16 +1,18 @@
 """Model/tokenizer loading: the ``load_model`` equivalent.
 
-The counterpart of ``convdr_tpu/core/loading.py`` for the two checkpoint
-flavors of this slice:
+The counterpart of ``convdr_tpu/core/loading.py`` for these checkpoint
+flavors:
 
   * **reference torch format** -- HF ``save_pretrained`` dirs
-    (pytorch_model.bin/model.safetensors) of the ANCE models, via
+    (pytorch_model.bin/model.safetensors) of the ANCE models, and DPR
+    ``CheckpointState`` files or HF-style dirs of the dpr models (the port's
+    own training output among them), via
     :mod:`convdr_torch.models.import_torch`;
   * **fresh init** -- checkpoint path ``None``/"init", seeded with an
     explicit ``torch.Generator``.
 
-DPR ``CheckpointState`` files and the JAX package's orbax directories are
-not ported yet (ROADMAP.md) and raise. Tokenizers load from vocab files
+The JAX package's orbax directories are not ported (ROADMAP.md) and
+raise. Tokenizers load from vocab files
 colocated with the checkpoint, an explicit path, or the deterministic
 "tiny" test vocab.
 """
@@ -29,7 +31,11 @@ from convdr_torch.core.config import NOT_PORTED, EncoderArchConfig, ModelConfig
 from convdr_torch.core.registry import get_model_config
 from convdr_torch.data.tokenizers import ByteLevelBPETokenizer, WordPieceTokenizer
 from convdr_torch.models.encoders import build_model
-from convdr_torch.models.import_torch import load_state_dict_checked, load_torch_state_dict
+from convdr_torch.models.import_torch import (
+    dpr_state_dict,
+    load_state_dict_checked,
+    load_torch_state_dict,
+)
 from convdr_torch.models.transformer import to_compute_dtype
 
 
@@ -196,9 +202,9 @@ def load_model_and_params(
             raise NotImplementedError(f"loading orbax checkpoints {NOT_PORTED}")
         if not _is_torch_checkpoint(checkpoint_path):
             raise FileNotFoundError(f"No checkpoint at {checkpoint_path}")
-        if config.two_tower:
-            raise NotImplementedError(f"loading DPR CheckpointState files {NOT_PORTED}")
         state_dict = load_torch_state_dict(checkpoint_path)
+        if config.two_tower:
+            state_dict = dpr_state_dict(state_dict)
         load_state_dict_checked(
             model, resize_token_embeddings(state_dict, config.arch.vocab_size, seed)
         )

@@ -121,11 +121,10 @@ def _fwd_kernel():
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_kernels():
-    """The backward's dK/dV and dQ entry points, bound once."""
-    tail = [_INT] * 4 + [_FLOAT, _PTR]
-    return (_bind("flash_attention_bwd", "convdr_flash_attention_bwd_dkdv", [_PTR] * 9 + tail),
-            _bind("flash_attention_bwd", "convdr_flash_attention_bwd_dq", [_PTR] * 8 + tail))
+def _bwd_kernel():
+    """``convdr_flash_attention_bwd``, built, loaded and bound once."""
+    return _bind("flash_attention_bwd", "convdr_flash_attention_bwd",
+                 [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR])
 
 
 def flash_attention_fwd_config(batch, seq, heads, head_dim, dtype):
@@ -140,6 +139,19 @@ def flash_attention_fwd_config(batch, seq, heads, head_dim, dtype):
         raise RuntimeError(f"convdr_flash_attention_fwd_config: CUDA error {rc}")
     return dict(zip(("threads", "smem_bytes", "block_queries", "blocks_per_sm",
                      "tile_keys"), out))
+
+
+def flash_attention_bwd_config(batch, seq, heads, head_dim):
+    """The backward kernel's launch configuration for an f32 problem, as the
+    C query ``convdr_flash_attention_bwd_config`` reports it: threads a
+    block, dynamic shared memory bytes, rows a block (keys or queries),
+    resident blocks an SM and rows a streamed tile (needs the card)."""
+    fn = _bind("flash_attention_bwd", "convdr_flash_attention_bwd_config", [_INT] * 4 + [_PTR])
+    out = (ctypes.c_int * 5)()
+    rc = fn(batch, seq, heads, head_dim, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"convdr_flash_attention_bwd_config: CUDA error {rc}")
+    return dict(zip(("threads", "smem_bytes", "block_rows", "blocks_per_sm", "tile_rows"), out))
 
 
 def flash_attention_fwd(q, k, v, attention_mask, with_lse: bool):
@@ -170,10 +182,11 @@ def flash_attention_bwd(q, k, v, o, do, attention_mask, lse):
     with upstream gradient ``do``; ``lse`` [B, H, T] is the forward's
     per-row log-sum-exp.
 
-    CUDA tensors go through the two kernels of ``csrc/flash_attention_bwd.cu``
-    (f32 only); CPU tensors through :func:`flash_attention_bwd_plain` (which
-    needs no ``lse``). ``flash_attention_bwd.launches`` counts kernel
-    launches, two per call on the card.
+    CUDA tensors go through the kernel of ``csrc/flash_attention_bwd.cu``
+    (f32 only; one launch computes all three gradients and rowsum(dO * O));
+    CPU tensors through :func:`flash_attention_bwd_plain` (which needs no
+    ``lse``). ``flash_attention_bwd.launches`` counts kernel launches, one
+    per call on the card.
     """
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, attention_mask)
@@ -187,22 +200,16 @@ def flash_attention_bwd(q, k, v, o, do, attention_mask, lse):
         raise ValueError("flash_attention_bwd needs the forward's f32 lse [B, H, T]")
     seg = attention_mask.to(torch.int32).contiguous()
     lse = lse.contiguous()
-    delta = (do * o).sum(-1).transpose(1, 2).contiguous()  # [B, H, T]
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    dkdv, dq_fn = _bwd_kernels()
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              lse.data_ptr(), delta.data_ptr(), seg.data_ptr())
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = dkdv(*common, dk.data_ptr(), dv.data_ptr(), b, t, h, d,
-                  1.0 / d ** 0.5, stream)
-        if rc != 0:
-            raise RuntimeError(f"flash_attention_bwd dK/dV launch failed: CUDA error {rc}")
-        flash_attention_bwd.launches += 1
-        rc = dq_fn(*common, dq.data_ptr(), b, t, h, d, 1.0 / d ** 0.5, stream)
-        if rc != 0:
-            raise RuntimeError(f"flash_attention_bwd dQ launch failed: CUDA error {rc}")
-        flash_attention_bwd.launches += 1
+        rc = _bwd_kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), seg.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, t, h, d, 1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
+    flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 

@@ -2,9 +2,10 @@
 
 Each ``convdr_torch/csrc/<name>.cu`` has a plain C interface. It is compiled
 with ``nvcc`` for ``sm_90a`` into ``convdr_torch/build/lib<name>-<hash>.so``
-at first use (the hash covers the source and the flags, so an edited source
-never loads a stale library) and opened with :mod:`ctypes`. Nothing here runs
-at import time: the CPU tests import every module on a machine with no
+at first use (the hash covers the source, the shared ``csrc/*.cuh`` headers
+and the flags, so an edited source or header never loads a stale library)
+and opened with :mod:`ctypes`. Nothing here runs at import time: the CPU
+tests import every module on a machine with no
 ``nvcc``. ``nvcc -Xptxas -v`` reports each kernel's registers, shared memory
 and spills; the report is kept beside the library (:func:`ptxas_report`).
 """
@@ -46,8 +47,12 @@ def nvcc_path() -> str:
 
 def _paths(name: str):
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header of csrc/, which it may include
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, n) for n in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = f"lib{name}-{digest.hexdigest()[:12]}"
     return src, os.path.join(BUILD_DIR, stem + ".so"), os.path.join(
         BUILD_DIR, stem + ".ptxas.txt"
@@ -106,9 +111,10 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def ptxas_report(name: str) -> List[str]:
-    """``ptxas`` lines (registers, shared memory, spills) of a built source."""
+    """``ptxas`` lines (registers, shared memory, stack frame and spills) of
+    a built source."""
     log = _paths(name)[2]
     if not os.path.exists(log):
         return []
     with open(log) as f:
-        return [ln.rstrip() for ln in f if "ptxas" in ln]
+        return [ln.rstrip() for ln in f if "ptxas" in ln or "spill" in ln]

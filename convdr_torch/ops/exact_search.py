@@ -29,9 +29,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from convdr_torch.core.config import NOT_PORTED
 from convdr_torch.ops.gather_groups import dma_gather_groups
 
 NEG_INF = float(np.finfo(np.float32).min)
+
+# The JAX package's matmul precisions (``SearchConfig.matmul_precision``).
+# Only "highest" (full f32, oracle-exact) is ported; on the card the others
+# would be TF32 and bf16 products.
+_PRECISIONS = ("default", "high", "highest")
 
 # Widths at or below this go straight to a stable sort; above it, group-prune
 # recursively, so no selection sort is wider than max(4096, k * group).
@@ -198,6 +204,7 @@ def flat_ip_topk(
     *,
     block_rows: int = 65536,
     valid_rows: int = -1,
+    precision: str = "highest",
     group: int = 32,
     gather: str = "auto",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -211,6 +218,9 @@ def flat_ip_topk(
         products, equal to ``int8_topk_oracle``'s bit for bit (the f32
         products and sums of int8 values are exact at dim <= 1040).
     valid_rows: logical corpus size if ``passages`` is padded (-1 = N).
+    precision: "highest" (full f32, the default and the only one ported);
+        "high" and "default" raise, unless the passages are int8, where it
+        is ignored as in the JAX package.
     gather: "auto", "onehot" or "dma", accepted for parity with the JAX
         signature; it selects no code (:func:`_gather_candidate_groups`).
 
@@ -218,6 +228,13 @@ def flat_ip_topk(
     Memory: one [Q, block_rows] f32 score block + O(Q*k) running state.
     """
     from convdr_torch.ops.fused_search import fused_flat_ip_topk
+
+    if precision not in _PRECISIONS:
+        raise ValueError(
+            f"unknown matmul precision {precision!r}; choose one of {list(_PRECISIONS)}"
+        )
+    if precision != "highest" and passages.dtype != torch.int8:
+        raise NotImplementedError(f"flat_ip_topk precision={precision!r} {NOT_PORTED}")
 
     n = passages.shape[0]
     valid = n if valid_rows < 0 else min(int(valid_rows), n)

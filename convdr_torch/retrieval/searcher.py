@@ -310,9 +310,14 @@ class BlockedSearcher:
         ann_data_dir: str,
         query_embs: np.ndarray,
         top_n: int,
+        *,
+        max_blocks: Optional[int] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Search all blocks under ``ann_data_dir``; returns
         (scores [Q, top_n] desc, token-cache offsets [Q, top_n], -1 padded).
+
+        ``max_blocks`` limits the scan to the first blocks (e.g. a one-block
+        warm-up before a timed full sweep).
 
         int8 storage: the scales come from the dir's ``int8_scales.npy``
         (unless a quantizer was passed); float blocks without one self-fit
@@ -329,7 +334,7 @@ class BlockedSearcher:
         merged_i: Optional[torch.Tensor] = None
         t_start = time.time()
         for block_id, emb, emb2offset in prefetch_iter(
-            iter_embedding_blocks(ann_data_dir)
+            iter_embedding_blocks(ann_data_dir, max_blocks=max_blocks)
         ):
             if emb.shape[0] == 0:
                 logger.info("block %d is empty; skipping", block_id)

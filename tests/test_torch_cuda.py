@@ -15,7 +15,8 @@ terms in another order, P recomputed from the forward's log-sum-exp).
 Equal, not close: the streaming passes against the score kernel (the same
 f32 FMA chain per score; int8: exact integer sums, on the tensor cores in
 the score kernel), int8 scores against the plain version (exact integer
-arithmetic), and the gathers against ``torch.gather`` (copies).
+arithmetic), the gathers against ``torch.gather`` (copies), and two
+backward calls on the same inputs (no atomics).
 """
 
 import numpy as np
@@ -28,6 +29,7 @@ from convdr_torch.models.attention import (
     FlashAttentionFn,
     flash_attention,
     flash_attention_bwd,
+    flash_attention_bwd_config,
     flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_plain,
@@ -284,25 +286,51 @@ def test_encoder_on_card_matches_cpu(cuda, dtype):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=atol)
 
 
-@pytest.mark.parametrize(
-    "b,t,h,d",
-    [(3, 100, 2, 64), (2, 77, 3, 32), (2, 40, 2, 16), (4, 64, 12, 64), (4, 256, 12, 64),
-     (5, 200, 12, 64)],
-)
-def test_flash_bwd_kernel_matches_plain(cuda, b, t, h, d):
-    q, k, v, mask = attention_problem(b, t, h, d, torch.float32)
+def bwd_problem(b, t, h, d, mask_kind):
+    q, k, v, mask = attention_problem(b, t, h, d, torch.float32, mask=mask_kind)
     gen = torch.Generator(device="cuda").manual_seed(7)
     do = torch.randn(q.shape, generator=gen, device="cuda")
+    return q, k, v, mask, do
+
+
+# (B, T, H, D): T values that cut the 64-row blocks and the 32-row tiles,
+# the student's shape, and one long row (a plan of 257 tiles)
+BWD_CASES = [(3, 100, 2, 64), (2, 77, 3, 32), (2, 40, 2, 16), (4, 64, 12, 64), (4, 256, 12, 64),
+             (5, 200, 12, 64), (1, 8192, 1, 16)]
+
+
+@pytest.mark.parametrize("mask_kind", ["right", "left", "middle", "random"])
+@pytest.mark.parametrize("b,t,h,d", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(cuda, b, t, h, d, mask_kind):
+    q, k, v, mask, do = bwd_problem(b, t, h, d, mask_kind)
     before = flash_attention_bwd.launches
     out = FlashAttentionFn.apply(q.requires_grad_(), k.requires_grad_(),
                                  v.requires_grad_(), mask)
     got = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
-    assert flash_attention_bwd.launches == before + 2  # dK/dV and dQ
+    assert flash_attention_bwd.launches == before + 1  # one launch: dQ, dK and dV
     want = flash_attention_bwd_plain(q, k, v, out.detach(), do, mask)
     for g, r in zip(got, want):
         assert torch.isfinite(g).all()
         assert (g - r).abs().max().item() <= 1e-5 * r.abs().max().item()
+
+
+@pytest.mark.parametrize("b,t,h,d,mask_kind", [(4, 256, 12, 64, "random"), (3, 100, 2, 32, "middle")])
+def test_flash_bwd_is_deterministic(cuda, b, t, h, d, mask_kind):
+    """No atomics: two calls on the same inputs give bit-identical gradients."""
+    q, k, v, mask, do = bwd_problem(b, t, h, d, mask_kind)
+    out, lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
+    first = flash_attention_bwd(q, k, v, out, do, mask, lse)
+    second = flash_attention_bwd(q, k, v, out, do, mask, lse)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+def test_flash_bwd_config_fits_three_blocks_an_sm(cuda):
+    cfg = flash_attention_bwd_config(4, 256, 12, 64)
+    assert (cfg["threads"], cfg["block_rows"], cfg["tile_rows"]) == (128, 64, 32)
+    assert cfg["blocks_per_sm"] == 3 and cfg["smem_bytes"] <= 227 * 1024 // 3
 
 
 def test_flash_bwd_rejects_bf16(cuda):

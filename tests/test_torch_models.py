@@ -8,6 +8,7 @@ attention takes the plain version on the CPU). The cases mirror
 """
 
 import dataclasses
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -237,9 +238,10 @@ def test_init_is_seeded_and_unported_checkpoints_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         load_model_and_params("rdot_nll", str(tmp_path), device=cpu,
                               tokenizer_path="tiny", arch_preset="tiny")
+    # dpr checkpoints are ported: a file that is no checkpoint fails to load
     ckpt = tmp_path / "dpr.cp"
     ckpt.write_bytes(b"x")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(pickle.UnpicklingError):
         load_model_and_params("dpr", str(ckpt), device=cpu, tokenizer_path="tiny",
                               arch_preset="tiny")
 

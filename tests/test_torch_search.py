@@ -266,6 +266,55 @@ def test_blocked_search_matches_jax_searcher(tmp_path, storage):
         np.testing.assert_array_equal(emb, passages[b::3])
 
 
+@pytest.mark.parametrize("max_blocks", [1, 2, None])
+def test_search_blocks_max_blocks_matches_jax_searcher(tmp_path, max_blocks):
+    """``max_blocks`` scans only the first blocks, as the JAX searcher's
+    does: the same scores and offsets, those of the scanned rows only."""
+    passages = make_blocks(tmp_path, 16)
+    queries = np.random.RandomState(17).randn(4, 16).astype(np.float32)
+    s, offsets = BlockedSearcher(SearchConfig(passage_block_size=64), device=CPU).search_blocks(
+        str(tmp_path), queries, 20, max_blocks=max_blocks)
+    js, joffsets = JaxSearcher(JaxSearchConfig(passage_block_size=64)).search_blocks(
+        str(tmp_path), queries, 20, max_blocks=max_blocks)
+    np.testing.assert_array_equal(offsets, joffsets)
+    np.testing.assert_allclose(s, js, rtol=1e-5)
+    rows = np.sort(np.concatenate([np.arange(b, 200, 3) for b in range(max_blocks or 3)]))
+    _, oi = jes.topk_oracle(queries, passages[rows], 20)
+    np.testing.assert_array_equal(offsets, rows[oi])
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.int8])
+def test_flat_ip_topk_precision_highest_is_the_default(storage):
+    q, p = problem(18, q=4, n=300, d=16)
+    if storage == torch.int8:
+        from convdr_torch.ops.quant import Int8Quantizer
+
+        quant = Int8Quantizer.fit(p)
+        q, p = quant.quantize_queries(q)[0], quant.quantize_passages(p)
+    default = port_topk(q, p, 12, block_rows=128)
+    highest = port_topk(q, p, 12, block_rows=128, precision="highest")
+    js, ji = jes.flat_ip_topk(jnp.asarray(q), jnp.asarray(p), 12, block_rows=128,
+                              precision="highest")
+    for a, b in zip(default, highest):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(highest[1], np.asarray(ji))
+    np.testing.assert_allclose(highest[0], np.asarray(js), rtol=1e-5)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_flat_ip_topk_other_precisions_are_not_ported(precision):
+    q, p = problem(19, q=2, n=64, d=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_topk(q, p, 5, precision=precision)
+    with pytest.raises(ValueError, match="precision"):
+        port_topk(q, p, 5, precision="tf32")
+    # int8 passages ignore it, as in the JAX package
+    p_i8 = np.clip(np.round(p * 20), -127, 127).astype(np.int8)
+    q_int = np.round(q * 20).astype(np.float32)
+    np.testing.assert_array_equal(port_topk(q_int, p_i8, 5, precision=precision)[1],
+                                  port_topk(q_int, p_i8, 5)[1])
+
+
 def test_search_arrays_matches_jax():
     q, p = problem(14, q=4, n=700, d=16)
     emb2offset = np.arange(700, dtype=np.int64)[::-1].copy()
