@@ -9,7 +9,10 @@
    the launch configurations (threads, dynamic shared memory, query rows a
    block, resident blocks an SM; keys a tile) of the score kernel and of
    the flash-attention forward and backward at every shape timed or
-   checked below.
+   checked below, and of pass B per passage dtype and group (slots a work
+   item, resident blocks an SM). Every entry of the ``kernels`` line
+   carries its source's registers and spills by kernel and its launch
+   configuration.
 2. Holds each hand-written kernel against its plain PyTorch version at the
    main paths' shapes: the flash-attention forward at every corpus length
    rung (32768-token budget; ragged lengths and an all-pad row) and at the
@@ -36,7 +39,13 @@
    near-tie sets against the plain versions; the peak device memory of the
    streaming search and of ``flat_ip_topk``), and the group gather kernel
    (equal to ``torch.gather`` at Q=512, K=101, G=32; ``flat_ip_topk(
-   gather="dma")`` equal to ``gather="auto"``: both take the kernel). The
+   gather="dma")`` equal to ``gather="auto"``: both take the kernel). Pass
+   B's work list (the counting sort on the card) is held to its plain
+   version; pass B is timed host-paced through the public entry (whose
+   range check waits for the kernel) and on the device through the entry
+   the streaming search calls (work list + kernel, no host sync), at Q=512
+   and 64 with f32, bf16 and int8 passages, each beside its bytes bound;
+   the gather host-paced, on the device and by its host time a call. The
    streaming kernels' launch counts are zeroed just before and read just
    after the entry point's calls; the gather's come from the main path (3).
 3. Drives the inference path at full RoBERTa-base width (12 layers, hidden
@@ -87,6 +96,7 @@ import collections
 import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -130,8 +140,11 @@ from convdr_torch.ops.fused_search import (
 from convdr_torch.ops.gather_groups import dma_gather_groups, dma_gather_groups_plain
 from convdr_torch.ops.quant import Int8Quantizer, quantize_passages_dev, rescore_candidates
 from convdr_torch.ops.streaming_search import (
+    candidate_work_list,
+    candidate_work_list_plain,
     extract_candidate_scores,
     extract_candidate_scores_plain,
+    extract_candidate_scores_unchecked,
     streaming_flat_ip_topk,
     streaming_groupmax,
     streaming_groupmax_plain,
@@ -202,6 +215,20 @@ def device_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters=200):
+    """Host time of one call of ``fn`` in us, the calls queued behind a
+    ~50 ms spin kernel so that none waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
 def peak_mib(fn):
     """Device memory (MiB) one call of ``fn`` holds at its peak, above what
     was allocated before it (the caching allocator's count)."""
@@ -237,7 +264,89 @@ def build_kernels():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"  {name}: {line.split('ptxas info    : ')[-1].strip()}")
     return {"scores_groupmax": score_kernel_configs(), "flash_attention_fwd": attention_configs(),
-            "flash_attention_bwd": attention_bwd_configs()}
+            "flash_attention_bwd": attention_bwd_configs(),
+            "extract_candidate_scores": pass_b_configs()}
+
+
+_MANGLED_TYPES = {"f": "float", "a": "int8", "i": "int", "x": "int64", "j": "uint32",
+                  "b": "bool", "13__nv_bfloat16": "bf16"}
+
+
+def kernel_entry_name(mangled):
+    """``name<args>`` of a mangled kernel in an anonymous namespace, e.g.
+    ``extract_candidates_kernel<float,128>``; the mangled name if it does
+    not parse."""
+    i, parts = 3, []
+    while mangled.startswith("_ZN") and i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        parts.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    if not parts:
+        return mangled
+    args, rest = [], mangled[i + 1:] if mangled[i:i + 1] == "I" else ""
+    while rest and rest[0] != "E":
+        m = re.match(r"L[a-z](\d+)E|13__nv_bfloat16|[a-z]", rest)
+        if m is None:
+            return mangled
+        args.append(m.group(1) or _MANGLED_TYPES.get(m.group(0), m.group(0)))
+        rest = rest[m.end():]
+    return f"{parts[-1]}<{','.join(args)}>" if args else parts[-1]
+
+
+def ptxas_summary(name):
+    """Registers and spill bytes of every kernel in ``csrc/<name>.cu``, by
+    entry, from the build's ``nvcc -Xptxas -v`` report."""
+    out, entry = {}, None
+    for line in cuda_build.ptxas_report(name):
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = kernel_entry_name(m.group(1))
+            out[entry] = {}
+        elif entry and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[entry].update(spill_stores=int(st), spill_loads=int(ld))
+        elif entry and "Used" in line and "registers" in line:
+            out[entry]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return out
+
+
+def pass_b_configs():
+    """Pass B's launch configuration per passage dtype at the two groups
+    the search block runs (threads, dynamic shared memory, slots a work
+    item, resident blocks an SM, SMs), as
+    ``convdr_extract_candidates_config`` reports it."""
+    fn = cuda_build.bind("streaming_search", "convdr_extract_candidates_config",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    configs = {}
+    for code, dtype in enumerate(STORAGE):
+        for group in STREAM_GROUPS:
+            out = (ctypes.c_int * 5)()
+            rc = fn(code, group, ctypes.addressof(out))
+            if rc != 0:
+                raise RuntimeError(f"convdr_extract_candidates_config: CUDA error {rc}")
+            configs[f"{dtype_name(dtype)}_G{group}"] = dict(
+                zip(("threads", "smem_bytes", "item_slots", "blocks_per_sm", "sms"), out))
+    log("  extract_candidate_scores launch configs: " + "; ".join(
+        f"{k} {v['threads']} threads, {v['smem_bytes']} B smem, {v['item_slots']} slots an "
+        f"item, {v['blocks_per_sm']} blocks/SM x {v['sms']} SMs" for k, v in configs.items()))
+    return configs
+
+
+def gather_config(scores, gsel, group):
+    """The group gather's launch for these operands (path, threads,
+    blocks, values a thread), as ``convdr_gather_groups_config`` reports it."""
+    fn = cuda_build.bind("gather_groups", "convdr_gather_groups_config",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 4)()
+    # the kernel's output is a fresh (16-byte aligned) allocation
+    rc = fn(scores.data_ptr(), 0, scores.shape[0], scores.shape[1], gsel.shape[1], group,
+            ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"convdr_gather_groups_config: CUDA error {rc}")
+    return {"path": "16-byte vectors" if out[0] else "scalar", "threads": out[1],
+            "blocks": out[2], "values_a_thread": out[3]}
 
 
 def attention_configs():
@@ -733,6 +842,46 @@ def check_streaming(q32, p32):
     return launches, worst
 
 
+def pass_b_bound(q, p, gsel, group):
+    """Kernel 4's bound (ms, what bounds it) for these inputs: the rows of
+    the groups ``gsel`` picks read once, the queries and ids read once,
+    the [Q, kg, G] f32 scores written once; 2 * Q * kg * G * D operations
+    at the f32 peak (int8 passages: at the int8 tensor-core peak)."""
+    picked = int(torch.unique(gsel).numel())
+    nbytes = (picked * group * p.shape[1] * p.element_size() + q.numel() * q.element_size()
+              + gsel.numel() * gsel.element_size() + gsel.numel() * group * 4)
+    return kernel_bound(2.0 * gsel.numel() * group * p.shape[1], nbytes,
+                        torch.int8 if p.dtype == torch.int8 else torch.float32)
+
+
+def pass_b_times(q, p, gsel, group):
+    """Kernel 4 at one configuration: the public entry host-paced, the
+    streaming search's entry on the device, and the bound."""
+    bound = pass_b_bound(q, p, gsel, group)
+    return {"ms": cuda_ms(lambda: extract_candidate_scores(q, p, gsel, group)),
+            "device_ms": device_ms(
+                lambda: extract_candidate_scores_unchecked(q, p, gsel, group)),
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def check_work_list(gsel, n_groups):
+    """Kernel 4's work list (the counting sort on the card) against its
+    plain version: items equal, the slots of each group equal up to their
+    order. Returns its item count, bound and device time."""
+    slots, items, n_items = candidate_work_list(gsel, n_groups)
+    want_slots, want_items, want_n = candidate_work_list_plain(gsel, n_groups)
+    n = int(n_items[0])
+    flat = gsel.reshape(-1).long()
+    by_group, want_by_group = flat[slots.long()], flat[want_slots.long()]
+    key = lambda g, sl: torch.sort(g * flat.numel() + sl)[0]  # noqa: E731
+    if not (torch.equal(n_items, want_n) and torch.equal(items[:n], want_items[:n])
+            and torch.equal(by_group, want_by_group)
+            and torch.equal(key(by_group, slots), key(want_by_group, want_slots))):
+        raise AssertionError("pass B work list differs from its plain version")
+    return {"items": n, "bound": items.shape[0], "equals_plain": True,
+            "device_ms": device_ms(lambda: candidate_work_list(gsel, n_groups))}
+
+
 def time_streaming(q, p, worst, launches):
     """Kernels 3 and 4 at Q=512 G=128 f32 (kernel 4 at the 101 groups pass A
     picks), with the kernel-2 counterparts and the whole streaming top-100
@@ -761,30 +910,35 @@ def time_streaming(q, p, worst, launches):
             f"Q{SEARCH_Q}_G32_f32": cuda_ms(lambda: streaming_groupmax(q, p, 32)),
         },
     }
-    for dtype in STORAGE[1:]:  # bf16 and int8 passages
-        qd, pd = search_operands(q, p, dtype)
-        for qn in (SEARCH_Q, SMALL_Q):
-            k3["ms_by_config"][f"Q{qn}_G{group}_{dtype_name(dtype)}"] = cuda_ms(
-                lambda: streaming_groupmax(qd[:qn], pd, group))
-        del qd, pd
-    cand_bytes = (picked * group * SEARCH_D * 4 + q.numel() * 4 + gsel.numel() * 8
-                  + SEARCH_Q * CAND_GROUPS * group * 4)
-    bound4 = kernel_bound(2.0 * SEARCH_Q * CAND_GROUPS * group * SEARCH_D, cand_bytes)
     k4 = {
         "name": "extract_candidate_scores", "route": "cuda",
         "source": "convdr_torch/csrc/streaming_search.cu",
         "replaces": "convdr_tpu/ops/pallas_search.py:462",
         "launches": launches["extract_candidate_scores"],
         "max_abs_err": worst[(torch.float32, SEARCH_Q, group)],
+        # the public entry, host-paced: its range check waits for the kernel
         "ms": cuda_ms(lambda: extract_candidate_scores(q, p, gsel, group)),
+        # the entry the streaming search calls, on the device: work list + kernel
+        "device_ms": device_ms(lambda: extract_candidate_scores_unchecked(q, p, gsel, group)),
         "plain_ms": cuda_ms(lambda: extract_candidate_scores_plain(q, p, gsel, group), iters=3),
         "library_ms": cuda_ms(lambda: torch.gather(
             torch.matmul(q, p.T).view(SEARCH_Q, -1, group), 1, idx), iters=5),
         "library": "torch.matmul + torch.gather (the score-matrix path)",
-        "bound_ms": bound4[0], "bound_by": bound4[1],
+        **dict(zip(("bound_ms", "bound_by"), pass_b_bound(q, p, gsel, group))),
         "shape": f"Q={SEARCH_Q} kg={CAND_GROUPS} G={group} D={SEARCH_D} f32, "
                  f"{picked} of {n_groups} groups picked",
+        "work_list": check_work_list(gsel, n_groups),
+        "ms_by_config": {f"Q{SMALL_Q}_G{group}_f32": pass_b_times(
+            q[:SMALL_Q], p, gsel[:SMALL_Q], group)},
     }
+    for dtype in STORAGE[1:]:  # bf16 and int8 passages
+        qd, pd = search_operands(q, p, dtype)
+        for qn in (SEARCH_Q, SMALL_Q):
+            k3["ms_by_config"][f"Q{qn}_G{group}_{dtype_name(dtype)}"] = cuda_ms(
+                lambda: streaming_groupmax(qd[:qn], pd, group))
+            k4["ms_by_config"][f"Q{qn}_G{group}_{dtype_name(dtype)}"] = pass_b_times(
+                qd[:qn], pd, gsel[:qn], group)
+        del qd, pd
     e2e = {}
     for qn in (SEARCH_Q, SMALL_Q):
         e2e[f"Q{qn}"] = {
@@ -802,8 +956,12 @@ def time_streaming(q, p, worst, launches):
     log(f"  pass A {k3['ms']:.3f} ms (bound {bound3[0]:.3f}; {k3['library']} "
         f"{k3['library_ms']:.3f}, matmul alone {k3['matmul_ms']:.3f}; by config "
         + ", ".join(f"{c} {v:.3f}" for c, v in k3["ms_by_config"].items())
-        + f"), pass B {k4['ms']:.3f} ms "
-        f"(bound {bound4[0]:.3f}, {bound4[1]}; {picked}/{n_groups} groups picked); top-{TOP_N} "
+        + f"), pass B {k4['ms']:.3f} ms host-paced, {k4['device_ms']:.3f} on the device "
+        f"(bound {k4['bound_ms']:.3f}, {k4['bound_by']}; {picked}/{n_groups} groups picked; "
+        f"work list {k4['work_list']['items']} items, {k4['work_list']['device_ms']:.4f} ms; "
+        f"by config " + ", ".join(
+            f"{c} {v['ms']:.3f}/{v['device_ms']:.3f} (bound {v['bound_ms']:.3f})"
+            for c, v in k4["ms_by_config"].items()) + f"); top-{TOP_N} "
         + "; ".join(f"{k}: " + ", ".join(f"{n} {v:.2f}" for n, v in d.items())
                     for k, d in e2e.items()))
     return k3, k4
@@ -841,6 +999,11 @@ def check_and_time_gather(q, p):
         # ms above is host-paced at this size; these are the device's times
         "device_ms": device_ms(lambda: dma_gather_groups(scores, gsel, group=GROUP)),
         "plain_device_ms": device_ms(lambda: dma_gather_groups_plain(scores, gsel, group=GROUP)),
+        "launch_config": gather_config(scores, gsel, GROUP),
+        # host time of one call, enqueue only (the calls queue behind a spin)
+        "host_us": {"kernel": host_us(lambda: dma_gather_groups(scores, gsel, group=GROUP)),
+                    "torch.gather": host_us(
+                        lambda: dma_gather_groups_plain(scores, gsel, group=GROUP))},
         "flat_ip_topk_ms": {
             "dma": cuda_ms(lambda: flat_ip_topk(q, p, TOP_N, block_rows=SEARCH_N, gather="dma"),
                            iters=5),
@@ -848,8 +1011,9 @@ def check_and_time_gather(q, p):
         },
     }
     log(f"  group gather Q={SEARCH_Q} K={CAND_GROUPS} G={GROUP}: equals torch.gather; "
-        f"kernel {entry['ms'] * 1e3:.1f} us (device {entry['device_ms'] * 1e3:.1f}), "
-        f"torch.gather {plain_ms * 1e3:.1f} us (device {entry['plain_device_ms'] * 1e3:.1f}), bound "
+        f"kernel {entry['ms'] * 1e3:.1f} us (device {entry['device_ms'] * 1e3:.1f}, host "
+        f"{entry['host_us']['kernel']:.1f}), torch.gather {plain_ms * 1e3:.1f} us (device "
+        f"{entry['plain_device_ms'] * 1e3:.1f}, host {entry['host_us']['torch.gather']:.1f}), bound "
         f"{bound[0] * 1e3:.1f} us; flat_ip_topk dma/auto equal, "
         f"{entry['flat_ip_topk_ms']['dma']:.2f}/{entry['flat_ip_topk_ms']['auto']:.2f} ms")
     del scores, gmax, out
@@ -1400,6 +1564,15 @@ def main(argv=None):
     # each kernel's count on the path of the slice that ported it; the
     # forward runs on both paths
     fwd, search, k3, k4, k5, bwd = kernels
+    for entry, source, config in ((fwd, "flash_attention", "flash_attention_fwd"),
+                                  (search, "scores_groupmax", "scores_groupmax"),
+                                  (k3, "scores_groupmax", "scores_groupmax"),
+                                  (k4, "streaming_search", "extract_candidate_scores"),
+                                  (k5, "gather_groups", None),
+                                  (bwd, "flash_attention_bwd", "flash_attention_bwd")):
+        entry["ptxas"] = ptxas_summary(source)
+        if config:
+            entry["launch_config"] = configs[config]
     k5["launches"] = launches["dma_gather_groups"]
     fwd["launches"] = launches["flash_attention_fwd"]
     fwd["launches_by_path"] = {"inference": launches["flash_attention_fwd"],

@@ -22,7 +22,6 @@ goes through the kernels.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -103,28 +102,9 @@ def _check(name, tensors, attention_mask, dtypes):
     return b, t, h, d
 
 
-def _bind(source, fn_name, argtypes):
-    fn = getattr(cuda_build.load(source), fn_name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
-
-
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-@functools.lru_cache(maxsize=None)
-def _fwd_kernel():
-    """``convdr_flash_attention_fwd``, built, loaded and bound once."""
-    return _bind("flash_attention", "convdr_flash_attention_fwd",
-                 [_PTR] * 6 + [_INT] * 4 + [_FLOAT, _INT, _PTR])
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_kernel():
-    """``convdr_flash_attention_bwd``, built, loaded and bound once."""
-    return _bind("flash_attention_bwd", "convdr_flash_attention_bwd",
-                 [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR])
+_FWD_ARGTYPES = [_PTR] * 6 + [_INT] * 4 + [_FLOAT, _INT, _PTR]
+_BWD_ARGTYPES = [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR]
 
 
 def flash_attention_fwd_config(batch, seq, heads, head_dim, dtype):
@@ -132,7 +112,8 @@ def flash_attention_fwd_config(batch, seq, heads, head_dim, dtype):
     query ``convdr_flash_attention_fwd_config`` reports it: threads a
     block, dynamic shared memory bytes, query rows a block, resident blocks
     an SM and keys a tile (needs the card)."""
-    fn = _bind("flash_attention", "convdr_flash_attention_fwd_config", [_INT] * 5 + [_PTR])
+    fn = cuda_build.bind("flash_attention", "convdr_flash_attention_fwd_config",
+                         [_INT] * 5 + [_PTR])
     out = (ctypes.c_int * 5)()
     rc = fn(batch, seq, heads, head_dim, _DTYPE_CODES[dtype], ctypes.addressof(out))
     if rc != 0:
@@ -146,7 +127,8 @@ def flash_attention_bwd_config(batch, seq, heads, head_dim):
     C query ``convdr_flash_attention_bwd_config`` reports it: threads a
     block, dynamic shared memory bytes, rows a block (keys or queries),
     resident blocks an SM and rows a streamed tile (needs the card)."""
-    fn = _bind("flash_attention_bwd", "convdr_flash_attention_bwd_config", [_INT] * 4 + [_PTR])
+    fn = cuda_build.bind("flash_attention_bwd", "convdr_flash_attention_bwd_config",
+                         [_INT] * 4 + [_PTR])
     out = (ctypes.c_int * 5)()
     rc = fn(batch, seq, heads, head_dim, ctypes.addressof(out))
     if rc != 0:
@@ -164,13 +146,12 @@ def flash_attention_fwd(q, k, v, attention_mask, with_lse: bool):
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, t), device=q.device, dtype=torch.float32)
            if with_lse else None)
-    with torch.cuda.device(q.device):
-        rc = _fwd_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-            out.data_ptr(), None if lse is None else lse.data_ptr(),
-            b, t, h, d, 1.0 / d ** 0.5, _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    fn = cuda_build.bind("flash_attention", "convdr_flash_attention_fwd", _FWD_ARGTYPES)
+    rc = cuda_build.launch(
+        fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+        out.data_ptr(), None if lse is None else lse.data_ptr(),
+        b, t, h, d, 1.0 / d ** 0.5, _DTYPE_CODES[q.dtype],
+    )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
     flash_attention.launches += 1
@@ -201,12 +182,12 @@ def flash_attention_bwd(q, k, v, o, do, attention_mask, lse):
     seg = attention_mask.to(torch.int32).contiguous()
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    with torch.cuda.device(q.device):
-        rc = _bwd_kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), seg.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, t, h, d, 1.0 / d ** 0.5, torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    fn = cuda_build.bind("flash_attention_bwd", "convdr_flash_attention_bwd", _BWD_ARGTYPES)
+    rc = cuda_build.launch(
+        fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), seg.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, t, h, d, 1.0 / d ** 0.5,
+    )
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
     flash_attention_bwd.launches += 1

@@ -8,6 +8,10 @@ and opened with :mod:`ctypes`. Nothing here runs at import time: the CPU
 tests import every module on a machine with no
 ``nvcc``. ``nvcc -Xptxas -v`` reports each kernel's registers, shared memory
 and spills; the report is kept beside the library (:func:`ptxas_report`).
+:func:`bind` and :func:`launch` keep a wrapper's host work per call small:
+a C entry's ``argtypes`` are set once, when it is first bound, and the
+stream is the device's current raw handle, with no ``Stream`` object and
+no device switch unless the tensor's device is not the current one.
 """
 
 from __future__ import annotations
@@ -18,7 +22,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+
+import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -30,6 +36,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[Tuple[str, str], Any] = {}
 
 
 def nvcc_path() -> str:
@@ -108,6 +115,29 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_paths(name)[1])
             _loaded[name] = lib
         return lib
+
+
+def bind(name: str, symbol: str, argtypes: Sequence[Any], restype: Any = ctypes.c_int):
+    """The C entry ``symbol`` of ``csrc/<name>.cu`` with its ``argtypes``
+    and ``restype`` set, built and bound on first use and cached."""
+    fn = _bound.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _bound[(name, symbol)] = fn
+    return fn
+
+
+def launch(fn, device, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream; returns the C
+    entry's code (a ``cudaError_t``). The device is made current only for
+    the call, and only when it is not already."""
+    index = device.index
+    if torch._C._cuda_getDevice() != index:
+        with torch.cuda.device(index):
+            return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    return fn(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def ptxas_report(name: str) -> List[str]:

@@ -34,6 +34,7 @@ GROUPS = (8, 16, 32, 64, 128)
 _P_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # elements of 16 bytes: the kernel copies rows in 16-byte chunks
 _CHUNK = {torch.float32: 4, torch.bfloat16: 8, torch.int8: 16}
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def check_score_operands(
@@ -124,15 +125,11 @@ def fused_scores_groupmax(
     n = p.shape[0]
     scores = torch.empty((qn, n), dtype=torch.float32, device=passages.device)
     gmax = torch.empty((qn, n // group), dtype=torch.float32, device=passages.device)
-    fn = cuda_build.load("scores_groupmax").convdr_scores_groupmax
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(passages.device):
-        rc = fn(
-            q.data_ptr(), p.data_ptr(), scores.data_ptr(),
-            gmax.data_ptr(), qn, n, d, group, _P_DTYPE_CODES[passages.dtype],
-            torch.cuda.current_stream(passages.device).cuda_stream,
-        )
+    fn = cuda_build.bind("scores_groupmax", "convdr_scores_groupmax", _ARGTYPES)
+    rc = cuda_build.launch(
+        fn, passages.device, q.data_ptr(), p.data_ptr(), scores.data_ptr(),
+        gmax.data_ptr(), qn, n, d, group, _P_DTYPE_CODES[passages.dtype],
+    )
     if rc != 0:
         raise RuntimeError(
             f"fused_scores_groupmax kernel launch failed: CUDA error {rc}"

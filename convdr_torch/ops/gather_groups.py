@@ -20,6 +20,7 @@ import torch
 from convdr_torch.ops import cuda_build
 
 _IDX_BYTES = {torch.int32: 4, torch.int64: 8}
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _check(scores: torch.Tensor, gsel: torch.Tensor, group: int) -> None:
@@ -52,9 +53,10 @@ def dma_gather_groups(
 ) -> torch.Tensor:
     """[Q, K, group] f32 candidate groups of a [Q, B] f32 score block.
 
-    CUDA tensors go through ``csrc/gather_groups.cu``; CPU tensors through
-    :func:`dma_gather_groups_plain`. Group ids must lie in [0, B / group)
-    (the kernel writes NaN for one that does not).
+    CUDA tensors go through ``csrc/gather_groups.cu`` (16-byte copies; a
+    ``scores`` view that is not 16-byte aligned takes its scalar path);
+    CPU tensors through :func:`dma_gather_groups_plain`. Group ids must lie
+    in [0, B / group) (the kernel writes NaN for one that does not).
     ``dma_gather_groups.launches`` counts kernel launches.
     """
     _check(scores, gsel, group)
@@ -70,17 +72,13 @@ def dma_gather_groups(
     out = torch.empty((qn, k, group), dtype=torch.float32, device=scores.device)
     if out.numel() == 0:
         return out
-    sc = scores.contiguous()
-    ids = gsel.contiguous()
-    fn = cuda_build.load("gather_groups").convdr_gather_groups
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(scores.device):
-        rc = fn(
-            sc.data_ptr(), ids.data_ptr(), out.data_ptr(), qn, b, k, group,
-            _IDX_BYTES[ids.dtype],
-            torch.cuda.current_stream(scores.device).cuda_stream,
-        )
+    sc = scores if scores.is_contiguous() else scores.contiguous()
+    ids = gsel if gsel.is_contiguous() else gsel.contiguous()
+    fn = cuda_build.bind("gather_groups", "convdr_gather_groups", _ARGTYPES)
+    rc = cuda_build.launch(
+        fn, scores.device, sc.data_ptr(), ids.data_ptr(), out.data_ptr(), qn, b, k,
+        group, _IDX_BYTES[ids.dtype],
+    )
     if rc != 0:
         raise RuntimeError(f"dma_gather_groups kernel launch failed: CUDA error {rc}")
     dma_gather_groups.launches += 1

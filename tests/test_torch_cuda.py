@@ -48,8 +48,11 @@ from convdr_torch.ops.quant import (
     quantize_passages_dev,
 )
 from convdr_torch.ops.streaming_search import (
+    candidate_work_list,
+    candidate_work_list_plain,
     extract_candidate_scores,
     extract_candidate_scores_plain,
+    extract_candidate_scores_unchecked,
     streaming_flat_ip_topk,
     streaming_groupmax,
     streaming_groupmax_plain,
@@ -484,6 +487,122 @@ def test_extract_candidates_rejects_out_of_range_ids_on_card(cuda, bad):
     gsel[2, 3] = bad
     with pytest.raises(IndexError, match="group ids"):
         extract_candidate_scores(q, p, gsel, 128)
+
+
+def selection(kind, qn, n_groups, kg, seed=0):
+    """[Q, kg] ascending group ids: "random" (each query its own kg),
+    "one_group" (every query picks group n_groups // 2, so it is split
+    into many work items, beside kg - 1 random ones) or "sparse" (3 picks
+    a query from 8 groups, so most groups have no work item)."""
+    if kind == "one_group":
+        h = n_groups // 2
+        rest = random_gsel(qn, n_groups - 1, kg - 1, seed)
+        rest = rest + (rest >= h).long()  # every group but h
+        gsel = torch.cat([torch.full_like(rest[:, :1], h), rest], 1)
+    elif kind == "sparse":
+        pool = random_gsel(1, n_groups, 8, seed + 1)[0]
+        gsel = pool[random_gsel(qn, 8, 3, seed + 2)]
+    else:
+        gsel = random_gsel(qn, n_groups, kg, seed)
+    return torch.sort(gsel, dim=1)[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("group", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("d", [100, 768, 1024])
+@pytest.mark.parametrize("kind", ["random", "one_group", "sparse"])
+def test_pass_b_bitwise_equals_score_kernel(cuda, dtype, group, d, kind):
+    """Pass B's candidates are kernel 2's scores bit for bit, through both
+    entries, at D that is (768, 1024) and is not (100: a scalar loader for
+    bf16 and int8 rows) a multiple of the k-chunk."""
+    qn, n = 100, 4096
+    q, p = search_problem(qn, n, d, dtype, seed=5)
+    scores = fused_scores_groupmax(q, p, group)[0].view(qn, n // group, group)
+    gsel = selection(kind, qn, n // group, 11)
+    want = torch.gather(scores, 1, gsel[:, :, None].expand(-1, -1, group))
+    before = extract_candidate_scores.launches
+    got = extract_candidate_scores(q, p, gsel, group)
+    internal = extract_candidate_scores_unchecked(q, p, gsel.int(), group)
+    torch.cuda.synchronize()
+    assert extract_candidate_scores.launches == before + 2
+    assert torch.equal(got, want)
+    assert torch.equal(internal, want)
+
+
+@pytest.mark.parametrize("group", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("kind", ["random", "one_group", "sparse"])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_work_list_kernel_equals_plain(cuda, group, kind, idx_dtype):
+    """The counting sort's items equal the plain version's, its slots lie
+    in group order as the plain version's do, and each group holds the
+    same slots (in an order that atomics decide)."""
+    qn, n = 100, 524288
+    gsel = selection(kind, qn, n // group, 101 if kind != "sparse" else 3).to(idx_dtype)
+    slots, items, n_items = candidate_work_list(gsel, n // group)
+    want_slots, want_items, want_n = candidate_work_list_plain(gsel, n // group)
+    torch.cuda.synchronize()
+    assert torch.equal(n_items, want_n)
+    k = int(n_items[0])
+    assert torch.equal(items[:k], want_items[:k])
+    flat = gsel.reshape(-1).long()
+    by_group, want_by_group = flat[slots.long()], flat[want_slots.long()]
+    assert torch.equal(by_group, want_by_group)
+    key = lambda g, sl: torch.sort(g * flat.numel() + sl)[0]  # noqa: E731
+    assert torch.equal(key(by_group, slots), key(want_by_group, want_slots))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("offset", [4, 16])
+def test_pass_b_takes_passages_with_a_storage_offset(cuda, dtype, offset):
+    # a view ``offset`` bytes into its storage: 4 is not 16-byte aligned
+    # (the scalar loader), 16 is (the cp.async ring)
+    qn, n, d = 40, 1024, 256
+    q, p = search_problem(qn, n, d, dtype, seed=6)
+    flat = torch.zeros(p.numel() * p.element_size() + offset, dtype=torch.uint8,
+                       device="cuda")
+    p_off = flat[offset:].view(p.dtype).view(p.shape).copy_(p)
+    assert p_off.storage_offset() > 0 and (p_off.data_ptr() % 16 == 0) == (offset == 16)
+    gsel = selection("random", qn, n // 32, 9, seed=3)
+    want = extract_candidate_scores(q, p, gsel, 32)
+    assert torch.equal(extract_candidate_scores(q, p_off, gsel, 32), want)
+    assert torch.equal(extract_candidate_scores_unchecked(q, p_off, gsel, 32), want)
+
+
+def test_streaming_topk_issues_no_host_sync(cuda):
+    q, p = search_problem(64, 65536, 768, torch.float32, seed=8)
+    want = streaming_flat_ip_topk(q, p, 100)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = streaming_flat_ip_topk(q, p, 100)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("group", [8, 32, 128])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_gather_groups_vector_and_scalar_paths(cuda, group, idx_dtype, aligned):
+    # an unaligned ``scores`` view (4 bytes into its storage) takes the
+    # scalar kernel; ids out of range give NaN on both paths
+    qn, b, k = 67, 128 * 40, 13
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flat = torch.randn(qn * b + 1, generator=gen, device="cuda")
+    scores = (flat[:-1] if aligned else flat[1:]).view(qn, b)
+    assert (scores.data_ptr() % 16 == 0) == aligned
+    gsel = random_gsel(qn, b // group, k, seed=5).to(idx_dtype)
+    out = dma_gather_groups(scores, gsel, group=group)
+    assert torch.equal(out, dma_gather_groups_plain(scores, gsel, group=group))
+    bad = gsel.clone()
+    bad[3, 2], bad[60, 0] = -1, b // group
+    out = dma_gather_groups(scores, bad, group=group)
+    torch.cuda.synchronize()
+    assert bool(out[3, 2].isnan().all()) and bool(out[60, 0].isnan().all())
+    keep = torch.ones(qn, k, dtype=torch.bool, device="cuda")
+    keep[3, 2] = keep[60, 0] = False
+    want = dma_gather_groups_plain(scores, gsel, group=group)
+    assert torch.equal(out[keep], want[keep])
 
 
 def test_device_sq8_equals_numpy(cuda):

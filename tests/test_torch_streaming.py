@@ -66,6 +66,71 @@ def test_extract_candidates_matches_pallas_interpret(rng, group, kg):
     assert tss.extract_candidate_scores.launches == 0
 
 
+@pytest.mark.parametrize("group,kg", [(16, 5), (128, 3)])
+def test_extract_candidates_unchecked_matches_public_and_pallas(rng, group, kg):
+    # the entry the streaming search calls (no range check, so no host sync
+    # on the card) at the cases of the test above
+    q, p = problem(rng, q=8)
+    gsel = np.sort(np.stack([
+        rng.choice(512 // group, size=kg, replace=False) for _ in range(8)
+    ]).astype(np.int32), axis=1)
+    got = tss.extract_candidate_scores_unchecked(t(q), t(p), t(gsel), group)
+    assert torch.equal(got, tss.extract_candidate_scores(t(q), t(p), t(gsel), group))
+    want = jps.extract_candidate_scores(
+        jnp.asarray(q), jnp.asarray(p), jnp.asarray(gsel),
+        group=group, tile_rows=128, query_tile=4, interpret=True,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    assert tss.extract_candidate_scores.launches == 0
+
+
+def selections(rng, kind, qn, n_groups, kg):
+    """[Q, kg] group ids, ascending in each row: "uniform" (kg distinct
+    random groups a query), "one_group" (every query picks one group, and
+    kg - 1 others) or "unpicked" (all picks from 3 groups: most have none)."""
+    if kind == "uniform":
+        rows = [rng.choice(n_groups, size=kg, replace=False) for _ in range(qn)]
+    elif kind == "one_group":
+        rows = [np.concatenate([[n_groups // 2], rng.choice(
+            np.delete(np.arange(n_groups), n_groups // 2), size=kg - 1, replace=False)])
+            for _ in range(qn)]
+    else:
+        pool = rng.choice(n_groups, size=3, replace=False)
+        rows = [rng.choice(pool, size=kg) for _ in range(qn)]
+    return np.sort(np.stack(rows), axis=1)
+
+
+@pytest.mark.parametrize("group", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("kind", ["uniform", "one_group", "unpicked"])
+def test_candidate_work_list_covers_every_slot_once(rng, group, kind):
+    qn, kg, n_groups = 70, 3, 4096 // group
+    gsel = t(selections(rng, kind, qn, n_groups, kg))
+    slots, items, n_items = tss.candidate_work_list(gsel, n_groups)
+    tm = tss.ITEM_SLOTS
+    n = int(n_items[0])
+    assert slots.dtype == items.dtype == n_items.dtype == torch.int32
+    assert items.shape == (min(n_groups, qn * kg) + qn * kg // tm, 3) and n <= items.shape[0]
+    flat = gsel.reshape(-1)
+    seen = np.zeros(qn * kg, np.int64)
+    by_group = {}
+    for i, (g, first, cnt) in enumerate(items[:n].tolist()):
+        assert 1 <= cnt <= tm
+        ids = slots[first:first + cnt].long()
+        assert bool((flat[ids] == g).all())  # an item holds one group's slots
+        seen[ids.numpy()] += 1
+        by_group.setdefault(g, []).append((i, first, cnt))
+    assert (seen == 1).all()  # every slot in exactly one item
+    for g, its in by_group.items():
+        # one group's items are consecutive, back to back, and cover it
+        assert [i for i, _, _ in its] == list(range(its[0][0], its[0][0] + len(its)))
+        assert all(a[1] + a[2] == b[1] for a, b in zip(its, its[1:]))
+        assert sum(c for _, _, c in its) == int((flat == g).sum())
+        assert all(c == tm for _, _, c in its[:-1])
+    assert sorted(by_group) == sorted(set(flat.tolist()))  # unpicked groups: no item
+    counts = torch.bincount(flat, minlength=n_groups)
+    assert n == int(((counts + tm - 1) // tm).sum())
+
+
 @pytest.mark.parametrize("bad", [-1, 512 // 16])
 def test_extract_candidates_rejects_out_of_range_ids(rng, bad):
     q, p = problem(rng, q=3)
