@@ -81,6 +81,25 @@
    kernel's own count; every loss must be finite; the output
    dir must reload through ``load_model_and_params`` and encode a fixed
    batch exactly as the trained in-memory student does.
+4b. The data plane at the same width: a raw ``collection.tsv`` of 8192
+   seeded passages (4-110 words of a fixed list; the longer ones pass the
+   512-token cap) through ``tokenize_collection.main`` (8 spawned workers,
+   the main path's 512 queries through ``--queries``; run in a fresh
+   interpreter, whose workers import no ``torch``), with the native split
+   merge held byte for byte to the plain one; ``gen_passage_embeddings.main
+   --dtype bfloat16 --storage_dtype bfloat16 --block_format native`` (one
+   ``.cnb`` file of half the f32 bytes plus ids and header); then
+   ``run_convdr_inference.main --storage_dtype bfloat16 --profile_dir``,
+   whose run is held to an exact plain search of the same bf16 rows (top-100
+   sets, near-ties at the cut), the score kernel checked at this shape, and
+   the search phase's ``torch.profiler`` trace read for its launches by
+   kernel and its device-busy share (the union of kernel intervals over the
+   span's wall time). The kernels' counts are zeroed before the embed and
+   read after the search.
+4c. The port's quality rehearsal, ``convdr_torch.scripts.rehearsal --smoke``
+   (tiny width: tokenize, embed, teacher run, ranking data, 500 KD +
+   ranking steps, inference), whose asserts decide: zero oracle mismatches,
+   NDCG@3 and MRR higher after training. Counts zeroed before, read after.
 5. Prints the training ms per step and examples/s, a ``{"kernels": [...]}``
    line (launches, max error, kernel / plain / library / bound times in ms,
    CUDA-event timed after warm-up), and last ``{"ok": true, "device": ...}``.
@@ -107,7 +126,12 @@ import torch
 import torch.nn.functional as F
 
 from convdr_torch.core.device import set_exact_matmul
-from convdr_torch.data.token_cache import TokenCacheWriter, save_id_maps
+from convdr_torch.data.token_cache import (
+    TokenCache,
+    TokenCacheWriter,
+    load_offset2pid,
+    save_id_maps,
+)
 from convdr_torch.core.config import TrainConfig
 from convdr_torch.core.loading import load_model_and_params
 from convdr_torch.drivers import (
@@ -134,6 +158,7 @@ from convdr_torch.ops.exact_search import (
     stable_topk,
 )
 from convdr_torch.ops.fused_search import (
+    ROW_TILE,
     fused_scores_groupmax,
     fused_scores_groupmax_plain,
 )
@@ -149,9 +174,11 @@ from convdr_torch.ops.streaming_search import (
     streaming_groupmax,
     streaming_groupmax_plain,
 )
-from convdr_torch.retrieval.blocks import iter_embedding_blocks, write_embedding_block
+from convdr_torch.retrieval.blocks import host_tensor, iter_embedding_blocks, write_embedding_block
+from convdr_torch.scripts import rehearsal
 from convdr_torch.train.losses import kd_mse_loss, ranking_nll_loss
 from convdr_torch.train.trainer import create_train_state, make_train_step
+from convdr_torch.utils.observability import TRACE_SPAN
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, ".smoke_work")
@@ -1093,7 +1120,7 @@ def load_rows(emb_dir):
     """All blocks of a dir on the card, in block order: rows (f32) and offsets."""
     rows, offs = [], []
     for _b, emb, ids in iter_embedding_blocks(emb_dir):
-        rows.append(torch.from_numpy(emb).cuda().float())
+        rows.append(host_tensor(emb).cuda().float())
         offs.append(torch.from_numpy(ids.astype(np.int64)).cuda())
     return torch.cat(rows), torch.cat(offs)
 
@@ -1107,11 +1134,21 @@ def reference_check(work, processed, raw, emb_dir, trec):
         args, args.model_path, args.eval_file, torch.float32, torch.device("cuda")
     )
     rows, offs = load_rows(emb_dir)
-    q = torch.from_numpy(q_embs).cuda()
+    exact = run_matches_exact(parse_trec_run(trec), qids, torch.from_numpy(q_embs).cuda(),
+                              rows, offs + 1000)
+    log(f"  run vs exact plain search: top-{TOP_N} sets equal for {exact}/{len(qids)} "
+        "queries, near-ties at the cut otherwise")
+    return qids, q_embs
+
+
+def run_matches_exact(run, qids, q, rows, row_pids):
+    """Holds each query's top-``TOP_N`` pids of a TREC run to an exact
+    plain-PyTorch search (one f32 matmul over ``rows``, a stable sort):
+    equal sets, or differences only in near-ties at the k-th score, within
+    1e-5*|q|*max|p|. Returns the count of queries whose sets are equal."""
     scores = q @ rows.T
     top_s, top_i = stable_topk(scores, TOP_N)
-    ref_pids = (offs[top_i] + 1000).cpu().numpy()
-    run = parse_trec_run(trec)
+    ref_pids = row_pids[top_i].cpu().numpy()
     pmax = rows.norm(dim=1).max().item()
     exact = 0
     for r, qid in enumerate(qids):
@@ -1123,12 +1160,10 @@ def reference_check(work, processed, raw, emb_dir, trec):
         tol = 1e-5 * q[r].norm().item() * pmax
         kth = top_s[r, -1].item()
         for pid in got ^ want:
-            s = scores[r, int(torch.nonzero(offs == pid - 1000)[0])].item()
+            s = scores[r, int(torch.nonzero(row_pids == pid)[0])].item()
             if abs(s - kth) > tol:
                 raise AssertionError(f"{qid}: run differs from the exact search")
-    log(f"  run vs exact plain search: top-{TOP_N} sets equal for {exact}/{len(qids)} "
-        "queries, near-ties at the cut otherwise")
-    return qids, q_embs
+    return exact
 
 
 def inference_argv(work, processed, raw, emb_dir, run_name="run"):
@@ -1326,24 +1361,47 @@ def train_step_batch(rng):
     return {n: torch.from_numpy(a.astype(np.int32)).cuda() for n, a in batch.items()}
 
 
+def library_attention(q, k, v, mask):
+    """Masked SDPA in the port's [B, T, H, D] layout, differentiable: a
+    third f32 attention, the train-step check's second witness."""
+    allowed = mask[:, None, :, None] == mask[:, None, None, :]
+    return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                          v.transpose(1, 2), attn_mask=allowed).transpose(1, 2)
+
+
 def check_train_step():
-    """One full-width KD + ranking step: kernels vs plain attention. Loss
-    within 1e-5 relative; each parameter's gradient within 1e-4 of its
-    largest entry (f32 attention rounding, ~1e-6 a layer, compounding
-    through 12 layers forward and back). The key biases' gradient is zero
-    in exact arithmetic (softmax shift invariance), rounding noise in both
-    versions; it is held to 1e-4 of its layer's key-weight gradient."""
+    """One full-width KD + ranking step at the port's init, four times on
+    one batch: attention through the kernels, the plain version and
+    masked SDPA (all f32), and the plain step with every operation in
+    f64, the witness of the exact gradient. Each f32 loss within 1e-5
+    relative of the f64 one. A gradient's reading is its largest
+    difference from the f64 gradient over the latter's largest entry (the
+    key biases' gradient is zero in exact arithmetic, softmax shift
+    invariance, so theirs is over their layer's key-weight gradient's).
+    Query and key parameters are ill-conditioned the same way: their
+    exact gradient is a small difference of large terms (each row of the
+    score gradient sums to zero), more so with depth as token states grow
+    alike, and every f32 attention reads up to ~3e-3 there. So each f32
+    version's readings over 1e-4 must be query or key parameters, and
+    each of the kernels' readings must be within 1e-4 or within the
+    larger of the plain and SDPA readings of that gradient: the kernels
+    round no worse than the other f32 attentions."""
     device = torch.device("cuda")
-    _, _, student = load_model_and_params("rdot_nll", "init", device=device, seed=42)
-    _, _, teacher = load_model_and_params("rdot_nll", "init", device=device, seed=0)
+    student, teacher = (load_model_and_params("rdot_nll", "init", device=device, seed=seed)[2]
+                        for seed in (42, 0))
     teacher.requires_grad_(False)
     init = {n: p.detach().clone() for n, p in student.state_dict().items()}
     batch = train_step_batch(np.random.default_rng(2))
     config = TrainConfig(ranking_task=True, num_negatives=TRAIN_NEG)
     results = {}
-    for name, attn in (("kernels", flash_attention), ("plain", plain_attention)):
+    for name, attn, dtype in (("kernels", flash_attention, torch.float32),
+                              ("plain", plain_attention, torch.float32),
+                              ("sdpa", library_attention, torch.float32),
+                              ("f64", flash_attention_plain, torch.float64)):
         transformer.flash_attention = attn
         try:
+            student.to(dtype)
+            teacher.to(dtype)
             student.load_state_dict(init)
             state, tx = create_train_state(student, config, 10)
             _, metrics = make_train_step(student, teacher, tx, config)(state, batch)
@@ -1351,26 +1409,58 @@ def check_train_step():
         finally:
             transformer.flash_attention = flash_attention
         results[name] = (float(metrics["loss"]),
-                         {n: p.grad.detach().clone() for n, p in student.named_parameters()})
-    (loss_k, g_k), (loss_p, g_p) = results["kernels"], results["plain"]
-    if not abs(loss_k - loss_p) <= 1e-5 * abs(loss_p):
-        raise AssertionError(f"train step loss: kernels {loss_k} vs plain {loss_p}")
-    worst_rel, worst_name = 0.0, ""
-    for n, ref in g_p.items():
+                         {n: p.grad.detach().double() for n, p in student.named_parameters()})
+        del state, tx
+    student.float()
+    teacher.float()
+    loss_x, g_x = results.pop("f64")
+    losses = {side: loss for side, (loss, _) in results.items()}
+    for side, loss in losses.items():
+        if not abs(loss - loss_x) <= 1e-5 * abs(loss_x):
+            raise AssertionError(f"train step loss: {side} {loss} vs f64 {loss_x}")
+    readings, apart = {}, {}  # apart: kernels vs plain, for the record
+    for n, ref in g_x.items():
         scale_of = n.replace("key.bias", "key.weight") if n.endswith("key.bias") else n
-        rel = (g_k[n] - ref).abs().max().item() / g_p[scale_of].abs().max().item()
-        if not (np.isfinite(rel) and rel <= 1e-4):
-            raise AssertionError(f"train step gradient {n}: {rel:.3e} of its scale")
-        if rel > worst_rel:
-            worst_rel, worst_name = rel, n
-    log(f"  full-width train step, kernels vs plain: loss {loss_k:.6f} vs {loss_p:.6f}; "
-        f"{len(g_p)} gradients, worst {worst_rel:.2e} of scale ({worst_name}), tol 1e-4 ok")
-    del results, g_k, g_p
+        scale = g_x[scale_of].abs().max().item()
+        readings[n] = {side: (g[n] - ref).abs().max().item() / scale
+                       for side, (_, g) in results.items()}
+        apart[n] = (results["kernels"][1][n] - results["plain"][1][n]).abs().max().item() / scale
+    for n, r in readings.items():
+        if not all(np.isfinite(v) for v in r.values()):
+            raise AssertionError(f"train step gradient {n}: {r}")
+        over = [side for side, v in r.items() if v > 1e-4]
+        if over and not re.search(r"attention\.self\.(query|key)\.", n):
+            raise AssertionError(f"train step gradient {n}: {over} over 1e-4 of scale vs f64 "
+                                 f"outside the query and key parameters: {r}")
+        if not r["kernels"] <= max(1e-4, r["plain"], r["sdpa"]):
+            raise AssertionError(f"train step gradient {n}: the kernels {r['kernels']:.3e} of "
+                                 f"scale from f64, over 1e-4, plain {r['plain']:.3e} and SDPA "
+                                 f"{r['sdpa']:.3e}")
+    worst = {side: max((r[side], n) for n, r in readings.items()) for side in losses}
+    ratio, ratio_leaf = max((r["kernels"] / max(1e-4, r["plain"], r["sdpa"]), n)
+                            for n, r in readings.items())
+    apart_worst = max((v, n) for n, v in apart.items())
+    short = lambda n: n.replace("roberta.encoder.", "")  # noqa: E731
+    log(f"  full-width train step at the port's init, against the f64 step: loss "
+        + ", ".join(f"{side} {loss:.7f}" for side, loss in losses.items())
+        + f", f64 {loss_x:.7f}; {len(g_x)} gradients, worst "
+        + "; ".join(f"{side} {v:.3e} of scale ({short(n)})" for side, (v, n) in worst.items())
+        + "; over 1e-4: " + ", ".join(
+            f"{side} {sum(r[side] > 1e-4 for r in readings.values())}" for side in losses)
+        + f" (query/key only); kernels / max(1e-4, plain, SDPA) at most {ratio:.2f} "
+        f"({short(ratio_leaf)}), ok; kernels vs plain at most {apart_worst[0]:.3e} of scale "
+        f"({short(apart_worst[1])})")
+    del results, g_x
+    student.load_state_dict(init)
     phases = time_step_phases(student, teacher, batch, config)
     del student, teacher, init
     torch.cuda.empty_cache()
-    return {"loss_kernels": loss_k, "loss_plain": loss_p, "worst_grad_rel": worst_rel,
-            "phases_ms": phases}
+    over = {n: r for n, r in readings.items() if max(r.values()) > 1e-4}
+    return {"loss": {**losses, "f64": loss_x},
+            "worst_grad_rel_vs_f64": {side: {"rel": v, "leaf": n} for side, (v, n) in worst.items()},
+            "kernels_over_max_witness": {"ratio": ratio, "leaf": ratio_leaf},
+            "kernels_vs_plain": {"rel": apart_worst[0], "leaf": apart_worst[1]},
+            "readings_over_1e-4": over, "phases_ms": phases}
 
 
 def time_step_phases(student, teacher, batch, config):
@@ -1518,6 +1608,243 @@ def train_path():
                       "train_s": t_train, "losses": losses}
 
 
+# ---------------------------------------------------------------------------
+# the data plane: raw text -> token cache -> bf16 .cnb blocks -> traced search
+# ---------------------------------------------------------------------------
+DP_WORKERS, DP_MAX_WORDS = 8, 110
+DP_WORDS = ("ocean coral reef tide whale harbor glacier summit valley granite "
+            "engine turbine piston throttle violin sonata melody chord neuron "
+            "synapse cortex senate ballot statute verdict harvest orchard "
+            "drought galaxy nebula photon orbit protein enzyme membrane ledger "
+            "equity dividend margin").split()
+
+# runs the tokenize driver's main in a fresh interpreter whose __main__ is
+# this code string, so the spawned workers import only the driver's
+# torch-free chain; the merge is wrapped so that the plain merge runs on
+# the same split files and must give the same cache and pids
+TOKENIZE_CODE = r"""
+import json, os, sys, time
+from convdr_torch import native_io
+from convdr_torch.data import tokenize_pipeline
+from convdr_torch.drivers import tokenize_collection
+
+def merge_both(splits, out_path, record_bytes, max_records):
+    t0 = time.time()
+    pids = native_io.merge_token_splits(splits, out_path, record_bytes, max_records)
+    t_native = time.time() - t0
+    t0 = time.time()
+    plain = native_io.merge_token_splits_plain(splits, out_path + ".plain", record_bytes,
+                                               max_records)
+    t_plain = time.time() - t0
+    with open(out_path, "rb") as a, open(out_path + ".plain", "rb") as b:
+        same = a.read() == b.read() and pids.tolist() == plain.tolist()
+    os.remove(out_path + ".plain")
+    print("MERGE " + json.dumps({"identical": same, "records": int(len(pids)),
+                                 "native_s": t_native, "plain_s": t_plain}), flush=True)
+    return pids
+
+t0 = time.time()
+native_io.load()  # the host library's g++ build at first use, timed apart
+build_s = time.time() - t0
+tokenize_pipeline.merge_token_splits = merge_both
+t0 = time.time()
+count = tokenize_collection.main(sys.argv[1:])
+print("TOKENIZE " + json.dumps({"passages": count, "seconds": time.time() - t0,
+                                "native_available": native_io.native_available(),
+                                "native_build_s": build_s}))
+"""
+
+
+def write_collection(path):
+    """``N_PASSAGES`` passages of 4-110 words from a fixed list, pids 1000 +
+    line (the pids the main path's qrels name); with the tiny vocabulary's
+    about one token a character, the longer ones pass the 512-token cap."""
+    rng = np.random.default_rng(11)
+    with open(path, "w") as f:
+        for i in range(N_PASSAGES):
+            words = rng.choice(DP_WORDS, int(rng.integers(4, DP_MAX_WORDS + 1)))
+            f.write(f"{1000 + i}\t{' '.join(words)}\n")
+
+
+def tokenize_cli(collection, processed, queries):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    argv = ["--collection", collection, "--out_data_dir", processed,
+            "--model_type", "rdot_nll", "--max_seq_length", "512",
+            "--num_workers", str(DP_WORKERS), "--queries", queries]
+    proc = subprocess.run([sys.executable, "-c", TOKENIZE_CODE, *argv], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"tokenize driver failed:\n{proc.stdout}\n{proc.stderr}")
+    out = {}
+    for line in proc.stdout.splitlines():
+        for tag in ("MERGE", "TOKENIZE"):
+            if line.startswith(tag + " "):
+                out[tag.lower()] = json.loads(line[len(tag) + 1:])
+    return out
+
+
+def trace_summary(trace_dir):
+    """The search phase's CUDA kernels from the ``--profile_dir`` trace:
+    launches and device ms by kernel name, and the device-busy share, the
+    union of kernel intervals over the span's wall time (copies apart)."""
+    (name,) = [n for n in os.listdir(trace_dir) if n.endswith(".json")]
+    with open(os.path.join(trace_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("name") == TRACE_SPAN and e.get("ph") == "X"
+             and e.get("cat") == "user_annotation"]
+    if len(spans) != 1:
+        raise AssertionError(f"trace {name}: {len(spans)} '{TRACE_SPAN}' spans")
+    lo, hi = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    intervals, copy_us = [], 0.0
+    for e in events:
+        if e.get("ph") != "X" or not lo <= e.get("ts", -1) <= hi:
+            continue
+        if e.get("cat") == "kernel":
+            short = e["name"].replace("(anonymous namespace)::", "")
+            short = re.split(r"[(<]", short.removeprefix("void "))[0][:80]
+            by_name[short][0] += 1
+            by_name[short][1] += e["dur"] / 1e3
+            intervals.append((e["ts"], min(hi, e["ts"] + e["dur"])))
+        elif e.get("cat") == "gpu_memcpy":
+            copy_us += e["dur"]
+    busy, end = 0.0, lo
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"span_ms": (hi - lo) / 1e3, "kernel_launches": sum(v[0] for v in by_name.values()),
+            "device_busy_share": busy / (hi - lo) if intervals else None,
+            "memcpy_ms": copy_us / 1e3,
+            "by_kernel": {k: {"launches": v[0], "ms": v[1]}
+                          for k, v in sorted(by_name.items(), key=lambda kv: -kv[1][1])}}
+
+
+def data_plane_path(paths, qids, q_embs):
+    """A raw collection through the port's data plane at full width: the
+    tokenize driver (8 workers, the native merge held to the plain one),
+    ``gen_passage_embeddings`` writing bf16 ``.cnb`` blocks, and a traced
+    ``run_convdr_inference`` over them with bf16 storage, whose run is held
+    to an exact plain search of the same bf16 rows. The kernels' counts are
+    zeroed before the embed and read after the search."""
+    work = os.path.join(WORK, "data_plane")
+    raw, processed = paths["raw"], os.path.join(work, "processed")
+    emb_dir, trace_dir = os.path.join(work, "embeddings"), os.path.join(work, "trace")
+    os.makedirs(work)
+    collection = os.path.join(work, "collection.tsv")
+    write_collection(collection)
+    tok = tokenize_cli(collection, processed, os.path.join(raw, "queries.raw.tsv"))
+    merge, res = tok["merge"], tok["tokenize"]
+    lens = TokenCache(os.path.join(processed, "passages")).slice(0, N_PASSAGES)[1]
+    if (res["passages"] != N_PASSAGES or not merge["identical"]
+            or not res["native_available"] or lens.max() != 512):
+        raise AssertionError(f"tokenize: {tok}, longest record {lens.max()}")
+    n_queries = len(TokenCache(os.path.join(processed, "queries.raw")))
+    log(f"  tokenize driver, {DP_WORKERS} workers: {N_PASSAGES} passages in "
+        f"{res['seconds']:.2f} s ({N_PASSAGES / res['seconds']:.0f} passages/s; "
+        f"{int((lens == 512).sum())} reach the 512-token cap), {n_queries} queries; "
+        f"native_available() {res['native_available']} (g++ build at first use "
+        f"{res['native_build_s']:.2f} s, before the timed run); native merge "
+        f"{merge['native_s'] * 1e3:.1f} ms, plain merge {merge['plain_s'] * 1e3:.1f} ms, "
+        f"byte-identical cache and pids: {merge['identical']}")
+    if n_queries != N_TOPICS * N_TURNS:
+        raise AssertionError(f"query cache holds {n_queries} queries")
+
+    flash_attention.launches = 0
+    fused_scores_groupmax.launches = 0
+    dma_gather_groups.launches = 0
+    t0 = time.time()
+    rows = gen_passage_embeddings.main([
+        "--data_dir", processed, "--checkpoint", "init", "--model_type", "rdot_nll",
+        "--output_dir", emb_dir, "--per_gpu_eval_batch_size", "64", "--dtype", "bfloat16",
+        "--storage_dtype", "bfloat16", "--block_format", "native",
+    ])
+    t_embed = time.time() - t0
+    cnb = os.path.join(emb_dir, "passage_block_0.cnb")
+    cnb_bytes = os.path.getsize(cnb)
+    want_bytes = 32 + N_PASSAGES * SEARCH_D * 2 + N_PASSAGES * 8
+    if rows != N_PASSAGES or os.listdir(emb_dir) != ["passage_block_0.cnb"] \
+            or cnb_bytes != want_bytes:
+        raise AssertionError(f"bf16 .cnb blocks: {os.listdir(emb_dir)}, {cnb_bytes} bytes")
+    log(f"  embedded {rows} passages (bf16 compute, bf16 .cnb block) in {t_embed:.2f} s; "
+        f"{cnb_bytes} bytes = 32 header + {N_PASSAGES}x{SEARCH_D}x2 rows + "
+        f"{N_PASSAGES}x8 ids (f32 rows would take {N_PASSAGES * SEARCH_D * 4})")
+    t0 = time.time()
+    metrics = run_convdr_inference.main(
+        inference_argv(WORK, processed, raw, emb_dir, "run_dp")
+        + ["--storage_dtype", "bfloat16", "--profile_dir", trace_dir])
+    torch.cuda.synchronize()
+    t_infer = time.time() - t0
+    launches = {"flash_attention_fwd": flash_attention.launches,
+                "fused_scores_groupmax": fused_scores_groupmax.launches,
+                "dma_gather_groups": dma_gather_groups.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"data plane did not run through its kernels: {launches}")
+    for name, value in metrics.items():
+        if not 0.0 <= value <= 1.0:
+            raise AssertionError(f"metric {name}={value} out of range")
+
+    emb, offs = load_rows(emb_dir)
+    blk = next(iter_embedding_blocks(emb_dir))[1]
+    if str(blk.dtype) != "bfloat16" or not torch.isfinite(emb).all():
+        raise AssertionError(f"the .cnb block holds {blk.dtype} rows")
+    offset2pid = torch.tensor(load_offset2pid(processed), device="cuda")
+    q = torch.from_numpy(q_embs).cuda()
+    exact = run_matches_exact(parse_trec_run(os.path.join(WORK, "run_dp.trec")), qids, q,
+                              emb, offset2pid[offs])
+    log(f"  inference + search (bf16 storage, traced) in {t_infer:.2f} s; launches "
+        f"{launches}; run vs exact plain search of the same bf16 rows: top-{TOP_N} sets "
+        f"equal for {exact}/{len(qids)} queries, near-ties at the cut otherwise")
+
+    # the score kernel at this path's shape, against its plain version
+    p = host_tensor(blk).cuda()
+    p = torch.cat([p, p.new_zeros(-len(p) % ROW_TILE, SEARCH_D)])
+    s, _g = fused_scores_groupmax(q, p, GROUP)
+    s_ref, _g_ref = fused_scores_groupmax_plain(q, p, GROUP)
+    pnorm_max = p.float().norm(dim=1).max().item()
+    err = (s - s_ref).abs()
+    if not bool((err <= 1e-5 * q.norm(dim=1)[:, None] * pnorm_max).all()):
+        raise AssertionError(f"scores at the data plane's shape: {err.max().item()}")
+    trace = trace_summary(trace_dir)
+    share = trace["device_busy_share"]
+    log(f"  search phase trace: span {trace['span_ms']:.1f} ms, "
+        f"{trace['kernel_launches']} kernel launches, device busy "
+        f"{'not measured (no CUDA kernels in the trace)' if share is None else f'{share:.4f}'}"
+        f" of the span, copies {trace['memcpy_ms']:.2f} ms; by kernel "
+        + ", ".join(f"{k} {v['launches']}x {v['ms']:.3f} ms"
+                    for k, v in list(trace["by_kernel"].items())[:12]))
+    return {"launches": launches, "tokenize": tok, "embed_s": t_embed,
+            "inference_s": t_infer, "cnb_bytes": cnb_bytes, "metrics": metrics,
+            "exact_queries": exact, "score_err_at_shape": err.max().item(), "trace": trace}
+
+
+def rehearsal_path():
+    """The port's quality rehearsal (``--smoke``: tiny width, 1500 passages,
+    6 topics x 4 turns, 500 steps) on the card; its asserts decide: zero
+    oracle mismatches, NDCG@3 and MRR higher after training. The kernels'
+    counts are zeroed before and read after."""
+    for fn in (flash_attention, flash_attention_bwd, fused_scores_groupmax, dma_gather_groups):
+        fn.launches = 0
+    t0 = time.time()
+    summary = rehearsal.main(["--workdir", os.path.join(WORK, "rehearsal"), "--smoke"])
+    torch.cuda.synchronize()
+    t_all = time.time() - t0
+    launches = {"flash_attention_fwd": flash_attention.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches,
+                "fused_scores_groupmax": fused_scores_groupmax.launches,
+                "dma_gather_groups": dma_gather_groups.launches}
+    if min(launches.values()) == 0 or summary["config"]["device"] != "cuda":
+        raise AssertionError(f"rehearsal did not run through its kernels: {launches}")
+    base, post = summary["baseline"], summary["trained"]
+    log(f"  rehearsal --smoke in {t_all:.1f} s: NDCG@3 {base['ndcg_cut_3']} -> "
+        f"{post['ndcg_cut_3']}, MRR {base['mrr']} -> {post['mrr']}, recall@100 "
+        f"{base['recall_100']} -> {post['recall_100']}, oracle mismatches "
+        f"{summary['oracle_set_mismatches_8q']}/8; stages (s) {summary['stage_seconds']}; "
+        f"launches {launches}")
+    return {"launches": launches, "seconds": t_all, **summary}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default="", help="also write all results as JSON here")
@@ -1559,6 +1886,19 @@ def main(argv=None):
         log("training path (full RoBERTa-base width, seeded weights, f32):")
         step_check = check_train_step()
         train_launches, train = train_path()
+        torch.cuda.empty_cache()
+        log("data plane (raw collection -> tokenize driver -> bf16 .cnb blocks -> traced "
+            "search; full RoBERTa-base width):")
+        t0 = time.time()
+        data_plane = data_plane_path(paths, qids, q_embs)
+        data_plane["phase_s"] = time.time() - t0
+        torch.cuda.empty_cache()
+        log("rehearsal (convdr_torch.scripts.rehearsal --smoke on the card):")
+        t0 = time.time()
+        rehearsed = rehearsal_path()
+        rehearsed["phase_s"] = time.time() - t0
+        log(f"data plane phase {data_plane['phase_s']:.1f} s, rehearsal phase "
+            f"{rehearsed['phase_s']:.1f} s")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # each kernel's count on the path of the slice that ported it; the
@@ -1583,6 +1923,17 @@ def main(argv=None):
     search["launches_by_path"] = {"inference_f32": launches["fused_scores_groupmax"],
                                   "inference_int8_and_rescore": int8["score_kernel_launches"]}
     bwd["launches"] = train_launches["flash_attention_bwd"]
+    # the later slices' paths, each counted from zero around its own run
+    fwd["launches_by_path"].update(data_plane=data_plane["launches"]["flash_attention_fwd"],
+                                   rehearsal=rehearsed["launches"]["flash_attention_fwd"])
+    search["launches_by_path"].update(
+        data_plane_bf16=data_plane["launches"]["fused_scores_groupmax"],
+        rehearsal=rehearsed["launches"]["fused_scores_groupmax"])
+    k5["launches_by_path"] = {"inference": launches["dma_gather_groups"],
+                              "data_plane": data_plane["launches"]["dma_gather_groups"],
+                              "rehearsal": rehearsed["launches"]["dma_gather_groups"]}
+    bwd["launches_by_path"] = {"train": train_launches["flash_attention_bwd"],
+                               "rehearsal": rehearsed["launches"]["flash_attention_bwd"]}
     log(f"inference + search over {N_PASSAGES + 2 * N_EXTRA} rows, same call: f32 "
         f"{t_infer:.2f} s, int8 {int8['inference_s']:.2f} s, int8 + rescore 2 over the f32 "
         f"blocks {int8['inference_rescore_s']:.2f} s; embed f32 {t_embed:.2f} s, int8 "
@@ -1597,6 +1948,7 @@ def main(argv=None):
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on its path")
+    log(f"chip_smoke total {time.time() - t_start:.1f} s")
     result = {"kernels": kernels}
     log(json.dumps(result))
     if args.out:
@@ -1605,6 +1957,7 @@ def main(argv=None):
                        "inference_s": t_infer, "int8": int8, "streaming_phase_s": t_stream,
                        "launch_configs": configs,
                        "train": train, "train_step_check": step_check,
+                       "data_plane": data_plane, "rehearsal": rehearsed,
                        "total_s": time.time() - t_start}, f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -161,6 +161,16 @@ class SearchConfig:
     max_device_block_bytes: int = 3_200_000_000
 
 
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Tokenization limits (reference data/tokenizing.py flags)."""
+
+    max_seq_length: int = 512
+    max_query_length: int = 64
+    max_doc_character: int = 10000
+    num_tokenize_workers: int = 32
+
+
 NUM_FOLD = 5  # 5-fold CV harness (utils/util.py:32)
 
 # Ending of the error raised by every option of the JAX package that the

@@ -95,17 +95,28 @@ def _is_torch_checkpoint(path: str) -> bool:
     return os.path.isfile(path)
 
 
+# flax's lecun_normal draws a standard normal truncated to [-2, 2] and
+# scales it by sqrt(1 / fan_in) / (the truncated normal's own std)
+_TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded init: normal(0, 0.02) weights and embeddings, zero biases,
-    unit LayerNorms (the Hugging Face BERT/RoBERTa scheme)."""
+    """Seeded init from the JAX package's distributions (flax's defaults):
+    linear weights truncated normal at two standard deviations with
+    variance 1/fan_in (``lecun_normal``), embeddings normal with variance
+    1/features, zero biases, unit LayerNorms. (Hugging Face's normal(0,
+    0.02) would make the tiny models' untrained embeddings nearly the same
+    for every input, where the JAX package's random-init teacher ranks
+    passages, as the rehearsal needs.)"""
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, nn.Linear):
-            m.weight.normal_(0.0, 0.02, generator=gen)
+            std = (1.0 / m.in_features) ** 0.5 / _TRUNCATED_NORMAL_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
-            m.weight.normal_(0.0, 0.02, generator=gen)
+            m.weight.normal_(0.0, m.embedding_dim ** -0.5, generator=gen)
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()

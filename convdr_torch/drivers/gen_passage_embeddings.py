@@ -5,10 +5,11 @@ same flags plus the reference's ``--no_cuda``: the encoder runs on the card
 unless ``--no_cuda`` asks for the CPU, and without a card it raises. One
 process drives one GPU (``--no_mesh`` is accepted; multi-GPU encode waits
 for a later slice). Blocks are written in the reference's f32 pickle
-format, or with ``--storage_dtype int8`` as SQ8 int8 pickles plus the
-``int8_scales.npy`` sidecar (a quarter of the disk and device memory; see
-``ops/quant.py``). ``--storage_dtype bfloat16`` and ``--block_format
-native`` are not ported yet and raise.
+format, with ``--storage_dtype bfloat16`` as bf16 rows (half the disk and
+device memory), or with ``--storage_dtype int8`` as SQ8 int8 rows plus the
+``int8_scales.npy`` sidecar (a quarter; see ``ops/quant.py``).
+``--block_format native`` writes each block as one ``.cnb`` file of the
+C++ block store (``native_io.py``) instead of a pickle pair.
 """
 
 from __future__ import annotations
@@ -19,7 +20,6 @@ import os
 
 import torch
 
-from convdr_torch.core.config import NOT_PORTED
 from convdr_torch.core.device import resolve_device
 from convdr_torch.core.loading import (
     gelu_arch_overrides,
@@ -66,14 +66,15 @@ def get_arguments(argv=None):
     parser.add_argument(
         "--storage_dtype", default="float32",
         choices=["float32", "bfloat16", "int8"],
-        help="on-disk block dtype: float32 (reference-format blocks) or int8 "
-        "(SQ8 scalar quantization, quarter disk+device memory; writes an "
-        "int8_scales.npy sidecar). bfloat16 is not ported yet",
+        help="on-disk block dtype: float32 (reference-format blocks), "
+        "bfloat16 (half disk+device memory) or int8 (SQ8 scalar "
+        "quantization, quarter disk+device memory; writes an "
+        "int8_scales.npy sidecar)",
     )
     parser.add_argument("--block_format", default="pickle",
                         choices=["pickle", "native"],
-                        help="block file format; only 'pickle' (reference-"
-                        "compatible .pb pairs) is ported")
+                        help="'pickle' (reference-compatible .pb pairs) or "
+                        "'native' (one .cnb file a block, C++ block store)")
     parser.add_argument("--length_buckets", default="auto",
                         help="'auto' (64/128/.../record-length rungs), "
                         "'none', or a comma list, e.g. 128,512; short "
@@ -116,10 +117,6 @@ def main(argv=None):
         level=logging.INFO,
     )
     args = get_arguments(argv)
-    if args.storage_dtype == "bfloat16":
-        raise NotImplementedError(f"--storage_dtype {args.storage_dtype} {NOT_PORTED}")
-    if args.block_format != "pickle":
-        raise NotImplementedError(f"--block_format {args.block_format} {NOT_PORTED}")
     device = resolve_device(args.no_cuda)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     preset = "tiny" if args.arch_size == "tiny" else None
@@ -151,6 +148,7 @@ def main(argv=None):
         batch_size=args.per_gpu_eval_batch_size,
         num_blocks=args.num_blocks,
         length_buckets=buckets,
+        block_format=args.block_format,
         storage_dtype=args.storage_dtype,
     )
     logger.info("wrote %d embedding rows to %s", rows, args.output_dir)

@@ -9,16 +9,22 @@ flat search run on the card unless ``--no_cuda`` asks for the CPU; without
 a card it raises. NDCG@3 / MRR / recall@top_n are computed in-process and
 printed as one JSON line.
 
-``--storage_dtype int8`` searches SQ8 blocks (or quantizes float blocks on
-the device) with the scales of the blocks' ``int8_scales.npy`` sidecar;
+Blocks are read as they were written (f32, bf16 or int8 rows; pickle pairs
+or ``.cnb`` files). ``--storage_dtype int8`` searches SQ8 blocks (or
+quantizes float blocks on the device) with the scales of the blocks'
+``int8_scales.npy`` sidecar;
 ``--rescore_factor N`` with int8 or bfloat16 storage re-ranks each block's
 top ``N * top_n`` with full-precision scores from float block files, and
 exits with an error with float32 storage, whose flat search is exact
 already.
 
-Not ported yet (they raise, see ROADMAP.md): ``--ivf_dir``, ``--pq_dir``,
-``--matmul_precision high/default`` and ``--profile_dir``. ``--no_mesh``
-and ``--use_gpu`` are accepted; this package runs on one device.
+The search is timed as the "search" phase (logged), and ``--profile_dir``
+writes a ``torch.profiler`` Chrome trace of it (host and CUDA activity)
+into that directory; without the flag no profiler runs.
+
+Not ported yet (they raise, see ROADMAP.md): ``--ivf_dir``, ``--pq_dir``
+and ``--matmul_precision high/default``. ``--no_mesh`` and ``--use_gpu``
+are accepted; this package runs on one device.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from convdr_torch.data.token_cache import load_offset2pid
 from convdr_torch.evaluation.metrics import evaluate_run, mean_metrics
 from convdr_torch.retrieval.run_writer import write_run_outputs
 from convdr_torch.retrieval.searcher import BlockedSearcher
+from convdr_torch.utils.observability import PhaseTimer, profile_trace
 
 logger = logging.getLogger(__name__)
 
@@ -87,7 +94,8 @@ def get_arguments(argv=None):
         choices=["float32", "bfloat16", "int8"],
         help="device dtype for embedding blocks during search (match the "
         "gen_passage_embeddings --storage_dtype; f32 accumulation either "
-        "way); bfloat16 is a cast on upload. int8 = SQ8 scalar quantization "
+        "way); bfloat16 is a cast on upload of float32 files, or bf16 block "
+        "files as written. int8 = SQ8 scalar quantization "
         "(quarter the device memory; scales come from the blocks' "
         "int8_scales.npy sidecar)",
     )
@@ -129,7 +137,8 @@ def get_arguments(argv=None):
     parser.add_argument("--no_mesh", action="store_true",
                         help="accepted; this package runs on one device")
     parser.add_argument("--profile_dir", type=str, default="",
-                        help="search-phase trace; not ported yet")
+                        help="write a torch.profiler Chrome trace of the "
+                        "search phase into this dir (off when empty)")
     return parser.parse_args(argv)
 
 
@@ -141,7 +150,6 @@ def check_ported(args) -> None:
         ("--pq_dir", bool(args.pq_dir)),
         (f"--matmul_precision {args.matmul_precision}",
          args.matmul_precision != "highest"),
-        ("--profile_dir", bool(args.profile_dir)),
     ]
     for flag, used in unported:
         if used:
@@ -237,9 +245,10 @@ def main(argv=None):
         ),
         device=device,
     )
-    scores, offsets = searcher.search_blocks(
-        args.ann_data_dir, query_embs, args.top_n
-    )
+    with PhaseTimer("search"), profile_trace(args.profile_dir):
+        scores, offsets = searcher.search_blocks(
+            args.ann_data_dir, query_embs, args.top_n
+        )
 
     queries = load_queries_tsv(
         os.path.join(args.raw_data_dir, f"queries.{args.output_query_type}.tsv")

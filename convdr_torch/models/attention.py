@@ -32,10 +32,16 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32 if it is narrower (bf16), else as it is: f64 stays f64,
+    so the plain path can run a whole step in f64 as an exact witness."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _probs_plain(q, k, attention_mask):
-    """Softmax of the masked, scaled scores [B, H, Tq, Tk] in f32; query i
-    sees key j iff seg[i] == seg[j]."""
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    """Softmax of the masked, scaled scores [B, H, Tq, Tk] in f32 (f64 for
+    f64 operands); query i sees key j iff seg[i] == seg[j]."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", at_least_f32(q), at_least_f32(k))
     scores = scores * (1.0 / q.shape[-1] ** 0.5)
     seg = attention_mask.to(torch.int32)
     allowed = seg[:, None, :, None] == seg[:, None, None, :]  # [B,1,Tq,Tk]
@@ -43,13 +49,14 @@ def _probs_plain(q, k, attention_mask):
 
 
 def flash_attention_plain(q, k, v, attention_mask):
-    """Segment-equality softmax attention in PyTorch, f32 arithmetic.
+    """Segment-equality softmax attention in PyTorch, f32 arithmetic (f64
+    for f64 operands).
 
     q/k/v [B, T, H, D]; attention_mask [B, T] 0/1 -> [B, T, H, D] in q's
     dtype. Every query is allowed at least its own key, so no row is empty.
     """
     probs = _probs_plain(q, k, attention_mask)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, at_least_f32(v))
     return out.to(q.dtype)
 
 

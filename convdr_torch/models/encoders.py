@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from convdr_torch.core.config import ModelConfig
+from convdr_torch.models.attention import at_least_f32
 from convdr_torch.models.transformer import LayerNorm32, TransformerEncoder
 
 CHUNK_MASK_BIAS = -9999.0
@@ -60,7 +61,7 @@ class AnceEncoder(nn.Module):
         emb = pool(seq, attention_mask, self.config.use_mean)
         if self.config.projection_head:
             emb = self.norm(self.embeddingHead(emb))
-        return emb.float()
+        return at_least_f32(emb)
 
     def query_emb(self, input_ids, attention_mask):
         return self._encode(input_ids, attention_mask)
@@ -107,10 +108,10 @@ class DPRBiEncoder(nn.Module):
         self.ctx_model = TransformerEncoder(config.arch)
 
     def query_emb(self, input_ids, attention_mask):
-        return self.question_model(input_ids, attention_mask)[:, 0].float()
+        return at_least_f32(self.question_model(input_ids, attention_mask)[:, 0])
 
     def body_emb(self, input_ids, attention_mask):
-        return self.ctx_model(input_ids, attention_mask)[:, 0].float()
+        return at_least_f32(self.ctx_model(input_ids, attention_mask)[:, 0])
 
     def forward(self, input_ids, attention_mask, *, is_query: bool = True):
         if is_query:

@@ -30,16 +30,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from convdr_torch.core.config import EncoderArchConfig
-from convdr_torch.models.attention import flash_attention
+from convdr_torch.models.attention import at_least_f32, flash_attention
 
 
 class LayerNorm32(nn.LayerNorm):
-    """LayerNorm in f32 on f32 parameters; returns f32 (callers cast)."""
+    """LayerNorm in f32 on f32 parameters; returns f32 (callers cast).
+    f64 inputs and parameters stay f64."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(
-            x.float(), self.normalized_shape, self.weight.float(),
-            self.bias.float(), self.eps,
+            at_least_f32(x), self.normalized_shape, at_least_f32(self.weight),
+            at_least_f32(self.bias), self.eps,
         )
 
 

@@ -4,17 +4,20 @@ Byte-compatible with the reference's block files (utils/util.py:108-111
 writes ``{prefix}_data_obj_{rank}.pb`` pickles; gen_passage_embeddings.py:
 156-167 uses prefixes ``passage__emb_p_`` / ``passage__embid_p_``;
 run_convdr_inference.py:163-175 reads blocks 0.. until one is missing), and
-so with the JAX package's pickle blocks. A block is a pair:
+with the JAX package's blocks in both formats. A pickle block is a pair:
 
-  * ``passage__emb_p__data_obj_{b}.pb``   -- pickled float32 [N_b, E]
+  * ``passage__emb_p__data_obj_{b}.pb``   -- pickled rows [N_b, E]
   * ``passage__embid_p__data_obj_{b}.pb`` -- pickled int64  [N_b] token-cache
     offsets (NOT pids; offset -> pid goes through offset2pid at eval time)
 
-Blocks hold float32 rows, or int8 rows (SQ8 storage, ``ops/quant.py``)
-paired with the ``int8_scales.npy`` sidecar in the same directory; both are
-plain numpy pickles, as the JAX package writes them. On-disk bf16 blocks
-and the native ``.cnb`` block store are not ported yet (ROADMAP.md): a bf16
-pickle needs ``ml_dtypes``, a package the port does not depend on.
+A native block is one ``passage_block_{b}.cnb`` file of the C++ block store
+(:mod:`convdr_torch.native_io`): header, rows, int64 offsets.
+
+Rows are float32 (the reference's format), bfloat16 (an
+``ml_dtypes.bfloat16`` ndarray, as the JAX package writes it; half the disk
+and device memory) or int8 (SQ8 storage, ``ops/quant.py``, paired with the
+``int8_scales.npy`` sidecar in the same directory). :func:`host_tensor`
+turns host rows of any of these dtypes into a CPU tensor without a copy.
 """
 
 from __future__ import annotations
@@ -24,14 +27,35 @@ import pickle
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
 EMB_PREFIX = "passage__emb_p_"
 EMBID_PREFIX = "passage__embid_p_"
 NATIVE_TEMPLATE = "passage_block_{block_id}.cnb"
 
 
+def bf16_dtype() -> np.dtype:
+    """numpy's bfloat16 (``ml_dtypes``, which bf16 pickles need to load)."""
+    import ml_dtypes
+
+    return np.dtype(ml_dtypes.bfloat16)
+
+
+def host_tensor(rows: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over host rows (f32, int8 or ``ml_dtypes`` bf16, which
+    ``torch.from_numpy`` does not take: its bits go through uint16)."""
+    rows = np.ascontiguousarray(rows)
+    if rows.dtype == bf16_dtype():
+        return torch.from_numpy(rows.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(rows)
+
+
 def _block_path(data_dir: str, prefix: str, block_id: int) -> str:
     return os.path.join(data_dir, f"{prefix}_data_obj_{block_id}.pb")
+
+
+def _native_path(data_dir: str, block_id: int) -> str:
+    return os.path.join(data_dir, NATIVE_TEMPLATE.format(block_id=block_id))
 
 
 def write_embedding_block(
@@ -39,34 +63,52 @@ def write_embedding_block(
     block_id: int,
     embeddings: np.ndarray,
     offsets: np.ndarray,
+    *,
+    emb_prefix: str = EMB_PREFIX,
+    embid_prefix: str = EMBID_PREFIX,
+    fmt: str = "pickle",
 ) -> None:
-    """Write one reference-format block (f32 or int8 embeddings; float64 is
-    downcast to f32)."""
+    """Write one block: ``fmt="pickle"`` the reference's pickle pair,
+    ``fmt="native"`` one ``.cnb`` file through the C++ block store. f32,
+    bf16 and int8 rows keep their dtype in both formats; float64 is
+    stored as f32."""
+    if fmt not in ("pickle", "native"):
+        raise ValueError(f"unknown block format {fmt!r}")
     os.makedirs(data_dir, exist_ok=True)
     emb = np.asarray(embeddings)
     if emb.dtype == np.float64:
         emb = emb.astype(np.float32)
-    if emb.dtype not in (np.float32, np.int8):
-        raise NotImplementedError(
-            f"writing {emb.dtype} blocks is not yet ported to convdr_torch, "
-            "see ROADMAP.md; write float32 or int8"
+    if emb.dtype not in (np.float32, np.int8, bf16_dtype()):
+        raise ValueError(f"blocks hold float32, bfloat16 or int8 rows, not {emb.dtype}")
+    if fmt == "native":
+        from convdr_torch.native_io import write_native_block
+
+        write_native_block(
+            _native_path(data_dir, block_id), emb, np.asarray(offsets, np.int64)
         )
-    with open(_block_path(data_dir, EMB_PREFIX, block_id), "wb") as f:
+        return
+    with open(_block_path(data_dir, emb_prefix, block_id), "wb") as f:
         pickle.dump(emb, f, protocol=4)
-    with open(_block_path(data_dir, EMBID_PREFIX, block_id), "wb") as f:
+    with open(_block_path(data_dir, embid_prefix, block_id), "wb") as f:
         pickle.dump(np.asarray(offsets), f, protocol=4)
 
 
 def load_embedding_block(
-    data_dir: str, block_id: int
+    data_dir: str,
+    block_id: int,
+    *,
+    emb_prefix: str = EMB_PREFIX,
+    embid_prefix: str = EMBID_PREFIX,
 ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    if os.path.exists(os.path.join(data_dir, NATIVE_TEMPLATE.format(block_id=block_id))):
-        raise NotImplementedError(
-            f"native .cnb blocks in {data_dir} are not yet ported to "
-            "convdr_torch, see ROADMAP.md; write pickle blocks"
-        )
-    emb_path = _block_path(data_dir, EMB_PREFIX, block_id)
-    id_path = _block_path(data_dir, EMBID_PREFIX, block_id)
+    """(rows, offsets) of block ``block_id``: its ``.cnb`` file if there is
+    one, else its pickle pair; None if neither exists."""
+    native = _native_path(data_dir, block_id)
+    if os.path.exists(native):
+        from convdr_torch.native_io import read_native_block
+
+        return read_native_block(native)
+    emb_path = _block_path(data_dir, emb_prefix, block_id)
+    id_path = _block_path(data_dir, embid_prefix, block_id)
     if not (os.path.exists(emb_path) and os.path.exists(id_path)):
         return None
     with open(emb_path, "rb") as f:
@@ -80,12 +122,16 @@ def iter_embedding_blocks(
     data_dir: str,
     *,
     max_blocks: Optional[int] = None,
+    emb_prefix: str = EMB_PREFIX,
+    embid_prefix: str = EMBID_PREFIX,
 ) -> Iterator[Tuple[int, np.ndarray, np.ndarray]]:
     """Yield consecutive blocks starting at 0; stop at the first gap
     (reference semantics, run_convdr_inference.py:176-177)."""
     b = 0
     while max_blocks is None or b < max_blocks:
-        blk = load_embedding_block(data_dir, b)
+        blk = load_embedding_block(
+            data_dir, b, emb_prefix=emb_prefix, embid_prefix=embid_prefix
+        )
         if blk is None:
             break
         yield b, blk[0], blk[1]

@@ -11,9 +11,12 @@ Multi-chunk models return ``[B, C, E]``; chunk rows are flattened into extra
 block rows sharing the same token-cache offset
 (gen_passage_embeddings.py:117-123), deduped later at run-writing time.
 
+``storage_dtype="bfloat16"`` rounds each block's f32 rows to bf16 (to
+nearest, ties to even, as ``ml_dtypes`` and the JAX package round);
 ``storage_dtype="int8"`` writes SQ8 blocks (:mod:`convdr_torch.ops.quant`):
 the scales are fitted on the first non-empty block and saved beside the
 blocks as ``int8_scales.npy``, and every block is quantized with them.
+``block_format="native"`` writes ``.cnb`` files instead of pickles.
 """
 
 from __future__ import annotations
@@ -24,10 +27,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from convdr_torch.core.config import NOT_PORTED
 from convdr_torch.data.token_cache import TokenCache
 from convdr_torch.ops.quant import Int8Quantizer
-from convdr_torch.retrieval.blocks import write_embedding_block
+from convdr_torch.retrieval.blocks import bf16_dtype, write_embedding_block
 
 logger = logging.getLogger(__name__)
 
@@ -119,14 +121,21 @@ def generate_embeddings(
     device: torch.device,
     batch_size: int = 64,
     num_blocks: int = 1,
+    is_query: bool = False,
+    emb_prefix: str = "passage__emb_p_",
+    embid_prefix: str = "passage__embid_p_",
     length_buckets: Optional[tuple] = None,
+    block_format: str = "pickle",
     storage_dtype: str = "float32",
 ) -> int:
     """Encode the whole cache into ``num_blocks`` reference-format blocks.
 
-    ``apply_fn(ids, mask, is_query)`` (the passage side) is :func:`convdr_torch.core.loading.
-    make_apply_fn`'s encoder. Returns the total number of embedding rows
-    written (chunks included).
+    ``apply_fn(ids, mask, is_query)`` is :func:`convdr_torch.core.loading.
+    make_apply_fn`'s encoder, called with ``is_query`` (the passage side by
+    default). Returns the total number of embedding rows written (chunks
+    included). ``emb_prefix`` / ``embid_prefix`` name the pickle files and
+    ``block_format`` ("pickle" or "native") picks the file format
+    (:func:`~convdr_torch.retrieval.blocks.write_embedding_block`).
 
     ``length_buckets`` (ascending, last >= the cache record length) batches
     records by length rung so short passages aren't encoded at full padded
@@ -136,14 +145,13 @@ def generate_embeddings(
     models pass chunk-multiple rungs (each record encodes only the chunks
     its rung covers; empty chunks are skipped instead of indexed).
 
-    ``storage_dtype``: "float32" (the reference's blocks) or "int8" (SQ8,
-    a quarter of the disk and device memory, with the scales sidecar).
-    "bfloat16" blocks are not ported yet and raise.
+    ``storage_dtype``: "float32" (the reference's blocks), "bfloat16"
+    (half the disk and device memory; the searcher still accumulates in
+    f32) or "int8" (SQ8, a quarter, with the scales sidecar).
     """
     if storage_dtype not in ("float32", "bfloat16", "int8"):
         raise ValueError(f"unknown storage_dtype {storage_dtype!r}")
-    if storage_dtype == "bfloat16":
-        raise NotImplementedError(f"bfloat16 embedding blocks {NOT_PORTED}")
+    storage_np = bf16_dtype() if storage_dtype == "bfloat16" else np.dtype(np.float32)
     quantizer = None  # int8: fitted on the first non-empty block
     if length_buckets is not None:
         length_buckets = tuple(sorted(length_buckets))
@@ -159,7 +167,7 @@ def generate_embeddings(
         lens_t = torch.from_numpy(np.ascontiguousarray(lens)).to(device)
         positions = torch.arange(ids_t.shape[1], device=device)
         mask = (positions[None, :] < lens_t[:, None]).to(torch.int32)
-        return apply_fn(ids_t, mask, False).cpu().numpy()
+        return apply_fn(ids_t, mask, is_query).cpu().numpy()
 
     total_rows = 0
     emb_dim = 0  # learned from the first encoded batch; used for empty shards
@@ -203,6 +211,8 @@ def generate_embeddings(
         if embs_out:
             block_embs = np.concatenate(embs_out, axis=0).astype(np.float32, copy=False)
             emb_dim = block_embs.shape[-1]
+            if storage_dtype == "bfloat16":
+                block_embs = block_embs.astype(storage_np)
             if storage_dtype == "int8":
                 # fit on the first non-empty block (an unbiased i % num_blocks
                 # shard, the sample FAISS trains its quantizer on), save the
@@ -215,12 +225,15 @@ def generate_embeddings(
         else:
             # empty round-robin shard (num_blocks > record count): keep the
             # real embedding dim so downstream loads/search stay well-typed
-            empty = np.int8 if storage_dtype == "int8" else np.float32
+            empty = np.int8 if storage_dtype == "int8" else storage_np
             block_embs = np.zeros((0, emb_dim), empty)
         block_ids = (
             np.concatenate(ids_out, axis=0) if ids_out else np.zeros((0,), np.int64)
         )
-        write_embedding_block(out_dir, block_id, block_embs, block_ids)
+        write_embedding_block(
+            out_dir, block_id, block_embs, block_ids,
+            emb_prefix=emb_prefix, embid_prefix=embid_prefix, fmt=block_format,
+        )
         total_rows += block_embs.shape[0]
         logger.info(
             "wrote block %d: %d rows -> %s", block_id, block_embs.shape[0], out_dir

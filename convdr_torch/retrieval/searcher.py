@@ -11,8 +11,12 @@ Blocks are zero-padded to the score kernel's row tile
 (:data:`~convdr_torch.ops.fused_search.ROW_TILE`) on the device; the
 padded rows are masked. (The JAX package pads to a 1.25x ladder of sizes to
 bound XLA compiles; eager PyTorch compiles nothing, so the ladder would only
-add padded work.) bf16 storage is a device-side cast on upload; scores
-still accumulate in f32.
+add padded work.) Block files hold f32, bf16 or int8 rows, as pickles or
+``.cnb`` files (:mod:`~convdr_torch.retrieval.blocks`). Rows are uploaded in
+their file dtype, so bf16 files move half the host -> device bytes of f32
+ones; any other dtype the search needs is a cast on the device (bf16
+storage of f32 files; f32 storage of bf16 files, exact). Scores accumulate
+in f32 either way.
 
 int8 storage (SQ8, :mod:`convdr_torch.ops.quant`): int8 blocks upload as
 they are, float blocks are quantized on the device
@@ -21,8 +25,8 @@ host quantizer); the queries carry the per-dimension scales, the scan runs
 on exact integer scores, and each query's scale ``tq`` rescales the merged
 result once. ``rescore_factor`` (int8 or bf16 storage, float block files)
 re-ranks each block's top ``rescore_factor * top_n`` with full-precision
-host scores before the merge (FAISS ``IndexRefineFlat``). bf16 block files
-on disk and the native ``.cnb`` store are not ported and raise.
+host scores before the merge (FAISS ``IndexRefineFlat``); it needs float32
+block files, the original rows.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from convdr_torch.core.config import NOT_PORTED, SearchConfig
+from convdr_torch.core.config import SearchConfig
 from convdr_torch.ops.exact_search import NEG_INF, flat_ip_topk, merge_topk
 from convdr_torch.ops.fused_search import ROW_TILE
 from convdr_torch.ops.quant import (
@@ -42,13 +46,16 @@ from convdr_torch.ops.quant import (
     quantize_passages_dev,
     rescore_candidates,
 )
-from convdr_torch.retrieval.blocks import iter_embedding_blocks, load_embedding_block
+from convdr_torch.retrieval.blocks import (
+    bf16_dtype,
+    host_tensor,
+    iter_embedding_blocks,
+    load_embedding_block,
+)
 
 logger = logging.getLogger(__name__)
 
 _STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
-# block file dtypes the searcher reads (bf16 pickles are not ported)
-_BLOCK_DTYPES = (np.float32, np.int8)
 # Host staging chunk for uploads: two pinned buffers of this size alternate.
 UPLOAD_CHUNK_BYTES = 256 << 20
 
@@ -112,7 +119,7 @@ def upload_rows(
     at a time); a dtype change is a cast on the device after the copy.
     """
     n, d = rows.shape
-    src = torch.from_numpy(np.ascontiguousarray(rows))
+    src = host_tensor(rows)
     out = torch.empty((padded_n, d), dtype=dtype, device=device)
     out[n:].zero_()
     if device.type != "cuda":
@@ -227,10 +234,9 @@ class BlockedSearcher:
         argument on ties, so the result is bit-identical to a single-shot
         search (lower row index wins ties either way).
         """
-        if block_embs.dtype not in _BLOCK_DTYPES:
-            raise NotImplementedError(
-                f"searching {block_embs.dtype} blocks {NOT_PORTED}; the port "
-                "reads float32 and int8 blocks (bf16 storage is a cast on upload)"
+        if block_embs.dtype not in (np.float32, np.int8, bf16_dtype()):
+            raise ValueError(
+                f"blocks hold float32, bfloat16 or int8 rows, not {block_embs.dtype}"
             )
         if block_embs.dtype == np.int8 and not self._int8:
             raise ValueError(

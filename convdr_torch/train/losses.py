@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from convdr_torch.models.attention import at_least_f32
 from convdr_torch.models.encoders import multi_chunk_scores
 
 
@@ -32,7 +33,8 @@ def ranking_nll_loss(query_embs: torch.Tensor, doc_embs: torch.Tensor) -> torch.
 
     logits[b, k] = q_b . d_bk ; loss = mean_b CE(logits_b, 0).
     """
-    logits = torch.einsum("be,bke->bk", query_embs.float(), doc_embs.detach().float())
+    logits = torch.einsum("be,bke->bk", at_least_f32(query_embs),
+                          at_least_f32(doc_embs.detach()))
     return -torch.mean(torch.log_softmax(logits, dim=-1)[:, 0])
 
 

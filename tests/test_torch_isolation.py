@@ -1,8 +1,13 @@
 """convdr_torch stands alone: importing every module of the package, the
-drivers included, loads neither JAX nor anything of convdr_tpu. Run in a
-fresh interpreter, since the test process itself imports both."""
+drivers included, loads neither JAX nor anything of convdr_tpu (run in a
+fresh interpreter, since the test process itself imports both), and no
+source of the port names a path under the JAX package's ``native/`` or
+``scripts/`` directories: it builds and runs its own copies."""
 
+import ast
+import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -18,6 +23,9 @@ assert "convdr_torch.drivers.run_convdr_inference" in names, names
 assert "convdr_torch.drivers.gen_passage_embeddings" in names, names
 assert "convdr_torch.drivers.run_convdr_train" in names, names
 assert "convdr_torch.train.loop" in names, names
+for name in ("convdr_torch.drivers.tokenize_collection", "convdr_torch.native_io",
+             "convdr_torch.etl.ranking_data", "convdr_torch.scripts.rehearsal"):
+    assert name in names, names
 bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "convdr_tpu")
@@ -51,3 +59,36 @@ def test_chip_smoke_imports_no_jax(tmp_path):
     )
     proc = _run(code, tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def port_sources():
+    return sorted(glob.glob(os.path.join(REPO, "convdr_torch", "**", "*.py"), recursive=True)
+                  + [os.path.join(REPO, "chip_smoke.py")])
+
+
+def test_port_sources_name_no_path_under_native_or_scripts():
+    """String constants (docstrings aside) that name a path under native/
+    or scripts/, or join one of them into a path."""
+    under = re.compile(r"(^|[\\/\s'\"])(native|scripts)/")
+    bad = []
+    for path in port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        docstrings = {
+            id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)
+        }
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                    and id(node) not in docstrings and under.search(node.value)
+                    and "convdr_torch/scripts/" not in node.value):
+                bad.append(f"{path}:{node.lineno}: {node.value!r}")
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "join"
+                    and any(isinstance(a, ast.Constant) and a.value in ("native", "scripts")
+                            for a in node.args)):
+                bad.append(f"{path}:{node.lineno}: joins a path under native/ or scripts/")
+    assert not bad, bad

@@ -259,3 +259,35 @@ def test_bf16_compute_keeps_layernorm_f32():
     ids, mask = make_batch(10, vocab=200)
     out = torch_emb(model, ids, mask, "query_emb")
     assert out.dtype == np.float32 and np.isfinite(out).all()
+
+
+@pytest.mark.parametrize("cfg", [tiny_config(), dpr_config()], ids=["rdot_nll", "dpr"])
+def test_init_draws_from_the_jax_package_distributions(cfg):
+    """The port's random init ("init" checkpoints) against the JAX
+    package's, tensor for tensor: the same spread (std within 15% where a
+    tensor holds 500+ values) and the same truncation of linear weights.
+    HF's normal(0, 0.02) left the tiny models' untrained embeddings nearly
+    the same for every input; the JAX package's init ranks passages."""
+    from convdr_torch.core.loading import init_weights
+
+    _jmodel, params, _tmodel = both_models(cfg, seed=3)
+    jax_sd = flax_params_to_state_dict(jax.tree.map(np.asarray, params), port_config(cfg))
+    ours = init_weights(tenc.build_model(port_config(cfg)), seed=3).state_dict()
+    assert ours.keys() == jax_sd.keys()
+    checked = 0
+    for key, theirs in jax_sd.items():
+        a, b = ours[key].double(), theirs.double()
+        if b.std() == 0 or a.numel() < 500:
+            assert torch.equal(a.std() == 0, b.std() == 0), key
+            continue
+        assert abs(a.std() / b.std() - 1) < 0.15, (key, a.std(), b.std())
+        assert abs(a.abs().max() / b.abs().max() - 1) < 0.35, key
+        checked += 1
+    assert checked >= 10
+    # untrained embeddings of different inputs differ as in the JAX package
+    ids, mask = make_batch(4, b=6, t=16)
+    model = init_weights(tenc.build_model(port_config(cfg)), seed=3).eval()
+    emb = torch_emb(model, ids, mask, "body_emb")
+    ref = jax_emb(*both_models(cfg, seed=3)[:2], ids, mask, "body_emb")
+    spread, ref_spread = emb.std(axis=0).mean(), ref.std(axis=0).mean()
+    assert 0.5 < spread / ref_spread < 2.0, (spread, ref_spread)

@@ -210,7 +210,7 @@ def test_drivers_need_a_card_or_no_cuda(chain, monkeypatch):
     "flags",
     [
         ["--ivf_dir", "x"], ["--pq_dir", "x"], ["--matmul_precision", "default"],
-        ["--matmul_precision", "high"], ["--profile_dir", "x"],
+        ["--matmul_precision", "high"],
     ],
 )
 def test_unported_inference_options_raise(chain, flags):
@@ -231,5 +231,14 @@ def test_int8_inference_options_are_ported(chain, flags):
     "flags", [["--storage_dtype", "bfloat16"], ["--block_format", "native"]]
 )
 def test_unported_embed_options_raise(chain, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_embed.main(embed_args(chain, "never") + ["--no_cuda", *flags])
+    # these two raised NotImplementedError before bf16 block files and the
+    # native block store were ported; now they write their blocks
+    out = f"embed_{flags[1]}"
+    assert torch_embed.main(embed_args(chain, out) + ["--no_cuda", *flags]) == N_PASSAGES
+    blocks = list(torch_iter(str(chain / out)))
+    assert len(blocks) == 2
+    if flags[1] == "native":
+        assert sorted(os.listdir(chain / out)) == ["passage_block_0.cnb", "passage_block_1.cnb"]
+        assert blocks[0][1].dtype == np.float32
+    else:
+        assert str(blocks[0][1].dtype) == "bfloat16"

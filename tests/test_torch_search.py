@@ -350,12 +350,17 @@ def test_search_missing_dir_and_unported_options(tmp_path):
 
     with pytest.raises(FileNotFoundError):
         BlockedSearcher(device=CPU).search_blocks(str(tmp_path), np.zeros((1, 4), np.float32), 5)
-    # bf16 block files (the JAX package writes them with ml_dtypes) are not
-    # ported; bf16 search storage is, as a cast of float blocks on upload
-    bf16_rows = np.zeros((8, 4), ml_dtypes.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BlockedSearcher(device=CPU).search_block(np.zeros((1, 4), np.float32), bf16_rows, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        write_embedding_block(str(tmp_path), 0, bf16_rows, np.arange(8))
+    # bf16 block files (the JAX package writes them with ml_dtypes) raised
+    # before they were ported; now they are written and searched, and rows
+    # of another dtype are refused
+    bf16_rows = np.arange(32, dtype=np.float32).reshape(8, 4).astype(ml_dtypes.bfloat16)
+    _s, i = BlockedSearcher(device=CPU).search_block(np.ones((1, 4), np.float32), bf16_rows, 5)
+    np.testing.assert_array_equal(i, [[7, 6, 5, 4, 3]])
+    write_embedding_block(str(tmp_path), 0, bf16_rows, np.arange(8))
+    with pytest.raises(ValueError, match="float32, bfloat16 or int8"):
+        BlockedSearcher(device=CPU).search_block(
+            np.zeros((1, 4), np.float32), np.zeros((8, 4), np.float16), 5)
+    with pytest.raises(ValueError, match="float32, bfloat16 or int8"):
+        write_embedding_block(str(tmp_path), 1, np.zeros((8, 4), np.float16), np.arange(8))
     with pytest.raises(ValueError, match="storage_dtype"):
         BlockedSearcher(SearchConfig(storage_dtype="float16"), device=CPU)
