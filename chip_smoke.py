@@ -100,6 +100,24 @@
    (tiny width: tokenize, embed, teacher run, ranking data, 500 KD +
    ranking steps, inference), whose asserts decide: zero oracle mismatches,
    NDCG@3 and MRR higher after training. Counts zeroed before, read after.
+4d. The ANN family at D=768 (PyTorch ops; no hand-written kernel of its
+   own): 1,048,576 seeded rows of a 4096-centre Gaussian mixture and 512
+   queries from it, the rows written as two f32 ``.cnb`` blocks. IVF f32
+   (nlist 1024, slack 1, 20 k-means iterations) through
+   ``build_from_blocks``, its build timed by stage; a full probe whose
+   top-100 sets equal ``flat_ip_topk``'s (near-ties at the cut), then
+   nprobe 8, 32, 128 (recall@100, ms, peak MiB). IVF int8 over the same
+   rows: a full probe equal to the integer-exact plain search score for
+   score. Flat pq4 (m 96, packed) at Q=512 and flat pq8 (m 96) at Q=64,
+   and IVFPQ through ``from_pq_index``: ADC top-100 sets equal to
+   ``pq_adc_oracle``'s sum (on the card, checked bit for bit against the
+   numpy oracle on two queries), recall@100 and ms; ``--rescore_factor 2``
+   over the pq4 candidates through the refine store on the ``.cnb`` blocks,
+   equal index for index to a plain refine. Then the drivers:
+   ``build_ivf_index.main`` over the phase-3 f32 blocks and
+   ``run_convdr_inference.main --ivf_dir --nprobe 999``, whose metrics equal
+   the flat f32 run's, and ``--nprobe 1``; kernel 1's count is zeroed
+   before the full-probe run and read after (> 0).
 5. Prints the training ms per step and examples/s, a ``{"kernels": [...]}``
    line (launches, max error, kernel / plain / library / bound times in ms,
    CUDA-event timed after warm-up), and last ``{"ok": true, "device": ...}``.
@@ -135,6 +153,7 @@ from convdr_torch.data.token_cache import (
 from convdr_torch.core.config import TrainConfig
 from convdr_torch.core.loading import load_model_and_params
 from convdr_torch.drivers import (
+    build_ivf_index,
     gen_passage_embeddings,
     run_convdr_inference,
     run_convdr_train,
@@ -163,6 +182,7 @@ from convdr_torch.ops.fused_search import (
     fused_scores_groupmax_plain,
 )
 from convdr_torch.ops.gather_groups import dma_gather_groups, dma_gather_groups_plain
+from convdr_torch.ops.pq import pq_adc_oracle, round_lut, unpack_codes_4bit
 from convdr_torch.ops.quant import Int8Quantizer, quantize_passages_dev, rescore_candidates
 from convdr_torch.ops.streaming_search import (
     candidate_work_list,
@@ -174,11 +194,14 @@ from convdr_torch.ops.streaming_search import (
     streaming_groupmax,
     streaming_groupmax_plain,
 )
+from convdr_torch.retrieval import ivf as ivf_module
 from convdr_torch.retrieval.blocks import host_tensor, iter_embedding_blocks, write_embedding_block
+from convdr_torch.retrieval.ivf import IVFIndex
+from convdr_torch.retrieval.pq_index import PQIndex
 from convdr_torch.scripts import rehearsal
 from convdr_torch.train.losses import kd_mse_loss, ranking_nll_loss
 from convdr_torch.train.trainer import create_train_state, make_train_step
-from convdr_torch.utils.observability import TRACE_SPAN
+from convdr_torch.utils.observability import TRACE_SPAN, profile_trace
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, ".smoke_work")
@@ -206,6 +229,15 @@ MASK_KINDS = ("right", "left", "middle", "random")
 F32_SHAPES = [(TRAIN_B, TRAIN_T), (TRAIN_B, TARGET_T), (TRAIN_B * (TRAIN_NEG + 1), DOC_T)]
 KERNELS = ["flash_attention", "scores_groupmax", "flash_attention_bwd",
            "streaming_search", "gather_groups"]
+# the ANN phase: mixture rows and centres, queries (pq8: fewer, see there),
+# IVF lists and probes; the driver's index over the phase-3 blocks has few
+# enough sub-lists (<= 2 * 256) for --nprobe 999 to probe them all
+ANN_N, ANN_CENTRES, ANN_Q, PQ8_Q = 1 << 20, 4096, 512, 64
+ANN_NLIST, ANN_NPROBES, DRIVER_NLIST = 1024, (8, 32, 128), 256
+# what an IVF search may hold above the index (``max_candidate_bytes`` and
+# ``_ADC_CHUNK_BYTES`` at their defaults), plus the [Q, nprobe * cap]
+# scores, row ids and top-k of a query chunk
+ANN_BUDGET_MIB, ADC_BUDGET_MIB, ANN_SLACK_MIB = 2048, 256, 256
 
 
 def log(*parts):
@@ -1166,6 +1198,34 @@ def run_matches_exact(run, qids, q, rows, row_pids):
     return exact
 
 
+def ranks_match(run, ref, qids, q, rows, row_pids):
+    """Holds a TREC run to a reference run rank by rank: at each of a
+    query's ``TOP_N`` ranks the two pids are equal or their exact f32
+    scores (one matmul over ``rows``) lie within 1e-5*|q|*max|p|, so the
+    runs differ only in the order of near-ties. Returns the count of
+    queries whose ranked pids are equal and the largest score gap at a
+    differing rank, as a share of its tolerance."""
+    order = torch.argsort(row_pids)
+    sorted_pids = row_pids[order]
+    pmax = rows.norm(dim=1).max().item()
+    equal, gap = 0, 0.0
+    for r, qid in enumerate(qids):
+        got = [pid for pid, _ in run[qid]]
+        want = [pid for pid, _ in ref[qid]]
+        if got == want:
+            equal += 1
+            continue
+        if len(got) != len(want):
+            raise AssertionError(f"{qid}: {len(got)} pids against {len(want)}")
+        pids = torch.tensor([got, want], device=rows.device)
+        scores = rows[order[torch.searchsorted(sorted_pids, pids)]] @ q[r]  # [2, TOP_N]
+        worst = (scores[0] - scores[1]).abs().max().item() / (1e-5 * q[r].norm().item() * pmax)
+        if worst > 1.0:
+            raise AssertionError(f"{qid}: the runs differ beyond near-ties ({worst} x tol)")
+        gap = max(gap, worst)
+    return equal, gap
+
+
 def inference_argv(work, processed, raw, emb_dir, run_name="run"):
     return [
         "--model_path", "init", "--model_type", "rdot_nll",
@@ -1845,6 +1905,349 @@ def rehearsal_path():
     return {"launches": launches, "seconds": t_all, **summary}
 
 
+# ---------------------------------------------------------------------------
+# the ANN family: k-means, IVF, PQ/OPQ, IVFPQ, the refine store, the drivers
+# ---------------------------------------------------------------------------
+class StageTimes:
+    """Host seconds spent in the index builders' k-means fits and
+    assignments while active (a shim around the names ``retrieval.ivf``
+    calls; both return host arrays, so the device work is inside)."""
+
+    def __enter__(self):
+        self.seconds = collections.Counter()
+        self.real = {name: getattr(ivf_module, name) for name in ("fit_kmeans", "assign_top_t")}
+        for name, fn in self.real.items():
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t0 = time.time()
+                out = _fn(*a, **kw)
+                self.seconds[_name] += time.time() - t0
+                return out
+            setattr(ivf_module, name, timed)
+        return self.seconds
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(ivf_module, name, fn)
+
+
+def ann_corpus(gen):
+    """ANN_N seeded rows of a Gaussian mixture (ANN_CENTRES centres, noise
+    of the centres' own spread) and ANN_Q queries from the same mixture, on
+    the card; the rows also as two f32 ``.cnb`` blocks whose payloads are
+    2 * row + 1."""
+    centres = torch.randn(ANN_CENTRES, SEARCH_D, generator=gen, device="cuda")
+    which = torch.randint(0, ANN_CENTRES, (ANN_N + ANN_Q,), generator=gen, device="cuda")
+    x = centres[which] + torch.randn(ANN_N + ANN_Q, SEARCH_D, generator=gen, device="cuda")
+    rows, q = x[:ANN_N].contiguous(), x[ANN_N:].contiguous()
+    blocks = os.path.join(WORK, "ann_blocks")
+    host = rows.cpu().numpy()
+    half = ANN_N // 2
+    for b in range(2):
+        write_embedding_block(blocks, b, host[b * half:(b + 1) * half],
+                              2 * np.arange(b * half, (b + 1) * half, dtype=np.int64) + 1,
+                              fmt="native")
+    return rows, q, host, blocks
+
+
+def ann_sets(got_ids, want_s, want_i, score_of, tol):
+    """Each query's top-k ids against a reference's: equal sets, or ids that
+    differ only in near-ties at the reference's k-th score (within tol[r]).
+    Returns the count of queries whose sets are equal."""
+    equal = 0
+    for r in range(len(got_ids)):
+        diff = (set(got_ids[r].tolist()) ^ set(want_i[r].tolist())) - {-1}
+        if not diff:
+            equal += 1
+            continue
+        for row in diff:
+            if abs(score_of(r, row) - want_s[r, -1]) > tol[r]:
+                raise AssertionError(f"query {r}: top-k sets differ beyond near-ties ({row})")
+    return equal
+
+
+def recall_at(got_ids, want_i):
+    return float(np.mean([len(set(g.tolist()) & set(w.tolist())) / want_i.shape[1]
+                          for g, w in zip(got_ids, want_i)]))
+
+
+def check_peak(name, mib, adc=False):
+    """An IVF search's peak above what was allocated before stays under its
+    candidate budget (and the ADC's, for PQ-code lists) plus the slack."""
+    limit = ANN_BUDGET_MIB + (ADC_BUDGET_MIB if adc else 0) + ANN_SLACK_MIB
+    if mib > limit:
+        raise AssertionError(f"{name}: peak {mib:.0f} MiB above the {limit} MiB bound")
+
+
+def timed_search(fn, queries):
+    """(result, ms, peak MiB above what was allocated before) of
+    ``fn(queries)``, after a warm-up call on four of them (which uploads
+    the index)."""
+    fn(queries[:4])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = fn(queries)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    return out, ms, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def adc_oracle_dev(lut, codes):
+    """``pq_adc_oracle``'s sum on the card, in its order: scores[q, n] =
+    sum over m ascending of lut[q, m, codes[n, m]] in f32."""
+    codes = codes.long()
+    scores = torch.zeros(lut.shape[0], codes.shape[0], device="cuda")
+    for m in range(lut.shape[1]):
+        scores += lut[:, m, :][:, codes[:, m]]
+    return scores
+
+
+def adc_reference(lut, codes):
+    """The oracle's ADC sums on the card, their top-100 and each query's
+    near-tie tolerance at the cut (1e-5 of the sum of each subspace's
+    largest |LUT| entry); the sums equal ``pq_adc_oracle``'s on the first
+    two queries, bit for bit."""
+    ref = adc_oracle_dev(lut, codes)
+    ref_s, ref_i = stable_topk(ref, TOP_N)
+    few = pq_adc_oracle(lut[:2].cpu().numpy(), codes.cpu().numpy(), TOP_N)
+    if not (np.array_equal(few[0], ref_s[:2].cpu().numpy())
+            and np.array_equal(few[1], ref_i[:2].cpu().numpy())):
+        raise AssertionError("the card's ADC oracle differs from pq_adc_oracle")
+    tol = (1e-5 * lut.abs().amax(dim=2).sum(dim=1)).cpu().numpy()
+    return ref, ref_s.cpu().numpy(), ref_i.cpu().numpy(), tol
+
+
+def check_adc(name, search_rows, queries, reference, exact_i):
+    """The ADC top-100 of ``search_rows(queries)`` (row positions) against
+    ``adc_reference``'s, up to near-ties at the cut. Returns the recall@100
+    against the exact search, the ms and the peak MiB."""
+    q_count = len(queries)
+    (_s, pos), ms, mib = timed_search(search_rows, queries)
+    ref, ref_s, ref_i, tol = reference
+    equal = ann_sets(pos, ref_s, ref_i, lambda r, p: ref[r, p].item(), tol)
+    rec = recall_at(pos, exact_i[:q_count])
+    log(f"  {name}: ADC top-{TOP_N} sets equal to the oracle's for {equal}/{q_count} "
+        f"queries (near-ties otherwise); recall@{TOP_N} {rec:.4f}; {ms:.1f} ms for "
+        f"{q_count} queries, peak {mib:.0f} MiB")
+    return {"oracle_equal_queries": equal, "recall_100": rec, "ms": ms, "peak_mib": mib}
+
+
+def ann_path(paths, flat_metrics, qids, q_embs):
+    """Phase 4d: the ANN family at full width (D=768) over a 1M-row seeded
+    mixture, then the two ANN drivers over the phase-3 embed driver's
+    blocks. Kernel 1's count is zeroed before the driver run and read
+    after; the ANN layer itself is PyTorch ops."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    t_phase = time.time()
+    rows, q, host, blocks = ann_corpus(gen)
+    q_np = q.cpu().numpy()
+    pnorm = rows.norm(dim=1).max().item()
+    tol = (1e-5 * q.norm(dim=1) * pnorm).cpu().numpy()
+    exact_s, exact_i = flat_ip_topk(q, rows, TOP_N)
+    exact_s, exact_i = exact_s.cpu().numpy(), exact_i.cpu().numpy()
+
+    def score_of(r, row):
+        return (q[r] @ rows[row]).item()
+
+    def to_pos(ids):
+        return np.where(ids >= 0, (ids - 1) // 2, -1)
+
+    out = {}
+    # IVF f32 through build_from_blocks
+    with StageTimes() as stage:
+        t0 = time.time()
+        ivf_f32 = IVFIndex.build_from_blocks(blocks, ANN_NLIST, slack=1.0, iters=20, seed=0)
+        build_s = time.time() - t0
+    out["ivf_f32_build"] = {"seconds": build_s, **stage, "stats": ivf_f32.stats}
+    log(f"  IVF f32 build_from_blocks: {build_s:.2f} s (k-means {stage['fit_kmeans']:.2f} s, "
+        f"assignment {stage['assign_top_t']:.2f} s, block reads + layout + pack the rest); "
+        f"{ivf_f32.stats}")
+    (s, ids), ms, mib = timed_search(
+        lambda qs: ivf_f32.search(qs, TOP_N, nprobe=ivf_f32.nlist), q_np)
+    equal = ann_sets(to_pos(ids), exact_s, exact_i, score_of, tol)
+    check_peak("IVF f32 full probe", mib)
+    log(f"  IVF f32 full probe ({ivf_f32.nlist} sub-lists): top-{TOP_N} sets equal to "
+        f"flat_ip_topk's for {equal}/{ANN_Q} queries (near-ties otherwise); {ms:.1f} ms, "
+        f"peak {mib:.0f} MiB")
+    sweep = {"full": {"ms": ms, "peak_mib": mib, "exact_equal_queries": equal}}
+    for nprobe in ANN_NPROBES:
+        (s, ids), ms, mib = timed_search(
+            lambda qs: ivf_f32.search(qs, TOP_N, nprobe=nprobe), q_np)
+        sweep[nprobe] = {"recall_100": recall_at(to_pos(ids), exact_i), "ms": ms,
+                         "peak_mib": mib}
+        check_peak(f"IVF f32 nprobe {nprobe}", mib)
+        log(f"  IVF f32 nprobe {nprobe}: recall@{TOP_N} {sweep[nprobe]['recall_100']:.4f}, "
+            f"{ms:.1f} ms for {ANN_Q} queries, peak {mib:.0f} MiB")
+    out["ivf_f32"] = sweep
+    # where an nprobe-32 search spends the card's time: the sub-list gather
+    # (index_select), the product (bmm), the top-k
+    trace_dir = os.path.join(WORK, "ann_trace")
+    with profile_trace(trace_dir):
+        ivf_f32.search(q_np, TOP_N, nprobe=32)
+        torch.cuda.synchronize()
+    trace = trace_summary(trace_dir)
+    out["ivf_f32_nprobe32_trace"] = trace
+    log(f"  IVF f32 nprobe 32 trace: span {trace['span_ms']:.1f} ms, device busy "
+        f"{trace['device_busy_share']:.4f} of it; by kernel " + ", ".join(
+            f"{k} {v['launches']}x {v['ms']:.3f} ms"
+            for k, v in list(trace["by_kernel"].items())[:6]))
+    # the int8 build reuses these k-means centroids (one a cluster, in
+    # cluster order; the f32 index holds one a sub-list)
+    _u, first = np.unique(ivf_f32.centroids, axis=0, return_index=True)
+    centroids = ivf_f32.centroids[np.sort(first)]
+    del ivf_f32
+    torch.cuda.empty_cache()
+
+    # IVF int8 over the same rows: a full probe, score for score
+    t0 = time.time()
+    ivf_i8 = IVFIndex.build(host, ANN_NLIST, storage_dtype="int8", centroids=centroids)
+    build_s = time.time() - t0
+    (s, ids), ms, mib = timed_search(
+        lambda qs: ivf_i8.search(qs, TOP_N, nprobe=ivf_i8.nlist), q_np)
+    quant = ivf_i8.quantizer
+    q_int = torch.from_numpy(quant.quantize_queries(q_np)[0]).cuda()
+    p_int = quantize_passages_dev(rows, torch.from_numpy(quant.scales).cuda()).float()
+    int_scores = q_int @ p_int.T
+    ref_s, ref_i = stable_topk(int_scores, TOP_N)
+    tq = quant.quantize_queries(q_np)[1]
+    if not np.array_equal(np.sort(s, 1), np.sort(ref_s.cpu().numpy() * tq, 1)):
+        raise AssertionError("IVF int8 full-probe scores differ from the integer-exact search")
+    check_peak("IVF int8 full probe", mib)
+    ref_s, ref_i = ref_s.cpu().numpy(), ref_i.cpu().numpy()
+    equal = ann_sets(ids, ref_s, ref_i, lambda r, p: int_scores[r, p].item(),  # row ids
+                     np.zeros(ANN_Q))
+    del p_int, int_scores
+    out["ivf_int8"] = {"build_s": build_s, "ms": ms, "peak_mib": mib, "equal_sets": equal}
+    log(f"  IVF int8 (build {build_s:.2f} s on the f32 index's centroids): full-probe scores equal to the integer-exact "
+        f"plain search score for score for {ANN_Q}/{ANN_Q} queries, sets equal for "
+        f"{equal} (integer ties at the cut otherwise); {ms:.1f} ms, peak {mib:.0f} MiB")
+    del ivf_i8
+    torch.cuda.empty_cache()
+
+    # flat pq4 (packed) at Q=512, its IVFPQ promotion, the refine store
+    t0 = time.time()
+    pq4 = PQIndex.build_from_blocks(blocks, 96, 4, iters=20, seed=0, pack=True)
+    build_s = time.time() - t0
+    codes4 = torch.from_numpy(unpack_codes_4bit(pq4.codes)).cuda()
+    lut4 = round_lut(torch.from_numpy(pq4.codec.lut(q_np)).cuda(), exact=False)
+    ref4 = adc_reference(lut4, codes4)  # the flat scan's and the IVFPQ's (codes verbatim)
+    out["pq4_flat"] = check_adc(f"flat pq4 m=96 packed (build {build_s:.2f} s)",
+                                lambda qs: pq4.adc_topk(qs, TOP_N), q_np, ref4, exact_i)
+    out["pq4_flat"]["build_s"] = build_s
+    t0 = time.time()
+    ivfpq = IVFIndex.from_pq_index(pq4, blocks, ANN_NLIST, iters=20, seed=0)
+    build_s = time.time() - t0
+    out["ivfpq_full"] = check_adc(
+        f"IVFPQ from_pq_index full probe, {ivfpq.nlist} sub-lists (build {build_s:.2f} s)",
+        lambda qs: [to_pos(a) for a in ivfpq.search(qs, TOP_N, nprobe=ivfpq.nlist)],
+        q_np, ref4, exact_i)
+    out["ivfpq_full"]["build_s"] = build_s
+    check_peak("IVFPQ full probe", out["ivfpq_full"]["peak_mib"], adc=True)
+    (s, ids), ms, mib = timed_search(lambda qs: ivfpq.search(qs, TOP_N, nprobe=32), q_np)
+    check_peak("IVFPQ nprobe 32", mib, adc=True)
+    out["ivfpq_nprobe32"] = {"recall_100": recall_at(to_pos(ids), exact_i), "ms": ms,
+                             "peak_mib": mib}
+    log(f"  IVFPQ nprobe 32: recall@{TOP_N} {out['ivfpq_nprobe32']['recall_100']:.4f}, "
+        f"{ms:.1f} ms, peak {mib:.0f} MiB")
+    del ivfpq, codes4, ref4
+    # --rescore_factor 2 through the refine store on the .cnb blocks, index
+    # for index against a plain refine of the same candidates (rows by
+    # position from memory, the same per-row f32 dot, a stable sort)
+    _s, cand = pq4.adc_topk(q_np, 2 * TOP_N)
+    t0 = time.time()
+    ref_s, ref_ids = pq4.rescore(blocks, q_np, cand, TOP_N)
+    refine_ms = (time.time() - t0) * 1e3
+    qi = np.repeat(np.arange(ANN_Q), cand.shape[1])
+    plain = np.einsum("cd,cd->c", host[cand.reshape(-1)], q_np[qi],
+                      dtype=np.float32).reshape(cand.shape)
+    key = np.argsort(cand, axis=1, kind="stable")
+    cand_sorted = np.take_along_axis(cand, key, 1)
+    plain = np.take_along_axis(plain, key, 1)
+    order = np.argsort(-plain, axis=1, kind="stable")[:, :TOP_N]
+    want = 2 * np.take_along_axis(cand_sorted, order, 1) + 1
+    if not (np.array_equal(ref_ids, want)
+            and np.array_equal(ref_s, np.take_along_axis(plain, order, 1))):
+        raise AssertionError("the refine store's rescore differs from the plain refine")
+    rec = recall_at(to_pos(ref_ids), exact_i)
+    out["pq4_rescore2"] = {"refine_ms": refine_ms, "recall_100": rec}
+    log(f"  pq4 + rescore 2 through the refine store (.cnb): equal to the plain refine "
+        f"index for index; recall@{TOP_N} {rec:.4f}; refine {refine_ms:.1f} ms")
+    del pq4
+
+    # flat pq8 (m 96) at Q=64: its one-hot is 96 x 256 = 24,576 wide, so a
+    # row block costs 16x pq4's one-hot bytes and Q=512 would be 8x the
+    # product's work; 64 queries keep the phase short
+    t0 = time.time()
+    pq8 = PQIndex.build(host, 96, 8, iters=20, seed=0)
+    build_s = time.time() - t0
+    codes8 = torch.from_numpy(pq8.codes).cuda()
+    lut8 = round_lut(torch.from_numpy(pq8.codec.lut(q_np[:PQ8_Q])).cuda(), exact=False)
+    out["pq8_flat"] = check_adc(f"flat pq8 m=96 (build {build_s:.2f} s)",
+                                lambda qs: pq8.adc_topk(qs, TOP_N), q_np[:PQ8_Q],
+                                adc_reference(lut8, codes8), exact_i)
+    out["pq8_flat"]["build_s"] = build_s
+    del pq8, codes8
+    del rows, q
+    torch.cuda.empty_cache()
+    shutil.rmtree(blocks, ignore_errors=True)
+    out["library_s"] = time.time() - t_phase
+
+    # the drivers over the phase-3 embed driver's f32 blocks
+    emb_dir, ivf_dir = paths["emb_dir"], os.path.join(WORK, "ivf_index")
+    t0 = time.time()
+    summary = build_ivf_index.main(["--ann_data_dir", emb_dir, "--index_dir", ivf_dir,
+                                    "--nlist", str(DRIVER_NLIST)])
+    out["driver_build_s"] = time.time() - t0
+    if summary["nlist"] > 999:  # --nprobe 999 must probe every sub-list
+        raise AssertionError(f"{summary['nlist']} sub-lists")
+    flash_attention.launches = 0
+    t0 = time.time()
+    full = run_convdr_inference.main(inference_argv(WORK, paths["processed"], paths["raw"],
+                                                    emb_dir, "run_ivf")
+                                     + ["--ivf_dir", ivf_dir, "--nprobe", "999"])
+    torch.cuda.synchronize()
+    out["driver_full_probe_s"] = time.time() - t0
+    launches = flash_attention.launches
+    for name, value in flat_metrics.items():
+        if abs(full[name] - value) > 1e-6:
+            raise AssertionError(f"--ivf_dir --nprobe 999: {name} {full[name]} != flat {value}")
+    # the run file, pid for pid: held to the exact plain search (sets equal
+    # but for near-ties at the cut) and to the flat f32 run's file rank by
+    # rank (equal pids, or near-ties in another order)
+    run = parse_trec_run(os.path.join(WORK, "run_ivf.trec"))
+    flat = parse_trec_run(paths["trec"])
+    rows, offs = load_rows(emb_dir)
+    q_dev = torch.from_numpy(q_embs).cuda()
+    exact = run_matches_exact(run, qids, q_dev, rows, offs + 1000)
+    same_rank, rank_gap = ranks_match(run, flat, qids, q_dev, rows, offs + 1000)
+    del rows, offs
+    torch.cuda.empty_cache()
+    same_set = sum({p for p, _ in run[qid]} == {p for p, _ in flat[qid]} for qid in qids)
+    out["driver_full_probe_run"] = {"exact_equal_queries": exact, "flat_equal_sets": same_set,
+                                    "flat_equal_ranks": same_rank, "rank_gap_of_tol": rank_gap,
+                                    "queries": len(qids)}
+    t0 = time.time()
+    one = run_convdr_inference.main(inference_argv(WORK, paths["processed"], paths["raw"],
+                                                   emb_dir, "run_ivf1")
+                                    + ["--ivf_dir", ivf_dir, "--nprobe", "1"])
+    out["driver_nprobe1_s"] = time.time() - t0
+    if launches == 0 or not all(0.0 <= v <= 1.0 for v in one.values()):
+        raise AssertionError(f"the IVF driver run: {launches} attention launches, {one}")
+    out.update(driver_summary=summary, driver_full_probe_metrics=full,
+               driver_nprobe1_metrics=one, flash_attention_launches=launches,
+               phase_s=time.time() - t_phase)
+    log(f"  build_ivf_index over the phase-3 blocks ({summary['ntotal']} rows, "
+        f"{summary['nlist']} sub-lists) {out['driver_build_s']:.1f} s; run_convdr_inference "
+        f"--ivf_dir --nprobe 999 {out['driver_full_probe_s']:.1f} s, metrics equal to the flat "
+        f"f32 run's {full}; its run file's top-{TOP_N} sets equal the exact search's for "
+        f"{exact}/{len(qids)} queries (near-ties otherwise), the flat run's sets for "
+        f"{same_set} and its ranks pid for pid for {same_rank} (near-ties in another order "
+        f"otherwise, the widest {rank_gap:.3f} of the tolerance); --nprobe 1 {out['driver_nprobe1_s']:.1f} s {one}; kernel 1 "
+        f"launches {launches}")
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default="", help="also write all results as JSON here")
@@ -1897,8 +2300,12 @@ def main(argv=None):
         t0 = time.time()
         rehearsed = rehearsal_path()
         rehearsed["phase_s"] = time.time() - t0
+        torch.cuda.empty_cache()
+        log("the ANN family (k-means, IVF, PQ/OPQ, IVFPQ, refine; D=768, 1M rows) and "
+            "the build_ivf_index -> --ivf_dir drivers:")
+        ann = ann_path(paths, metrics, qids, q_embs)
         log(f"data plane phase {data_plane['phase_s']:.1f} s, rehearsal phase "
-            f"{rehearsed['phase_s']:.1f} s")
+            f"{rehearsed['phase_s']:.1f} s, ANN phase {ann['phase_s']:.1f} s")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # each kernel's count on the path of the slice that ported it; the
@@ -1925,7 +2332,8 @@ def main(argv=None):
     bwd["launches"] = train_launches["flash_attention_bwd"]
     # the later slices' paths, each counted from zero around its own run
     fwd["launches_by_path"].update(data_plane=data_plane["launches"]["flash_attention_fwd"],
-                                   rehearsal=rehearsed["launches"]["flash_attention_fwd"])
+                                   rehearsal=rehearsed["launches"]["flash_attention_fwd"],
+                                   ann_ivf_driver=ann["flash_attention_launches"])
     search["launches_by_path"].update(
         data_plane_bf16=data_plane["launches"]["fused_scores_groupmax"],
         rehearsal=rehearsed["launches"]["fused_scores_groupmax"])
@@ -1957,7 +2365,7 @@ def main(argv=None):
                        "inference_s": t_infer, "int8": int8, "streaming_phase_s": t_stream,
                        "launch_configs": configs,
                        "train": train, "train_step_check": step_check,
-                       "data_plane": data_plane, "rehearsal": rehearsed,
+                       "data_plane": data_plane, "rehearsal": rehearsed, "ann": ann,
                        "total_s": time.time() - t_start}, f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -29,3 +29,12 @@ def resolve_device(no_cuda: bool = False) -> torch.device:
             "run on the CPU"
         )
     return torch.device("cuda")
+
+
+def pick_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means the card (raising without
+    one), as :func:`resolve_device`. Either way TF32 is off."""
+    if device is None:
+        return resolve_device()
+    set_exact_matmul()
+    return torch.device(device)

@@ -15,16 +15,23 @@ quantizes float blocks on the device) with the scales of the blocks'
 ``int8_scales.npy`` sidecar;
 ``--rescore_factor N`` with int8 or bfloat16 storage re-ranks each block's
 top ``N * top_n`` with full-precision scores from float block files, and
-exits with an error with float32 storage, whose flat search is exact
-already.
+exits with an error with float32 flat search, which is exact already.
+
+``--ivf_dir`` / ``--pq_dir`` (mutually exclusive) search a prebuilt index
+(``convdr_torch.drivers.build_ivf_index``, or the JAX package's) instead
+of streaming the blocks: IVF probes ``--nprobe`` sub-lists per query, PQ
+scans the ADC codes resident on the card. With ``--rescore_factor N`` the
+index proposes ``N * top_n`` candidates (IVF: its rowids; PQ: the ADC
+scan's row positions) and the refine store re-ranks them against the rows
+of ``--ann_data_dir`` (:mod:`convdr_torch.retrieval.refine`).
 
 The search is timed as the "search" phase (logged), and ``--profile_dir``
 writes a ``torch.profiler`` Chrome trace of it (host and CUDA activity)
 into that directory; without the flag no profiler runs.
 
-Not ported yet (they raise, see ROADMAP.md): ``--ivf_dir``, ``--pq_dir``
-and ``--matmul_precision high/default``. ``--no_mesh`` and ``--use_gpu``
-are accepted; this package runs on one device.
+Not ported yet (it raises, see ROADMAP.md): ``--matmul_precision
+high/default``. ``--no_mesh`` and ``--use_gpu`` are accepted; this package
+runs on one device.
 """
 
 from __future__ import annotations
@@ -54,6 +61,8 @@ from convdr_torch.data.collection import (
 from convdr_torch.data.conv_dataset import ConvSearchDataset
 from convdr_torch.data.token_cache import load_offset2pid
 from convdr_torch.evaluation.metrics import evaluate_run, mean_metrics
+from convdr_torch.retrieval.ivf import IVFIndex
+from convdr_torch.retrieval.pq_index import PQIndex
 from convdr_torch.retrieval.run_writer import write_run_outputs
 from convdr_torch.retrieval.searcher import BlockedSearcher
 from convdr_torch.utils.observability import PhaseTimer, profile_trace
@@ -102,10 +111,13 @@ def get_arguments(argv=None):
     parser.add_argument(
         "--rescore_factor", default=0, type=int,
         help="re-rank the top (rescore_factor * top_n) approximate "
-        "candidates of each block with full-precision scores before the "
-        "final cut (FAISS IndexRefineFlat's k_factor); works with "
-        "--storage_dtype int8/bfloat16 over float block files. 0 = off. "
-        "Errors with float32 flat search (exact already)",
+        "candidates with full-precision scores before the final cut (FAISS "
+        "IndexRefineFlat's k_factor); works with --storage_dtype "
+        "int8/bfloat16 over float block files (per block), --pq_dir, and "
+        "--ivf_dir (the refine store re-ranks the index's candidates "
+        "against --ann_data_dir's rows; for PQ-coded lists this is the "
+        "recall lever, since more probes cannot raise codec-capped "
+        "recall). 0 = off. Errors with float32 flat search (exact already)",
     )
     parser.add_argument(
         "--matmul_precision", default="highest",
@@ -128,12 +140,26 @@ def get_arguments(argv=None):
                         "bf16 noise), erf under f32")
     parser.add_argument("--arch_size", default="base", choices=["base", "tiny"],
                         help="tiny = miniature architecture for smoke tests")
-    parser.add_argument("--ivf_dir", type=str, default="",
-                        help="IVF search; not ported yet")
-    parser.add_argument("--nprobe", type=int, default=32,
-                        help="IVF only; accepted")
-    parser.add_argument("--pq_dir", type=str, default="",
-                        help="PQ search; not ported yet")
+    parser.add_argument(
+        "--ivf_dir", type=str, default="",
+        help="search a prebuilt IVF index (build_ivf_index) instead of "
+        "streaming --ann_data_dir's blocks: approximate top-N, --nprobe "
+        "trades recall for speed. --ann_data_dir is still required",
+    )
+    parser.add_argument(
+        "--nprobe", type=int, default=32,
+        help="IVF only: sub-lists probed per query (nprobe >= nlist is "
+        "exhaustive). For PQ-coded lists recall is capped by the codec: "
+        "keep nprobe small and recover recall with --rescore_factor",
+    )
+    parser.add_argument(
+        "--pq_dir", type=str, default="",
+        help="search a prebuilt PQ index (build_ivf_index --index_type pq) "
+        "instead of streaming --ann_data_dir's blocks: the corpus stays "
+        "resident on the device as 48-96 B/row ADC codes. Approximate "
+        "ranking; --rescore_factor re-ranks the recalled set exactly. "
+        "--ann_data_dir is still required",
+    )
     parser.add_argument("--no_mesh", action="store_true",
                         help="accepted; this package runs on one device")
     parser.add_argument("--profile_dir", type=str, default="",
@@ -146,19 +172,20 @@ def check_ported(args) -> None:
     """Raise on the options of the JAX driver this package lacks, and exit,
     as the JAX driver does, on a rescore that has nothing to refine."""
     unported = [
-        ("--ivf_dir", bool(args.ivf_dir)),
-        ("--pq_dir", bool(args.pq_dir)),
         (f"--matmul_precision {args.matmul_precision}",
          args.matmul_precision != "highest"),
     ]
     for flag, used in unported:
         if used:
             raise NotImplementedError(f"{flag} {NOT_PORTED}")
-    if args.rescore_factor > 0 and args.storage_dtype == "float32":
+    if args.ivf_dir and args.pq_dir:
+        raise SystemExit("--ivf_dir and --pq_dir are mutually exclusive")
+    if (args.rescore_factor > 0 and not (args.ivf_dir or args.pq_dir)
+            and args.storage_dtype == "float32"):
         raise SystemExit(
             "--rescore_factor refines approximate candidates; the float32 "
             "flat search is already exact. Combine it with --storage_dtype "
-            "int8/bfloat16"
+            "int8/bfloat16, --pq_dir, or --ivf_dir"
         )
 
 
@@ -200,6 +227,51 @@ def encode_queries(args, model_path, eval_file, dtype, device):
     return qids, np.concatenate(embs, axis=0), raw
 
 
+def search_pq(args, query_embs, device):
+    """``--pq_dir``: the ADC scan over the resident codes; with
+    ``--rescore_factor`` its top ``factor * top_n`` ROW POSITIONS refined
+    against ``--ann_data_dir``'s rows. Returns (scores, token-cache offsets)."""
+    index = PQIndex.load(args.pq_dir, device=device)
+    logger.info(
+        "PQ search: ntotal=%d m=%d nbits=%d rescore_factor=%d",
+        index.ntotal, index.codec.m, index.codec.nbits, args.rescore_factor,
+    )
+    with PhaseTimer("search"), profile_trace(args.profile_dir):
+        if args.rescore_factor > 0:
+            _s, pos = index.adc_topk(query_embs, args.rescore_factor * args.top_n)
+            return index.rescore(args.ann_data_dir, query_embs, pos, args.top_n)
+        return index.search(query_embs, args.top_n)
+
+
+def search_ivf(args, query_embs, device):
+    """``--ivf_dir``: ``--nprobe`` sub-lists a query; with
+    ``--rescore_factor`` the index's top ``factor * top_n`` rowids refined
+    against ``--ann_data_dir``'s rows. The rowids are emb2offset payloads,
+    so the result is token-cache offsets."""
+    index = IVFIndex.load(args.ivf_dir, device=device)
+    logger.info(
+        "IVF search: nlist=%d cap=%d ntotal=%d nprobe=%d rescore_factor=%d",
+        index.nlist, index.cap, index.ntotal, args.nprobe, args.rescore_factor,
+    )
+    with PhaseTimer("search"), profile_trace(args.profile_dir):
+        if args.rescore_factor <= 0:
+            return index.search(query_embs, args.top_n, nprobe=args.nprobe)
+        if index.storage_dtype in ("int8", "bfloat16"):
+            # SQ8 list scores are integer-exact and bf16 lists reorder only
+            # near-ties, so the refine buys (almost) no ranking quality
+            logger.warning(
+                "--rescore_factor on an IVF index with %s lists is a "
+                "ranking no-op (the quantized list scores already match "
+                "float ranking); it only costs a candidate-row refine. "
+                "Drop it unless you need exact float scores in the run file.",
+                index.storage_dtype,
+            )
+        _s, cand = index.search(
+            query_embs, args.rescore_factor * args.top_n, nprobe=args.nprobe
+        )
+        return index.rescore(args.ann_data_dir, query_embs, cand, args.top_n)
+
+
 def main(argv=None):
     logging.basicConfig(
         format="%(asctime)s - %(levelname)s - %(name)s - %(message)s",
@@ -237,18 +309,23 @@ def main(argv=None):
             all_raw.update(raw)
     query_embs = np.concatenate(all_embs, axis=0)
 
-    searcher = BlockedSearcher(
-        SearchConfig(
-            storage_dtype=args.storage_dtype,
-            max_device_block_bytes=args.max_device_block_bytes,
-            rescore_factor=args.rescore_factor,
-        ),
-        device=device,
-    )
-    with PhaseTimer("search"), profile_trace(args.profile_dir):
-        scores, offsets = searcher.search_blocks(
-            args.ann_data_dir, query_embs, args.top_n
+    if args.pq_dir:
+        scores, offsets = search_pq(args, query_embs, device)
+    elif args.ivf_dir:
+        scores, offsets = search_ivf(args, query_embs, device)
+    else:
+        searcher = BlockedSearcher(
+            SearchConfig(
+                storage_dtype=args.storage_dtype,
+                max_device_block_bytes=args.max_device_block_bytes,
+                rescore_factor=args.rescore_factor,
+            ),
+            device=device,
         )
+        with PhaseTimer("search"), profile_trace(args.profile_dir):
+            scores, offsets = searcher.search_blocks(
+                args.ann_data_dir, query_embs, args.top_n
+            )
 
     queries = load_queries_tsv(
         os.path.join(args.raw_data_dir, f"queries.{args.output_query_type}.tsv")

@@ -2,10 +2,11 @@
 
 The counterpart of ``convdr_tpu/retrieval/searcher.py`` (reference
 ``search_one_by_one``, run_convdr_inference.py:157-242): load block b (on a
-background thread, one block ahead), upload it through pinned host memory,
-search it with :func:`~convdr_torch.ops.exact_search.flat_ip_topk`, map
-local rows to token-cache offsets via the block's id array (:190-191), and
-merge with the running top-N preferring earlier blocks on ties (:217-229).
+background thread, one block ahead), upload it through pinned host memory
+(:func:`convdr_torch.utils.transfer.upload_rows`), search it with
+:func:`~convdr_torch.ops.exact_search.flat_ip_topk`, map local rows to
+token-cache offsets via the block's id array (:190-191), and merge with
+the running top-N preferring earlier blocks on ties (:217-229).
 
 Blocks are zero-padded to the score kernel's row tile
 (:data:`~convdr_torch.ops.fused_search.ROW_TILE`) on the device; the
@@ -48,16 +49,14 @@ from convdr_torch.ops.quant import (
 )
 from convdr_torch.retrieval.blocks import (
     bf16_dtype,
-    host_tensor,
     iter_embedding_blocks,
     load_embedding_block,
 )
+from convdr_torch.utils.transfer import upload_rows
 
 logger = logging.getLogger(__name__)
 
 _STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
-# Host staging chunk for uploads: two pinned buffers of this size alternate.
-UPLOAD_CHUNK_BYTES = 256 << 20
 
 
 def prefetch_iter(iterable, depth: int = 1):
@@ -106,53 +105,6 @@ def prefetch_iter(iterable, depth: int = 1):
         # Abandoned early: unblock the producer so it exits instead of
         # holding blocks alive for the life of the process.
         closed.set()
-
-
-def upload_rows(
-    rows: np.ndarray, padded_n: int, dtype: torch.dtype, device: torch.device
-) -> torch.Tensor:
-    """[N, D] host rows -> [padded_n, D] ``dtype`` tensor on ``device``,
-    rows past N zero.
-
-    On a card the copy goes through two alternating pinned staging buffers
-    (a pageable copy would be staged by CUDA anyway, one small piece
-    at a time); a dtype change is a cast on the device after the copy.
-    """
-    n, d = rows.shape
-    src = host_tensor(rows)
-    out = torch.empty((padded_n, d), dtype=dtype, device=device)
-    out[n:].zero_()
-    if device.type != "cuda":
-        out[:n].copy_(src)
-        return out
-    chunk = max(1, UPLOAD_CHUNK_BYTES // max(1, d * src.element_size()))
-    staging = [
-        torch.empty((min(chunk, n), d), dtype=src.dtype, pin_memory=True)
-        for _ in range(2 if n > chunk else 1)
-    ]
-    cast_buf = (
-        torch.empty((min(chunk, n), d), dtype=src.dtype, device=device)
-        if dtype != src.dtype else None
-    )
-    copied = [None] * len(staging)
-    for j, lo in enumerate(range(0, n, chunk)):
-        hi = min(n, lo + chunk)
-        slot = j % len(staging)
-        if copied[slot] is not None:
-            copied[slot].synchronize()  # its previous copy has left the buffer
-        buf = staging[slot][: hi - lo]
-        buf.copy_(src[lo:hi])
-        if cast_buf is None:
-            out[lo:hi].copy_(buf, non_blocking=True)
-        else:
-            cast_buf[: hi - lo].copy_(buf, non_blocking=True)
-            out[lo:hi].copy_(cast_buf[: hi - lo])
-        copied[slot] = torch.cuda.Event()
-        copied[slot].record()
-    for ev in copied:
-        if ev is not None:
-            ev.synchronize()
-    return out
 
 
 class BlockedSearcher:

@@ -16,7 +16,10 @@ Equal, not close: the streaming passes against the score kernel (the same
 f32 FMA chain per score; int8: exact integer sums, on the tensor cores in
 the score kernel), int8 scores against the plain version (exact integer
 arithmetic), the gathers against ``torch.gather`` (copies), and two
-backward calls on the same inputs (no atomics).
+backward calls on the same inputs (no atomics). The ANN layer (PyTorch
+ops): int8 IVF scores equal the integer oracle's; the ADC scans and IVF
+searches on the card against the CPU's within 1e-5, ids equal but for
+near-ties at the cut; a full IVF probe's sets against ``flat_ip_topk``'s.
 """
 
 import numpy as np
@@ -686,3 +689,125 @@ def test_native_library_builds_and_round_trips_on_card_machine(cuda, tmp_path):
     assert on_card.dtype == torch.bfloat16 and torch.equal(on_card, want)
     rows = native_io.gather_file_rows(path, 32, got.dtype, 768, np.array([999, 0, 1, 2]))
     assert rows.tobytes() == emb[[999, 0, 1, 2]].tobytes()
+
+
+# ---------------------------------------------------------------------------
+# the ANN layer on the card (PyTorch ops, no hand-written kernel)
+# ---------------------------------------------------------------------------
+def ann_mixture(n, d, n_centres, seed):
+    """Seeded Gaussian mixture rows [n, d] f32 (noise comparable to the
+    centre spread), the ANN's realistic regime."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    centres = rng.standard_normal((n_centres, d), dtype=np.float32)
+    return centres[rng.integers(0, n_centres, n)] + rng.standard_normal((n, d), dtype=np.float32)
+
+
+@pytest.mark.parametrize("d", [64, 768])
+def test_ivf_int8_list_scores_exact_on_card(cuda, d):
+    """int8 lists score in f32 on the int values: exact integers (a bf16
+    product would round every sum above 256), equal to the integer oracle
+    score for score at a full probe."""
+    from convdr_torch.ops.quant import int8_topk_oracle
+    from convdr_torch.retrieval.ivf import IVFIndex
+
+    x = ann_mixture(6000, d, 64, seed=1)
+    q = ann_mixture(16, d, 64, seed=2)
+    idx = IVFIndex.build(x, 16, storage_dtype="int8", iters=5, seed=0, device=cuda)
+    s, i = idx.search(q, 50, nprobe=idx.nlist)
+    q_int, tq = idx.quantizer.quantize_queries(q)
+    o_s, o_i = int8_topk_oracle(q_int, idx.quantizer.quantize_passages(x), 50)
+    np.testing.assert_array_equal(np.sort(s, 1), np.sort((o_s * tq).astype(np.float32), 1))
+    int_scores = q_int.astype(np.int64) @ idx.quantizer.quantize_passages(x).astype(np.int64).T
+    for r in range(16):
+        # probe-major order breaks integer ties differently: only rows tied
+        # with the 50th score may differ
+        for row in set(i[r]) ^ set(o_i[r]):
+            assert int_scores[r, row] == o_s[r, -1]
+    assert o_s.max() > 256  # sums a bf16 product would round
+
+
+def assert_topk_near(got_s, got_i, want_s, want_i, tol=1e-5):
+    """Scores within ``tol`` (relative and absolute) and, per row, equal id
+    sets but for near-ties at the cut (within ``tol`` of the k-th score)."""
+    np.testing.assert_allclose(got_s, want_s, rtol=tol, atol=tol)
+    for r in range(got_i.shape[0]):
+        diff = set(got_i[r].tolist()) ^ set(want_i[r].tolist())
+        if diff:
+            kth = want_s[r, -1]
+            assert abs(got_s[r, -1] - kth) <= tol * max(1.0, abs(kth)), (r, diff)
+
+
+@pytest.mark.parametrize("nbits,packed", [(4, False), (4, True), (8, False)])
+def test_adc_on_card_equals_cpu(cuda, nbits, packed):
+    """The flat ADC scan and the IVF candidate ADC on the card equal the
+    same functions on the CPU: scores within 1e-5 (f32 sums of another
+    order), ids equal but for near-ties at the cut."""
+    from convdr_torch.ops.pq import PQCodec, pack_codes_4bit, pq_flat_topk
+    from convdr_torch.retrieval.ivf import IVFIndex
+
+    x = ann_mixture(4000, 64, 32, seed=3)
+    q = ann_mixture(24, 64, 32, seed=4)
+    codec = PQCodec.fit(x, 16, nbits, iters=6, seed=0, device=cuda)
+    codes = codec.encode(x, device=cuda)
+    assert (codes == codec.encode(x, device="cpu")).mean() > 0.999  # f32 near-ties
+    stored = pack_codes_4bit(codes) if packed else codes
+    lut = torch.from_numpy(codec.lut(q))
+    got = pq_flat_topk(lut.cuda(), torch.from_numpy(stored).cuda(), 100, codec.ksub,
+                       packed=packed)
+    want = pq_flat_topk(lut, torch.from_numpy(stored), 100, codec.ksub, packed=packed)
+    assert_topk_near(got[0].cpu().numpy(), got[1].cpu().numpy(), want[0].numpy(),
+                     want[1].numpy())
+    idx = IVFIndex.build(x, 16, storage_dtype=f"pq{nbits}", pq_m=16, iters=5, seed=0,
+                         pack=packed, device=cuda)
+    s_card, i_card = idx.search(q, 50, nprobe=4)
+    idx._device, idx._dev = "cpu", None
+    s_cpu, i_cpu = idx.search(q, 50, nprobe=4)
+    assert_topk_near(s_card, i_card, s_cpu, i_cpu)
+
+
+def test_ivf_full_probe_equals_flat_on_card(cuda):
+    """A full probe scores every row: its top-100 sets equal flat_ip_topk's
+    on the same rows, up to near-ties at the cut (1e-5 * |q| * max|p|)."""
+    from convdr_torch.retrieval.ivf import IVFIndex
+
+    x = ann_mixture(20000, 128, 128, seed=5)
+    q = ann_mixture(32, 128, 128, seed=6)
+    idx = IVFIndex.build(x, 64, iters=8, seed=0, device=cuda)
+    s, i = idx.search(q, 100, nprobe=idx.nlist)
+    qt, pt = torch.from_numpy(q).cuda(), torch.from_numpy(x).cuda()
+    f_s, f_i = es.flat_ip_topk(qt, pt, 100)
+    f_s, f_i = f_s.cpu().numpy(), f_i.cpu().numpy()
+    pmax = np.linalg.norm(x, axis=1).max()
+    for r in range(32):
+        tol = 1e-5 * np.linalg.norm(q[r]) * pmax
+        for row in set(i[r]) ^ set(f_i[r]):
+            assert abs(float(q[r] @ x[row]) - f_s[r, -1]) <= tol
+    np.testing.assert_allclose(s[:, 0], f_s[:, 0], rtol=1e-5)
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_ivf_search_peak_stays_near_the_candidate_budget(cuda, storage):
+    """The card's allocator peak of a full probe stays under
+    ``max_candidate_bytes`` plus the [Q, nprobe * cap] scores, row ids and
+    their top-k (a slack of 64 bytes a candidate slot), where one query's
+    gathered candidates alone are several times the budget."""
+    from convdr_torch.retrieval.ivf import IVFIndex
+
+    x = ann_mixture(40000, 256, 64, seed=7)
+    q = ann_mixture(8, 256, 64, seed=8)
+    idx = IVFIndex.build(x, 32, iters=5, seed=0, storage_dtype=storage, device=cuda)
+    budget = 4 << 20
+    idx.search(q[:1], 10, nprobe=1)  # uploads the index
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    want = idx.search(q, 10, nprobe=idx.nlist)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base > 4 * budget  # the default budget
+    torch.cuda.reset_peak_memory_stats()
+    got = idx.search(q, 10, nprobe=idx.nlist, max_candidate_bytes=budget)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= budget + 64 * idx.nlist * idx.cap, (peak, budget)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6)

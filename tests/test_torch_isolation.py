@@ -24,7 +24,10 @@ assert "convdr_torch.drivers.gen_passage_embeddings" in names, names
 assert "convdr_torch.drivers.run_convdr_train" in names, names
 assert "convdr_torch.train.loop" in names, names
 for name in ("convdr_torch.drivers.tokenize_collection", "convdr_torch.native_io",
-             "convdr_torch.etl.ranking_data", "convdr_torch.scripts.rehearsal"):
+             "convdr_torch.etl.ranking_data", "convdr_torch.scripts.rehearsal",
+             "convdr_torch.drivers.build_ivf_index", "convdr_torch.retrieval.ivf",
+             "convdr_torch.retrieval.pq_index", "convdr_torch.retrieval.refine",
+             "convdr_torch.ops.kmeans", "convdr_torch.ops.pq", "convdr_torch.utils.transfer"):
     assert name in names, names
 bad = sorted(
     m for m in sys.modules
