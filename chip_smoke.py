@@ -118,6 +118,23 @@
    ``run_convdr_inference.main --ivf_dir --nprobe 999``, whose metrics equal
    the flat f32 run's, and ``--nprobe 1``; kernel 1's count is zeroed
    before the full-probe run and read after (> 0).
+4e. Online serving (``convdr_torch.retrieval.online``): 64 distinct
+   three-turn histories served one turn at a time, each turn one replay of
+   the captured CUDA graph of the whole program (encode at concat 256,
+   query-side prep, search), by seven resident backends: the inference
+   path's 1,056,768 rows flat in f32, bf16 and int8, and the ANN phase's
+   IVF int8 and packed IVFPQ pq4 indexes at nprobe 8 and 32. For each: the
+   build and capture seconds, resident and graph-pool MiB, p50 / p90 / p99
+   ms of ``search`` (tokenize included), of ``search_tokens`` and of the
+   same turns run eagerly in two steps (encode, read back, search), the
+   device ms of a replay, of the encode and of the search; every replay
+   equal bit for bit to the eager program. Kernel 1 at B=1 T=256 f32 and
+   kernel 2 at Q=1 (f32, bf16, int8) against their plain versions, bounds
+   and library calls. Then ``serve_online.main`` over the 512 evaluation
+   turns against ``run_convdr_inference --per_gpu_eval_batch_size 1``
+   (flat f32 and int8): the runs rank for rank. The serving launches are
+   counted from zero around each backend: each graph's recorded launches
+   times its replays, plus the eager run before its capture.
 5. Prints the training ms per step and examples/s, a ``{"kernels": [...]}``
    line (launches, max error, kernel / plain / library / bound times in ms,
    CUDA-event timed after warm-up), and last ``{"ok": true, "device": ...}``.
@@ -151,12 +168,14 @@ from convdr_torch.data.token_cache import (
     save_id_maps,
 )
 from convdr_torch.core.config import TrainConfig
-from convdr_torch.core.loading import load_model_and_params
+from convdr_torch.core.loading import load_model_and_params, load_tokenizer_for
+from convdr_torch.core.registry import get_model_config
 from convdr_torch.drivers import (
     build_ivf_index,
     gen_passage_embeddings,
     run_convdr_inference,
     run_convdr_train,
+    serve_online,
 )
 from convdr_torch.evaluation.metrics import parse_trec_run
 from convdr_torch.models import attention, transformer
@@ -197,6 +216,12 @@ from convdr_torch.ops.streaming_search import (
 from convdr_torch.retrieval import ivf as ivf_module
 from convdr_torch.retrieval.blocks import host_tensor, iter_embedding_blocks, write_embedding_block
 from convdr_torch.retrieval.ivf import IVFIndex
+from convdr_torch.retrieval.online import (
+    COUNTED_KERNELS,
+    OnlineSearcher,
+    capture,
+    history_to_inputs,
+)
 from convdr_torch.retrieval.pq_index import PQIndex
 from convdr_torch.scripts import rehearsal
 from convdr_torch.train.losses import kd_mse_loss, ranking_nll_loss
@@ -238,6 +263,13 @@ ANN_NLIST, ANN_NPROBES, DRIVER_NLIST = 1024, (8, 32, 128), 256
 # ``_ADC_CHUNK_BYTES`` at their defaults), plus the [Q, nprobe * cap]
 # scores, row ids and top-k of a query chunk
 ANN_BUDGET_MIB, ADC_BUDGET_MIB, ANN_SLACK_MIB = 2048, 256, 256
+# the serving phase: distinct three-turn histories served one at a time,
+# the IVF probes, and the ANN phase's indexes, saved for it
+SERVE_TURNS, SERVE_NPROBES, SERVE_T = 64, (8, 32), 256
+# the served flat corpus is scanned in SEARCH_N-row blocks; its last is short
+SERVE_SHORT = (N_PASSAGES + 2 * N_EXTRA) % SEARCH_N
+SERVE_IVF_DIRS = {"ivf_int8": os.path.join(WORK, "serve_ivf_int8"),
+                  "ivfpq_pq4": os.path.join(WORK, "serve_ivfpq_pq4")}
 
 
 def log(*parts):
@@ -2119,6 +2151,7 @@ def ann_path(paths, flat_metrics, qids, q_embs):
                      np.zeros(ANN_Q))
     del p_int, int_scores
     out["ivf_int8"] = {"build_s": build_s, "ms": ms, "peak_mib": mib, "equal_sets": equal}
+    ivf_i8.save(SERVE_IVF_DIRS["ivf_int8"])  # the serving phase's resident IVF int8
     log(f"  IVF int8 (build {build_s:.2f} s on the f32 index's centroids): full-probe scores equal to the integer-exact "
         f"plain search score for score for {ANN_Q}/{ANN_Q} queries, sets equal for "
         f"{equal} (integer ties at the cut otherwise); {ms:.1f} ms, peak {mib:.0f} MiB")
@@ -2150,6 +2183,7 @@ def ann_path(paths, flat_metrics, qids, q_embs):
                              "peak_mib": mib}
     log(f"  IVFPQ nprobe 32: recall@{TOP_N} {out['ivfpq_nprobe32']['recall_100']:.4f}, "
         f"{ms:.1f} ms, peak {mib:.0f} MiB")
+    ivfpq.save(SERVE_IVF_DIRS["ivfpq_pq4"])  # and its resident packed IVFPQ
     del ivfpq, codes4, ref4
     # --rescore_factor 2 through the refine store on the .cnb blocks, index
     # for index against a plain refine of the same candidates (rows by
@@ -2248,6 +2282,366 @@ def ann_path(paths, flat_metrics, qids, q_embs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 4e. online serving: one captured CUDA graph a turn
+# ---------------------------------------------------------------------------
+def make_histories(n):
+    """n distinct three-turn conversations, the current question last
+    (scripts/bench_online.py's)."""
+    subjects = ["throat cancer", "bronze age trade", "lucid dreaming", "coral reefs",
+                "rust compilers", "monsoon seasons", "jazz harmony", "glacier melt"]
+    return [[f"tell me about {subjects[i % len(subjects)]} case {i}",
+             f"what causes it in region {i % 7}",
+             f"how is it treated or managed today, variant {i}"] for i in range(n)]
+
+
+def latency_ms(lat):
+    """count and p50 / p90 / p99 / mean in ms of latencies in seconds."""
+    a = np.asarray(lat) * 1e3
+    return {"count": len(lat), "p50_ms": float(np.percentile(a, 50)),
+            "p90_ms": float(np.percentile(a, 90)), "p99_ms": float(np.percentile(a, 99)),
+            "mean_ms": float(a.mean())}
+
+
+def same_bits(a, b):
+    return a[0].tobytes() == b[0].tobytes() and np.array_equal(a[1], b[1])
+
+
+def graph_ms(fn):
+    """Device ms of ``fn()``: captured into a CUDA graph of its own as the
+    serving program is (``online.capture``), then replays timed back to
+    back with CUDA events, so no host launch time is in it."""
+    graph = capture(fn, torch.device("cuda"))[0]
+    ms = cuda_ms(graph.replay, iters=20)
+    del graph
+    return ms
+
+
+def plain_flat_search(rows, storage, emb_dir):
+    """The plain exact search a flat backend is held to: one matmul with
+    TF32 off over every row of the blocks on disk (``rows``, f32 on the
+    card), stored as the backend stores them (f32; bf16; SQ8 with the
+    scales ``from_blocks`` takes: the sidecar's, else fit on block 0).
+    -> q [1, D] f32 -> (scores [N] f32, tol): 1e-5*|q|*max|p| for float
+    rows; 0 for SQ8, whose query the host's ``quantize_queries`` folds and
+    whose integer products and sums are exact in f32."""
+    if storage != "int8":
+        stored = rows if storage == "float32" else rows.bfloat16().float()
+        pmax = stored.norm(dim=1).max().item()
+        return lambda q: ((q @ stored.T)[0], 1e-5 * q.norm().item() * pmax)
+    quant = Int8Quantizer.load_optional(emb_dir) or Int8Quantizer.fit(
+        next(iter_embedding_blocks(emb_dir))[1])
+    scales = torch.from_numpy(quant.scales).cuda()
+    p_int = torch.round(rows / scales[None, :]).clamp_(-127, 127)
+
+    def search(q):
+        q_int, t = (torch.from_numpy(x).cuda() for x in quant.quantize_queries(q.cpu().numpy()))
+        return (q_int @ p_int.T)[0] * t[0, 0], 0.0
+
+    return search
+
+
+def topk_matches_plain(name, s, rows, plain, tol):
+    """Holds one served top-``TOP_N`` (device scores and rows) to a plain
+    exact search's scores over every row: the rows are distinct, their
+    plain scores lie within ``tol`` of the served ones, none lies below the
+    plain k-th score by more than ``tol``, and every row above it by more
+    than ``tol`` is served, so the two differ at most in near-ties at the
+    cut. Returns whether the two sets are equal."""
+    top = torch.topk(plain, TOP_N)
+    kth = top.values[-1]
+    if ((rows < 0).any() or rows.unique().numel() != TOP_N
+            or (plain[rows] - s).abs().max() > tol or (plain[rows] < kth - tol).any()
+            or not torch.isin(torch.nonzero(plain > kth + tol).flatten(), rows).all()):
+        raise AssertionError(f"{name}: a served top-{TOP_N} differs from the plain exact "
+                             f"search beyond near-ties at the cut (tolerance {tol})")
+    return set(rows.tolist()) == set(top.indices.tolist())
+
+
+def serve_backend(name, make, histories, plain=None):
+    """One backend: build it (model and resident index), capture the Q=1
+    program (``warmup``), serve every history through ``search`` (tokenize
+    included) and through ``search_tokens``, then the same turns eagerly in
+    two steps (tokenize, encode, read back, search, read back), as
+    scripts/bench_online.py compares them. Every served turn is held bit
+    for bit to the one-step eager program and to the two-step run, and on
+    the flat backends to ``plain``, a plain exact search of its query
+    (:func:`topk_matches_plain`). The kernels' counts are zeroed before the build and read after the served
+    turns: the eager warm-up's launches plus the graph's recorded launches
+    times its replays (the capture's own records launch nothing)."""
+    for fn in COUNTED_KERNELS.values():
+        fn.launches = 0
+    t0 = time.time()
+    searcher = make()
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    searcher.warmup()
+    graph = searcher.graphs[1]
+    searcher.stats.latencies.clear()
+    served = [searcher.search(h) for h in histories]
+    lat_search = list(searcher.stats.latencies)
+    length = searcher.max_concat_length
+    inputs = [history_to_inputs(searcher.tokenizer, h, max_concat_length=length)
+              for h in histories]
+    searcher.stats.latencies.clear()
+    served_tokens = [searcher.search_tokens(ids, mask) for ids, mask in inputs]
+    lat_tokens = list(searcher.stats.latencies)
+    counted, replayed = {k: fn.launches for k, fn in COUNTED_KERNELS.items()}, \
+        searcher.replayed_launches()
+    launches = {k: counted[k] - graph.launches[k] + replayed[k] for k in counted}
+    lat_eager = []
+    for h, got in zip(histories, served_tokens):
+        t1 = time.perf_counter()
+        ids, mask = history_to_inputs(searcher.tokenizer, h, max_concat_length=length)
+        q = searcher.encode(torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()).cpu()
+        s, i = searcher.search_embeddings(q.cuda())
+        two_step = (s.cpu().numpy(), searcher.rows_to_offsets(i.cpu().numpy()))
+        lat_eager.append(time.perf_counter() - t1)
+        if not same_bits(two_step, got):
+            raise AssertionError(f"{name}: a replay differs from the two-step eager run")
+    plain_sets_equal = 0
+    for (ids, mask), a, b in zip(inputs, served, served_tokens):
+        ids_dev, mask_dev = torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda()
+        s, i = searcher.program(ids_dev, mask_dev)
+        want = (s.cpu().numpy(), searcher.rows_to_offsets(i.cpu().numpy()))
+        if not (same_bits(a, want) and same_bits(b, want)):
+            raise AssertionError(f"{name}: a replay differs from the eager program")
+        if (want[0].shape != (1, TOP_N) or (want[1] < 0).any()
+                or not np.isfinite(want[0]).all() or (np.diff(want[0]) > 0).any()):
+            raise AssertionError(f"{name}: a turn's top-{TOP_N} is malformed")
+        if plain is not None:
+            plain_sets_equal += topk_matches_plain(
+                name, s[0], i[0], *plain(searcher.encode(ids_dev, mask_dev)))
+    ids_dev, mask_dev = (torch.from_numpy(x).cuda() for x in inputs[-1])
+    q_dev = searcher.encode(ids_dev, mask_dev)
+    out = {
+        "build_s": build_s, "capture_s": graph.capture_s,
+        "resident_mib": searcher.resident_bytes / 2 ** 20,
+        "model_mib": sum(p.numel() * p.element_size()
+                         for p in searcher.model.parameters()) / 2 ** 20,
+        "graph_pool_mib": graph.pool_bytes / 2 ** 20,
+        "search": latency_ms(lat_search), "search_tokens": latency_ms(lat_tokens),
+        "eager_two_step": latency_ms(lat_eager),
+        "replay_device_ms": cuda_ms(graph.graph.replay, iters=20),
+        "encode_device_ms": graph_ms(lambda: searcher.encode(ids_dev, mask_dev)),
+        "search_device_ms": graph_ms(lambda: searcher.search_embeddings(q_dev)),
+        "eager_encode_ms": cuda_ms(lambda: searcher.encode(ids_dev, mask_dev), iters=20),
+        "eager_search_ms": cuda_ms(lambda: searcher.search_embeddings(q_dev), iters=20),
+        "launches": launches, "launches_per_replay": graph.launches,
+        "replays": graph.replays, "turns_equal_to_eager": len(histories),
+        "turns_held_to_plain": len(histories) if plain is not None else 0,
+        "plain_sets_equal": plain_sets_equal,
+    }
+    log(f"  {name}: build {build_s:.2f} s, capture {graph.capture_s:.3f} s; resident "
+        f"{out['resident_mib']:.1f} MiB (model {out['model_mib']:.1f}), graph pool "
+        f"{out['graph_pool_mib']:.1f} MiB; p50 / p90 / p99 ms: search "
+        + " / ".join(f"{out['search'][p]:.3f}" for p in ("p50_ms", "p90_ms", "p99_ms"))
+        + ", search_tokens "
+        + " / ".join(f"{out['search_tokens'][p]:.3f}" for p in ("p50_ms", "p90_ms", "p99_ms"))
+        + ", eager two steps "
+        + " / ".join(f"{out['eager_two_step'][p]:.3f}" for p in ("p50_ms", "p90_ms", "p99_ms"))
+        + f"; device ms: replay {out['replay_device_ms']:.3f} (encode "
+        f"{out['encode_device_ms']:.3f}, search {out['search_device_ms']:.3f}; eager, "
+        f"host-paced: {out['eager_encode_ms']:.3f}, {out['eager_search_ms']:.3f}); "
+        f"{len(histories)} turns equal to the eager program bit for bit; "
+        + (f"{plain_sets_equal}/{len(histories)} top-{TOP_N} sets equal to the plain exact "
+           "search, near-ties at the cut otherwise; " if plain is not None else "")
+        + f"launches {launches} "
+        f"({graph.launches} a replay x {graph.replays})")
+    # the turn's device share: the replay's device time over the turn's wall
+    out["device_share_search_tokens_p50"] = out["replay_device_ms"] / \
+        out["search_tokens"]["p50_ms"]
+    del searcher, graph, q_dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_kernel_times(tokenizer, histories):
+    """Kernel 1 at the serving encode's shape (B=1, T=256, f32, the mask of
+    a served history); kernel 2 at Q=1 over the flat search's full block
+    (524288 rows) and its short last one (``SERVE_SHORT``) with f32, bf16
+    and int8 passages; kernel 5 at Q=1 on each of those score blocks and
+    the groups their maxima pick. Each against its plain version (attention
+    within 1e-5; f32/bf16 scores within 1e-5*|q|*max|p|, int8 scores and
+    every gather equal). Timed at the full block, host-paced and on the
+    device, beside its bound and one library call (masked SDPA;
+    ``torch.matmul`` with TF32 off + ``amax``, none for int8, as
+    ``torch._int_mm`` takes no fewer than 17 rows; ``torch.gather``, which
+    is also kernel 5's plain version)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    _ids, mask = history_to_inputs(tokenizer, histories[0], max_concat_length=SERVE_T)
+    mask = torch.from_numpy(mask).cuda()
+    q, k, v = (torch.randn((1, SERVE_T, HEADS, HEAD_DIM), generator=gen, device="cuda")
+               for _ in range(3))
+    err = (flash_attention(q, k, v, mask) - flash_attention_plain(q, k, v, mask)).abs().max()
+    if err.item() > 1e-5:
+        raise AssertionError(f"flash attention at B=1 T={SERVE_T}: {err.item()}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    allowed = mask[:, None, :, None] == mask[:, None, None, :]
+    kernel = lambda: flash_attention(q, k, v, mask)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)  # noqa: E731
+    bound_ms, bound_by = attention_bound_ms(q, mask)
+    attn = {"shape": f"B=1 T={SERVE_T} H={HEADS} D={HEAD_DIM} f32",
+            "valid_tokens": int(mask.sum().item()), "max_abs_err": err.item(),
+            "ms": cuda_ms(kernel, iters=50), "device_ms": device_ms(kernel, iters=50),
+            "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, mask), iters=20),
+            "library_ms": cuda_ms(library, iters=50),
+            "library_device_ms": device_ms(library, iters=50),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "config": flash_attention_fwd_config(1, SERVE_T, HEADS, HEAD_DIM, torch.float32)}
+    log(f"  kernel 1 at {attn['shape']} ({attn['valid_tokens']} valid tokens): max_abs_err "
+        f"{attn['max_abs_err']:.3e}; {attn['ms']:.4f} ms host-paced, {attn['device_ms']:.4f} "
+        f"on the device; plain {attn['plain_ms']:.4f}; SDPA {attn['library_ms']:.4f} / "
+        f"{attn['library_device_ms']:.4f}; bound {bound_ms:.4f} ({bound_by}); "
+        f"{attn['config']}")
+    q32 = torch.randn(1, SEARCH_D, generator=gen, device="cuda")
+    p32 = torch.randn(SEARCH_N, SEARCH_D, generator=gen, device="cuda")
+    scores, gather = {}, None
+    for dtype in STORAGE:
+        qd, p = search_operands(q32, p32, dtype)
+        diff = 0.0
+        for n in (SERVE_SHORT, SEARCH_N):
+            s, g = fused_scores_groupmax(qd, p[:n], GROUP)
+            s_ref, g_ref = fused_scores_groupmax_plain(qd, p[:n], GROUP)
+            diff = max(diff, (s - s_ref).abs().max().item())
+            tol = 1e-5 * qd.norm().item() * p[:n].float().norm(dim=1).max().item()
+            exact = torch.equal(s, s_ref) and torch.equal(g, g_ref)
+            if (dtype == torch.int8 and not exact) or diff > tol:
+                raise AssertionError(f"kernel 2 at Q=1 N={n} ({dtype}): {diff}")
+            # the groups the flat search gathers from this block
+            gsel = torch.sort(grouped_topk_last_axis(g, TOP_N, GROUP)[1], dim=1)[0]
+            if not torch.equal(dma_gather_groups(s, gsel, group=GROUP),
+                               dma_gather_groups_plain(s, gsel, group=GROUP)):
+                raise AssertionError(f"kernel 5 at Q=1 N={n} ({dtype}) differs from "
+                                     "torch.gather")
+        if gather is None:  # timed once, on the f32 full block's scores
+            gather = gather_q1_times(s, gsel)
+        call = lambda: fused_scores_groupmax(qd, p, GROUP)  # noqa: E731
+        nbytes = (qd.numel() * (1 if dtype == torch.int8 else 4) + p.numel() * p.element_size()
+                  + SEARCH_N * 4 + SEARCH_N // GROUP * 4)
+        bound_ms, bound_by = kernel_bound(2.0 * SEARCH_N * SEARCH_D, nbytes,
+                                          torch.int8 if dtype == torch.int8 else torch.float32)
+        row = {"shape": f"Q=1 N={SEARCH_N} D={SEARCH_D} G={GROUP} {dtype_name(dtype)}",
+               "max_abs_err": diff, "ms": cuda_ms(call, iters=50),
+               "device_ms": device_ms(call, iters=50),
+               "plain_ms": cuda_ms(lambda: fused_scores_groupmax_plain(qd, p, GROUP), iters=20),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        if dtype == torch.int8:
+            row.update(library_ms=None, library=None)
+        else:
+            lib = library_scores(qd, p, GROUP)
+            pf = p.float()
+            row.update(lib, library_device_ms=device_ms(
+                lambda: torch.matmul(qd, pf.T).view(1, -1, GROUP).amax(-1), iters=50))
+        scores[dtype_name(dtype)] = row
+        log(f"  kernel 2 at {row['shape']}: max_abs_err {diff:.3e}; {row['ms']:.4f} ms "
+            f"host-paced, {row['device_ms']:.4f} on the device; plain {row['plain_ms']:.4f}; "
+            f"library {row['library_ms']} ({row.get('library_device_ms')} on the device); "
+            f"bound {bound_ms:.4f} ({bound_by})")
+        del qd, p, s, g, s_ref, g_ref, gsel
+    del p32
+    torch.cuda.empty_cache()
+    return attn, scores, gather
+
+
+def gather_q1_times(s, gsel):
+    """Kernel 5 at the served shape (Q=1, the full block, K=TOP_N groups),
+    host-paced and on the device, beside its bound (the groups read and
+    written once, their ids read) and ``torch.gather``."""
+    kernel = lambda: dma_gather_groups(s, gsel, group=GROUP)  # noqa: E731
+    library = lambda: dma_gather_groups_plain(s, gsel, group=GROUP)  # noqa: E731
+    bound_ms, bound_by = kernel_bound(0.0, 2 * gsel.numel() * GROUP * 4 + gsel.numel() * 8)
+    row = {"shape": f"Q=1 B={SEARCH_N} K={TOP_N} G={GROUP} f32", "max_abs_err": 0.0,
+           "ms": cuda_ms(kernel, iters=50), "device_ms": device_ms(kernel, iters=50),
+           "plain_ms": cuda_ms(library, iters=50), "library_ms": cuda_ms(library, iters=50),
+           "library_device_ms": device_ms(library, iters=50),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"  kernel 5 at {row['shape']} (and at N={SERVE_SHORT}, every storage): equals "
+        f"torch.gather; {row['ms']:.4f} ms host-paced, {row['device_ms']:.4f} on the device; "
+        f"torch.gather {row['library_ms']:.4f} / {row['library_device_ms']:.4f}; bound "
+        f"{bound_ms:.5f} ({bound_by})")
+    return row
+
+
+def serve_driver_vs_batch(paths, storage):
+    """``serve_online.main`` over the main path's 512 evaluation turns
+    against ``run_convdr_inference --per_gpu_eval_batch_size 1`` over the
+    same f32 blocks (the same encode shape, so the same embedding bits, and
+    one f32 FMA chain a score whatever the query tile): the two TREC runs
+    rank for rank, and their metrics equal."""
+    processed, raw, emb_dir = paths["processed"], paths["raw"], paths["emb_dir"]
+    trec = os.path.join(WORK, f"serve_{storage}.trec")
+    t0 = time.time()
+    served = serve_online.main([
+        "--model_path", "init", "--model_type", "rdot_nll",
+        "--eval_file", os.path.join(raw, "eval_topics.jsonl"),
+        "--processed_data_dir", processed, "--ann_data_dir", emb_dir,
+        "--qrels", os.path.join(raw, "qrels.tsv"), "--output_trec_file", trec,
+        "--top_n", str(TOP_N), "--max_concat_length", str(SERVE_T),
+        "--storage_dtype", storage])
+    serve_s = time.time() - t0
+    t0 = time.time()
+    batch = run_convdr_inference.main(
+        inference_argv(WORK, processed, raw, emb_dir, f"batch1_{storage}")
+        + ["--per_gpu_eval_batch_size", "1", "--storage_dtype", storage])
+    batch_s = time.time() - t0
+    run = parse_trec_run(trec)
+    ref = parse_trec_run(os.path.join(WORK, f"batch1_{storage}.trec"))
+    differ = [qid for qid in ref if [p for p, _ in run.get(qid, [])] != [p for p, _ in ref[qid]]]
+    out = {"serve_s": serve_s, "batch_s": batch_s, "queries": len(ref),
+           "equal_ranks": len(ref) - len(differ), "serving_latency": served["serving_latency"],
+           "metrics_equal": all(served[k] == v for k, v in batch.items())}
+    log(f"  serve_online.main --storage_dtype {storage}: {serve_s:.1f} s, per turn "
+        f"{served['serving_latency']}; run_convdr_inference --per_gpu_eval_batch_size 1 "
+        f"{batch_s:.1f} s; runs rank for rank equal for {out['equal_ranks']}/{len(ref)} "
+        f"queries, metrics equal {out['metrics_equal']}")
+    if differ or set(run) != set(ref) or not out["metrics_equal"]:
+        qid = differ[0] if differ else None
+        raise AssertionError(f"serve_online ({storage}) differs from the batch driver at batch "
+                             f"1: {len(differ)} queries, e.g. {qid}: "
+                             f"{run.get(qid, [])[:5]} against {ref.get(qid, [])[:5]}")
+    return out
+
+
+def serving_path(paths):
+    """Phase 4e: online serving at full width (RoBERTa-base rdot_nll, seeded
+    weights, concat 256): 64 distinct three-turn histories served one at a
+    time by the resident flat corpus of the inference path (1,056,768 x 768;
+    f32, bf16, int8) and by the ANN phase's IVF int8 and packed IVFPQ pq4
+    indexes (1,048,576 rows; nprobe 8 and 32), each flat turn also held to
+    a plain exact search; kernels 1, 2 and 5 at the serving shapes; then
+    the serving driver against the batch driver."""
+    t_phase = time.time()
+    histories = make_histories(SERVE_TURNS)
+    common = dict(model_type="rdot_nll", top_n=TOP_N, max_concat_length=SERVE_T)
+    backends = {}
+    rows, _offsets = load_rows(paths["emb_dir"])
+    for storage in ("float32", "bfloat16", "int8"):
+        backends[f"flat_{storage}"] = serve_backend(
+            f"flat {storage}", lambda st=storage: OnlineSearcher.from_blocks(
+                None, paths["emb_dir"], storage_dtype=st, **common), histories,
+            plain=plain_flat_search(rows, storage, paths["emb_dir"]))
+        torch.cuda.empty_cache()
+    del rows, _offsets
+    for kind, index_dir in SERVE_IVF_DIRS.items():
+        for nprobe in SERVE_NPROBES:
+            backends[f"{kind}_nprobe{nprobe}"] = serve_backend(
+                f"{kind} nprobe {nprobe}", lambda d=index_dir, n=nprobe: OnlineSearcher.from_ivf(
+                    None, d, nprobe=n, **common), histories)
+        shutil.rmtree(index_dir, ignore_errors=True)
+    for name, b in backends.items():
+        flat = name.startswith("flat")
+        on_path = [k for k in COUNTED_KERNELS if flat or k == "flash_attention_fwd"]
+        if any(b["launches"][k] <= 0 for k in on_path):
+            raise AssertionError(f"serving {name} did not run through its kernels: "
+                                 f"{b['launches']}")
+    tokenizer = load_tokenizer_for(get_model_config("rdot_nll"), None)  # the served one
+    attn, scores, gather = serving_kernel_times(tokenizer, histories)
+    drivers = {st: serve_driver_vs_batch(paths, st) for st in ("float32", "int8")}
+    return {"backends": backends, "kernel1_B1": attn, "kernel2_Q1": scores, "kernel5_Q1": gather,
+            "driver_vs_batch": drivers, "phase_s": time.time() - t_phase}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default="", help="also write all results as JSON here")
@@ -2304,8 +2698,13 @@ def main(argv=None):
         log("the ANN family (k-means, IVF, PQ/OPQ, IVFPQ, refine; D=768, 1M rows) and "
             "the build_ivf_index -> --ivf_dir drivers:")
         ann = ann_path(paths, metrics, qids, q_embs)
+        torch.cuda.empty_cache()
+        log("online serving (one captured CUDA graph a turn; full RoBERTa-base width, "
+            "seeded weights; flat f32 / bf16 / int8, IVF int8, IVFPQ pq4):")
+        serving = serving_path(paths)
         log(f"data plane phase {data_plane['phase_s']:.1f} s, rehearsal phase "
-            f"{rehearsed['phase_s']:.1f} s, ANN phase {ann['phase_s']:.1f} s")
+            f"{rehearsed['phase_s']:.1f} s, ANN phase {ann['phase_s']:.1f} s, serving phase "
+            f"{serving['phase_s']:.1f} s")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # each kernel's count on the path of the slice that ported it; the
@@ -2342,6 +2741,16 @@ def main(argv=None):
                               "rehearsal": rehearsed["launches"]["dma_gather_groups"]}
     bwd["launches_by_path"] = {"train": train_launches["flash_attention_bwd"],
                                "rehearsal": rehearsed["launches"]["flash_attention_bwd"]}
+    # the serving phase's replays: each graph's recorded launches x its
+    # replays, plus the eager warm-up before its capture
+    for backend, b in serving["backends"].items():
+        for entry, kernel in ((fwd, "flash_attention_fwd"), (search, "fused_scores_groupmax"),
+                              (k5, "dma_gather_groups")):
+            if b["launches"][kernel]:
+                entry["launches_by_path"][f"serving_{backend}"] = b["launches"][kernel]
+    fwd["serving_B1"] = serving["kernel1_B1"]
+    search["serving_Q1"] = serving["kernel2_Q1"]
+    k5["serving_Q1"] = serving["kernel5_Q1"]
     log(f"inference + search over {N_PASSAGES + 2 * N_EXTRA} rows, same call: f32 "
         f"{t_infer:.2f} s, int8 {int8['inference_s']:.2f} s, int8 + rescore 2 over the f32 "
         f"blocks {int8['inference_rescore_s']:.2f} s; embed f32 {t_embed:.2f} s, int8 "
@@ -2366,6 +2775,7 @@ def main(argv=None):
                        "launch_configs": configs,
                        "train": train, "train_step_check": step_check,
                        "data_plane": data_plane, "rehearsal": rehearsed, "ann": ann,
+                       "serving": serving,
                        "total_s": time.time() - t_start}, f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

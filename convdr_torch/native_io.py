@@ -9,6 +9,11 @@ The library is built at first use with ``g++ -O3 -std=c++17 -fPIC -shared
 -pthread`` into ``convdr_torch/build/libconvdr_native-<hash>.so``; the hash
 covers the source and the flags, so an edited source never loads a stale
 library. No ``-march=native``: one build directory may serve two machines.
+The HNSW graph (``csrc/host/hnsw.cpp``, a copy of the JAX package's
+``native/hnsw.cpp``) is a second library, ``libconvdr_hnsw-<hash>.so``,
+built by the same rules with the JAX package's Makefile flags
+(:data:`HNSW_CXX_FLAGS`, ``-march=native`` included); its hash also covers
+the CPU, so it is rebuilt on a machine with another one.
 
 Each native entry point has a separate numpy version, ``<name>_plain``,
 with the same contract (the same bytes on disk, the same arrays back); the
@@ -32,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 import threading
 from typing import List, Optional, Tuple
@@ -40,11 +46,18 @@ import numpy as np
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(PKG_DIR, "csrc", "host", "convdr_native.cpp")
+HNSW_SOURCE = os.path.join(PKG_DIR, "csrc", "host", "hnsw.cpp")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
+# the JAX package's Makefile flags: floating-point contraction and unrolling
+# shape the distances HNSW compares, so both packages build the same graph
+# from the same rows only when both compile it alike
+HNSW_CXX_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-std=c++17", "-fPIC",
+                  "-Wall", "-pthread", "-shared")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_hnsw_lib: Optional[ctypes.CDLL] = None
 
 _HEADER_BYTES = 32
 _MAGIC = 0x434E5642304B4C42
@@ -75,33 +88,82 @@ _SIGNATURES = {
         _F32P, _I64P, _F32P, _I64P, ctypes.c_int64, ctypes.c_int64, _F32P, _I64P,
     ]),
 }
+_I64 = ctypes.c_int64
+_HNSW_SIGNATURES = {
+    "convdr_hnsw_create": (ctypes.c_void_p, [_I64, _I64, _I64, _I64, ctypes.c_uint64]),
+    "convdr_hnsw_free": (None, [ctypes.c_void_p]),
+    "convdr_hnsw_add": (None, [ctypes.c_void_p, _F32P, _I64]),
+    "convdr_hnsw_add_parallel": (None, [ctypes.c_void_p, _F32P, _I64, _I64]),
+    "convdr_hnsw_size": (_I64, [ctypes.c_void_p]),
+    "convdr_hnsw_set_ef_search": (None, [ctypes.c_void_p, _I64]),
+    "convdr_hnsw_search": (None, [ctypes.c_void_p, _F32P, _I64, _I64, _F32P, _I64P]),
+    "convdr_hnsw_search_parallel": (None, [
+        ctypes.c_void_p, _F32P, _I64, _I64, _F32P, _I64P, _I64,
+    ]),
+}
+
+
+def _cpu_fingerprint() -> bytes:
+    """The host CPU's model and feature flags: a ``-march=native`` library
+    is only loaded on a CPU like the one that built it."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = [ln for ln in f if ln.startswith((b"model name", b"flags"))]
+        return b"".join(lines[:2])
+    except OSError:
+        return platform.processor().encode()
+
+
+def _library_path(stem: str, source: str, flags, native: bool = False) -> str:
+    """``build/<stem>-<hash>.so``: the hash covers the source, the flags and,
+    for a ``-march=native`` build, the CPU."""
+    digest = hashlib.sha1(" ".join(flags).encode())
+    with open(source, "rb") as f:
+        digest.update(f.read())
+    if native:
+        digest.update(_cpu_fingerprint())
+    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:12]}.so")
 
 
 def library_path() -> str:
-    digest = hashlib.sha1(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
-        digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"libconvdr_native-{digest.hexdigest()[:12]}.so")
+    return _library_path("libconvdr_native", SOURCE, CXX_FLAGS)
 
 
-def _build(so: str) -> None:
+def hnsw_library_path() -> str:
+    return _library_path("libconvdr_hnsw", HNSW_SOURCE, HNSW_CXX_FLAGS, native=True)
+
+
+def _build(so: str, source: str = SOURCE, flags=CXX_FLAGS) -> None:
+    """g++ ``source`` into a temporary name, then rename it to ``so``;
+    raises with the compiler's output if it fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
     try:
         proc = subprocess.run(
-            ["g++", *CXX_FLAGS, "-o", tmp, SOURCE],
+            ["g++", *flags, "-o", tmp, source],
             capture_output=True, text=True,
         )
     except FileNotFoundError as e:
-        raise RuntimeError(f"cannot build {SOURCE}: g++ not found") from e
+        raise RuntimeError(f"cannot build {source}: g++ not found") from e
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.remove(tmp)
         raise RuntimeError(
-            f"g++ failed to build {SOURCE} (exit {proc.returncode}):\n"
+            f"g++ failed to build {source} (exit {proc.returncode}):\n"
             f"{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, so)
+
+
+def _open(so: str, source: str, flags, signatures) -> ctypes.CDLL:
+    if not os.path.exists(so):
+        _build(so, source, flags)
+    lib = ctypes.CDLL(so)
+    for name, (restype, argtypes) in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
 
 
 def load() -> ctypes.CDLL:
@@ -110,16 +172,20 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            so = library_path()
-            if not os.path.exists(so):
-                _build(so)
-            lib = ctypes.CDLL(so)
-            for name, (restype, argtypes) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.restype = restype
-                fn.argtypes = argtypes
-            _lib = lib
+            _lib = _open(library_path(), SOURCE, CXX_FLAGS, _SIGNATURES)
         return _lib
+
+
+def load_hnsw() -> ctypes.CDLL:
+    """The HNSW library (``csrc/host/hnsw.cpp``, its own ``.so`` built with
+    :data:`HNSW_CXX_FLAGS`), built on first use; raises if it cannot be
+    built or loaded."""
+    global _hnsw_lib
+    with _lock:
+        if _hnsw_lib is None:
+            _hnsw_lib = _open(hnsw_library_path(), HNSW_SOURCE, HNSW_CXX_FLAGS,
+                              _HNSW_SIGNATURES)
+        return _hnsw_lib
 
 
 def native_available() -> bool:

@@ -52,6 +52,10 @@ logger = logging.getLogger(__name__)
 
 _META_FILENAME = "ivf_meta.json"
 
+# the gathered candidates a probe may hold at once (``IVFIndex.search``'s
+# default; online serving probes under the same budget)
+MAX_CANDIDATE_BYTES = 2 << 30
+
 _STORAGE = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
@@ -693,7 +697,7 @@ class IVFIndex:
         k: int,
         *,
         nprobe: int = 8,
-        max_candidate_bytes: int = 2 << 30,
+        max_candidate_bytes: int = MAX_CANDIDATE_BYTES,
         mesh=None,
         exact: bool = False,
     ) -> Tuple[np.ndarray, np.ndarray]:

@@ -811,3 +811,178 @@ def test_ivf_search_peak_stays_near_the_candidate_budget(cuda, storage):
     assert peak <= budget + 64 * idx.nlist * idx.cap, (peak, budget)
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# online serving: one captured CUDA graph a Q (tiny width, seeded weights)
+# ---------------------------------------------------------------------------
+SERVE_HISTORIES = [
+    ["tell me about coral reefs", "where are they found"],
+    ["what is jazz harmony", "who shaped it", "how is it taught today"],
+    ["bronze age trade routes"],
+    ["lucid dreaming", "is it safe", "how do people learn it", "any risks"],
+]
+
+
+@pytest.fixture(scope="module")
+def serve_dirs(tmp_path_factory):
+    """Two seeded f32 blocks of tiny-width rows (1500 each: the corpus pads
+    to the score kernel's tile), an IVF int8 index and a packed IVFPQ pq4
+    index with an OPQ rotation over the same rows."""
+    from convdr_torch.retrieval.blocks import write_embedding_block
+    from convdr_torch.retrieval.ivf import IVFIndex
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    root = tmp_path_factory.mktemp("serve")
+    rows = ann_mixture(3000, 32, 24, seed=20)
+    for b in range(2):
+        write_embedding_block(str(root / "blocks"), b, rows[b * 1500:(b + 1) * 1500],
+                              1000 + np.arange(b * 1500, (b + 1) * 1500))
+    offsets = 1000 + np.arange(3000)
+    IVFIndex.build(rows, 8, rowids=offsets, storage_dtype="int8", iters=5,
+                   device="cuda").save(str(root / "ivf_int8"))
+    IVFIndex.build(rows, 8, rowids=offsets, storage_dtype="pq4", pq_m=8, opq_iters=2,
+                   pack=True, iters=5, device="cuda").save(str(root / "ivfpq"))
+    return root
+
+
+def serve_searcher(dirs, backend, cuda):
+    from convdr_torch.retrieval.online import OnlineSearcher
+
+    kw = dict(top_n=20, max_concat_length=32, arch_preset="tiny", device=cuda)
+    if backend.startswith("flat"):
+        return OnlineSearcher.from_blocks(None, str(dirs / "blocks"),
+                                          storage_dtype=backend[5:], **kw)
+    return OnlineSearcher.from_ivf(None, str(dirs / backend), nprobe=3, **kw)
+
+
+def eager_turn(searcher, ids, mask):
+    """The serving program run eagerly on the same inputs, its rows mapped
+    as ``search_tokens`` maps them."""
+    dev = searcher.device
+    s, i = searcher.program(torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev))
+    return s.cpu().numpy(), searcher.rows_to_offsets(i.cpu().numpy())
+
+
+def turn_inputs(searcher, history):
+    from convdr_torch.retrieval.online import history_to_inputs
+
+    return history_to_inputs(searcher.tokenizer, history, max_concat_length=32)
+
+
+SERVE_BACKENDS = ["flat_float32", "flat_bfloat16", "flat_int8", "ivf_int8", "ivfpq"]
+
+
+@pytest.mark.parametrize("backend", SERVE_BACKENDS)
+def test_captured_serve_equals_eager_program(cuda, serve_dirs, backend):
+    """Every replay equals the eager program on the same inputs bit for bit
+    (the same kernels and cuBLAS calls at the same shapes); each replay
+    reads the static inputs copied in for its own turn (turns differ); the
+    graph records kernel 1 (and, on the flat backends, kernels 2 and 5)."""
+    searcher = serve_searcher(serve_dirs, backend, cuda)
+    searcher.warmup()
+    assert list(searcher.graphs) == [1]
+    results = []
+    for history in SERVE_HISTORIES + SERVE_HISTORIES[:1]:
+        ids, mask = turn_inputs(searcher, history)
+        got = searcher.search_tokens(ids, mask)
+        want = eager_turn(searcher, ids, mask)
+        assert got[0].tobytes() == want[0].tobytes() and np.array_equal(got[1], want[1])
+        results.append(got)
+    assert not np.array_equal(results[0][1], results[1][1])  # turns differ
+    assert np.array_equal(results[0][1], results[-1][1])
+    g = searcher.graphs[1]
+    assert g.replays == len(SERVE_HISTORIES) + 2  # the warm-up call replays too
+    assert g.launches["flash_attention_fwd"] == 2  # the tiny model's two layers
+    flat = backend.startswith("flat")
+    assert (g.launches["fused_scores_groupmax"] > 0) == flat
+    assert (g.launches["dma_gather_groups"] > 0) == flat
+    assert searcher.replayed_launches()["flash_attention_fwd"] == 2 * g.replays
+    assert searcher.resident_bytes > 0 and g.pool_bytes >= 0 and g.capture_s > 0
+
+
+def test_distinct_q_captures_its_own_graph(cuda, serve_dirs):
+    """A batch of 3 turns captures a second graph; its rows equal the Q=3
+    eager program's, and the Q=1 graph still serves."""
+    searcher = serve_searcher(serve_dirs, "flat_float32", cuda)
+    searcher.warmup()
+    inputs = [turn_inputs(searcher, h) for h in SERVE_HISTORIES[:3]]
+    ids = np.concatenate([x[0] for x in inputs])
+    mask = np.concatenate([x[1] for x in inputs])
+    got = searcher.search_tokens(ids, mask)
+    want = eager_turn(searcher, ids, mask)
+    assert sorted(searcher.graphs) == [1, 3]
+    assert got[0].tobytes() == want[0].tobytes() and np.array_equal(got[1], want[1])
+    one = searcher.search_tokens(*inputs[1])
+    assert searcher.graphs[1].replays == 2 and searcher.graphs[3].replays == 1
+    assert one[0].tobytes() == eager_turn(searcher, *inputs[1])[0].tobytes()
+
+
+def test_replay_issues_no_host_sync(cuda, serve_dirs):
+    """Between the copy-in and the read-back a turn waits for nothing: the
+    copies go through pinned buffers without a stream sync, and the one
+    wait is the event after the read-back (not a sync the debug mode
+    reports)."""
+    searcher = serve_searcher(serve_dirs, "flat_int8", cuda)
+    searcher.warmup()
+    ids, mask = turn_inputs(searcher, SERVE_HISTORIES[1])
+    want = searcher.search_tokens(ids, mask)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = searcher.search_tokens(ids, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got[0].tobytes() == want[0].tobytes() and np.array_equal(got[1], want[1])
+
+
+def test_fold_int8_queries_on_card_bit_equal_to_host(cuda):
+    """The serving program's SQ8 fold on the card equals the host's
+    ``quantize_queries`` bit for bit (tolerance 0) on 4096 seeded rows and
+    a zero row: the same f32 IEEE divides, no reciprocal multiply."""
+    from convdr_torch.ops.quant import quantize_queries
+    from convdr_torch.retrieval.online import _fold_int8_queries
+
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((4096, 768)).astype(np.float32)
+    q[7] = 0.0
+    scales = (rng.random(768).astype(np.float32) + 0.5) / 127.0
+    got_int, got_t = _fold_int8_queries(torch.from_numpy(q).to(cuda),
+                                        torch.from_numpy(scales).to(cuda))
+    want_int, want_t = quantize_queries(q, scales)
+    assert got_t.cpu().numpy().tobytes() == want_t.tobytes()
+    assert got_int.cpu().numpy().tobytes() == want_int.tobytes()
+
+
+def test_concurrent_turns_get_their_own_results(cuda, serve_dirs):
+    """Turns served from several threads at once share one graph's static
+    buffers; the searcher's lock keeps each turn's results its own."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    searcher = serve_searcher(serve_dirs, "flat_float32", cuda)
+    searcher.warmup()
+    inputs = [turn_inputs(searcher, h) for h in SERVE_HISTORIES] * 8
+    want = [eager_turn(searcher, ids, mask) for ids, mask in inputs]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        got = list(pool.map(lambda x: searcher.search_tokens(*x), inputs))
+    for g, w in zip(got, want):
+        assert g[0].tobytes() == w[0].tobytes() and np.array_equal(g[1], w[1])
+    assert searcher.graphs[1].replays == len(inputs) + 1
+
+
+def test_failed_capture_raises_without_fallback(cuda, serve_dirs):
+    """A program that waits on the host cannot be captured: the call
+    raises, and nothing serves it eagerly."""
+    searcher = serve_searcher(serve_dirs, "flat_float32", cuda)
+    real = searcher.search_embeddings
+
+    def syncing(q):
+        if q.abs().sum().item() < 0:  # a host sync inside the program
+            q = -q
+        return real(q)
+
+    searcher.search_embeddings = syncing
+    with pytest.raises(RuntimeError):
+        searcher.warmup()
+    assert searcher.stats.latencies == []
