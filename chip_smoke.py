@@ -135,6 +135,24 @@
    (flat f32 and int8): the runs rank for rank. The serving launches are
    counted from zero around each backend: each graph's recorded launches
    times its replays, plus the eager run before its capture.
+4f. bf16 training (run right after phase 4): kernel 1 in bf16 with its lse
+   at B=4 T=256, B=4 T=64 and B=5 T=200 under every mask kind (lse within
+   1e-5 relative of the plain log-sum-exp, out bit-identical to the launch
+   without lse); kernel 1b in bf16 at the backward's four shapes under
+   every mask kind (each gradient within 2x the error of autograd through
+   masked SDPA in bf16, floor 1e-3 of scale, from an f64 plain witness; two
+   calls bit-identical); both timed at B=4 T=256 (the backward at B=40
+   T=512 too) host-paced and on the device beside the plain version,
+   masked SDPA and the bound at the bf16 peaks. One full-width KD + ranking
+   step in bf16 (f32 master weights) through the kernels, the plain version
+   and SDPA, each held to the f64 step (the kernels' readings within 2x the
+   larger of the other two), and its parts timed. Then
+   ``run_convdr_train.main --dtype bfloat16`` with phase 4's settings
+   (counts zeroed before, read after; the backward's > 0; losses finite;
+   the output dir reloads for bf16 inference and encodes a fixed batch as
+   the in-memory student does), and ``--use_dropout`` for 4 steps twice
+   (finite losses, the teacher's forwards through kernel 1, one seed the
+   same losses).
 5. Prints the training ms per step and examples/s, a ``{"kernels": [...]}``
    line (launches, max error, kernel / plain / library / bound times in ms,
    CUDA-event timed after warm-up), and last ``{"ok": true, "device": ...}``.
@@ -168,7 +186,11 @@ from convdr_torch.data.token_cache import (
     save_id_maps,
 )
 from convdr_torch.core.config import TrainConfig
-from convdr_torch.core.loading import load_model_and_params, load_tokenizer_for
+from convdr_torch.core.loading import (
+    gelu_arch_overrides,
+    load_model_and_params,
+    load_tokenizer_for,
+)
 from convdr_torch.core.registry import get_model_config
 from convdr_torch.drivers import (
     build_ivf_index,
@@ -457,8 +479,9 @@ def attention_configs():
 def attention_bwd_configs():
     """The backward kernel's launch configuration at every checked shape,
     as ``convdr_flash_attention_bwd_config`` reports it."""
-    configs = {f"f32_B{batch}xT{t}": flash_attention_bwd_config(batch, t, HEADS, HEAD_DIM)
-               for batch, t in BWD_SHAPES}
+    configs = {f"{dtype_name(dtype)}_B{batch}xT{t}": flash_attention_bwd_config(
+        batch, t, HEADS, HEAD_DIM, dtype)
+        for dtype in (torch.float32, torch.bfloat16) for batch, t in BWD_SHAPES}
     log("  flash_attention_bwd launch configs: " + "; ".join(
         f"{k} {v['threads']} threads, {v['smem_bytes']} B smem, {v['block_rows']} rows a block x "
         f"{v['tile_rows']}-row tiles, {v['blocks_per_sm']} blocks/SM" for k, v in configs.items()))
@@ -514,14 +537,15 @@ def attention_inputs(batch, t, dtype, gen, mask_kind="right"):
     return q, k, v, valid.to(torch.int32)
 
 
-def attention_bound_ms(q, mask):
-    """Bytes (q, k, v, out, mask once each) vs the operations this data
-    needs: a query attends to the L valid or the T-L pad keys of its row."""
+def attention_bound_ms(q, mask, lse=False):
+    """Bytes (q, k, v, out, mask once each, and the f32 lse written with
+    ``lse``) vs the operations this data needs: a query attends to the L
+    valid or the T-L pad keys of its row."""
     b, t, h, d = q.shape
     lens = mask.sum(1).double()
     pairs = float((lens ** 2 + (t - lens) ** 2).sum())
     flops = 4.0 * h * d * pairs
-    nbytes = 4 * q.numel() * q.element_size() + mask.numel() * 4
+    nbytes = 4 * q.numel() * q.element_size() + mask.numel() * 4 + (b * h * t * 4 if lse else 0)
     ops_ms = flops / PEAK_FLOPS[q.dtype] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
@@ -619,13 +643,15 @@ def time_attention(gen, worst):
 # ---------------------------------------------------------------------------
 def attention_bwd_bound_ms(q, mask):
     """About 10 * D operations per allowed pair (S and dP recomputed, dQ, dK
-    and dV accumulated) on the f32 CUDA cores vs the bytes of q, k, v, o,
-    dO read and dQ, dK, dV written once each."""
+    and dV accumulated) at the peak of q's dtype (f32: the CUDA cores; bf16:
+    the tensor cores) vs the bytes of q, k, v, o, dO, the f32 lse and the
+    mask read and dQ, dK, dV written once each."""
     b, t, h, d = q.shape
     lens = mask.sum(1).double()
     pairs = float((lens ** 2 + (t - lens) ** 2).sum())
-    ops_ms = 10.0 * h * d * pairs / PEAK_FLOPS[torch.float32] * 1e3
-    bytes_ms = 8 * q.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    ops_ms = 10.0 * h * d * pairs / PEAK_FLOPS[q.dtype] * 1e3
+    nbytes = 8 * q.numel() * q.element_size() + b * h * t * 4 + mask.numel() * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
 
 
@@ -1115,7 +1141,7 @@ def check_and_time_gather(q, p):
 # the main path
 # ---------------------------------------------------------------------------
 class ForwardShapes:
-    """Counts the forward kernel's launches by (dtype, T) while active,
+    """Counts the forward kernel's launches by (dtype, T, with lse) while active,
     through a shim around ``attention.flash_attention_fwd``, the one
     function every forward launch goes through (inference and training).
     The kernel's own count stays ``flash_attention.launches``; on exit the
@@ -1128,7 +1154,7 @@ class ForwardShapes:
 
         def counted(q, k, v, mask, with_lse):
             out = self.real(q, k, v, mask, with_lse)
-            self.counts[f"{dtype_name(q.dtype)}_T{q.shape[1]}"] += 1
+            self.counts[f"{dtype_name(q.dtype)}_T{q.shape[1]}" + ("_lse" if with_lse else "")] += 1
             return out
 
         attention.flash_attention_fwd = counted
@@ -1629,11 +1655,12 @@ def step_times(metrics_path, save_steps):
     return rows, 1e3 * float(np.mean(gaps))
 
 
-def train_path():
-    """run_convdr_train.main at full width; counts zeroed just before and
-    read just after; then the output dir reloads and encodes a fixed batch
-    exactly as the trained in-memory student does."""
-    work = os.path.join(WORK, "train")
+def train_path(dtype="float32"):
+    """run_convdr_train.main at full width in ``dtype``; counts zeroed just
+    before and read just after; then the output dir reloads (for inference
+    in ``dtype``) and encodes a fixed batch exactly as the trained in-memory
+    student does."""
+    work = os.path.join(WORK, f"train_{dtype}")
     os.makedirs(work)
     make_train_file(os.path.join(work, "train.jsonl"))
     out_dir = os.path.join(work, "model")
@@ -1656,7 +1683,7 @@ def train_path():
         "--ranking_task", "--num_negatives", str(TRAIN_NEG),
         "--per_gpu_train_batch_size", str(TRAIN_B), "--max_concat_length", str(TRAIN_T),
         "--max_doc_length", str(DOC_T), "--learning_rate", "1e-5",
-        "--max_steps", str(TRAIN_STEPS), "--save_steps", str(save_steps), "--dtype", "float32",
+        "--max_steps", str(TRAIN_STEPS), "--save_steps", str(save_steps), "--dtype", dtype,
     ]
     run_convdr_train.run_training = keep_models
     try:
@@ -1684,20 +1711,323 @@ def train_path():
     for ckpt in (f"checkpoint-{save_steps}", f"checkpoint-{TRAIN_STEPS}"):
         if not os.path.isdir(os.path.join(out_dir, ckpt)):
             raise AssertionError(f"missing {ckpt}")
-    _, tok, reloaded = load_model_and_params("rdot_nll", out_dir, device=torch.device("cuda"))
+    # the driver's GELU for the dtype (tanh under bf16), as the inference
+    # driver's --gelu auto picks it
+    _, tok, reloaded = load_model_and_params("rdot_nll", out_dir, device=torch.device("cuda"),
+                                             dtype=getattr(torch, dtype),
+                                             arch_overrides=gelu_arch_overrides("auto", dtype))
     gen = torch.Generator(device="cuda").manual_seed(4)
     ids = torch.randint(3, len(tok), (TRAIN_B, TRAIN_T), generator=gen, device="cuda")
     mask = (torch.arange(TRAIN_T, device="cuda")[None, :]
             < torch.tensor([[256], [100], [17], [3]], device="cuda")).int()
+    trained[out_dir].eval()
     with torch.no_grad():
         same = torch.equal(reloaded.query_emb(ids, mask), trained[out_dir].query_emb(ids, mask))
     if not same:
         raise AssertionError("the reloaded model encodes differently from the trained one")
-    log(f"  training ms/step {ms_step:.1f} (steady state after step 2, checkpoint writes "
+    log(f"  training {dtype} ms/step {ms_step:.1f} (steady state after step 2, checkpoint writes "
         f"left out), {1e3 * TRAIN_B / ms_step:.1f} examples/s; losses "
         f"{losses[0]:.4f} -> {losses[-1]:.4f}, all finite; reloaded model encodes identically")
     return launches, {"ms_per_step": ms_step, "examples_per_s": 1e3 * TRAIN_B / ms_step,
                       "train_s": t_train, "losses": losses}
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: bf16 training (kernel 1 with its lse and kernel 1b in bf16, f32
+# master weights), then dropout
+# ---------------------------------------------------------------------------
+BF16 = torch.bfloat16
+BF16_LSE_SHAPES = [(TRAIN_B, TRAIN_T), (TRAIN_B, TARGET_T), (5, 200)]
+
+
+def check_bf16_forward_lse(gen):
+    """Kernel 1 in bf16 with lse at the student's shapes under every mask
+    kind: lse within 1e-5 relative of the plain log-sum-exp (f32 scores of
+    the bf16 operands), and out bit-identical to the launch without lse
+    (which inference and serving make). Returns the worst out error against
+    the plain forward (one bf16 ulp allowed, as check_attention) and the
+    worst lse error by shape."""
+    worst = {}
+    for batch, t in BF16_LSE_SHAPES:
+        for kind in MASK_KINDS:
+            q, k, v, mask = attention_inputs(batch, t, BF16, gen, kind)
+            out, lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
+            bare, _ = flash_attention_fwd(q, k, v, mask, with_lse=False)
+            torch.cuda.synchronize()
+            scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / HEAD_DIM ** 0.5
+            allowed = mask[:, None, :, None] == mask[:, None, None, :]
+            want = torch.logsumexp(scores.masked_fill(~allowed, float("-inf")), dim=-1)
+            lse_rel = ((lse - want).abs() / want.abs()).max().item()
+            ref = flash_attention_plain(q, k, v, mask).float()
+            diff = (out.float() - ref).abs()
+            same = torch.equal(out, bare)
+            ok = (same and lse_rel <= 1e-5 and bool(torch.isfinite(lse).all())
+                  and bool((diff <= 1e-6 + 2.0 ** -7 * ref.abs()).all()))
+            log(f"  attention bf16 with lse B={batch} T={t} {kind}: lse max rel err "
+                f"{lse_rel:.2e} (tol 1e-5), out bit-identical to no-lse {same}, out max_abs_err "
+                f"{diff.max().item():.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"bf16 forward with lse at B={batch} T={t} {kind}")
+            worst[(batch, t, kind)] = (diff.max().item(), lse_rel)
+    return worst
+
+
+def bf16_bwd_readings(q, k, v, mask, do):
+    """Each gradient's largest error over its largest entry, against the
+    plain backward in f64 of the same bf16 operands: the kernel's and
+    autograd's through masked SDPA in bf16; plus the kernel's gradients."""
+    out, lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
+    got = flash_attention_bwd(q, k, v, out, do, mask, lse)
+    x = [t.double() for t in (q, k, v, do)]
+    want = flash_attention_bwd_plain(x[0], x[1], x[2], None, x[3], mask)
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    allowed = mask[:, None, :, None] == mask[:, None, None, :]
+    lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+    lib = [g.transpose(1, 2) for g in torch.autograd.grad(lib_out, leaves, do.transpose(1, 2))]
+    torch.cuda.synchronize()
+    rel = lambda g, w: ((g.double() - w).abs().max() / w.abs().max()).item()  # noqa: E731
+    return got, [rel(g, w) for g, w in zip(got, want)], [rel(g, w) for g, w in zip(lib, want)]
+
+
+def check_bf16_attention_bwd(gen):
+    """Kernel 1b in bf16 at the training shapes under every mask kind: each
+    gradient within 2x the error of autograd through masked SDPA in bf16
+    (floor 1e-3 of scale) from the f64 plain witness, and two calls on the
+    same inputs bit-identical (no atomics)."""
+    worst = {}
+    for batch, t in BWD_SHAPES:
+        for kind in MASK_KINDS:
+            q, k, v, mask = attention_inputs(batch, t, BF16, gen, kind)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(BF16)
+            got, kern, lib = bf16_bwd_readings(q, k, v, mask, do)
+            out, lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
+            again = flash_attention_bwd(q, k, v, out, do, mask, lse)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            finite = all(bool(torch.isfinite(g).all()) for g in got)
+            ok = same and finite and all(ke <= 2 * max(le, 1e-3) for ke, le in zip(kern, lib))
+            log(f"  attention bwd bf16 B={batch} T={t} {kind}: dQ/dK/dV error of scale vs f64 "
+                f"kernel {kern[0]:.2e}/{kern[1]:.2e}/{kern[2]:.2e}, SDPA {lib[0]:.2e}/"
+                f"{lib[1]:.2e}/{lib[2]:.2e} (tol 2x SDPA, floor 1e-3); two calls "
+                f"bit-identical {same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"bf16 attention backward at B={batch} T={t} {kind}")
+            worst[(batch, t, kind)] = {"kernel": kern, "sdpa": lib}
+    return worst
+
+
+def time_bf16_attention(gen, fwd_worst, bwd_worst):
+    """The two bf16 training kernels timed at the student's shape (and the
+    backward at the teacher documents' B=40 T=512 too): host-paced and on
+    the device, beside the plain version, the library (masked SDPA in bf16:
+    its forward; autograd's backward) and the bound at the bf16 peaks."""
+    q, k, v, mask = attention_inputs(TRAIN_B, TRAIN_T, BF16, gen)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    allowed = mask[:, None, :, None] == mask[:, None, None, :]
+    kernel = lambda: flash_attention_fwd(q, k, v, mask, with_lse=True)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)  # noqa: E731
+    bound_ms, bound_by = attention_bound_ms(q, mask, lse=True)
+    fwd = {
+        "name": "flash_attention_fwd_bf16_lse",
+        "route": "cuda",
+        "source": "convdr_torch/csrc/flash_attention.cu",
+        "replaces": "convdr_tpu/models/attention.py:54 (Pallas TPU flash forward with "
+                    "residuals, pallas_call at jax/experimental/pallas/ops/tpu/"
+                    "flash_attention.py:758)",
+        "launches": 0,
+        "max_abs_err": fwd_worst[(TRAIN_B, TRAIN_T, "right")][0],
+        "lse_max_rel_err": max(v[1] for v in fwd_worst.values()),
+        "ms": cuda_ms(kernel, iters=50), "device_ms": device_ms(kernel, iters=50),
+        "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, mask), iters=5),
+        "library_ms": cuda_ms(library, iters=50), "library_device_ms": device_ms(library, iters=50),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "shape": f"B={TRAIN_B} T={TRAIN_T} H={HEADS} D={HEAD_DIM} bf16, with lse",
+        "config": flash_attention_fwd_config(TRAIN_B, TRAIN_T, HEADS, HEAD_DIM, BF16),
+    }
+    shapes = {}
+    for batch, t in ((TRAIN_B, TRAIN_T), (TRAIN_B * (TRAIN_NEG + 1), DOC_T)):
+        q, k, v, mask = attention_inputs(batch, t, BF16, gen)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(BF16)
+        out, lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
+        leaves = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+        allowed = mask[:, None, :, None] == mask[:, None, None, :]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+        dot = do.transpose(1, 2)
+        kernel = lambda: flash_attention_bwd(q, k, v, out, do, mask, lse)  # noqa: E731
+        library = lambda: torch.autograd.grad(lib_out, leaves, dot, retain_graph=True)  # noqa: E731
+        bound_ms, bound_by = attention_bwd_bound_ms(q, mask)
+        shapes[f"B{batch}xT{t}"] = {
+            "ms": cuda_ms(kernel, iters=50), "device_ms": device_ms(kernel, iters=50),
+            "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, do, mask), iters=3),
+            "library_ms": cuda_ms(library, iters=50),
+            "library_device_ms": device_ms(library, iters=50),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "config": flash_attention_bwd_config(batch, t, HEADS, HEAD_DIM, BF16),
+            "error_of_scale_vs_f64": bwd_worst[(batch, t, "right")],
+        }
+    main = shapes[f"B{TRAIN_B}xT{TRAIN_T}"]
+    bwd = {
+        "name": "flash_attention_bwd_bf16",
+        "route": "cuda",
+        "source": "convdr_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "convdr_tpu/models/attention.py:54 (custom VJP in bf16: pallas_call "
+                    "_flash_attention_bwd_dkv and _flash_attention_bwd_dq)",
+        "launches": 0,
+        "max_abs_err": max(main["error_of_scale_vs_f64"]["kernel"]),
+        **{key: main[key] for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                                      "library_device_ms", "bound_ms", "bound_by", "config")},
+        "shape": f"B={TRAIN_B} T={TRAIN_T} H={HEADS} D={HEAD_DIM} bf16",
+        "by_shape": shapes,
+    }
+    log("  bf16 training kernels (ms host-paced / on the device; plain; SDPA host-paced / "
+        "device; bound): forward with lse B4xT256 "
+        f"{fwd['ms']:.4f} / {fwd['device_ms']:.4f}; {fwd['plain_ms']:.4f}; "
+        f"{fwd['library_ms']:.4f} / {fwd['library_device_ms']:.4f}; {fwd['bound_ms']:.4f} "
+        f"({fwd['bound_by']}); " + "; ".join(
+            f"backward {name} {r['ms']:.4f} / {r['device_ms']:.4f}; {r['plain_ms']:.4f}; "
+            f"{r['library_ms']:.4f} / {r['library_device_ms']:.4f}; {r['bound_ms']:.4f} "
+            f"({r['bound_by']})" for name, r in shapes.items()))
+    return fwd, bwd
+
+
+def check_train_step_bf16():
+    """One full-width KD + ranking step in bf16 at the port's init (student:
+    f32 masters cast at use; teacher: cast to bf16), with attention through
+    the kernels, the plain version and masked SDPA, each held to the plain
+    step run wholly in f64. Readings as check_train_step's (a loss's
+    relative error; a gradient's largest error over its largest entry, the
+    key biases' over their key weights'); the kernels' loss and every
+    gradient reading no worse than 2x the larger of the plain and SDPA
+    readings. Then the step's parts timed (CUDA events)."""
+    device = torch.device("cuda")
+    student = load_model_and_params("rdot_nll", "init", device=device, dtype=BF16,
+                                    f32_params=True, seed=42)[2]
+    teacher = load_model_and_params("rdot_nll", "init", device=device, dtype=BF16, seed=0)[2]
+    teacher.requires_grad_(False)
+    init = {n: p.detach().clone() for n, p in student.state_dict().items()}
+    batch = train_step_batch(np.random.default_rng(2))
+    config = TrainConfig(ranking_task=True, num_negatives=TRAIN_NEG)
+    results = {}
+    for name, attn in (("kernels", flash_attention), ("plain", plain_attention),
+                       ("sdpa", library_attention), ("f64", flash_attention_plain)):
+        transformer.flash_attention = attn
+        try:
+            if name == "f64":
+                del student, teacher
+                torch.cuda.empty_cache()
+                student, teacher = (load_model_and_params("rdot_nll", "init", device=device,
+                                                          seed=seed)[2].double()
+                                    for seed in (42, 0))
+                teacher.requires_grad_(False)
+            student.load_state_dict(init)
+            state, tx = create_train_state(student, config, 10)
+            _, metrics = make_train_step(student, teacher, tx, config)(state, batch)
+            torch.cuda.synchronize()
+        finally:
+            transformer.flash_attention = flash_attention
+        results[name] = (float(metrics["loss"]),
+                         {n: p.grad.detach().double() for n, p in student.named_parameters()})
+        if name != "f64" and not all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+                                     for p in student.parameters()):
+            raise AssertionError(f"bf16 train step ({name}): parameters or gradients not f32")
+        del state, tx
+    del student, teacher
+    torch.cuda.empty_cache()
+    loss_x, g_x = results.pop("f64")
+    loss_reading = {side: abs(loss - loss_x) / abs(loss_x) for side, (loss, _) in results.items()}
+    readings = {}
+    for n, ref in g_x.items():
+        scale_of = n.replace("key.bias", "key.weight") if n.endswith("key.bias") else n
+        scale = g_x[scale_of].abs().max().item()
+        readings[n] = {side: (g[n] - ref).abs().max().item() / scale
+                       for side, (_, g) in results.items()}
+    witness = lambda r: max(r["plain"], r["sdpa"])  # noqa: E731
+    if not loss_reading["kernels"] <= 2 * witness(loss_reading):
+        raise AssertionError(f"bf16 train step loss readings {loss_reading}")
+    for n, r in readings.items():
+        if not all(np.isfinite(v) for v in r.values()) or not r["kernels"] <= 2 * witness(r):
+            raise AssertionError(f"bf16 train step gradient {n}: {r}")
+    ratio, leaf = max((r["kernels"] / witness(r), n) for n, r in readings.items())
+    worst = {side: max((r[side], n) for n, r in readings.items()) for side in loss_reading}
+    short = lambda n: n.replace("roberta.encoder.", "")  # noqa: E731
+    log("  full-width bf16 train step at the port's init, against the f64 step: loss "
+        + ", ".join(f"{side} {results[side][0]:.6f} (rel {v:.2e})"
+                    for side, v in loss_reading.items())
+        + f", f64 {loss_x:.6f}; {len(g_x)} gradients (f32), worst "
+        + "; ".join(f"{side} {v:.3e} of scale ({short(n)})" for side, (v, n) in worst.items())
+        + f"; kernels / max(plain, SDPA) at most {ratio:.2f} ({short(leaf)}), tol 2, ok")
+    del results, g_x
+    student = load_model_and_params("rdot_nll", "init", device=device, dtype=BF16,
+                                    f32_params=True, seed=42)[2]
+    teacher = load_model_and_params("rdot_nll", "init", device=device, dtype=BF16, seed=0)[2]
+    teacher.requires_grad_(False)
+    phases = time_step_phases(student, teacher, batch, config)
+    del student, teacher, init
+    torch.cuda.empty_cache()
+    return {"loss_rel_vs_f64": loss_reading,
+            "worst_grad_rel_vs_f64": {side: {"rel": v, "leaf": n} for side, (v, n) in worst.items()},
+            "kernels_over_max_witness": {"ratio": ratio, "leaf": leaf}, "phases_ms": phases}
+
+
+def dropout_path():
+    """run_convdr_train.main --use_dropout for 4 steps at full width, twice
+    with one seed: finite losses, the teacher's forwards through kernel 1,
+    the same losses from the same seed."""
+    runs = []
+    for i in range(2):
+        work = os.path.join(WORK, f"dropout_{i}")
+        os.makedirs(work)
+        make_train_file(os.path.join(work, "train.jsonl"))
+        flash_attention.launches = 0
+        flash_attention_bwd.launches = 0
+        t0 = time.time()
+        run_convdr_train.main([
+            "--output_dir", os.path.join(work, "model"),
+            "--train_file", os.path.join(work, "train.jsonl"), "--model_type", "rdot_nll",
+            "--model_name_or_path", "init", "--query", "no_res", "--ranking_task",
+            "--num_negatives", str(TRAIN_NEG), "--per_gpu_train_batch_size", str(TRAIN_B),
+            "--max_concat_length", str(TRAIN_T), "--max_doc_length", str(DOC_T),
+            "--learning_rate", "1e-5", "--max_steps", "4", "--use_dropout"])
+        torch.cuda.synchronize()
+        with open(os.path.join(work, "model", "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        runs.append({"losses": losses, "seconds": time.time() - t0,
+                     "launches": {"flash_attention_fwd": flash_attention.launches,
+                                  "flash_attention_bwd": flash_attention_bwd.launches}})
+        shutil.rmtree(work)
+    a, b = runs
+    ok = (len(a["losses"]) == 4 and all(np.isfinite(a["losses"]))
+          and a["launches"]["flash_attention_fwd"] > 0 and a["losses"] == b["losses"])
+    log(f"  run_convdr_train --use_dropout, 4 steps, twice: losses {a['losses']} / "
+        f"{b['losses']} (same seed: equal {a['losses'] == b['losses']}); launches "
+        f"{a['launches']} (the student's attention is the plain einsum under dropout, the "
+        f"teacher's through kernel 1); {a['seconds']:.1f} / {b['seconds']:.1f} s "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"dropout training: {runs}")
+    return runs
+
+
+def bf16_training_path(gen):
+    """Phase 4f: the bf16 kernels against their plain versions and timed,
+    one full-width bf16 step against the f64 step, the bf16 training driver
+    (counts zeroed before, read after), then the dropout driver runs."""
+    t_phase = time.time()
+    fwd_worst = check_bf16_forward_lse(gen)
+    bwd_worst = check_bf16_attention_bwd(gen)
+    fwd, bwd = time_bf16_attention(gen, fwd_worst, bwd_worst)
+    torch.cuda.empty_cache()
+    step_check = check_train_step_bf16()
+    launches, train = train_path("bfloat16")
+    if launches["flash_attention_bwd"] <= 0:
+        raise AssertionError(f"bf16 training launched no backward: {launches}")
+    fwd["launches"] = launches["flash_attention_fwd_by_shape"].get(f"bfloat16_T{TRAIN_T}_lse", 0)
+    bwd["launches"] = launches["flash_attention_bwd"]
+    torch.cuda.empty_cache()
+    dropout = dropout_path()
+    return {"kernels": [fwd, bwd], "launches": launches, "train": train,
+            "train_step_check": step_check, "dropout": dropout,
+            "phase_s": time.time() - t_phase}
 
 
 # ---------------------------------------------------------------------------
@@ -2684,6 +3014,10 @@ def main(argv=None):
         step_check = check_train_step()
         train_launches, train = train_path()
         torch.cuda.empty_cache()
+        log("bf16 training (kernel 1 with its lse and kernel 1b in bf16, f32 master weights; "
+            "full RoBERTa-base width), then dropout:")
+        bf16 = bf16_training_path(gen)
+        torch.cuda.empty_cache()
         log("data plane (raw collection -> tokenize driver -> bf16 .cnb blocks -> traced "
             "search; full RoBERTa-base width):")
         t0 = time.time()
@@ -2702,7 +3036,8 @@ def main(argv=None):
         log("online serving (one captured CUDA graph a turn; full RoBERTa-base width, "
             "seeded weights; flat f32 / bf16 / int8, IVF int8, IVFPQ pq4):")
         serving = serving_path(paths)
-        log(f"data plane phase {data_plane['phase_s']:.1f} s, rehearsal phase "
+        log(f"bf16 training phase {bf16['phase_s']:.1f} s, "
+            f"data plane phase {data_plane['phase_s']:.1f} s, rehearsal phase "
             f"{rehearsed['phase_s']:.1f} s, ANN phase {ann['phase_s']:.1f} s, serving phase "
             f"{serving['phase_s']:.1f} s")
     finally:
@@ -2748,6 +3083,10 @@ def main(argv=None):
                               (k5, "dma_gather_groups")):
             if b["launches"][kernel]:
                 entry["launches_by_path"][f"serving_{backend}"] = b["launches"][kernel]
+    # phase 4f's bf16 rows, counted on the bf16 training path
+    for entry, source in zip(bf16["kernels"], ("flash_attention", "flash_attention_bwd")):
+        entry["ptxas"] = ptxas_summary(source)
+    kernels.extend(bf16["kernels"])
     fwd["serving_B1"] = serving["kernel1_B1"]
     search["serving_Q1"] = serving["kernel2_Q1"]
     k5["serving_Q1"] = serving["kernel5_Q1"]
@@ -2762,6 +3101,10 @@ def main(argv=None):
         f"({100 * attn_ms / train['ms_per_step']:.1f}% of a step); the step's device parts "
         f"{sum(step_check['phases_ms'].values()):.1f} ms, the rest (input pipeline, "
         f"metrics, host) {train['ms_per_step'] - sum(step_check['phases_ms'].values()):.1f} ms")
+    bf16_train, bf16_phases = bf16["train"], bf16["train_step_check"]["phases_ms"]
+    log(f"bf16 training: {bf16_train['ms_per_step']:.1f} ms/step, "
+        f"{bf16_train['examples_per_s']:.1f} examples/s; the step's device parts "
+        f"{sum(bf16_phases.values()):.1f} ms ({', '.join(f'{n} {v:.1f}' for n, v in bf16_phases.items())})")
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']}: no launch on its path")
@@ -2773,7 +3116,7 @@ def main(argv=None):
             json.dump({**result, "card": smi, "metrics": metrics, "embed_s": t_embed,
                        "inference_s": t_infer, "int8": int8, "streaming_phase_s": t_stream,
                        "launch_configs": configs,
-                       "train": train, "train_step_check": step_check,
+                       "train": train, "train_step_check": step_check, "bf16_training": bf16,
                        "data_plane": data_plane, "rehearsal": rehearsed, "ann": ann,
                        "serving": serving,
                        "total_s": time.time() - t_start}, f, indent=1)

@@ -121,8 +121,8 @@ class TrainConfig:
     log_steps: int = 1
     save_steps: int = -1
     # Reference parity: torch model.train() keeps dropout active during KD
-    # (run_convdr_train.py:107); off by default (deterministic KD). Training
-    # with dropout is not ported yet (ROADMAP.md).
+    # (run_convdr_train.py:107); off by default (deterministic KD). On, the
+    # student's dropout draws from a generator seeded by (seed, step).
     use_dropout: bool = False
     # Ranking-doc length rungs: each batch's doc tensor is trimmed to the
     # smallest rung covering its longest document. Teacher doc embeddings
@@ -174,5 +174,6 @@ class DataConfig:
 NUM_FOLD = 5  # 5-fold CV harness (utils/util.py:32)
 
 # Ending of the error raised by every option of the JAX package that the
-# port does not have yet.
+# port does not have yet: multi-device training and search (``mesh=``),
+# ``--matmul_precision high/default``, orbax checkpoint dirs.
 NOT_PORTED = "is not yet ported to convdr_torch, see ROADMAP.md"

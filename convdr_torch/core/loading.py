@@ -36,7 +36,7 @@ from convdr_torch.models.import_torch import (
     load_state_dict_checked,
     load_torch_state_dict,
 )
-from convdr_torch.models.transformer import to_compute_dtype
+from convdr_torch.models.transformer import cast_at_use, to_compute_dtype
 
 
 def load_tokenizer_for(config: ModelConfig, path: Optional[str]) -> Any:
@@ -165,9 +165,16 @@ def load_model_and_params(
     arch_overrides: Optional[dict] = None,
     extra_tokens: Tuple[str, ...] = (),
     seed: int = 0,
+    f32_params: bool = False,
 ) -> Tuple[ModelConfig, Any, nn.Module]:
     """Returns (config, tokenizer, model): the model in eval mode on
-    ``device``, linear layers and embeddings in ``dtype``.
+    ``device``, linear layers and embeddings computing in ``dtype``.
+
+    By default their parameters are cast to ``dtype`` (inference, the
+    frozen teacher). ``f32_params`` keeps every parameter f32 and casts it
+    where it is used (:func:`cast_at_use`): a student for training in bf16
+    whose optimizer updates f32 masters, as the JAX package's flax modules
+    keep f32 params under ``dtype=bf16``.
 
     arch_preset "tiny" swaps in the miniature architecture (hermetic tests /
     smoke runs); None keeps the registry's base architecture.
@@ -219,7 +226,8 @@ def load_model_and_params(
         load_state_dict_checked(
             model, resize_token_embeddings(state_dict, config.arch.vocab_size, seed)
         )
-    model = to_compute_dtype(model, dtype).to(device).eval()
+    model = (cast_at_use if f32_params else to_compute_dtype)(model, dtype)
+    model = model.to(device).eval()
     return config, tokenizer, model
 
 

@@ -50,6 +50,10 @@
 //   card, 8-warp 128-query blocks were slower at every corpus rung, so was
 //   a register cap of 128 above T = 64, where the kernel spills, and so
 //   was skipping 16-key groups inside a tile.)
+//   For bf16 training it also writes lse [B, H, T] f32 from the same
+//   running max and sum that normalise out (the backward recomputes P
+//   from it); out's arithmetic does not change with it, so the inference
+//   path, which passes a null lse, keeps its bits.
 // * f32 (the query encoder, training): two register-tiled products on the
 //   CUDA cores, full f32, no TF32. A block of 128 threads owns 64 queries
 //   and walks 32-key tiles: thread (ty, tx) holds 4 query rows (ty + 16i)
@@ -67,7 +71,7 @@
 //   fastest at both B=4 T=256 and B=40 T=512, so no shape depends on the
 //   grid. For training it also writes each row's log-sum-exp of the scaled
 //   scores, lse [B, H, T] f32, which the backward (flash_attention_bwd.cu)
-//   uses to recompute P; inference passes a null lse.
+//   uses to recompute P; inference passes a null lse (both dtypes).
 //
 // Both keep the online softmax in the log2 domain (scores scaled by
 // log2(e)/sqrt(d) in the exponent's FFMA, ex2.approx) with f32 running max
@@ -113,46 +117,6 @@ struct MmaTile {
   }
 };
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d += a (16x16, row-major fragment) * b (16x8, column fragment), f32 acc.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices: lanes 8i..8i+7 give the row addresses of matrix i,
-// and each lane receives (row lane/4, cols 2*(lane%4) and +1) of each.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const __nv_bfloat16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// The same, transposed: each lane receives (rows 2*(lane%4) and +1, col
-// lane/4) of each matrix.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
 // The bf16 of x's top 16 bits (x truncated toward zero) in the low half
 // and y's in the high half: the A-fragment order of (x, y).
 __device__ __forceinline__ uint32_t pack_trunc(float x, float y) {
@@ -168,7 +132,7 @@ template <int D, int kMinBlocks>
 __global__ void __launch_bounds__(32 * kMmaWarps, kMinBlocks)
 flash_fwd_mma_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
                      const void* __restrict__ v_, const int* __restrict__ seg,
-                     void* __restrict__ out_, float* __restrict__ /*lse*/,
+                     void* __restrict__ out_, float* __restrict__ lse,
                      int seq, int heads, float scale) {
   using Tile = MmaTile<D>;
   constexpr int kThreads = 32 * kMmaWarps;
@@ -435,6 +399,10 @@ flash_fwd_mma_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
       *reinterpret_cast<uint32_t*>(op + 8 * j) =
           pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
     }
+    // the running max and sum that made this row's out (a live row sees
+    // its own key, so l > 0 and lse is finite); the flush rescales only o
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<long long>(b) * heads + h) * seq + rows[r]] = m[r] * kLn2 + logf(l[r]);
   }
 }
 
@@ -766,15 +734,14 @@ bool valid_args(int batch, int seq, int heads, int head_dim, int dtype) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim 16, 32 or 64. lse: null, or
-// [B, H, T] f32 for the backward (float32 only). Returns a cudaError_t
-// (0 = launched).
+// [B, H, T] f32 for the backward. Returns a cudaError_t (0 = launched).
 extern "C" int convdr_flash_attention_fwd(const void* q, const void* k,
                                           const void* v, const void* seg,
                                           void* out, void* lse, int batch,
                                           int seq, int heads, int head_dim,
                                           float scale, int dtype,
                                           void* stream) {
-  if (!valid_args(batch, seq, heads, head_dim, dtype) || (dtype != 0 && lse != nullptr))
+  if (!valid_args(batch, seq, heads, head_dim, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const Config cfg = config_for(seq, head_dim, dtype);
   cudaError_t err = allow_smem(cfg);

@@ -1,4 +1,5 @@
-// Flash attention backward with segment-id masking, f32, for Hopper (sm_90a).
+// Flash attention backward with segment-id masking, f32 and bf16, for Hopper
+// (sm_90a).
 //
 // Replaces: the custom VJP behind convdr_tpu/models/attention.py:54,
 // `flash_attention`, i.e. `_flash_attention_bwd` of
@@ -52,10 +53,38 @@
 //   shared memory: by dK/dV blocks for each streamed query tile (4 lanes a
 //   row, O read from L2), by dQ blocks for their own rows (8 lanes a row, no
 //   barrier). The wrapper launches this kernel and nothing else.
+//
+// bf16 (training with bf16 compute): q, k, v, o, dO bf16, lse f32; dQ, dK,
+// dV bf16. It rounds where the Pallas backward does: D = rowsum(o * dO) in
+// f32 (flash_attention.py:273-274), P and dS = scale * P * (dP - D) rounded
+// to bf16 before their products (:900, :918, :1258), every product
+// accumulated in f32 and each gradient cast to bf16 once at the end
+// (:937-938, :1283). Bound: the same 7 * D multiply-adds a pair on the bf16
+// tensor cores (989 TFLOP/s) against the bytes of eight bf16 [B, T, H, D]
+// tensors; at the student's shape the bytes bound it. The design keeps the
+// f32 kernel's block roles, one launch and no atomics (two calls are
+// bit-identical):
+// * A block is 4 warps and 64 rows, each warp owning 16: its own rows' two
+//   operands (K and V for dK/dV blocks, Q and dO for dQ blocks) live in
+//   registers as `mma.sync` A fragments for the whole walk.
+// * The other side streams through a 2-stage cp.async ring in 64-row tiles
+//   (Q, dO, their lse, D and segment ids; or K, V and ids), rows padded by
+//   16 bytes so `ldmatrix` reads are conflict-free.
+// * Per tile a warp computes its 16 x 64 blocks of S and dP with m16n8k16
+//   bf16 MMAs (B fragments by `ldmatrix` of the tile's rows), forms P and
+//   dS in f32 registers, packs them to bf16 A fragments in place (the C
+//   fragments of two 8-column tiles are one A fragment) and multiplies them
+//   by the tile's rows read through `ldmatrix.trans`: dV += P^T dO and
+//   dK += dS^T Q, or dQ += dS K. Nothing goes through shared memory but
+//   the streamed tiles.
+// * D of a streamed query tile is computed as the tile is issued (2 threads
+//   a row, O and dO read from L2) into the stage; a dQ block computes its
+//   own rows' D with two lanes a row and shuffles.
 
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 
 #include "flash_common.cuh"
 
@@ -513,86 +542,415 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) flash_bwd_kernel(Args a)
 }
 
 // ---------------------------------------------------------------------------
-// launch
+// bf16: tensor cores
 // ---------------------------------------------------------------------------
-struct Config {
-  void (*fn)(Args);
-  int smem;  // dynamic shared memory bytes
+constexpr int kMmaWarps = 4;                 // 16 block rows each
+constexpr int kMmaThreads = 32 * kMmaWarps;  // = kThreads
+constexpr int kMmaRows = 16 * kMmaWarps;     // rows a block owns (= kRows)
+constexpr int kMmaTile = 64;                 // rows of a streamed tile
+static_assert(kMmaThreads == kThreads && kMmaRows == kRows, "one grid for both dtypes");
+
+struct MmaArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* o;
+  const __nv_bfloat16* dout;
+  const float* lse;
+  const int* seg;
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  int seq, heads;
+  float scale;
 };
 
 template <int D>
-Config config(int seq) {
-  return Config{flash_bwd_kernel<D>,
-                BwdTile<D>::kFixedBytes + (plan_bytes(seq, kTile) + 15) / 16 * 16};
+struct MmaBwdTile {
+  static constexpr int kStride = D + 8;  // bf16 a shared row: 16 bytes pad
+  static constexpr int kTileElems = kMmaTile * kStride;
+  // a stage: two [kMmaTile][kStride] tiles, then lse, D and segment ids
+  static constexpr int kStageBytes = 2 * kTileElems * 2 + 3 * kMmaTile * 4;
+  static constexpr int kFixedBytes = 2 * kStageBytes;
+};
+
+// The low and high bf16 of a packed pair as f32 (exact).
+__device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+
+// The sum over columns [half * D/2, (half + 1) * D/2) of x[row] * y[row] in
+// f32 (0 for a row past T): half of one row's D = rowsum(o * dO).
+template <int D>
+__device__ __forceinline__ float half_row_dot(const __nv_bfloat16* x, const __nv_bfloat16* y,
+                                              long long base, long long tok, int row, int half,
+                                              int seq) {
+  float acc = 0.f;
+  if (row >= seq) return acc;
+  const long long off = base + row * tok + half * (D / 2);
+  const uint4* xp = reinterpret_cast<const uint4*>(x + off);
+  const uint4* yp = reinterpret_cast<const uint4*>(y + off);
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {  // 8 bf16 a 16-byte load
+    const uint4 xa = __ldg(xp + c);
+    const uint4 yb = __ldg(yp + c);
+    const uint32_t xs[4] = {xa.x, xa.y, xa.z, xa.w};
+    const uint32_t ys[4] = {yb.x, yb.y, yb.z, yb.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc = fmaf(bf16_lo(xs[e]), bf16_lo(ys[e]), acc);
+      acc = fmaf(bf16_hi(xs[e]), bf16_hi(ys[e]), acc);
+    }
+  }
+  return acc;
 }
 
-Config config_for(int seq, int head_dim) {
+// One block's gradients: kKV, dK and dV of keys [blk * 64, + 64) over the
+// planned query tiles; else dQ of queries [blk * 64, + 64) over the planned
+// key tiles. Warp w owns block rows 16w..16w+15; in the mma fragments lane
+// (g = lane / 4, t = lane % 4) holds rows g and g + 8 at columns 2t, 2t + 1.
+template <int D, bool kKV>
+__device__ __forceinline__ void mma_bwd_block(const MmaArgs& a, int blk, unsigned char* smem,
+                                              int* plan) {
+  using Tl = MmaBwdTile<D>;
+  constexpr int kStride = Tl::kStride;
+  constexpr int kChunks = D / 16;          // k-steps over D
+  constexpr int kDTiles = D / 8;           // 8-wide column tiles of a gradient
+  constexpr int kColTiles = kMmaTile / 8;  // 8-wide column tiles of S and dP
+  constexpr int kVecPerRow = D / 8;        // 16-byte chunks a row
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int mi = lane / 8;  // the ldmatrix matrix this lane addresses
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int seq = a.seq;
+  const long long tok = static_cast<long long>(a.heads) * D;
+  const long long base = static_cast<long long>(b) * seq * tok + static_cast<long long>(h) * D;
+  const int* segb = a.seg + static_cast<long long>(b) * seq;
+  const long long row_stats = (static_cast<long long>(b) * a.heads + h) * seq;
+  const int r0 = blk * kMmaRows;
+  // the block's own operands, and the streamed ones
+  const __nv_bfloat16* own1 = kKV ? a.k : a.q;
+  const __nv_bfloat16* own2 = kKV ? a.v : a.dout;
+  const __nv_bfloat16* str1 = kKV ? a.q : a.k;
+  const __nv_bfloat16* str2 = kKV ? a.dout : a.v;
+
+  int rows[2];
+  rows[0] = r0 + warp * 16 + g;
+  rows[1] = rows[0] + 8;
+  bool live[2];
+  int segr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    live[r] = rows[r] < seq;
+    segr[r] = live[r] ? segb[rows[r]] : kNoSegment + 1;  // a row past T sees nothing
+  }
+  // own rows as A fragments: f[c][0] (row g, cols 16c + 2t, +1), f[c][1]
+  // (row g + 8), f[c][2] / f[c][3] the same rows at cols 16c + 8 + 2t
+  uint32_t f1[kChunks][4], f2[kChunks][4];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i & 1;
+      const long long off = base + rows[r] * tok + 16 * c + 8 * (i >> 1) + 2 * t;
+      f1[c][i] = live[r] ? ld_u32(own1 + off) : 0u;
+      f2[c][i] = live[r] ? ld_u32(own2 + off) : 0u;
+    }
+  // dQ blocks: their rows' lse (log2 domain) and D, two lanes a row
+  float lse2[2] = {0.f, 0.f};
+  float drow[2] = {0.f, 0.f};
+  if constexpr (!kKV) {
+    float acc = half_row_dot<D>(a.o, a.dout, base, tok, r0 + warp * 16 + lane / 2, lane % 2, seq);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    drow[0] = __shfl_sync(0xffffffffu, acc, 2 * g);
+    drow[1] = __shfl_sync(0xffffffffu, acc, 2 * (g + 8));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) lse2[r] = live[r] ? a.lse[row_stats + rows[r]] * kLog2e : 0.f;
+  }
+
+  auto load_tile = [&](int tile, int stage) {
+    __nv_bfloat16* t1 = reinterpret_cast<__nv_bfloat16*>(smem + stage * Tl::kStageBytes);
+    __nv_bfloat16* t2 = t1 + Tl::kTileElems;
+    float* lse_s = reinterpret_cast<float*>(t2 + Tl::kTileElems);
+    float* d_s = lse_s + kMmaTile;
+    int* seg_s = reinterpret_cast<int*>(d_s + kMmaTile);
+    const int c0 = tile * kMmaTile;
+    constexpr int kTotal = kMmaTile * kVecPerRow;
+#pragma unroll
+    for (int it = 0; it < (kTotal + kMmaThreads - 1) / kMmaThreads; ++it) {
+      const int c = tid + it * kMmaThreads;
+      if (kTotal % kMmaThreads != 0 && c >= kTotal) break;
+      const int r = c / kVecPerRow;
+      const int col = (c % kVecPerRow) * 8;
+      const bool ok = c0 + r < seq;
+      const long long off = ok ? base + (c0 + r) * tok + col : 0;
+      cp_async16(t1 + r * kStride + col, str1 + off, ok);
+      cp_async16(t2 + r * kStride + col, str2 + off, ok);
+    }
+    if (tid < kMmaTile) {
+      if (c0 + tid < seq)
+        cp_async4(seg_s + tid, segb + c0 + tid);
+      else
+        seg_s[tid] = kNoSegment;
+    }
+    if constexpr (kKV) {
+      if (tid < kMmaTile) {
+        if (c0 + tid < seq)
+          cp_async4(lse_s + tid, a.lse + row_stats + c0 + tid);
+        else
+          lse_s[tid] = 0.f;
+      }
+      // D of the tile's queries, two threads a row
+      float acc = half_row_dot<D>(a.o, a.dout, base, tok, c0 + tid / 2, tid % 2, seq);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      if (tid % 2 == 0) d_s[tid / 2] = acc;
+    }
+  };
+
+  const int n = plan_tiles<kMmaRows, kMmaTile, kMmaThreads>(segb, seq, r0, plan);
+  if (n > 0) load_tile(plan[0], 0);
+  cp_async_commit();
+
+  float acc1[kDTiles][4];  // dV (dK/dV blocks) or dQ
+  float acc2[kDTiles][4];  // dK (dK/dV blocks)
+#pragma unroll
+  for (int j = 0; j < kDTiles; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc1[j][i] = acc2[j][i] = 0.f;
+  const float scale = a.scale;
+  const float scale_log2 = scale * kLog2e;
+
+  for (int idx = 0; idx < n; ++idx) {
+    cp_async_wait_all();
+    __syncthreads();  // tile idx landed; the other stage is free
+    if (idx + 1 < n) load_tile(plan[idx + 1], (idx + 1) & 1);
+    cp_async_commit();
+
+    const unsigned char* st = smem + (idx & 1) * Tl::kStageBytes;
+    const __nv_bfloat16* t1 = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat16* t2 = t1 + Tl::kTileElems;
+    const float* lse_s = reinterpret_cast<const float*>(t2 + Tl::kTileElems);
+    const float* d_s = lse_s + kMmaTile;
+    const int* seg_s = reinterpret_cast<const int*>(d_s + kMmaTile);
+
+    // S = own1 str1^T and dP = own2 str2^T (for dK/dV blocks the transposes
+    // S^T and dP^T): s[j] holds the tile's columns 8j..8j+7; one x4
+    // ldmatrix gives the B fragments of column tiles 2jp and 2jp + 1
+    float s[kColTiles][4], dp[kColTiles][4];
+#pragma unroll
+    for (int j = 0; j < kColTiles; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+    for (int jp = 0; jp < kColTiles / 2; ++jp) {
+      const int roff = (16 * jp + 8 * (mi >> 1) + lane % 8) * kStride + 8 * (mi & 1);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        uint32_t bf[4];
+        ldmatrix_x4(bf, t1 + roff + 16 * c);
+        mma_bf16(s[2 * jp], f1[c], bf[0], bf[1]);
+        mma_bf16(s[2 * jp + 1], f1[c], bf[2], bf[3]);
+        ldmatrix_x4(bf, t2 + roff + 16 * c);
+        mma_bf16(dp[2 * jp], f2[c], bf[0], bf[1]);
+        mma_bf16(dp[2 * jp + 1], f2[c], bf[2], bf[3]);
+      }
+    }
+
+    // P = exp(scale S - lse) where the segments match, else 0, and dS =
+    // (dP - D) P scale, in f32 (the query's lse and D: per column for dK/dV
+    // blocks, per row for dQ blocks)
+#pragma unroll
+    for (int j = 0; j < kColTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        const int sc = seg_s[col];
+        float l2c = 0.f, dc = 0.f;
+        if constexpr (kKV) {
+          l2c = lse_s[col] * kLog2e;
+          dc = d_s[col];
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = 2 * r + e;
+          const float l2 = kKV ? l2c : lse2[r];
+          const float dd = kKV ? dc : drow[r];
+          const float p = sc == segr[r] ? fast_exp2(fmaf(s[j][i], scale_log2, -l2)) : 0.f;
+          s[j][i] = p;
+          dp[j][i] = (dp[j][i] - dd) * p * scale;
+        }
+      }
+
+    // dV += P^T dO and dK += dS^T Q (dK/dV blocks), or dQ += dS K: P and dS
+    // as bf16 A fragments, 16 tile rows a k-step; the tile's rows (the
+    // k-dimension) as B fragments through ldmatrix.trans
+#pragma unroll
+    for (int kc = 0; kc < kColTiles / 2; ++kc) {
+      uint32_t pa[4], da[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 2 * kc + (i >> 1);
+        const int r = i & 1;
+        pa[i] = pack_bf16(s[j][2 * r], s[j][2 * r + 1]);
+        da[i] = pack_bf16(dp[j][2 * r], dp[j][2 * r + 1]);
+      }
+#pragma unroll
+      for (int dpi = 0; dpi < kDTiles / 2; ++dpi) {
+        // matrix i: tile rows 16kc + 8*(i&1) .., columns 16dpi + 8*(i>>1) ..;
+        // registers 0/1 feed column tile 2dpi, 2/3 column tile 2dpi + 1
+        const int toff = (16 * kc + 8 * (mi & 1) + lane % 8) * kStride + 16 * dpi + 8 * (mi >> 1);
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, t1 + toff);
+        if constexpr (kKV) {
+          mma_bf16(acc2[2 * dpi], da, bf[0], bf[1]);
+          mma_bf16(acc2[2 * dpi + 1], da, bf[2], bf[3]);
+          ldmatrix_x4_trans(bf, t2 + toff);
+          mma_bf16(acc1[2 * dpi], pa, bf[0], bf[1]);
+          mma_bf16(acc1[2 * dpi + 1], pa, bf[2], bf[3]);
+        } else {
+          mma_bf16(acc1[2 * dpi], da, bf[0], bf[1]);
+          mma_bf16(acc1[2 * dpi + 1], da, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+
+  // each gradient cast to bf16 once
+  auto store = [&](__nv_bfloat16* grad, const float (&acc)[kDTiles][4]) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!live[r]) continue;
+      __nv_bfloat16* op = grad + base + rows[r] * tok + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kDTiles; ++j)
+        *reinterpret_cast<uint32_t*>(op + 8 * j) = pack_bf16(acc[j][2 * r], acc[j][2 * r + 1]);
+    }
+  };
+  if constexpr (kKV) {
+    store(a.dk, acc2);
+    store(a.dv, acc1);
+  } else {
+    store(a.dq, acc1);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) flash_bwd_mma_kernel(MmaArgs a) {
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  int* plan = reinterpret_cast<int*>(mma_smem + MmaBwdTile<D>::kFixedBytes);
+  const int half = gridDim.x / 2;  // the dK/dV blocks come first
+  if (blockIdx.x < half)
+    mma_bwd_block<D, true>(a, blockIdx.x, mma_smem, plan);
+  else
+    mma_bwd_block<D, false>(a, blockIdx.x - half, mma_smem, plan);
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+struct Config {
+  const void* fn;
+  int smem;  // dynamic shared memory bytes
+  int tile;  // rows of a streamed tile
+};
+
+template <int D>
+Config config(int seq, int dtype) {
+  if (dtype == 1)
+    return Config{reinterpret_cast<const void*>(flash_bwd_mma_kernel<D>),
+                  MmaBwdTile<D>::kFixedBytes + (plan_bytes(seq, kMmaTile) + 15) / 16 * 16,
+                  kMmaTile};
+  return Config{reinterpret_cast<const void*>(flash_bwd_kernel<D>),
+                BwdTile<D>::kFixedBytes + (plan_bytes(seq, kTile) + 15) / 16 * 16, kTile};
+}
+
+Config config_for(int seq, int head_dim, int dtype) {
   switch (head_dim) {
-    case 16: return config<16>(seq);
-    case 32: return config<32>(seq);
-    case 64: return config<64>(seq);
-    default: return Config{nullptr, 0};
+    case 16: return config<16>(seq, dtype);
+    case 32: return config<32>(seq, dtype);
+    case 64: return config<64>(seq, dtype);
+    default: return Config{nullptr, 0, 0};
   }
 }
 
 // Launches above 48 KB of dynamic shared memory need the limit raised first.
 cudaError_t allow_smem(const Config& cfg) {
   if (cfg.smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(reinterpret_cast<const void*>(cfg.fn),
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
+  return cudaFuncSetAttribute(cfg.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
 }
 
-bool valid_args(int batch, int seq, int heads, int head_dim) {
+bool valid_args(int batch, int seq, int heads, int head_dim, int dtype) {
   return batch > 0 && seq > 0 && heads > 0 && batch <= 65535 && heads <= 65535 &&
-         (seq + kRows - 1) / kRows <= (1 << 30) &&
+         (seq + kRows - 1) / kRows <= (1 << 30) && (dtype == 0 || dtype == 1) &&
          (head_dim == 16 || head_dim == 32 || head_dim == 64);
 }
 
 }  // namespace
 
-// dQ, dK, dV of one flash-attention call, f32, head_dim 16, 32 or 64; o is
-// the forward's output, lse its [B, H, T] log-sum-exp. Returns a
-// cudaError_t (0 = launched).
+// dQ, dK, dV of one flash-attention call, head_dim 16, 32 or 64; dtype 0 =
+// float32 (every tensor f32), 1 = bfloat16 (q, k, v, o, dout and the
+// gradients bf16); o is the forward's output, lse its [B, H, T] f32
+// log-sum-exp. Returns a cudaError_t (0 = launched).
 extern "C" int convdr_flash_attention_bwd(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           const void* seg, void* dq, void* dk, void* dv,
                                           int batch, int seq, int heads, int head_dim,
-                                          float scale, void* stream) {
-  if (!valid_args(batch, seq, heads, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
-  const Config cfg = config_for(seq, head_dim);
+                                          float scale, int dtype, void* stream) {
+  if (!valid_args(batch, seq, heads, head_dim, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Config cfg = config_for(seq, head_dim, dtype);
   cudaError_t err = allow_smem(cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Args args{static_cast<const float*>(q),    static_cast<const float*>(k),
-                  static_cast<const float*>(v),    static_cast<const float*>(o),
-                  static_cast<const float*>(dout), static_cast<const float*>(lse),
-                  static_cast<const int*>(seg),    static_cast<float*>(dq),
-                  static_cast<float*>(dk),         static_cast<float*>(dv),
-                  seq,                             heads,
-                  scale};
   // one dK/dV and one dQ block per 64 rows, the dK/dV blocks first
   const dim3 grid(2 * ((seq + kRows - 1) / kRows), heads, batch);
-  cfg.fn<<<grid, kThreads, cfg.smem, static_cast<cudaStream_t>(stream)>>>(args);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    using B16 = __nv_bfloat16;
+    const MmaArgs args{static_cast<const B16*>(q),     static_cast<const B16*>(k),
+                       static_cast<const B16*>(v),     static_cast<const B16*>(o),
+                       static_cast<const B16*>(dout),  static_cast<const float*>(lse),
+                       static_cast<const int*>(seg),   static_cast<B16*>(dq),
+                       static_cast<B16*>(dk),          static_cast<B16*>(dv),
+                       seq,                            heads,
+                       scale};
+    reinterpret_cast<void (*)(MmaArgs)>(const_cast<void*>(cfg.fn))
+        <<<grid, kMmaThreads, cfg.smem, st>>>(args);
+  } else {
+    const Args args{static_cast<const float*>(q),    static_cast<const float*>(k),
+                    static_cast<const float*>(v),    static_cast<const float*>(o),
+                    static_cast<const float*>(dout), static_cast<const float*>(lse),
+                    static_cast<const int*>(seg),    static_cast<float*>(dq),
+                    static_cast<float*>(dk),         static_cast<float*>(dv),
+                    seq,                             heads,
+                    scale};
+    reinterpret_cast<void (*)(Args)>(const_cast<void*>(cfg.fn))
+        <<<grid, kThreads, cfg.smem, st>>>(args);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch configuration for a problem: out[0] threads a block, out[1]
-// dynamic shared memory bytes, out[2] rows a block, out[3] resident blocks
-// an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the
-// shared-memory attribute is set), out[4] rows a streamed tile. Returns a
-// cudaError_t.
+// The launch configuration for a problem (dtype as above): out[0] threads a
+// block, out[1] dynamic shared memory bytes, out[2] rows a block, out[3]
+// resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// after the shared-memory attribute is set), out[4] rows a streamed tile.
+// Returns a cudaError_t.
 extern "C" int convdr_flash_attention_bwd_config(int batch, int seq, int heads, int head_dim,
-                                                 int* out) {
-  if (!valid_args(batch, seq, heads, head_dim)) return static_cast<int>(cudaErrorInvalidValue);
-  const Config cfg = config_for(seq, head_dim);
+                                                 int dtype, int* out) {
+  if (!valid_args(batch, seq, heads, head_dim, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Config cfg = config_for(seq, head_dim, dtype);
   cudaError_t err = allow_smem(cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, reinterpret_cast<const void*>(cfg.fn), kThreads, cfg.smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cfg.fn, kThreads, cfg.smem);
   out[0] = kThreads;
   out[1] = cfg.smem;
   out[2] = kRows;
   out[3] = blocks;
-  out[4] = kTile;
+  out[4] = cfg.tile;
   return static_cast<int>(err);
 }

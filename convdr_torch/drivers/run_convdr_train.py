@@ -12,9 +12,13 @@ written as ``pytorch_model.bin`` in the reference's HF layout plus its
 tokenizer, which ``load_model_and_params`` (so ``run_convdr_inference``)
 reads.
 
-Not ported yet (they raise, see ROADMAP.md): ``--use_dropout`` and
-``--dtype bfloat16`` (bf16 compute over f32 master weights). The port trains
-on one device; ``--no_mesh`` is accepted.
+``--dtype bfloat16`` computes in bf16 over f32 master weights: the teacher
+is cast to bf16 for its frozen forwards, the student keeps f32 parameters
+cast where they are used (``load_model_and_params(f32_params=True)``), and
+the optimizer and the checkpoints hold the f32 masters, which reload for
+bf16 inference. ``--use_dropout`` trains with the student's dropout active
+(seeded from ``--seed`` and the step). The port trains on one device;
+``--no_mesh`` is accepted.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import os
 import numpy as np
 import torch
 
-from convdr_torch.core.config import NOT_PORTED, TrainConfig
+from convdr_torch.core.config import TrainConfig
 from convdr_torch.core.device import resolve_device
 from convdr_torch.core.loading import gelu_arch_overrides, load_model_and_params
 from convdr_torch.core.registry import MODEL_REGISTRY
@@ -80,7 +84,7 @@ def get_arguments(argv=None):
     )
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"],
-                        help="compute dtype; bfloat16 training is not ported yet")
+                        help="compute dtype; bfloat16 keeps f32 master weights")
     parser.add_argument("--doc_length_buckets", default="auto",
                         choices=["auto", "none"],
                         help="trim each ranking-doc batch to the smallest "
@@ -97,22 +101,12 @@ def get_arguments(argv=None):
     parser.add_argument("--resume", action="store_true",
                         help="resume from the newest checkpoint-N in output_dir")
     parser.add_argument("--use_dropout", action="store_true",
-                        help="train with dropout active; not ported yet")
+                        help="train with the student's dropout active")
     parser.add_argument("--arch_size", default="base", choices=["base", "tiny"],
                         help="tiny = miniature architecture for smoke tests")
     parser.add_argument("--no_mesh", action="store_true",
                         help="accepted; this package trains on one device")
     return parser.parse_args(argv)
-
-
-def check_ported(args) -> None:
-    """Raise on the options of the JAX driver this package lacks."""
-    if args.use_dropout:
-        raise NotImplementedError(f"--use_dropout {NOT_PORTED}")
-    if args.dtype == "bfloat16":
-        raise NotImplementedError(
-            f"--dtype bfloat16 (bf16 compute over f32 master weights) {NOT_PORTED}"
-        )
 
 
 def clamp_lengths(config: TrainConfig, t_config, model_type: str) -> TrainConfig:
@@ -164,7 +158,7 @@ def main(argv=None):
         level=logging.INFO,
     )
     args = get_arguments(argv)
-    check_ported(args)
+    dtype = getattr(torch, args.dtype)
     device = resolve_device(args.no_cuda)
 
     if (
@@ -215,7 +209,7 @@ def main(argv=None):
     teacher_path = args.teacher_model or args.model_name_or_path
     gelu_overrides = gelu_arch_overrides(args.gelu, args.dtype)
     t_config, _t_tok, teacher = load_model_and_params(
-        args.model_type, teacher_path, device=device, arch_preset=preset,
+        args.model_type, teacher_path, device=device, dtype=dtype, arch_preset=preset,
         arch_overrides=gelu_overrides,
     )
     teacher.requires_grad_(False)
@@ -228,8 +222,9 @@ def main(argv=None):
         if fold is not None:
             path = f"{path}-{fold}"
         _s_config, s_tok, student = load_model_and_params(
-            args.model_type, path, device=device, extra_tokens=extra_tokens,
-            seed=args.seed, arch_preset=preset, arch_overrides=gelu_overrides,
+            args.model_type, path, device=device, dtype=dtype, f32_params=True,
+            extra_tokens=extra_tokens, seed=args.seed, arch_preset=preset,
+            arch_overrides=gelu_overrides,
         )
         return s_tok, student
 

@@ -9,14 +9,18 @@ excluded downstream by the pooling masks. An all-pad row is therefore finite.
 
 :func:`flash_attention` launches ``csrc/flash_attention.cu`` for CUDA
 tensors (any T, head_dim 16/32/64, f32 or bf16) and takes the plain version
-for CPU tensors. When autograd needs its gradient (training), it goes
-through :class:`FlashAttentionFn`, whose backward launches
-``csrc/flash_attention_bwd.cu`` (f32) for CUDA tensors and
+for CPU tensors. When autograd needs its gradient (training, f32 or bf16),
+it goes through :class:`FlashAttentionFn`: the forward also writes each
+row's f32 log-sum-exp, and the backward launches
+``csrc/flash_attention_bwd.cu`` (f32, or bf16 on the tensor cores with the
+Pallas backward's roundings) for CUDA tensors and
 :func:`flash_attention_bwd_plain` for CPU tensors. There is no other
 fallback: a CUDA input the kernels do not take raises. This device test is
 the whole of the JAX package's ``multi_head_attention`` dispatch here: the
 TPU kernel's gate (T >= 256, T % 128 == 0) does not apply, every length
-goes through the kernels.
+goes through the kernels. Training with attention dropout takes
+:func:`dropout_attention_plain` instead, as the JAX package takes its
+plain einsum there.
 """
 
 from __future__ import annotations
@@ -25,7 +29,6 @@ import ctypes
 
 import torch
 
-from convdr_torch.core.config import NOT_PORTED
 from convdr_torch.ops import cuda_build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,19 +63,38 @@ def flash_attention_plain(q, k, v, attention_mask):
     return out.to(q.dtype)
 
 
-def flash_attention_bwd_plain(q, k, v, o, do, attention_mask):
-    """dQ, dK, dV of :func:`flash_attention_plain`, written out in f32.
+def dropout_attention_plain(q, k, v, attention_mask, dropout):
+    """Attention under active attention dropout, as the JAX package's
+    student computes it there (``convdr_tpu/models/transformer.py:50-75``):
+    the plain softmax, cast to q's dtype, through ``dropout`` (a module or
+    function), then P V in f32 arithmetic (f64 for f64 operands) and the
+    result in q's dtype. With an identity ``dropout`` and f32 operands it
+    is :func:`flash_attention_plain` bit for bit."""
+    probs = dropout(_probs_plain(q, k, attention_mask).to(q.dtype))
+    out = torch.einsum("bhqk,bkhd->bqhd", at_least_f32(probs), at_least_f32(v))
+    return out.to(q.dtype)
 
-    The same formula the kernel computes, step by step (not autograd):
-    P = softmax(S) under the mask, D = rowsum(dO * O), dP = dO V^T,
-    dS = P * (dP - D), dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.
-    All of [B, T, H, D]; returned in q's dtype.
+
+def flash_attention_bwd_plain(q, k, v, o, do, attention_mask):
+    """dQ, dK, dV of :func:`flash_attention_plain`, written out in f32
+    (f64 for an f64 q).
+
+    The kernel's formula, step by step (not autograd): P = softmax(S) under
+    the mask, dP = dO V^T, D = rowsum(P * dP), dS = P * (dP - D),
+    dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K. All of [B, T, H, D];
+    returned in q's dtype. The kernels take D = rowsum(dO * O), equal in
+    exact arithmetic; here D comes from the unrounded P V (``o`` is taken
+    for the kernel's call shape and not read), so on bf16
+    operands, where O is rounded, this stays the exact gradient of
+    :func:`flash_attention_plain` (the yardstick of the bf16 kernel, which
+    rounds O, P and dS to bf16 where the Pallas backward does).
     """
     scale = 1.0 / q.shape[-1] ** 0.5
-    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    wide = at_least_f32(q).dtype
+    qf, kf, vf, dof = (x.to(wide) for x in (q, k, v, do))
     probs = _probs_plain(qf, kf, attention_mask)                    # [B,H,Tq,Tk]
-    delta = (dof * of).sum(-1).transpose(1, 2)[..., None]           # [B,H,Tq,1]
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (probs * dp).sum(-1, keepdim=True)                      # [B,H,Tq,1]
     ds = probs * (dp - delta)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
@@ -111,7 +133,7 @@ def _check(name, tensors, attention_mask, dtypes):
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGTYPES = [_PTR] * 6 + [_INT] * 4 + [_FLOAT, _INT, _PTR]
-_BWD_ARGTYPES = [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _PTR]
+_BWD_ARGTYPES = [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _INT, _PTR]
 
 
 def flash_attention_fwd_config(batch, seq, heads, head_dim, dtype):
@@ -129,15 +151,16 @@ def flash_attention_fwd_config(batch, seq, heads, head_dim, dtype):
                      "tile_keys"), out))
 
 
-def flash_attention_bwd_config(batch, seq, heads, head_dim):
-    """The backward kernel's launch configuration for an f32 problem, as the
-    C query ``convdr_flash_attention_bwd_config`` reports it: threads a
-    block, dynamic shared memory bytes, rows a block (keys or queries),
-    resident blocks an SM and rows a streamed tile (needs the card)."""
+def flash_attention_bwd_config(batch, seq, heads, head_dim, dtype=torch.float32):
+    """The backward kernel's launch configuration for a problem (f32 or
+    bf16), as the C query ``convdr_flash_attention_bwd_config`` reports it:
+    threads a block, dynamic shared memory bytes, rows a block (keys or
+    queries), resident blocks an SM and rows a streamed tile (needs the
+    card)."""
     fn = cuda_build.bind("flash_attention_bwd", "convdr_flash_attention_bwd_config",
-                         [_INT] * 4 + [_PTR])
+                         [_INT] * 5 + [_PTR])
     out = (ctypes.c_int * 5)()
-    rc = fn(batch, seq, heads, head_dim, ctypes.addressof(out))
+    rc = fn(batch, seq, heads, head_dim, _DTYPE_CODES[dtype], ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"convdr_flash_attention_bwd_config: CUDA error {rc}")
     return dict(zip(("threads", "smem_bytes", "block_rows", "blocks_per_sm", "tile_rows"), out))
@@ -145,8 +168,8 @@ def flash_attention_bwd_config(batch, seq, heads, head_dim):
 
 def flash_attention_fwd(q, k, v, attention_mask, with_lse: bool):
     """Launch the forward kernel on CUDA tensors; -> (out, lse [B, H, T] f32
-    or None). ``with_lse`` (f32 only) also writes each row's log-sum-exp of
-    the scaled scores, which the backward needs."""
+    or None). ``with_lse`` also writes each row's log-sum-exp of the scaled
+    scores, which the backward needs; ``out`` is the same either way."""
     b, t, h, d = _check("flash_attention", (q, k, v), attention_mask,
                         tuple(_DTYPE_CODES))
     seg = attention_mask.to(torch.int32).contiguous()
@@ -171,19 +194,16 @@ def flash_attention_bwd(q, k, v, o, do, attention_mask, lse):
     per-row log-sum-exp.
 
     CUDA tensors go through the kernel of ``csrc/flash_attention_bwd.cu``
-    (f32 only; one launch computes all three gradients and rowsum(dO * O));
-    CPU tensors through :func:`flash_attention_bwd_plain` (which needs no
-    ``lse``). ``flash_attention_bwd.launches`` counts kernel launches, one
-    per call on the card.
+    (f32, or bf16 with bf16 gradients; one launch computes all three
+    gradients and rowsum(dO * O)); CPU tensors through
+    :func:`flash_attention_bwd_plain` (which needs no ``lse``).
+    ``flash_attention_bwd.launches`` counts kernel launches, one per call on
+    the card.
     """
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, attention_mask)
-    if q.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the flash-attention backward in {q.dtype} (bf16 training) {NOT_PORTED}"
-        )
     b, t, h, d = _check("flash_attention_bwd", (q, k, v, o, do), attention_mask,
-                        (torch.float32,))
+                        tuple(_DTYPE_CODES))
     if lse is None or tuple(lse.shape) != (b, h, t) or lse.dtype != torch.float32:
         raise ValueError("flash_attention_bwd needs the forward's f32 lse [B, H, T]")
     seg = attention_mask.to(torch.int32).contiguous()
@@ -193,7 +213,7 @@ def flash_attention_bwd(q, k, v, o, do, attention_mask, lse):
     rc = cuda_build.launch(
         fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), seg.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, t, h, d, 1.0 / d ** 0.5,
+        b, t, h, d, 1.0 / d ** 0.5, _DTYPE_CODES[q.dtype],
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
@@ -212,11 +232,6 @@ class FlashAttentionFn(torch.autograd.Function):
     def forward(ctx, q, k, v, attention_mask):
         if q.device.type == "cpu":
             out, lse = flash_attention_plain(q, k, v, attention_mask), None
-        elif q.dtype != torch.float32:
-            raise NotImplementedError(
-                f"training through flash attention in {q.dtype} (bf16 training) "
-                f"{NOT_PORTED}"
-            )
         else:
             out, lse = flash_attention_fwd(q, k, v, attention_mask, with_lse=True)
         ctx.save_for_backward(q, k, v, out, attention_mask, lse)

@@ -25,7 +25,7 @@ from torch import nn
 
 from convdr_torch.core.config import ModelConfig
 from convdr_torch.models.attention import at_least_f32
-from convdr_torch.models.transformer import LayerNorm32, TransformerEncoder
+from convdr_torch.models.transformer import CastLinear, LayerNorm32, TransformerEncoder
 
 CHUNK_MASK_BIAS = -9999.0
 
@@ -37,7 +37,8 @@ def masked_mean(seq: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def pool(seq: torch.Tensor, mask: torch.Tensor, use_mean: bool) -> torch.Tensor:
-    """Masked mean or first token ([CLS]) pooling (models.py:37-43)."""
+    """Masked mean or first token ([CLS]) pooling (models.py:37-43), in the
+    sequence's (compute) dtype."""
     if use_mean:
         return masked_mean(seq, mask)
     return seq[:, 0]
@@ -51,7 +52,7 @@ class AnceEncoder(nn.Module):
         self.config = config
         self.roberta = TransformerEncoder(config.arch)
         if config.projection_head:
-            self.embeddingHead = nn.Linear(
+            self.embeddingHead = CastLinear(
                 config.arch.hidden_size, config.embedding_dim
             )
             self.norm = LayerNorm32(config.embedding_dim, eps=1e-5)
@@ -60,6 +61,7 @@ class AnceEncoder(nn.Module):
         seq = self.roberta(input_ids, attention_mask)
         emb = pool(seq, attention_mask, self.config.use_mean)
         if self.config.projection_head:
+            # the head in the compute dtype, its LayerNorm in f32
             emb = self.norm(self.embeddingHead(emb))
         return at_least_f32(emb)
 

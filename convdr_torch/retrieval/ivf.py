@@ -699,6 +699,7 @@ class IVFIndex:
         nprobe: int = 8,
         max_candidate_bytes: int = MAX_CANDIDATE_BYTES,
         mesh=None,
+        index_axis: str = "index",
         exact: bool = False,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """ANN top-k. Returns (scores [Q, k] desc f32, rowids [Q, k] int32).
@@ -707,7 +708,8 @@ class IVFIndex:
         a query's sub-lists grouped, so the gathered candidates and their
         f32 working copy (bf16 and int8 lists) stay under
         ``max_candidate_bytes``. ``exact`` (PQ lists only): an f32 LUT for
-        oracle-parity tests. ``mesh`` (a sharded index) is not ported.
+        oracle-parity tests. ``mesh`` (a sharded index over ``index_axis``)
+        is not ported.
         """
         if mesh is not None:
             raise NotImplementedError(f"IVFIndex.search(mesh=...) {NOT_PORTED}")

@@ -252,6 +252,7 @@ class PQIndex:
         rescore_factor: int = 0,
         rescore_passages: Optional[np.ndarray] = None,
         mesh=None,
+        index_axis: str = "index",
         exact: bool = False,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """ADC top-k. Returns (scores [Q, k] desc f32, rowids [Q, k] int32).
@@ -260,7 +261,7 @@ class PQIndex:
         candidates against ``rescore_passages`` [N, D] float rows (indexed
         by ROW POSITION; pass the matrix the index was built from); use
         :meth:`rescore` when the float rows exist only as block files.
-        ``mesh`` (a sharded index) is not ported.
+        ``mesh`` (a sharded index over ``index_axis``) is not ported.
         """
         if mesh is not None:
             raise NotImplementedError(f"PQIndex.search(mesh=...) {NOT_PORTED}")

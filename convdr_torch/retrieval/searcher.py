@@ -39,7 +39,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from convdr_torch.core.config import SearchConfig
+from convdr_torch.core.config import NOT_PORTED, SearchConfig
+from convdr_torch.core.device import pick_device
 from convdr_torch.ops.exact_search import NEG_INF, flat_ip_topk, merge_topk
 from convdr_torch.ops.fused_search import ROW_TILE
 from convdr_torch.ops.quant import (
@@ -108,19 +109,29 @@ def prefetch_iter(iterable, depth: int = 1):
 
 
 class BlockedSearcher:
-    """Exact top-N retrieval over on-disk embedding blocks, on one device."""
+    """Exact top-N retrieval over on-disk embedding blocks, on one device.
+
+    ``device`` None means the card (raising without one, as
+    :func:`~convdr_torch.core.device.pick_device`). ``mesh`` and
+    ``index_axis`` are the JAX constructor's, accepted for its callers: a
+    mesh (blocks sharded over ``index_axis``) is not ported.
+    """
 
     def __init__(
         self,
         config: SearchConfig = SearchConfig(),
         *,
-        device: torch.device,
+        device=None,
+        mesh=None,
+        index_axis: str = "index",
         quantizer: Optional[Int8Quantizer] = None,
     ):
+        if mesh is not None:
+            raise NotImplementedError(f"BlockedSearcher(mesh=...) {NOT_PORTED}")
         if config.storage_dtype not in _STORAGE:
             raise ValueError(f"unknown storage_dtype {config.storage_dtype!r}")
         self.config = config
-        self.device = device
+        self.device = pick_device(device)
         # int8 storage needs the fitted per-dimension scales to fold into
         # queries; pass one here, or search_blocks loads the sidecar from
         # the block directory, or search_arrays fits on the passed corpus.

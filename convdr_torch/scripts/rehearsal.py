@@ -19,9 +19,10 @@ topics, qrels, warm-up ranking data) are byte-identical to the JAX
 script's: the same draws from ``np.random.RandomState(17)`` in the same
 order.
 
-The port trains in float32 only (bf16 training is not ported, ROADMAP.md),
-so ``--dtype`` defaults to float32 here, where the JAX script's full-width
-default is bfloat16. Everything runs on the card unless ``--no_cuda``.
+``--dtype`` defaults to bfloat16, as the JAX script's does: every driver
+computes in bf16 and training updates f32 master weights. ``--smoke``
+forces float32, as in the JAX script. Everything runs on the card unless
+``--no_cuda``.
 
     python -m convdr_torch.scripts.rehearsal --workdir /tmp/rehearsal
     python -m convdr_torch.scripts.rehearsal --workdir /tmp/r --smoke --no_cuda
@@ -275,10 +276,10 @@ def main(argv=None):
     )
     parser.add_argument("--max_concat_length", type=int, default=96)
     parser.add_argument("--max_query_length", type=int, default=32)
-    parser.add_argument("--dtype", default="float32",
+    parser.add_argument("--dtype", default="bfloat16",
                         choices=["float32", "bfloat16"],
-                        help="compute dtype of every driver; training takes "
-                        "float32 only (bf16 training is not ported)")
+                        help="compute dtype of every driver (--smoke: float32); "
+                        "training keeps f32 master weights")
     # KD to a random-init teacher is schedule-sensitive in both directions
     # (the JAX script's validated settings): too short stalls collapsed
     # toward the mean, too hot at base width kills input sensitivity.

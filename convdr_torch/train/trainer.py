@@ -10,6 +10,15 @@ arrive tokenized and sampled by the input pipeline (``ranking_data.py``) as
 ``doc_ids/doc_mask [B, 1+num_negatives, L]``. Eager PyTorch has no ``jit``:
 one call runs the step. Data-parallel training is not ported yet
 (ROADMAP.md, Slice C).
+
+In bf16 the student computes in bf16 over f32 master parameters
+(``load_model_and_params(..., f32_params=True)``): its gradients, their
+norm and the clipped AdamW update are f32, as in the JAX package.
+``use_dropout`` gives the student's dropout sites a ``torch.Generator``
+seeded from ``(config.seed, step)`` for one step, after the JAX step's
+``fold_in(PRNGKey(seed), step)``: the same seed repeats a run (torch draws
+other bits than JAX). Without it no site drops, though the step puts the
+student in ``train()`` mode.
 """
 
 from __future__ import annotations
@@ -17,11 +26,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from convdr_torch.core.config import TrainConfig
 from convdr_torch.core.loading import make_apply_fn
+from convdr_torch.models.transformer import set_dropout_generator
 from convdr_torch.train.losses import (
     kd_mse_loss,
     ranking_nll_loss,
@@ -47,6 +58,14 @@ def create_train_state(
     return TrainState(model=model, opt_state=tx.init(dict(model.named_parameters()))), tx
 
 
+def dropout_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The dropout stream of one micro-step, from ``(seed, step)`` (the JAX
+    step's ``fold_in(PRNGKey(seed), step)``), apart from the negative
+    sampling's ``SeedSequence((seed, step))`` by its spawn key."""
+    state = np.random.SeedSequence((seed, step), spawn_key=(1,)).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(int(state[0]) << 31 | int(state[1]))
+
+
 def make_train_step(student: nn.Module, teacher: nn.Module, tx: ClipAdamW,
                     config: TrainConfig) -> Callable:
     """Build the train step ``step(state, batch) -> (state, metrics)``.
@@ -58,11 +77,6 @@ def make_train_step(student: nn.Module, teacher: nn.Module, tx: ClipAdamW,
     ``grad_norm``, the global norm of this micro-step's gradients. After the
     step each parameter's ``.grad`` holds those gradients.
     """
-    if config.use_dropout:
-        raise NotImplementedError(
-            "training with dropout (use_dropout) is not yet ported to "
-            "convdr_torch, see ROADMAP.md"
-        )
     student_apply = make_apply_fn(student, grad=True)
     use_mse = not config.no_mse
     use_ranking = config.ranking_task
@@ -74,7 +88,13 @@ def make_train_step(student: nn.Module, teacher: nn.Module, tx: ClipAdamW,
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        embs = student_apply(batch["concat_ids"], batch["concat_mask"], True)
+        if config.use_dropout:
+            set_dropout_generator(model, dropout_generator(
+                config.seed, state.step, batch["concat_ids"].device))
+        try:
+            embs = student_apply(batch["concat_ids"], batch["concat_mask"], True)
+        finally:
+            set_dropout_generator(model, None)
         metrics: Dict[str, torch.Tensor] = {}
         loss = torch.zeros((), device=embs.device)
         if use_mse:

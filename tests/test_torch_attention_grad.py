@@ -90,3 +90,60 @@ def test_flash_attention_records_no_graph_without_grad():
         out = ta.flash_attention(q.requires_grad_(), k, v, mask)
     assert out.grad_fn is None
 
+
+
+# ---------------- bf16 ----------------
+def _bf16_problem(seed, b, t, h, d, lengths):
+    q, k, v, do, mask = _problem(seed, b, t, h, d, lengths)
+    do = (do * mask[:, :, None, None]).astype(np.float32)  # pad queries never reach the loss
+    bf = [np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)) for x in (q, k, v, do)]
+    return (*bf, mask)
+
+
+def _jax_bf16_grads(q, k, v, do, mask):
+    """jax.grad of the JAX package's naive attention in bf16 (its CPU path)."""
+    bias = np.where(mask[:, None, None, :] > 0, 0.0, -1e9).astype(np.float32)
+
+    def f(q_, k_, v_):
+        out = naive_attention(q_, k_, v_, jnp.asarray(bias), jnp.bfloat16)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(do))
+
+    grads = jax.grad(f, argnums=(0, 1, 2))(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    return [np.asarray(g.astype(jnp.float32)) for g in grads]
+
+
+def _assert_bf16_close(got, want, mask):
+    """At valid positions (pads differ by design and never reach a loss):
+    within 1e-2 of each gradient's largest entry, the bf16 error of two
+    roundings of the same f32 sums (the JAX path rounds P and dP to bf16,
+    the port's plain version keeps them in f32)."""
+    valid = mask.astype(bool)
+    for g, w in zip(got, want):
+        g = g.float().numpy()
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g[valid], w[valid], atol=1e-2 * np.abs(w).max(), rtol=0)
+
+
+@pytest.mark.parametrize("b,t,h,d,lengths", SHAPES)
+def test_bf16_bwd_plain_matches_jax_grad_of_naive_attention(b, t, h, d, lengths):
+    q, k, v, do, mask = _bf16_problem(4, b, t, h, d, lengths)
+    want = _jax_bf16_grads(q, k, v, do, mask)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do))
+    tmask = torch.from_numpy(mask)
+    out = ta.flash_attention_plain(tq, tk, tv, tmask)
+    got = ta.flash_attention_bwd_plain(tq, tk, tv, out, tdo, tmask)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    _assert_bf16_close(got, want, mask)
+
+
+@pytest.mark.parametrize("b,t,h,d,lengths", SHAPES)
+def test_bf16_flash_attention_fn_matches_jax_grad_of_naive_attention(b, t, h, d, lengths):
+    q, k, v, do, mask = _bf16_problem(5, b, t, h, d, lengths)
+    want = _jax_bf16_grads(q, k, v, do, mask)
+    leaves = [torch.from_numpy(x).to(torch.bfloat16).requires_grad_() for x in (q, k, v)]
+    out = ta.flash_attention(*leaves, torch.from_numpy(mask))
+    assert out.dtype == torch.bfloat16
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do).to(torch.bfloat16))
+    _assert_bf16_close(got, want, mask)

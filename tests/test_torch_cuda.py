@@ -11,7 +11,10 @@ Tolerances: attention f32 1e-5 absolute (same softmax, another summation
 order), bf16 one bf16 ulp (2^-7 relative; both versions round one f32
 result); scores 1e-5 * |q| * max|p| (f32 dot products of another order);
 the attention backward 1e-5 * max|ref| per gradient (f32 sums of up to T
-terms in another order, P recomputed from the forward's log-sum-exp).
+terms in another order, P recomputed from the forward's log-sum-exp); in
+bf16, within 2x the error of autograd through masked SDPA in bf16 (floor
+1e-3 of scale) from the f64 plain backward, and the bf16 forward's lse
+within 1e-5 relative of a torch.logsumexp.
 Equal, not close: the streaming passes against the score kernel (the same
 f32 FMA chain per score; int8: exact integer sums, on the tensor cores in
 the score kernel), int8 scores against the plain version (exact integer
@@ -340,9 +343,89 @@ def test_flash_bwd_config_fits_three_blocks_an_sm(cuda):
 
 
 def test_flash_bwd_rejects_bf16(cuda):
+    """bf16 training raised NOT_PORTED once; now its forward (with lse) and
+    its backward each launch once and give finite bf16 gradients."""
     q, k, v, mask = attention_problem(2, 16, 2, 64, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        FlashAttentionFn.apply(q.requires_grad_(), k, v, mask)
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    out = FlashAttentionFn.apply(*leaves, mask)
+    grads = torch.autograd.grad(out, leaves, torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    assert all(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all()) for g in grads)
+
+
+# bf16 training: the forward's lse and the backward in bf16 at the student's
+# shape, its targets' T=64, a T that cuts the 64-row tiles, other head dims,
+# and (forward) a row long enough for the accumulator flushes
+BF16_LSE_CASES = [(4, 256, 12, 64), (4, 64, 12, 64), (5, 200, 12, 64), (3, 77, 2, 32),
+                  (2, 40, 2, 16), (1, 3000, 1, 64)]
+BF16_BWD_CASES = [(4, 256, 12, 64), (4, 64, 12, 64), (5, 200, 12, 64), (3, 77, 2, 32),
+                  (2, 40, 2, 16), (2, 513, 2, 64)]
+
+
+@pytest.mark.parametrize("mask_kind", ["right", "left", "middle", "random"])
+@pytest.mark.parametrize("b,t,h,d", BF16_LSE_CASES)
+def test_flash_forward_bf16_lse(cuda, b, t, h, d, mask_kind):
+    """bf16 with lse: lse within 1e-5 relative of torch.logsumexp of the
+    masked, scaled f32 scores of the bf16 operands (f32 sums of another
+    order); out bit-identical to the launch without lse."""
+    q, k, v, mask = attention_problem(b, t, h, d, torch.bfloat16, mask=mask_kind)
+    out, lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
+    bare, none = flash_attention_fwd(q, k, v, mask, with_lse=False)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(out, bare)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / d ** 0.5
+    allowed = mask[:, None, :, None] == mask[:, None, None, :]
+    want = torch.logsumexp(scores.masked_fill(~allowed, float("-inf")), dim=-1)
+    assert lse.dtype == torch.float32 and bool(torch.isfinite(lse).all())
+    assert bool(((lse - want).abs() <= 1e-5 * want.abs() + 1e-6).all())
+
+
+def bf16_bwd_errors(q, k, v, mask, do):
+    """Each gradient's largest error over its largest entry, against the
+    plain backward in f64 of the same bf16 operands: the kernel's, and
+    autograd's through masked SDPA in bf16 (the library's)."""
+    out, lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
+    got = flash_attention_bwd(q, k, v, out, do, mask, lse)
+    x = [t.double() for t in (q, k, v, do)]
+    want = flash_attention_bwd_plain(x[0], x[1], x[2], None, x[3], mask)
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    allowed = mask[:, None, :, None] == mask[:, None, None, :]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+    lib = [g.transpose(1, 2) for g in torch.autograd.grad(lib_out, leaves, do.transpose(1, 2))]
+    torch.cuda.synchronize()
+    err = lambda g, w: ((g.double() - w).abs().max() / w.abs().max()).item()  # noqa: E731
+    return got, [err(g, w) for g, w in zip(got, want)], [err(g, w) for g, w in zip(lib, want)]
+
+
+@pytest.mark.parametrize("mask_kind", ["right", "left", "middle", "random"])
+@pytest.mark.parametrize("b,t,h,d", BF16_BWD_CASES)
+def test_flash_bwd_bf16_kernel_against_f64_and_sdpa(cuda, b, t, h, d, mask_kind):
+    """The bf16 backward: one launch, bf16 gradients, each within 2x the
+    error of autograd through masked SDPA in bf16 (floor 1e-3 of scale)
+    from the f64 plain witness, and two calls bit-identical (no atomics)."""
+    q, k, v, mask = attention_problem(b, t, h, d, torch.bfloat16, mask=mask_kind)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(7),
+                     device="cuda").to(torch.bfloat16)
+    before = flash_attention_bwd.launches
+    got, kernel_err, lib_err = bf16_bwd_errors(q, k, v, mask, do)
+    assert flash_attention_bwd.launches == before + 1
+    assert all(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all()) for g in got)
+    for name, ke, le in zip(("dq", "dk", "dv"), kernel_err, lib_err):
+        assert ke <= 2 * max(le, 1e-3), (name, ke, le)
+    out, lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
+    first = flash_attention_bwd(q, k, v, out, do, mask, lse)
+    second = flash_attention_bwd(q, k, v, out, do, mask, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(first, second))
+
+
+def test_flash_bwd_bf16_config(cuda):
+    cfg = flash_attention_bwd_config(4, 256, 12, 64, torch.bfloat16)
+    assert (cfg["threads"], cfg["block_rows"], cfg["tile_rows"]) == (128, 64, 64)
+    assert cfg["blocks_per_sm"] >= 1
 
 
 def test_train_step_on_card_matches_cpu(cuda):

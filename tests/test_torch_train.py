@@ -419,5 +419,10 @@ def test_query_encode_fn_and_dropout_guard():
     encode = ttr.make_query_encode_fn(student)
     out = encode(torch.ones(2, 12, dtype=torch.int32), torch.ones(2, 12, dtype=torch.int32))
     assert out.shape == (2, 16) and not out.requires_grad
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.make_train_step(student, student, None, tcfg.TrainConfig(use_dropout=True))
+    # use_dropout raised NOT_PORTED once; now its step runs to a finite loss
+    _, _, teacher = _pair(cfg, 1)
+    config = tcfg.TrainConfig(use_dropout=True, ranking_task=True, num_negatives=2)
+    state, tx = ttr.create_train_state(student, config, 10)
+    _, metrics = ttr.make_train_step(student, teacher, tx, config)(
+        state, {k: torch.from_numpy(v) for k, v in _batches(5, 1)[0].items()})
+    assert bool(torch.isfinite(metrics["loss"]))

@@ -305,8 +305,20 @@ def test_train_driver_needs_a_card_or_no_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--use_dropout"], ["--dtype", "bfloat16"]])
 def test_unported_train_options_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_train.main(_train_argv(tmp_path, "--no_cuda", *flags))
+    """Both options raised NOT_PORTED once; each now trains the tiny model on
+    the CPU to finite losses and an output dir that reloads."""
+    out = str(tmp_path / "model")
+    assert torch_train.main(_train_argv(tmp_path, "--no_cuda", *flags)) == [out]
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss"] for line in f]
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    dtype = torch.bfloat16 if "bfloat16" in flags else torch.float32
+    _, _, reloaded = load_model_and_params("rdot_nll", out, device=torch.device("cpu"),
+                                           dtype=dtype, arch_preset="tiny")
+    ids = torch.randint(5, 200, (2, 16), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        emb = reloaded.query_emb(ids, torch.ones_like(ids))
+    assert emb.shape == (2, 32) and bool(torch.isfinite(emb).all())
 
 
 def test_clamps_follow_the_position_table():
