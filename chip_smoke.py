@@ -153,6 +153,20 @@
    the in-memory student does), and ``--use_dropout`` for 4 steps twice
    (finite losses, the teacher's forwards through kernel 1, one seed the
    same losses).
+C. Multi-GPU at world size 1 (the card holds one NCCL rank): the
+   phase-3 drivers under ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1`` (each forms its ``("data",)`` or ``("index",)``
+   mesh over NCCL, checked): the meshed embed's block equal to phase 3's
+   (offsets, rows within 1e-5) and the meshed inference's TREC run
+   byte-identical to phase 3's; ``sharded_flat_ip_topk`` on a world-1 NCCL
+   mesh and the S=4 and S=3 emulation in this process (each shard's local
+   search, kernels 2 and 5 at a nonzero base, then the merge) over one
+   524,288-row block at Q=512, f32 and int8, ``torch.equal`` to the
+   unsharded ``flat_ip_topk``; phase 4's full-width step over a world-1
+   ``("data",)`` mesh bit-identical to the unmeshed step. Prints the NCCL
+   all-gather time of the [1, 512, 100] lists, the sharded and unsharded
+   search times and the phase's seconds; the kernels' counts are zeroed
+   before and read after (the torchrun ranks print theirs).
 5. Prints the training ms per step and examples/s, a ``{"kernels": [...]}``
    line (launches, max error, kernel / plain / library / bound times in ms,
    CUDA-event timed after warm-up), and last ``{"ok": true, "device": ...}``.
@@ -246,6 +260,7 @@ from convdr_torch.retrieval.online import (
 )
 from convdr_torch.retrieval.pq_index import PQIndex
 from convdr_torch.scripts import rehearsal
+from convdr_torch.scripts.multi_gpu_check import make_train_file
 from convdr_torch.train.losses import kd_mse_loss, ranking_nll_loss
 from convdr_torch.train.trainer import create_train_state, make_train_step
 from convdr_torch.utils.observability import TRACE_SPAN, profile_trace
@@ -1619,31 +1634,6 @@ def time_step_phases(student, teacher, batch, config):
     return phases
 
 
-def make_train_file(path):
-    """64 CAsT-style examples: conversations of 1-8 turns, a positive and 12
-    negatives whose token lengths (the "init" byte vocabulary: about one
-    token a character) span the 64-512 rungs."""
-    rng = np.random.default_rng(3)
-    words = ["what", "about", "the", "history", "of", "jazz", "music", "in", "new",
-             "orleans", "and", "its", "influence", "on", "blues", "rock"]
-
-    def text(n_chars):
-        out = ""
-        while len(out) < n_chars:
-            out += " " + str(rng.choice(words))
-        return out.strip()
-
-    with open(path, "w") as f:
-        for i in range(64):
-            turns = [text(int(rng.integers(15, 60))) for _ in range(int(rng.integers(1, 9)))]
-            f.write(json.dumps({
-                "topic_number": i // 8, "query_number": len(turns), "input": turns,
-                "target": turns[-1] + " jazz",
-                "doc_pos": text(20) + "[SEP]" + text(int(rng.integers(40, 600))),
-                "doc_negs": [text(int(rng.integers(40, 600))) for _ in range(12)],
-            }) + "\n")
-
-
 def step_times(metrics_path, save_steps):
     """Steady-state ms per step from metrics.jsonl's wall times: intervals
     after step 2, leaving out those that hold a checkpoint write."""
@@ -2972,6 +2962,215 @@ def serving_path(paths):
             "driver_vs_batch": drivers, "phase_s": time.time() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# phase C: multi-GPU at world size 1 (the card holds one NCCL rank)
+# ---------------------------------------------------------------------------
+# a torchrun rank's program: one driver's main, then the meshes it formed
+# (axis names, backend) and the kernels' counts
+RANK_CODE = r"""
+import importlib, json, sys
+import torch.distributed as dist
+from convdr_torch.models.attention import flash_attention
+from convdr_torch.ops.fused_search import fused_scores_groupmax
+from convdr_torch.ops.gather_groups import dma_gather_groups
+from convdr_torch.parallel import mesh
+meshes, real = [], mesh.get_mesh
+def get_mesh(*args, **kwargs):
+    m = real(*args, **kwargs)
+    meshes.append([list(m.mesh_dim_names), dist.get_backend(), dist.get_world_size()])
+    return m
+mesh.get_mesh = get_mesh
+importlib.import_module("convdr_torch.drivers." + sys.argv[1]).main(sys.argv[2:])
+print("MESHES " + json.dumps(meshes))
+print("LAUNCHES " + json.dumps({"flash_attention_fwd": flash_attention.launches,
+                                "fused_scores_groupmax": fused_scores_groupmax.launches,
+                                "dma_gather_groups": dma_gather_groups.launches}))
+"""
+COUNTED = ("flash_attention_fwd", "flash_attention_bwd", "fused_scores_groupmax",
+           "dma_gather_groups")
+
+
+def zero_counts():
+    flash_attention.launches = flash_attention_bwd.launches = 0
+    fused_scores_groupmax.launches = dma_gather_groups.launches = 0
+
+
+def read_counts():
+    return dict(zip(COUNTED, (flash_attention.launches, flash_attention_bwd.launches,
+                              fused_scores_groupmax.launches, dma_gather_groups.launches)))
+
+
+def torchrun_driver(module, argv, name, axis):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1``
+    over one driver (its ``WORLD_SIZE`` makes it form its mesh over an NCCL
+    group, checked: one ``(axis,)`` mesh on NCCL at world size 1); returns
+    the rank's kernel counts and the wall seconds."""
+    log_path = os.path.join(WORK, f"{name}.log")
+    env = {**os.environ, "PYTHONPATH": REPO}
+    t0 = time.time()
+    with open(log_path, "w") as f:
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "1", "--no_python", sys.executable, "-c", RANK_CODE, module, *argv],
+            cwd=REPO, env=env, stdout=f, stderr=subprocess.STDOUT, timeout=300)
+    seconds = time.time() - t0
+    with open(log_path) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {module} exited {proc.returncode}:\n{text[-4000:]}")
+    meshes = json.loads(text.split("MESHES ", 1)[1].splitlines()[0])
+    if meshes != [[[axis], "nccl", 1]]:
+        raise AssertionError(f"torchrun {module} formed {meshes}, not one ({axis!r},) NCCL mesh")
+    counts = json.loads(text.split("LAUNCHES ", 1)[1].splitlines()[0])
+    return counts, seconds
+
+
+def sharded_search_checks(gen):
+    """The world-1 NCCL sharded search and the in-process S-shard
+    emulation over one 524,288-row block at Q=512, f32 and int8, against
+    the unsharded ``flat_ip_topk``. Returns the results and, for the
+    timing, each dtype's operands and unsharded result."""
+    from convdr_torch.parallel.mesh import get_mesh, shard_rows
+    from convdr_torch.parallel.sharded_search import (
+        local_flat_ip_topk,
+        merge_shard_topk,
+        sharded_flat_ip_topk,
+    )
+
+    q32 = torch.randn(SEARCH_Q, SEARCH_D, generator=gen, device="cuda")
+    p32 = torch.randn(SEARCH_N, SEARCH_D, generator=gen, device="cuda")
+    mesh = get_mesh(("index",))
+    out, operands = {}, {}
+    for dtype in (torch.float32, torch.int8):
+        q, p = search_operands(q32, p32, dtype)
+        want_s, want_i = flat_ip_topk(q, p, TOP_N)
+        got_s, got_i = sharded_flat_ip_topk(mesh, q, p, TOP_N)
+        row = {"world1_equal": bool(torch.equal(got_i, want_i) and torch.equal(got_s, want_s))}
+        for n_shards in (4, 3):  # 3: a short last shard
+            parts = []
+            for shard_id in range(n_shards):
+                lo, hi, rows = shard_rows(SEARCH_N, n_shards, shard_id, ROW_TILE)
+                shard = torch.zeros((rows, SEARCH_D), dtype=p.dtype, device="cuda")
+                shard[: hi - lo] = p[lo:hi]
+                parts.append(local_flat_ip_topk(q, shard, TOP_N, shard_id, n_shards,
+                                                valid_rows=SEARCH_N))
+                del shard
+            s, i = merge_shard_topk(torch.stack([a for a, _ in parts]),
+                                    torch.stack([b for _, b in parts]), TOP_N)
+            row[f"S{n_shards}_equal"] = bool(torch.equal(i, want_i) and torch.equal(s, want_s))
+        out[dtype_name(dtype)] = row
+        log(f"  {dtype_name(dtype)}: world-1 NCCL sharded search == flat_ip_topk "
+            f"{row['world1_equal']}; S=4 / S=3 emulation == unsharded {row['S4_equal']} / "
+            f"{row['S3_equal']}")
+        if not (row["world1_equal"] and row["S4_equal"] and row["S3_equal"]):
+            raise AssertionError(f"sharded search differs from flat_ip_topk ({dtype}): {row}")
+        operands[dtype_name(dtype)] = (q, p, want_s, want_i)
+        del got_s, got_i, parts
+    del q32, p32
+    return out, operands
+
+
+def time_sharded_search(out, operands):
+    """CUDA-event times of the world-1 sharded search, the unsharded one
+    and the NCCL all-gather of the [1, Q, k] lists (f32 scores, int64 ids)."""
+    from convdr_torch.parallel.mesh import all_gather_rows, get_mesh
+    from convdr_torch.parallel.sharded_search import sharded_flat_ip_topk
+
+    mesh = get_mesh(("index",))
+    for name, (q, p, want_s, want_i) in operands.items():
+        row = out[name]
+        for _ in range(2):  # in turns: sharded, unsharded, unsharded, sharded
+            row.setdefault("sharded_ms", []).append(
+                cuda_ms(lambda: sharded_flat_ip_topk(mesh, q, p, TOP_N), iters=5))
+            row.setdefault("unsharded_ms", []).insert(
+                0, cuda_ms(lambda: flat_ip_topk(q, p, TOP_N), iters=5))
+        row["all_gather_ms"] = cuda_ms(lambda: (all_gather_rows(mesh, "index", want_s),
+                                                all_gather_rows(mesh, "index", want_i)), iters=50)
+        log(f"  {name}: sharded search {row['sharded_ms']} ms, unsharded "
+            f"{row['unsharded_ms']} ms; all_gather of the [1, {SEARCH_Q}, {TOP_N}] lists "
+            f"(f32 scores + int64 ids) {row['all_gather_ms']:.4f} ms")
+    operands.clear()
+    torch.cuda.empty_cache()
+
+
+def dp_step_check():
+    """Phase 4's full-width step (the kernels, seeds 42 / 0, the seeded
+    batch) without a mesh and over the world-1 NCCL ``("data",)`` mesh: the
+    same losses and gradients, bit for bit."""
+    from convdr_torch.parallel.mesh import get_mesh
+
+    device = torch.device("cuda")
+    student, teacher = (load_model_and_params("rdot_nll", "init", device=device, seed=seed)[2]
+                        for seed in (42, 0))
+    teacher.requires_grad_(False)
+    init = {n: p.detach().clone() for n, p in student.state_dict().items()}
+    batch = train_step_batch(np.random.default_rng(2))
+    config = TrainConfig(ranking_task=True, num_negatives=TRAIN_NEG)
+    results = []
+    for mesh in (None, get_mesh(("data",))):
+        student.load_state_dict(init)
+        state, tx = create_train_state(student, config, 10)
+        _, metrics = make_train_step(student, teacher, tx, config, mesh=mesh)(state, batch)
+        results.append(({n: float(v) for n, v in metrics.items()},
+                        {n: p.grad.detach().clone() for n, p in student.named_parameters()}))
+        del state, tx
+    (m0, g0), (m1, g1) = results
+    differ = [n for n in g0 if not torch.equal(g0[n], g1[n])]
+    log(f"  DP step on the world-1 mesh against the unmeshed step: metrics equal {m0 == m1} "
+        f"({m1}), {len(g0) - len(differ)}/{len(g0)} gradients bit-identical")
+    if m0 != m1 or differ:
+        raise AssertionError(f"the world-1 DP step differs: {m0} vs {m1}; {differ[:5]}")
+    del student, teacher, init, results
+    torch.cuda.empty_cache()
+    return {"metrics": m1, "gradients": len(g0), "bit_identical": True}
+
+
+def multi_gpu_path(paths, gen):
+    """Phase C: the meshed drivers under torchrun (one NCCL rank) against
+    phase 3's unmeshed ones, the world-1 NCCL sharded search and the S=4 /
+    S=3 emulation against the unsharded search, and one DP train step on
+    a world-1 mesh against the unmeshed step."""
+    from convdr_torch.parallel.dryrun import single_rank
+
+    t_phase = time.time()
+    processed, raw, emb_dir = paths["processed"], paths["raw"], paths["emb_dir"]
+    emb_mesh = os.path.join(WORK, "embeddings_mesh")
+    embed_counts, embed_s = torchrun_driver("gen_passage_embeddings", [
+        "--data_dir", processed, "--checkpoint", "init", "--model_type", "rdot_nll",
+        "--output_dir", emb_mesh, "--per_gpu_eval_batch_size", "64",
+        "--dtype", "bfloat16", "--num_blocks", "1"], "torchrun_embed", "data")
+    (rows, offs), (want_rows, want_offs) = (
+        next(iter_embedding_blocks(d, max_blocks=1))[1:] for d in (emb_mesh, emb_dir))
+    embed_err = float(np.abs(rows - want_rows).max()) if rows.shape == want_rows.shape else None
+    log(f"  torchrun gen_passage_embeddings ({embed_s:.1f} s): block 0 {rows.shape}, offsets "
+        f"equal {np.array_equal(offs, want_offs)}, rows max abs diff {embed_err} (tolerance 1e-5)")
+    if not np.array_equal(offs, want_offs) or embed_err is None or embed_err > 1e-5:
+        raise AssertionError("the meshed embed's block differs from phase 3's")
+    infer_counts, infer_s = torchrun_driver(
+        "run_convdr_inference", inference_argv(WORK, processed, raw, emb_dir, "run_mesh"),
+        "torchrun_infer", "index")
+    with open(paths["trec"], "rb") as a, open(os.path.join(WORK, "run_mesh.trec"), "rb") as b:
+        trec_equal = a.read() == b.read()
+    log(f"  torchrun run_convdr_inference ({infer_s:.1f} s): TREC run byte-identical to phase "
+        f"3's {trec_equal}")
+    if not trec_equal:
+        raise AssertionError("the meshed inference's TREC run differs from phase 3's")
+    with single_rank(no_cuda=False):
+        zero_counts()
+        search, operands = sharded_search_checks(gen)
+        step = dp_step_check()
+        counts = read_counts()
+        time_sharded_search(search, operands)
+    for k, v in (*embed_counts.items(), *infer_counts.items()):
+        counts[k] += v
+    log(f"  phase C launches (both torchrun ranks and this process): {counts}")
+    if any(v <= 0 for v in counts.values()):
+        raise AssertionError(f"phase C did not run through its kernels: {counts}")
+    return {"launches": counts, "embed_s": embed_s, "inference_s": infer_s,
+            "embed_max_abs_diff": embed_err, "trec_byte_identical": trec_equal,
+            "search": search, "dp_step": step, "phase_s": time.time() - t_phase}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default="", help="also write all results as JSON here")
@@ -3036,10 +3235,20 @@ def main(argv=None):
         log("online serving (one captured CUDA graph a turn; full RoBERTa-base width, "
             "seeded weights; flat f32 / bf16 / int8, IVF int8, IVFPQ pq4):")
         serving = serving_path(paths)
+        torch.cuda.empty_cache()
+        log("phase C, multi-GPU at world size 1 (torchrun with one NCCL rank; the sharded "
+            "search and its S-shard emulation; a data-parallel step):")
+        multi = multi_gpu_path(paths, gen)
         log(f"bf16 training phase {bf16['phase_s']:.1f} s, "
             f"data plane phase {data_plane['phase_s']:.1f} s, rehearsal phase "
             f"{rehearsed['phase_s']:.1f} s, ANN phase {ann['phase_s']:.1f} s, serving phase "
-            f"{serving['phase_s']:.1f} s")
+            f"{serving['phase_s']:.1f} s, phase C {multi['phase_s']:.1f} s")
+        f32 = multi["search"]["float32"]
+        log(f"phase C on {smi}: NCCL all_gather of the [1, {SEARCH_Q}, {TOP_N}] lists "
+            f"{f32['all_gather_ms']:.4f} ms; sharded search {f32['sharded_ms']} ms against "
+            f"unsharded {f32['unsharded_ms']} ms (f32, Q={SEARCH_Q}, N={SEARCH_N}); "
+            f"torchrun embed {multi['embed_s']:.1f} s, inference {multi['inference_s']:.1f} s; "
+            f"phase {multi['phase_s']:.1f} s")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     # each kernel's count on the path of the slice that ported it; the
@@ -3087,6 +3296,10 @@ def main(argv=None):
     for entry, source in zip(bf16["kernels"], ("flash_attention", "flash_attention_bwd")):
         entry["ptxas"] = ptxas_summary(source)
     kernels.extend(bf16["kernels"])
+    # phase C: the torchrun ranks' and this process's launches
+    for entry, kernel in ((fwd, "flash_attention_fwd"), (bwd, "flash_attention_bwd"),
+                          (search, "fused_scores_groupmax"), (k5, "dma_gather_groups")):
+        entry["launches_by_path"]["multi_gpu_world1"] = multi["launches"][kernel]
     fwd["serving_B1"] = serving["kernel1_B1"]
     search["serving_Q1"] = serving["kernel2_Q1"]
     k5["serving_Q1"] = serving["kernel5_Q1"]
@@ -3118,7 +3331,7 @@ def main(argv=None):
                        "launch_configs": configs,
                        "train": train, "train_step_check": step_check, "bf16_training": bf16,
                        "data_plane": data_plane, "rehearsal": rehearsed, "ann": ann,
-                       "serving": serving,
+                       "serving": serving, "multi_gpu": multi,
                        "total_s": time.time() - t_start}, f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

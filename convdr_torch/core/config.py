@@ -174,6 +174,6 @@ class DataConfig:
 NUM_FOLD = 5  # 5-fold CV harness (utils/util.py:32)
 
 # Ending of the error raised by every option of the JAX package that the
-# port does not have yet: multi-device training and search (``mesh=``),
-# ``--matmul_precision high/default``, orbax checkpoint dirs.
+# port does not have yet: ``--matmul_precision high/default``, orbax
+# checkpoint dirs.
 NOT_PORTED = "is not yet ported to convdr_torch, see ROADMAP.md"

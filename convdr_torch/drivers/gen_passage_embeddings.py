@@ -3,8 +3,11 @@
 The counterpart of ``convdr_tpu/drivers/gen_passage_embeddings.py`` with the
 same flags plus the reference's ``--no_cuda``: the encoder runs on the card
 unless ``--no_cuda`` asks for the CPU, and without a card it raises. One
-process drives one GPU (``--no_mesh`` is accepted; multi-GPU encode waits
-for a later slice). Blocks are written in the reference's f32 pickle
+process drives one GPU. Under ``torchrun`` (``WORLD_SIZE`` in the
+environment) the ranks form a ``("data",)`` mesh, unless ``--no_mesh``,
+the batch is ``--per_gpu_eval_batch_size`` times the mesh size, each rank
+encodes its slice of every batch and rank 0 writes the blocks, the same
+rows in the same order as one process writes. Blocks are written in the reference's f32 pickle
 format, with ``--storage_dtype bfloat16`` as bf16 rows (half the disk and
 device memory), or with ``--storage_dtype int8`` as SQ8 int8 rows plus the
 ``int8_scales.npy`` sidecar (a quarter; see ``ops/quant.py``).
@@ -20,7 +23,6 @@ import os
 
 import torch
 
-from convdr_torch.core.device import resolve_device
 from convdr_torch.core.loading import (
     gelu_arch_overrides,
     load_model_and_params,
@@ -28,6 +30,7 @@ from convdr_torch.core.loading import (
 )
 from convdr_torch.core.registry import MODEL_REGISTRY
 from convdr_torch.data.token_cache import TokenCache
+from convdr_torch.parallel.mesh import axis_size, driver_mesh
 from convdr_torch.retrieval.embed_corpus import (
     default_length_buckets,
     generate_embeddings,
@@ -60,7 +63,8 @@ def get_arguments(argv=None):
     parser.add_argument("--arch_size", default="base", choices=["base", "tiny"],
                         help="tiny = miniature architecture for smoke tests")
     parser.add_argument("--no_mesh", action="store_true",
-                        help="accepted; this package runs on one device")
+                        help="under torchrun, encode on each rank alone "
+                        "instead of over a data-parallel mesh")
     parser.add_argument("--no_cuda", action="store_true",
                         help="run on the CPU (default: the CUDA device)")
     parser.add_argument(
@@ -117,7 +121,11 @@ def main(argv=None):
         level=logging.INFO,
     )
     args = get_arguments(argv)
-    device = resolve_device(args.no_cuda)
+    with driver_mesh(("data",), no_mesh=args.no_mesh, no_cuda=args.no_cuda) as (mesh, device):
+        return embed(args, mesh, device)
+
+
+def embed(args, mesh, device):
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     preset = "tiny" if args.arch_size == "tiny" else None
     config, _, model = load_model_and_params(
@@ -140,13 +148,17 @@ def main(argv=None):
         args.length_buckets, cache.max_seq_length, config.multi_chunk,
         config.chunk_len,
     )
+    batch = args.per_gpu_eval_batch_size
+    if mesh is not None:
+        batch *= axis_size(mesh, "data")
     rows = generate_embeddings(
         make_apply_fn(model),
         cache,
         args.output_dir,
         device=device,
-        batch_size=args.per_gpu_eval_batch_size,
+        batch_size=batch,
         num_blocks=args.num_blocks,
+        mesh=mesh,
         length_buckets=buckets,
         block_format=args.block_format,
         storage_dtype=args.storage_dtype,

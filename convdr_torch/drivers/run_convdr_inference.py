@@ -29,9 +29,15 @@ The search is timed as the "search" phase (logged), and ``--profile_dir``
 writes a ``torch.profiler`` Chrome trace of it (host and CUDA activity)
 into that directory; without the flag no profiler runs.
 
+Under ``torchrun`` (``WORLD_SIZE`` in the environment) the ranks form an
+``("index",)`` mesh, unless ``--no_mesh``: the query encode is data
+parallel over it, and the flat, ``--ivf_dir`` and ``--pq_dir`` searches
+shard the passage rows, sub-lists or codes over it. Only rank 0 writes the
+TREC run and the OpenMatch file and prints the metrics; both files are
+byte-identical to one process's.
+
 Not ported yet (it raises, see ROADMAP.md): ``--matmul_precision
-high/default``. ``--no_mesh`` and ``--use_gpu`` are accepted; this package
-runs on one device.
+high/default``. ``--use_gpu`` is accepted.
 """
 
 from __future__ import annotations
@@ -45,11 +51,9 @@ import numpy as np
 import torch
 
 from convdr_torch.core.config import NOT_PORTED, NUM_FOLD, SearchConfig
-from convdr_torch.core.device import resolve_device
 from convdr_torch.core.loading import (
     gelu_arch_overrides,
     load_model_and_params,
-    make_apply_fn,
 )
 from convdr_torch.core.registry import MODEL_REGISTRY
 from convdr_torch.data.collection import (
@@ -61,10 +65,12 @@ from convdr_torch.data.collection import (
 from convdr_torch.data.conv_dataset import ConvSearchDataset
 from convdr_torch.data.token_cache import load_offset2pid
 from convdr_torch.evaluation.metrics import evaluate_run, mean_metrics
+from convdr_torch.parallel.mesh import barrier, driver_mesh, is_main_rank
 from convdr_torch.retrieval.ivf import IVFIndex
 from convdr_torch.retrieval.pq_index import PQIndex
 from convdr_torch.retrieval.run_writer import write_run_outputs
 from convdr_torch.retrieval.searcher import BlockedSearcher
+from convdr_torch.train.trainer import make_query_encode_fn
 from convdr_torch.utils.observability import PhaseTimer, profile_trace
 
 logger = logging.getLogger(__name__)
@@ -161,7 +167,8 @@ def get_arguments(argv=None):
         "--ann_data_dir is still required",
     )
     parser.add_argument("--no_mesh", action="store_true",
-                        help="accepted; this package runs on one device")
+                        help="under torchrun, run each rank alone instead "
+                        "of over an index-sharded mesh")
     parser.add_argument("--profile_dir", type=str, default="",
                         help="write a torch.profiler Chrome trace of the "
                         "search phase into this dir (off when empty)")
@@ -189,9 +196,12 @@ def check_ported(args) -> None:
         )
 
 
-def encode_queries(args, model_path, eval_file, dtype, device):
+def encode_queries(args, model_path, eval_file, dtype, device, *, mesh=None,
+                   mesh_axis: str = "index"):
     """Load a model and embed all eval queries (reference evaluate(),
-    :116-154). Returns (qids, [Q, E] f32 embeddings, raw sequences)."""
+    :116-154). Returns (qids, [Q, E] f32 embeddings, raw sequences). With a
+    ``mesh`` the encode is data parallel over ``mesh_axis`` (the axis the
+    search shards the index over); every rank gets every row."""
     preset = "tiny" if args.arch_size == "tiny" else None
     _cfg, tokenizer, model = load_model_and_params(
         args.model_type, model_path, device=device, dtype=dtype,
@@ -215,19 +225,19 @@ def encode_queries(args, model_path, eval_file, dtype, device):
         max_concat_length=args.max_concat_length,
         max_query_length=args.max_query_length,
     )
-    encode = make_apply_fn(model)
+    encode = make_query_encode_fn(model, mesh=mesh, data_axis=mesh_axis)
     qids, embs, raw = [], [], {}
     for batch in dataset.batches(args.per_gpu_eval_batch_size):
         ids = torch.from_numpy(batch["concat_ids"]).to(device)
         mask = torch.from_numpy(batch["concat_mask"]).to(device)
-        embs.append(encode(ids, mask, True).cpu().numpy())
+        embs.append(encode(ids, mask).cpu().numpy())
         qids.extend(batch["qid"])
         for qid, seq in zip(batch["qid"], batch["history_utterances"]):
             raw[qid] = seq
     return qids, np.concatenate(embs, axis=0), raw
 
 
-def search_pq(args, query_embs, device):
+def search_pq(args, query_embs, device, mesh=None):
     """``--pq_dir``: the ADC scan over the resident codes; with
     ``--rescore_factor`` its top ``factor * top_n`` ROW POSITIONS refined
     against ``--ann_data_dir``'s rows. Returns (scores, token-cache offsets)."""
@@ -238,12 +248,12 @@ def search_pq(args, query_embs, device):
     )
     with PhaseTimer("search"), profile_trace(args.profile_dir):
         if args.rescore_factor > 0:
-            _s, pos = index.adc_topk(query_embs, args.rescore_factor * args.top_n)
+            _s, pos = index.adc_topk(query_embs, args.rescore_factor * args.top_n, mesh=mesh)
             return index.rescore(args.ann_data_dir, query_embs, pos, args.top_n)
-        return index.search(query_embs, args.top_n)
+        return index.search(query_embs, args.top_n, mesh=mesh)
 
 
-def search_ivf(args, query_embs, device):
+def search_ivf(args, query_embs, device, mesh=None):
     """``--ivf_dir``: ``--nprobe`` sub-lists a query; with
     ``--rescore_factor`` the index's top ``factor * top_n`` rowids refined
     against ``--ann_data_dir``'s rows. The rowids are emb2offset payloads,
@@ -255,7 +265,7 @@ def search_ivf(args, query_embs, device):
     )
     with PhaseTimer("search"), profile_trace(args.profile_dir):
         if args.rescore_factor <= 0:
-            return index.search(query_embs, args.top_n, nprobe=args.nprobe)
+            return index.search(query_embs, args.top_n, nprobe=args.nprobe, mesh=mesh)
         if index.storage_dtype in ("int8", "bfloat16"):
             # SQ8 list scores are integer-exact and bf16 lists reorder only
             # near-ties, so the refine buys (almost) no ranking quality
@@ -267,7 +277,7 @@ def search_ivf(args, query_embs, device):
                 index.storage_dtype,
             )
         _s, cand = index.search(
-            query_embs, args.rescore_factor * args.top_n, nprobe=args.nprobe
+            query_embs, args.rescore_factor * args.top_n, nprobe=args.nprobe, mesh=mesh
         )
         return index.rescore(args.ann_data_dir, query_embs, cand, args.top_n)
 
@@ -279,7 +289,11 @@ def main(argv=None):
     )
     args = get_arguments(argv)
     check_ported(args)
-    device = resolve_device(args.no_cuda)
+    with driver_mesh(("index",), no_mesh=args.no_mesh, no_cuda=args.no_cuda) as (mesh, device):
+        return infer(args, mesh, device)
+
+
+def infer(args, mesh, device):
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
 
     offset2pid = load_offset2pid(args.processed_data_dir)
@@ -288,7 +302,7 @@ def main(argv=None):
     all_qids, all_embs, all_raw = [], [], {}
     if not args.cross_validate:
         qids, embs, raw = encode_queries(
-            args, args.model_path, args.eval_file, dtype, device
+            args, args.model_path, args.eval_file, dtype, device, mesh=mesh
         )
         all_qids, all_raw = qids, raw
         all_embs = [embs]
@@ -303,6 +317,7 @@ def main(argv=None):
                 f"{args.eval_file}.{fold}",
                 dtype,
                 device,
+                mesh=mesh,
             )
             all_qids.extend(qids)
             all_embs.append(embs)
@@ -310,9 +325,9 @@ def main(argv=None):
     query_embs = np.concatenate(all_embs, axis=0)
 
     if args.pq_dir:
-        scores, offsets = search_pq(args, query_embs, device)
+        scores, offsets = search_pq(args, query_embs, device, mesh)
     elif args.ivf_dir:
-        scores, offsets = search_ivf(args, query_embs, device)
+        scores, offsets = search_ivf(args, query_embs, device, mesh)
     else:
         searcher = BlockedSearcher(
             SearchConfig(
@@ -321,6 +336,7 @@ def main(argv=None):
                 rescore_factor=args.rescore_factor,
             ),
             device=device,
+            mesh=mesh,
         )
         with PhaseTimer("search"), profile_trace(args.profile_dir):
             scores, offsets = searcher.search_blocks(
@@ -335,10 +351,11 @@ def main(argv=None):
         if args.output_file
         else None
     )
+    writer = is_main_rank(mesh)
     run = write_run_outputs(
         all_qids, scores, offsets, offset2pid, args.top_n,
-        output_trec_file=args.output_trec_file,
-        output_file=args.output_file,
+        output_trec_file=args.output_trec_file if writer else None,
+        output_file=args.output_file if writer else None,
         queries=queries,
         collection=collection,
         qrels=qrels,
@@ -350,8 +367,11 @@ def main(argv=None):
         )
         means = mean_metrics(per_q)
         logger.info("metrics over %d judged queries: %s", len(per_q), means)
-        print(json.dumps({"num_queries": len(per_q), **means}))
+        if writer:
+            print(json.dumps({"num_queries": len(per_q), **means}))
+        barrier(mesh)
         return means
+    barrier(mesh)
     return run
 
 

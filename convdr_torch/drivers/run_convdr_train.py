@@ -17,8 +17,12 @@ is cast to bf16 for its frozen forwards, the student keeps f32 parameters
 cast where they are used (``load_model_and_params(f32_params=True)``), and
 the optimizer and the checkpoints hold the f32 masters, which reload for
 bf16 inference. ``--use_dropout`` trains with the student's dropout active
-(seeded from ``--seed`` and the step). The port trains on one device;
-``--no_mesh`` is accepted.
+(seeded from ``--seed`` and the step, and the rank under a mesh).
+
+Under ``torchrun`` (``WORLD_SIZE`` in the environment) the ranks train one
+student data parallel over a ``("data",)`` mesh, unless ``--no_mesh``: a
+step takes ``--per_gpu_train_batch_size`` examples a rank, and only rank 0
+writes checkpoints, metrics and the model.
 """
 
 from __future__ import annotations
@@ -32,10 +36,10 @@ import numpy as np
 import torch
 
 from convdr_torch.core.config import TrainConfig
-from convdr_torch.core.device import resolve_device
 from convdr_torch.core.loading import gelu_arch_overrides, load_model_and_params
 from convdr_torch.core.registry import MODEL_REGISTRY
 from convdr_torch.data.conv_dataset import RESPONSE_TOKEN
+from convdr_torch.parallel.mesh import axis_size, barrier, driver_mesh
 from convdr_torch.retrieval.embed_corpus import default_length_buckets
 from convdr_torch.train.loop import run_training
 
@@ -105,7 +109,8 @@ def get_arguments(argv=None):
     parser.add_argument("--arch_size", default="base", choices=["base", "tiny"],
                         help="tiny = miniature architecture for smoke tests")
     parser.add_argument("--no_mesh", action="store_true",
-                        help="accepted; this package trains on one device")
+                        help="under torchrun, train on each rank alone "
+                        "instead of over a data-parallel mesh")
     return parser.parse_args(argv)
 
 
@@ -158,8 +163,12 @@ def main(argv=None):
         level=logging.INFO,
     )
     args = get_arguments(argv)
+    with driver_mesh(("data",), no_mesh=args.no_mesh, no_cuda=args.no_cuda) as (mesh, device):
+        return train(args, mesh, device)
+
+
+def train(args, mesh, device):
     dtype = getattr(torch, args.dtype)
-    device = resolve_device(args.no_cuda)
 
     if (
         os.path.exists(args.output_dir)
@@ -171,6 +180,7 @@ def main(argv=None):
             f"Output directory ({args.output_dir}) already exists and is not "
             "empty. Use --overwrite_output_dir to overcome."
         )
+    barrier(mesh)  # every rank has looked before rank 0 writes there
 
     np.random.seed(args.seed)
     config = TrainConfig(
@@ -243,6 +253,8 @@ def main(argv=None):
         output_dir=args.output_dir,
         cross_validate=args.cross_validate,
         init_from_multiple_models=args.init_from_multiple_models,
+        mesh=mesh,
+        n_devices=1 if mesh is None else axis_size(mesh, "data"),
         save_fn=save_fn,
         resume=args.resume,
     )

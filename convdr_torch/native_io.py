@@ -284,14 +284,33 @@ def read_native_block(path: str, num_threads: int = 8) -> Tuple[np.ndarray, np.n
     return emb, ids
 
 
+def _native_header(f, path: str) -> Tuple[int, int, np.dtype]:
+    """(rows, dim, dtype) from the header of an open ``.cnb`` file."""
+    header = np.frombuffer(f.read(_HEADER_BYTES), np.uint64)
+    if header.shape[0] != 4 or header[0] != _MAGIC:
+        raise IOError(f"{path} is not a convdr native block")
+    return int(header[1]), int(header[2]), _block_dtype_from_code(int(header[3]))
+
+
+def map_native_block(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(read-only memory map of the rows [N, D], int64 ids [N]) of a
+    ``.cnb`` file: a slice of the rows reads only its own bytes."""
+    with open(path, "rb") as f:
+        rows, dim, dtype = _native_header(f, path)
+        f.seek(_HEADER_BYTES + rows * dim * dtype.itemsize)
+        id_bytes = f.read(rows * 8)
+    if len(id_bytes) != rows * 8:
+        raise IOError(f"{path} is truncated")
+    if rows == 0:
+        return np.zeros((0, dim), dtype), np.zeros(0, np.int64)
+    emb = np.memmap(path, dtype, mode="r", offset=_HEADER_BYTES, shape=(rows, dim))
+    return emb, np.frombuffer(id_bytes, np.int64).copy()
+
+
 def read_native_block_plain(path: str) -> Tuple[np.ndarray, np.ndarray]:
     """numpy version of :func:`read_native_block`."""
     with open(path, "rb") as f:
-        header = np.frombuffer(f.read(_HEADER_BYTES), np.uint64)
-        if header.shape[0] != 4 or header[0] != _MAGIC:
-            raise IOError(f"{path} is not a convdr native block")
-        rows, dim = int(header[1]), int(header[2])
-        dtype = _block_dtype_from_code(int(header[3]))
+        rows, dim, dtype = _native_header(f, path)
         payload = f.read(rows * dim * dtype.itemsize)
         id_bytes = f.read(rows * 8)
     if len(payload) != rows * dim * dtype.itemsize or len(id_bytes) != rows * 8:

@@ -99,23 +99,42 @@ def load_embedding_block(
     *,
     emb_prefix: str = EMB_PREFIX,
     embid_prefix: str = EMBID_PREFIX,
+    mmap: bool = False,
+    dim: Optional[int] = None,
 ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """(rows, offsets) of block ``block_id``: its ``.cnb`` file if there is
-    one, else its pickle pair; None if neither exists."""
+    one, else its pickle pair; None if neither exists. ``mmap`` returns the
+    rows as a read-only memory map, so a caller that needs a row range
+    reads only that range: a ``.cnb`` file's, or a protocol-4 pickle's
+    payload, whose dtype the row width ``dim`` settles
+    (:func:`~convdr_torch.retrieval.refine.locate_pickle_payload`, as the
+    refine store maps it). A pickle with no such payload is read whole."""
     native = _native_path(data_dir, block_id)
     if os.path.exists(native):
-        from convdr_torch.native_io import read_native_block
+        from convdr_torch.native_io import map_native_block, read_native_block
 
-        return read_native_block(native)
+        return map_native_block(native) if mmap else read_native_block(native)
     emb_path = _block_path(data_dir, emb_prefix, block_id)
     id_path = _block_path(data_dir, embid_prefix, block_id)
     if not (os.path.exists(emb_path) and os.path.exists(id_path)):
         return None
+    with open(id_path, "rb") as f:
+        ids = np.asarray(pickle.load(f))
+    if mmap and ids.shape[0]:
+        from convdr_torch.retrieval.refine import locate_pickle_payload
+
+        if dim is None:
+            raise ValueError("a memory map of a pickle block needs its row width (dim)")
+        try:
+            offset, dtype = locate_pickle_payload(emb_path, ids.shape[0], dim)
+        except ValueError:
+            pass  # another pickle layout: read it whole below
+        else:
+            return np.memmap(emb_path, dtype, mode="r", offset=offset,
+                             shape=(ids.shape[0], dim)), ids
     with open(emb_path, "rb") as f:
         emb = pickle.load(f)
-    with open(id_path, "rb") as f:
-        ids = pickle.load(f)
-    return np.asarray(emb), np.asarray(ids)
+    return np.asarray(emb), ids
 
 
 def iter_embedding_blocks(
@@ -124,13 +143,17 @@ def iter_embedding_blocks(
     max_blocks: Optional[int] = None,
     emb_prefix: str = EMB_PREFIX,
     embid_prefix: str = EMBID_PREFIX,
+    mmap: bool = False,
+    dim: Optional[int] = None,
 ) -> Iterator[Tuple[int, np.ndarray, np.ndarray]]:
     """Yield consecutive blocks starting at 0; stop at the first gap
-    (reference semantics, run_convdr_inference.py:176-177)."""
+    (reference semantics, run_convdr_inference.py:176-177). ``mmap`` and
+    ``dim`` as in :func:`load_embedding_block`."""
     b = 0
     while max_blocks is None or b < max_blocks:
         blk = load_embedding_block(
-            data_dir, b, emb_prefix=emb_prefix, embid_prefix=embid_prefix
+            data_dir, b, emb_prefix=emb_prefix, embid_prefix=embid_prefix, mmap=mmap,
+            dim=dim,
         )
         if blk is None:
             break

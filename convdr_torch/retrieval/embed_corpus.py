@@ -2,10 +2,14 @@
 
 The counterpart of ``convdr_tpu/retrieval/embed_corpus.py``: one program
 streams the memmapped token cache in fixed-shape batches through the
-encoder's ``body_emb`` on one device and writes reference-format blocks,
-the retrieval shards :class:`~convdr_torch.retrieval.searcher.
-BlockedSearcher` consumes. Block ``b`` holds records ``i % num_blocks == b``
-(the reference's per-rank round-robin split).
+encoder's ``body_emb`` and writes reference-format blocks, the retrieval
+shards :class:`~convdr_torch.retrieval.searcher.BlockedSearcher` consumes.
+Block ``b`` holds records ``i % num_blocks == b`` (the reference's per-rank
+round-robin split). With a ``mesh`` every rank walks the same batches and
+encodes its slice of each over ``data_axis``
+(:func:`~convdr_torch.parallel.mesh.sharded_apply`); the rows are gathered
+in rank order, so the blocks hold the single-process run's rows in its
+order, and only the main rank writes them.
 
 Multi-chunk models return ``[B, C, E]``; chunk rows are flattened into extra
 block rows sharing the same token-cache offset
@@ -29,6 +33,7 @@ import torch
 
 from convdr_torch.data.token_cache import TokenCache
 from convdr_torch.ops.quant import Int8Quantizer
+from convdr_torch.parallel.mesh import barrier, is_main_rank, sharded_apply
 from convdr_torch.retrieval.blocks import bf16_dtype, write_embedding_block
 
 logger = logging.getLogger(__name__)
@@ -121,6 +126,8 @@ def generate_embeddings(
     device: torch.device,
     batch_size: int = 64,
     num_blocks: int = 1,
+    mesh=None,
+    data_axis: str = "data",
     is_query: bool = False,
     emb_prefix: str = "passage__emb_p_",
     embid_prefix: str = "passage__embid_p_",
@@ -148,6 +155,11 @@ def generate_embeddings(
     ``storage_dtype``: "float32" (the reference's blocks), "bfloat16"
     (half the disk and device memory; the searcher still accumulates in
     f32) or "int8" (SQ8, a quarter, with the scales sidecar).
+
+    ``mesh``: encode data-parallel over ``data_axis`` (each batch padded to
+    a multiple of the axis size with copies of its last row). Only the main
+    rank writes the blocks and the sidecar; every rank returns when they
+    are written.
     """
     if storage_dtype not in ("float32", "bfloat16", "int8"):
         raise ValueError(f"unknown storage_dtype {storage_dtype!r}")
@@ -162,12 +174,19 @@ def generate_embeddings(
                 "truncated"
             )
 
+    def encode_rows(ids_t: torch.Tensor, lens_t: torch.Tensor) -> torch.Tensor:
+        positions = torch.arange(ids_t.shape[1], device=device)
+        mask = (positions[None, :] < lens_t[:, None]).to(torch.int32)
+        return apply_fn(ids_t, mask, is_query)
+
     def encode(ids: np.ndarray, lens: np.ndarray) -> np.ndarray:
         ids_t = torch.from_numpy(np.ascontiguousarray(ids)).to(device)
         lens_t = torch.from_numpy(np.ascontiguousarray(lens)).to(device)
-        positions = torch.arange(ids_t.shape[1], device=device)
-        mask = (positions[None, :] < lens_t[:, None]).to(torch.int32)
-        return apply_fn(ids_t, mask, is_query).cpu().numpy()
+        if mesh is None:
+            return encode_rows(ids_t, lens_t).cpu().numpy()
+        return sharded_apply(mesh, data_axis, encode_rows, ids_t, lens_t).cpu().numpy()
+
+    writer = is_main_rank(mesh)
 
     total_rows = 0
     emb_dim = 0  # learned from the first encoded batch; used for empty shards
@@ -220,7 +239,8 @@ def generate_embeddings(
                 # rare out-of-range values
                 if quantizer is None:
                     quantizer = Int8Quantizer.fit(block_embs)
-                    quantizer.save(out_dir)
+                    if writer:
+                        quantizer.save(out_dir)
                 block_embs = quantizer.quantize_passages(block_embs)
         else:
             # empty round-robin shard (num_blocks > record count): keep the
@@ -230,12 +250,14 @@ def generate_embeddings(
         block_ids = (
             np.concatenate(ids_out, axis=0) if ids_out else np.zeros((0,), np.int64)
         )
-        write_embedding_block(
-            out_dir, block_id, block_embs, block_ids,
-            emb_prefix=emb_prefix, embid_prefix=embid_prefix, fmt=block_format,
-        )
+        if writer:
+            write_embedding_block(
+                out_dir, block_id, block_embs, block_ids,
+                emb_prefix=emb_prefix, embid_prefix=embid_prefix, fmt=block_format,
+            )
         total_rows += block_embs.shape[0]
         logger.info(
             "wrote block %d: %d rows -> %s", block_id, block_embs.shape[0], out_dir
         )
+    barrier(mesh)
     return total_rows

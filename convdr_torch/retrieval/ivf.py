@@ -38,12 +38,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from convdr_torch.core.config import NOT_PORTED
 from convdr_torch.core.device import pick_device
 from convdr_torch.ops.exact_search import NEG_INF, grouped_topk_last_axis
 from convdr_torch.ops.kmeans import assign_top_t, fit_kmeans
 from convdr_torch.ops.pq import PQCodec, pack_codes_4bit, round_lut, unpack_codes_4bit_dev
 from convdr_torch.ops.quant import Int8Quantizer, quantize_passages_dev
+from convdr_torch.parallel.mesh import mesh_shard, shard_rows
 from convdr_torch.retrieval.blocks import bf16_dtype, iter_embedding_blocks
 from convdr_torch.retrieval.refine import cached_refine_store, rank_candidate_tail
 from convdr_torch.utils.transfer import device_put_chunked
@@ -303,6 +303,7 @@ class IVFIndex:
         self.codec = codec
         self.stats = dict(stats or {})
         self._device = device
+        # ((n_shards, shard), (centroids, lists, rowids)) of the last upload
         self._dev: Optional[tuple] = None
 
     # -- geometry -------------------------------------------------------
@@ -674,21 +675,29 @@ class IVFIndex:
             )
 
     # -- device binding ---------------------------------------------------
-    def _device_arrays(self):
-        """(centroids, lists, rowids) on the device, uploaded once."""
-        if self._dev is None:
-            self._check_capacity()
-            device = self.device
-            flat = self.lists.reshape(self.nlist * self.cap, -1)
+    def _device_arrays(self, n_shards: int = 1, shard: int = 0):
+        """``shard``'s (centroids, lists, rowids) on the device, uploaded
+        once a layout: L rounds up to a multiple of ``n_shards`` with pad
+        sub-lists (zero centroid, rowids -1) and the shard holds its
+        contiguous ``L_pad / n_shards`` sub-lists (a slice of a
+        memory-mapped index file reads only those); one shard is the whole
+        index."""
+        key = (n_shards, shard)
+        if self._dev is None or self._dev[0] != key:
+            self._dev = None  # free the old layout before the upload
+            self._check_capacity(n_shards)
+            lo, hi, l_local = shard_rows(self.nlist, n_shards, shard)
+            device, width = self.device, self.lists.shape[2]
             lists_dev = device_put_chunked(
-                flat, _STORAGE[self.storage_dtype], device=device
-            ).reshape(self.nlist, self.cap, self.lists.shape[2])
-            self._dev = (
-                torch.from_numpy(self.centroids).to(device),
-                lists_dev,
-                torch.from_numpy(self.rowids).to(device),
-            )
-        return self._dev
+                self.lists[lo:hi].reshape((hi - lo) * self.cap, width),
+                _STORAGE[self.storage_dtype], pad_rows_to=l_local * self.cap, device=device,
+            ).reshape(l_local, self.cap, width)
+            cent = torch.zeros((l_local, self.dim), dtype=torch.float32, device=device)
+            cent[: hi - lo] = torch.from_numpy(self.centroids[lo:hi])
+            rid = torch.full((l_local, self.cap), -1, dtype=torch.int32, device=device)
+            rid[: hi - lo] = torch.from_numpy(self.rowids[lo:hi])
+            self._dev = key, (cent, lists_dev, rid)
+        return self._dev[1]
 
     # -- search -----------------------------------------------------------
     def search(
@@ -708,11 +717,12 @@ class IVFIndex:
         a query's sub-lists grouped, so the gathered candidates and their
         f32 working copy (bf16 and int8 lists) stay under
         ``max_candidate_bytes``. ``exact`` (PQ lists only): an f32 LUT for
-        oracle-parity tests. ``mesh`` (a sharded index over ``index_axis``)
-        is not ported.
+        oracle-parity tests. With a ``mesh``, sub-lists shard over
+        ``index_axis``, each rank probes its balanced share of ``nprobe``
+        among its own (:func:`convdr_torch.parallel.sharded_search.local_ivf_topk`;
+        without a mesh, one shard probes ``nprobe`` of all), and the
+        gathered lists merge: every rank returns the same result.
         """
-        if mesh is not None:
-            raise NotImplementedError(f"IVFIndex.search(mesh=...) {NOT_PORTED}")
         q = np.asarray(queries, np.float32)
         if q.ndim != 2 or q.shape[1] != self.dim:
             raise ValueError(f"queries must be [Q, {self.dim}]")
@@ -723,19 +733,24 @@ class IVFIndex:
             q_score, tq = self.codec.lut(q), None  # [Q, M, K] ADC tables
         else:
             q_score, tq = q, None
-        cent, lists_dev, rid_dev = self._device_arrays()
+        from convdr_torch.parallel.sharded_search import gather_and_merge, local_ivf_topk
+
+        n_shards, shard = mesh_shard(mesh, index_axis)
+        cent, lists_dev, rid_dev = self._device_arrays(n_shards, shard)
         per_query = nprobe * self.cap * self.lists.shape[2] * _work_itemsize(lists_dev)
         chunk = max(1, int(max_candidate_bytes // per_query))
         device = lists_dev.device
         out_s, out_i = [], []
         for lo in range(0, q.shape[0], chunk):
             hi = min(q.shape[0], lo + chunk)
-            s, i = _ivf_search_dev(
+            s, i = local_ivf_topk(
                 torch.from_numpy(q[lo:hi]).to(device),
                 torch.from_numpy(np.ascontiguousarray(q_score[lo:hi])).to(device),
-                cent, lists_dev, rid_dev, k, nprobe, exact=exact, packed=self.packed,
-                max_candidate_bytes=max_candidate_bytes,
+                cent, lists_dev, rid_dev, k, nprobe, n_shards, exact=exact,
+                packed=self.packed, max_candidate_bytes=max_candidate_bytes,
             )
+            if mesh is not None:
+                s, i = gather_and_merge(mesh, index_axis, s, i, k)
             s, i = s.cpu().numpy(), i.cpu().numpy()
             if tq is not None:
                 s = np.where(i >= 0, s * tq[lo:hi], NEG_INF).astype(np.float32)

@@ -21,11 +21,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from convdr_torch.core.config import NOT_PORTED
 from convdr_torch.core.device import pick_device
 from convdr_torch.ops.exact_search import NEG_INF
-from convdr_torch.ops.pq import PQCodec, pack_codes_4bit, pq_flat_topk
+from convdr_torch.ops.pq import PQCodec, pack_codes_4bit
 from convdr_torch.ops.quant import Int8Quantizer, rescore_candidates
+from convdr_torch.parallel.mesh import mesh_shard, shard_rows
+from convdr_torch.parallel.sharded_search import gather_and_merge, local_pq_topk
 from convdr_torch.retrieval.blocks import iter_embedding_blocks
 from convdr_torch.retrieval.refine import cached_refine_store, rank_candidate_tail
 from convdr_torch.utils.transfer import device_put_chunked
@@ -75,7 +76,8 @@ class PQIndex:
         self.rowids = rowids
         self.stats = dict(stats or {})
         self._device = device
-        self._dev: Optional[torch.Tensor] = None
+        # ((n_shards, shard), codes) of the last upload
+        self._dev: Optional[tuple] = None
 
     # -- geometry -------------------------------------------------------
     @property
@@ -219,27 +221,44 @@ class PQIndex:
         )
 
     # -- device binding ---------------------------------------------------
-    def _device_codes(self) -> torch.Tensor:
-        """The codes on the device, uploaded once."""
-        if self._dev is None:
-            self._dev = device_put_chunked(self.codes, torch.uint8, device=self.device)
-        return self._dev
+    def _device_codes(self, n_shards: int = 1, shard: int = 0) -> torch.Tensor:
+        """``shard``'s contiguous ``ceil(ntotal / n_shards)`` code rows on the
+        device (zero rows past the end; the search masks them), uploaded
+        once a layout; one shard is every row."""
+        key = (n_shards, shard)
+        if self._dev is None or self._dev[0] != key:
+            self._dev = None  # free the old layout before the upload
+            lo, hi, rows = shard_rows(self.ntotal, n_shards, shard)
+            self._dev = key, device_put_chunked(
+                self.codes[lo:hi], torch.uint8, pad_rows_to=rows, device=self.device
+            )
+        return self._dev[1]
 
     # -- search -----------------------------------------------------------
     def adc_topk(
-        self, queries: np.ndarray, k: int, *, exact: bool = False
+        self, queries: np.ndarray, k: int, *, exact: bool = False, mesh=None,
+        index_axis: str = "index",
     ) -> Tuple[np.ndarray, np.ndarray]:
         """The ADC scan alone: (scores [Q, k] f32 desc, ROW POSITIONS [Q, k]
-        int64, -1 padded), the candidate positions :meth:`rescore` takes."""
+        int64, -1 padded), the candidate positions :meth:`rescore` takes.
+        Each rank scans its shard of the codes
+        (:func:`~convdr_torch.parallel.sharded_search.local_pq_topk`; one
+        shard without a mesh); with a ``mesh`` the codes row-shard over
+        ``index_axis``, the shards' lists are gathered and merged, and every
+        rank returns the same result."""
         q = np.asarray(queries, np.float32)
         if q.ndim != 2 or q.shape[1] != self.dim:
             raise ValueError(f"queries must be [Q, {self.dim}]")
-        codes = self._device_codes()
+        n_shards, shard = mesh_shard(mesh, index_axis)
+        codes = self._device_codes(n_shards, shard)
         out_s, out_i = [], []
         for lo in range(0, q.shape[0], _MAX_QUERY_CHUNK):
             hi = min(q.shape[0], lo + _MAX_QUERY_CHUNK)
             lut = torch.from_numpy(self.codec.lut(q[lo:hi])).to(codes.device)
-            s, i = pq_flat_topk(lut, codes, k, self.codec.ksub, exact=exact, packed=self.packed)
+            s, i = local_pq_topk(lut, codes, k, self.codec.ksub, shard, n_shards,
+                                 valid_rows=self.ntotal, exact=exact, packed=self.packed)
+            if mesh is not None:
+                s, i = gather_and_merge(mesh, index_axis, s, i, k)
             out_s.append(s.cpu().numpy())
             out_i.append(i.cpu().numpy())
         return np.concatenate(out_s), np.concatenate(out_i)
@@ -261,17 +280,15 @@ class PQIndex:
         candidates against ``rescore_passages`` [N, D] float rows (indexed
         by ROW POSITION; pass the matrix the index was built from); use
         :meth:`rescore` when the float rows exist only as block files.
-        ``mesh`` (a sharded index over ``index_axis``) is not ported.
+        With a ``mesh``, codes row-shard over ``index_axis`` (:meth:`adc_topk`).
         """
-        if mesh is not None:
-            raise NotImplementedError(f"PQIndex.search(mesh=...) {NOT_PORTED}")
         if rescore_factor and rescore_passages is None:
             raise ValueError(
                 "rescore_factor needs rescore_passages (in-memory float "
                 "rows) — or call rescore_block_pass for block files"
             )
         k_cand = max(k, rescore_factor * k) if rescore_factor else k
-        s, pos = self.adc_topk(queries, k_cand, exact=exact)
+        s, pos = self.adc_topk(queries, k_cand, exact=exact, mesh=mesh, index_axis=index_axis)
         if rescore_factor:
             s, pos = rescore_candidates(
                 np.asarray(queries, np.float32), rescore_passages, pos, k

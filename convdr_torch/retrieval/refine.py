@@ -32,12 +32,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from convdr_torch.native_io import (
-    _HEADER_BYTES,
-    _MAGIC,
-    _block_dtype_from_code,
-    gather_file_rows,
-)
+from convdr_torch.native_io import _HEADER_BYTES, gather_file_rows, map_native_block
 from convdr_torch.ops.exact_search import NEG_INF
 from convdr_torch.ops.quant import Int8Quantizer
 from convdr_torch.retrieval.blocks import (
@@ -100,19 +95,6 @@ def locate_pickle_payload(path: str, rows: int, dim: int) -> Tuple[int, np.dtype
         f"{path}: no contiguous numpy payload found for rows={rows} "
         f"dim={dim} (f32/bf16/int8) — not a protocol-4 pickle block"
     )
-
-
-def _read_native_ids(path: str) -> Tuple[int, int, np.dtype, np.ndarray]:
-    """Header + ids of a .cnb block without reading the embedding payload."""
-    with open(path, "rb") as f:
-        header = np.frombuffer(f.read(_HEADER_BYTES), np.uint64)
-        if header[0] != _MAGIC:
-            raise IOError(f"{path} is not a convdr native block")
-        rows, dim, code = int(header[1]), int(header[2]), int(header[3])
-        dtype = _block_dtype_from_code(code)
-        f.seek(_HEADER_BYTES + rows * dim * dtype.itemsize)
-        ids = np.frombuffer(f.read(rows * 8), np.int64).copy()
-    return rows, dim, dtype, ids
 
 
 @dataclass
@@ -226,7 +208,9 @@ class RefineStore:
             emb_path = _block_path(data_dir, emb_prefix, b)
             id_path = _block_path(data_dir, embid_prefix, b)
             if os.path.exists(native):
-                rows, ndim, dtype, offs = _read_native_ids(native)
+                emb, offs = map_native_block(native)
+                (rows, ndim), dtype = emb.shape, emb.dtype
+                del emb  # the header and ids are all this store keeps
                 if ndim != dim:
                     raise ValueError(f"{native}: dim {ndim} != expected {dim}")
                 path, payload_off = native, _HEADER_BYTES

@@ -28,6 +28,15 @@ result once. ``rescore_factor`` (int8 or bf16 storage, float block files)
 re-ranks each block's top ``rescore_factor * top_n`` with full-precision
 host scores before the merge (FAISS ``IndexRefineFlat``); it needs float32
 block files, the original rows.
+
+With a ``mesh`` each block's rows shard over ``index_axis``: a rank moves
+only its contiguous row range to its device (``.cnb`` and protocol-4
+pickle blocks are read through a memory map, so it reads only that
+range), searches it as the single-device search does its whole block
+(:func:`~convdr_torch.parallel.sharded_search.local_flat_ip_topk`, one
+shard without a mesh), and gathers and merges the shards' lists; every
+rank merges the same block results in the same order, so every rank
+returns the same (scores, offsets), equal to the single-device search's.
 """
 
 from __future__ import annotations
@@ -39,15 +48,17 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from convdr_torch.core.config import NOT_PORTED, SearchConfig
+from convdr_torch.core.config import SearchConfig
 from convdr_torch.core.device import pick_device
-from convdr_torch.ops.exact_search import NEG_INF, flat_ip_topk, merge_topk
+from convdr_torch.ops.exact_search import NEG_INF, merge_topk
 from convdr_torch.ops.fused_search import ROW_TILE
 from convdr_torch.ops.quant import (
     Int8Quantizer,
     quantize_passages_dev,
     rescore_candidates,
 )
+from convdr_torch.parallel.mesh import check_mesh, mesh_shard, shard_rows
+from convdr_torch.parallel.sharded_search import gather_and_merge, local_flat_ip_topk
 from convdr_torch.retrieval.blocks import (
     bf16_dtype,
     iter_embedding_blocks,
@@ -109,12 +120,11 @@ def prefetch_iter(iterable, depth: int = 1):
 
 
 class BlockedSearcher:
-    """Exact top-N retrieval over on-disk embedding blocks, on one device.
+    """Exact top-N retrieval over on-disk embedding blocks.
 
     ``device`` None means the card (raising without one, as
-    :func:`~convdr_torch.core.device.pick_device`). ``mesh`` and
-    ``index_axis`` are the JAX constructor's, accepted for its callers: a
-    mesh (blocks sharded over ``index_axis``) is not ported.
+    :func:`~convdr_torch.core.device.pick_device`); under a ``mesh`` it is
+    this rank's device, and block rows shard over ``index_axis``.
     """
 
     def __init__(
@@ -126,12 +136,12 @@ class BlockedSearcher:
         index_axis: str = "index",
         quantizer: Optional[Int8Quantizer] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(f"BlockedSearcher(mesh=...) {NOT_PORTED}")
         if config.storage_dtype not in _STORAGE:
             raise ValueError(f"unknown storage_dtype {config.storage_dtype!r}")
         self.config = config
         self.device = pick_device(device)
+        self.mesh = None if mesh is None else check_mesh(mesh)
+        self.index_axis = index_axis
         # int8 storage needs the fitted per-dimension scales to fold into
         # queries; pass one here, or search_blocks loads the sidecar from
         # the block directory, or search_arrays fits on the passed corpus.
@@ -222,24 +232,33 @@ class BlockedSearcher:
                 else:
                     merged_s, merged_i = merge_topk(merged_s, merged_i, s, i, top_n)
             return merged_s, merged_i
-        padded_n = -(-n // ROW_TILE) * ROW_TILE
-        if self._int8 and block_embs.dtype != np.int8:
-            # float block under an int8 config: upload in source precision
+        # this shard's contiguous rows (all of them without a mesh), padded
+        # to the shards' common height; a memory map is read here, only
+        # those rows
+        n_shards, shard = mesh_shard(self.mesh, self.index_axis)
+        lo, hi, rows = shard_rows(n, n_shards, shard, ROW_TILE)
+        part = block_embs[lo:hi]
+        if isinstance(part, np.memmap):
+            part = np.array(part)
+        s, i = local_flat_ip_topk(
+            q, self._upload(part, rows, storage), top_n, shard, n_shards,
+            valid_rows=n, block_rows=min(self.config.passage_block_size, rows),
+        )
+        if self.mesh is not None:
+            s, i = gather_and_merge(self.mesh, self.index_axis, s, i, top_n)
+        return s, i
+
+    def _upload(self, rows: np.ndarray, padded_n: int, storage: torch.dtype) -> torch.Tensor:
+        if self._int8 and rows.dtype != np.int8:
+            # float rows under an int8 config: upload in source precision
             # (a plain int8 cast would truncate, not quantize), quantize on
             # the device, free the float copy
             scales = torch.from_numpy(self._require_quantizer().scales).to(self.device)
-            p_float = upload_rows(block_embs, padded_n, torch.float32, self.device)
+            p_float = upload_rows(rows, padded_n, torch.float32, self.device)
             p = quantize_passages_dev(p_float, scales)
             del p_float
-        else:
-            p = upload_rows(block_embs, padded_n, storage, self.device)
-        return flat_ip_topk(
-            q,
-            p,
-            top_n,
-            block_rows=min(self.config.passage_block_size, padded_n),
-            valid_rows=n,
-        )
+            return p
+        return upload_rows(rows, padded_n, storage, self.device)
 
     def _search_rescored(
         self, q: torch.Tensor, q_orig: np.ndarray, block_embs: np.ndarray, top_n: int
@@ -303,7 +322,10 @@ class BlockedSearcher:
         merged_i: Optional[torch.Tensor] = None
         t_start = time.time()
         for block_id, emb, emb2offset in prefetch_iter(
-            iter_embedding_blocks(ann_data_dir, max_blocks=max_blocks)
+            iter_embedding_blocks(
+                ann_data_dir, max_blocks=max_blocks, mmap=self.mesh is not None,
+                dim=q.shape[1],
+            )
         ):
             if emb.shape[0] == 0:
                 logger.info("block %d is empty; skipping", block_id)

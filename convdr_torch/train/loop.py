@@ -5,8 +5,15 @@ run_convdr_train.py:41-252 does in its epoch/step loop -- batching, the
 train step, metric logging and checkpointing -- and the fold harness of
 :255-566: ``cross_validate`` trains fold ``i`` on files
 ``{train_file}.{j}, j != i`` (NUM_FOLD=5, utils/util.py:32), saving to
-``{output_dir}-{i}``. One device; data-parallel training (``mesh``,
-``n_devices > 1``) is not ported yet (ROADMAP.md, Slice C).
+``{output_dir}-{i}``.
+
+Data parallel with a ``mesh``: every rank walks the same batches of the
+global size ``per_device_batch_size * n_devices`` and samples the same
+negatives from ``(seed, micro_step)``, but tokenizes and uploads only its
+slice, on which it computes its part of the step
+(:func:`~convdr_torch.train.trainer.make_train_step`); the student's and
+the teacher's weights are broadcast from the main rank first, and only the
+main rank writes checkpoints, ``metrics.jsonl`` and the final model.
 """
 
 from __future__ import annotations
@@ -19,15 +26,21 @@ import numpy as np
 import torch
 from torch import nn
 
-from convdr_torch.core.config import NOT_PORTED, NUM_FOLD, TrainConfig
+from convdr_torch.core.config import NUM_FOLD, TrainConfig
 from convdr_torch.data.conv_dataset import ConvSearchDataset
+from convdr_torch.parallel.mesh import axis_max, barrier, batch_rows, is_main_rank, replicate
 from convdr_torch.train.checkpoint import (
     latest_checkpoint,
     load_metadata,
     restore_checkpoint,
     save_checkpoint,
 )
-from convdr_torch.train.ranking_data import DocumentTokenizerCache, sample_ranking_batch
+from convdr_torch.train.ranking_data import (
+    DocumentTokenizerCache,
+    choose_ranking_docs,
+    doc_rung,
+    encode_ranking_docs,
+)
 from convdr_torch.train.trainer import create_train_state, make_train_step
 from convdr_torch.utils.observability import MetricsLogger
 
@@ -45,22 +58,27 @@ def _sampling_rng(seed: int, micro_step: int) -> np.random.RandomState:
 
 
 def _device_batch(batch: Dict, config: TrainConfig, doc_cache, rng,
-                  device: torch.device) -> Dict[str, torch.Tensor]:
+                  device: torch.device, mesh=None) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the global batch on its device (all of them
+    without a mesh). The negatives are drawn for the whole batch, so every
+    rank consumes ``rng`` as one process does, but only this rank's
+    documents are tokenized; their length rung is the global batch's
+    (the ranks' longest document, one ``all_reduce``)."""
     names = ("concat_ids", "concat_mask", "target_ids", "target_mask")
-    out = {n: torch.from_numpy(batch[n]).to(device) for n in names}
+    rows = batch_rows(mesh, batch[names[0]].shape[0])
+    out = {n: torch.from_numpy(batch[n][rows]).to(device) for n in names}
     if config.ranking_task:
-        doc_ids, doc_mask = sample_ranking_batch(
-            batch["documents"], doc_cache, config.num_negatives, rng,
-            length_rungs=config.doc_length_buckets,
-        )
-        out["doc_ids"] = torch.from_numpy(doc_ids).to(device)
-        out["doc_mask"] = torch.from_numpy(doc_mask).to(device)
+        groups = choose_ranking_docs(batch["documents"], config.num_negatives, rng)
+        doc_ids, doc_mask = encode_ranking_docs(groups[rows], doc_cache)
+        if config.doc_length_buckets:
+            longest = int(doc_mask.sum(axis=-1).max())
+            if mesh is not None:
+                longest = axis_max(mesh, "data", longest, device)
+            rung = doc_rung(config.doc_length_buckets, longest, doc_cache.max_doc_length)
+            doc_ids, doc_mask = doc_ids[:, :, :rung], doc_mask[:, :, :rung]
+        out["doc_ids"] = torch.from_numpy(np.ascontiguousarray(doc_ids)).to(device)
+        out["doc_mask"] = torch.from_numpy(np.ascontiguousarray(doc_mask)).to(device)
     return out
-
-
-def _check_single_device(mesh, n_devices: int) -> None:
-    if mesh is not None or n_devices > 1:
-        raise NotImplementedError(f"multi-device training {NOT_PORTED}")
 
 
 def train_one_model(
@@ -84,16 +102,19 @@ def train_one_model(
     the original ``t_total``. Batch order is re-derived from the epoch seed
     and the negative sample from ``(seed, micro_step)``, so a resumed run is
     bit-identical to an uninterrupted one.
+
+    A step takes ``per_device_batch_size * n_devices`` examples; with a
+    ``mesh`` (pass ``n_devices`` = its ``data`` size) each rank computes
+    ``per_device_batch_size`` of them.
     """
-    _check_single_device(mesh, n_devices)
-    batch_size = config.per_device_batch_size
+    batch_size = config.per_device_batch_size * max(1, n_devices)
     if len(dataset) < batch_size:
         # drop_last: a smaller dataset would yield ZERO batches and the loop
         # would silently no-op through every epoch.
         raise ValueError(
             f"dataset has {len(dataset)} examples but one optimizer step "
             f"needs {batch_size} (per_device_batch_size="
-            f"{config.per_device_batch_size} x 1 devices); "
+            f"{config.per_device_batch_size} x {max(1, n_devices)} devices); "
             "reduce the batch size or add data"
         )
     steps_per_epoch = max(len(dataset) // batch_size, 1)
@@ -107,6 +128,9 @@ def train_one_model(
         t_total = max(int(opt_steps_per_epoch * config.num_train_epochs), 1)
 
     device = next(student.parameters()).device
+    if mesh is not None:
+        replicate(mesh, student)
+        replicate(mesh, teacher)
     state, tx = create_train_state(student, config, t_total)
     if resume and output_dir:
         ckpt = latest_checkpoint(output_dir)
@@ -115,7 +139,7 @@ def train_one_model(
             meta = load_metadata(ckpt) or {}
             logger.info("resumed from %s at global step %d", ckpt,
                         int(meta.get("global_step", state.step)))
-    step_fn = make_train_step(student, teacher, tx, config)
+    step_fn = make_train_step(student, teacher, tx, config, mesh=mesh)
     doc_cache = (
         DocumentTokenizerCache(tokenizer, config.max_doc_length)
         if config.ranking_task else None
@@ -143,7 +167,7 @@ def train_one_model(
                 micro_step += 1
                 continue
             dev_batch = _device_batch(
-                batch, config, doc_cache, _sampling_rng(config.seed, micro_step), device
+                batch, config, doc_cache, _sampling_rng(config.seed, micro_step), device, mesh
             )
             state, m = step_fn(state, dev_batch)
             micro_step += 1
@@ -163,8 +187,10 @@ def train_one_model(
                     accum, n_accum = {}, 0
                 if output_dir and config.save_steps > 0 and global_step % config.save_steps == 0:
                     ckpt = os.path.join(output_dir, f"checkpoint-{global_step}")
-                    save_checkpoint(ckpt, state, metadata={"global_step": global_step})
-                    logger.info("Saved checkpoint %s", ckpt)
+                    if is_main_rank(mesh):
+                        save_checkpoint(ckpt, state, metadata={"global_step": global_step})
+                        logger.info("Saved checkpoint %s", ckpt)
+                    barrier(mesh)
             if config.max_steps > 0 and global_step >= config.max_steps:
                 done = True
                 break
@@ -200,11 +226,12 @@ def run_training(
     """Train once or per fold. ``load_student(fold)`` -> (tokenizer,
     student); ``save_fn(student, out_dir, tokenizer)`` persists the final
     model (default: ``<out_dir>/final`` via :func:`save_checkpoint`).
-    Returns the list of output dirs written."""
-    _check_single_device(mesh, n_devices)
+    Returns the list of output dirs written. ``mesh`` and ``n_devices`` as
+    in :func:`train_one_model`; only the main rank writes."""
     outputs = []
     folds = range(NUM_FOLD) if cross_validate else [None]
-    metrics = MetricsLogger(output_dir)
+    writer = is_main_rank(mesh)
+    metrics = MetricsLogger(output_dir) if writer else None
     for fold in folds:
         fold_id = -1 if fold is None else fold
         tokenizer, student = load_student(
@@ -225,17 +252,21 @@ def run_training(
         )
         student, global_step, avg_loss = train_one_model(
             dataset, student, teacher, config, tokenizer=tokenizer,
-            output_dir=out_dir, metrics=metrics, fold_id=fold_id, resume=resume,
+            output_dir=out_dir, mesh=mesh, metrics=metrics, fold_id=fold_id,
+            n_devices=n_devices, resume=resume,
         )
         logger.info("fold %s: global_step=%d avg_loss=%.5f", fold_id, global_step, avg_loss)
-        os.makedirs(out_dir, exist_ok=True)
-        if save_fn is not None:
-            save_fn(student, out_dir, tokenizer)
-        else:
-            save_checkpoint(
-                os.path.join(out_dir, "final"), student,
-                metadata={"model_type": model_type, "global_step": global_step},
-            )
+        if writer:
+            os.makedirs(out_dir, exist_ok=True)
+            if save_fn is not None:
+                save_fn(student, out_dir, tokenizer)
+            else:
+                save_checkpoint(
+                    os.path.join(out_dir, "final"), student,
+                    metadata={"model_type": model_type, "global_step": global_step},
+                )
+        barrier(mesh)
         outputs.append(out_dir)
-    metrics.close()
+    if writer:
+        metrics.close()
     return outputs

@@ -17,7 +17,7 @@ tokenizer.encode per document (:127-137). Here:
 from __future__ import annotations
 
 import collections
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -63,6 +63,48 @@ class DocumentTokenizerCache:
         return out
 
 
+def choose_ranking_docs(
+    documents: Sequence[Sequence[str]],
+    num_negatives: int,
+    rng: np.random.RandomState,
+) -> List[List[str]]:
+    """[B][1+M docs text] -> [B][1+num_negatives docs text]: each group's
+    positive and a fresh sample of ``num_negatives`` of its remaining
+    candidates (per step, like run_convdr_train.py:123). Groups short on
+    negatives are topped up by sampling with replacement."""
+    out = []
+    for group in documents:
+        negs = list(group[1:])
+        if len(negs) >= num_negatives:
+            chosen = rng.choice(len(negs), size=num_negatives, replace=False)
+        else:
+            chosen = rng.choice(max(len(negs), 1), size=num_negatives, replace=True)
+            if not negs:  # degenerate group: repeat the positive as filler
+                negs = [group[0]]
+        out.append([group[0]] + [negs[c] for c in chosen])
+    return out
+
+
+def encode_ranking_docs(
+    groups: Sequence[Sequence[str]], doc_cache: DocumentTokenizerCache
+) -> Tuple[np.ndarray, np.ndarray]:
+    """[B][K docs text] -> (doc_ids, doc_mask) [B, K, max_doc_length]."""
+    length = doc_cache.max_doc_length
+    k = len(groups[0]) if groups else 0
+    ids = np.zeros((len(groups), k, length), np.int32)
+    mask = np.zeros((len(groups), k, length), np.int32)
+    for bi, docs in enumerate(groups):
+        for ki, doc in enumerate(docs):
+            ids[bi, ki], mask[bi, ki] = doc_cache.encode(doc)
+    return ids, mask
+
+
+def doc_rung(length_rungs: Sequence[int], longest: int, max_doc_length: int) -> int:
+    """The smallest rung covering a batch's ``longest`` document (rungs
+    ascending; the top rung must be ``max_doc_length``)."""
+    return next((r for r in sorted(length_rungs) if r >= longest), max_doc_length)
+
+
 def sample_ranking_batch(
     documents: Sequence[Sequence[str]],
     doc_cache: DocumentTokenizerCache,
@@ -72,35 +114,14 @@ def sample_ranking_batch(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """[B][1+M docs text] -> (doc_ids, doc_mask) [B, 1+num_negatives, L].
 
-    documents[b][0] is the positive; a fresh sample of ``num_negatives`` of
-    the remaining candidates is drawn per call (per step, like
-    run_convdr_train.py:123). Groups short on negatives are topped up by
-    sampling with replacement.
-
+    documents[b][0] is the positive (:func:`choose_ranking_docs`).
     ``length_rungs`` trims ``L`` to the smallest rung covering the batch's
-    longest document (rungs ascending; the top rung must be
-    ``max_doc_length``). Doc embeddings are unchanged: pads never reach
-    valid tokens.
+    longest document (:func:`doc_rung`). Doc embeddings are unchanged:
+    pads never reach valid tokens.
     """
-    b = len(documents)
-    k = num_negatives + 1
-    length = doc_cache.max_doc_length
-    ids = np.zeros((b, k, length), np.int32)
-    mask = np.zeros((b, k, length), np.int32)
-    for bi, group in enumerate(documents):
-        negs = list(group[1:])
-        if len(negs) >= num_negatives:
-            chosen = rng.choice(len(negs), size=num_negatives, replace=False)
-        else:
-            chosen = rng.choice(max(len(negs), 1), size=num_negatives, replace=True)
-            if not negs:  # degenerate group: repeat the positive as filler
-                negs = [group[0]]
-        docs = [group[0]] + [negs[c] for c in chosen]
-        for ki, doc in enumerate(docs):
-            ids[bi, ki], mask[bi, ki] = doc_cache.encode(doc)
+    ids, mask = encode_ranking_docs(choose_ranking_docs(documents, num_negatives, rng),
+                                    doc_cache)
     if length_rungs:
-        longest = int(mask.sum(axis=-1).max())
-        rung = next((r for r in sorted(length_rungs) if r >= longest), length)
-        ids = ids[:, :, :rung]
-        mask = mask[:, :, :rung]
+        rung = doc_rung(length_rungs, int(mask.sum(axis=-1).max()), doc_cache.max_doc_length)
+        ids, mask = ids[:, :, :rung], mask[:, :, :rung]
     return ids, mask

@@ -7,6 +7,7 @@ JAX searcher's on the same files, and both drivers take
 ``--storage_dtype bfloat16`` and ``--block_format native`` end to end."""
 
 import os
+import pickle
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -18,6 +19,7 @@ from convdr_torch.core.config import SearchConfig
 from convdr_torch.data.token_cache import TokenCache, TokenCacheWriter
 from convdr_torch.drivers import gen_passage_embeddings as torch_embed
 from convdr_torch.drivers import run_convdr_inference as torch_infer
+from convdr_torch.parallel.mesh import shard_rows
 from convdr_torch.retrieval import blocks as tblocks
 from convdr_torch.retrieval.embed_corpus import generate_embeddings as torch_generate
 from convdr_torch.retrieval.searcher import BlockedSearcher
@@ -69,6 +71,32 @@ def test_blocks_cross_read_both_ways(tmp_path, dtype, fmt):
     for name in sorted(os.listdir(tmp_path / "jax_wrote")):
         assert (tmp_path / "jax_wrote" / name).read_bytes() == (
             tmp_path / "torch_wrote" / name).read_bytes(), name
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES), ids=list(DTYPES))
+def test_mmap_pickle_block_reads_each_rank_slice(tmp_path, dtype):
+    """``mmap`` maps a protocol-4 pickle's payload (700 x 48 rows: f32 and
+    bf16 past a pickle frame, int8 inside one): the map and each of three
+    ranks' row ranges equal the unpickled rows bit for bit. Without the row
+    width it raises; a protocol-2 pickle, which has no such payload, is
+    read whole."""
+    rng = np.random.RandomState(6)
+    emb, ids = rows(rng, 700, 48, DTYPES[dtype]), rng.randint(0, 10**6, 700)
+    tblocks.write_embedding_block(str(tmp_path), 0, emb, ids)
+    got, got_ids = tblocks.load_embedding_block(str(tmp_path), 0, mmap=True, dim=48)
+    assert isinstance(got, np.memmap)
+    np.testing.assert_array_equal(got_ids, ids)
+    same_bits(np.array(got), emb)
+    for shard in range(3):
+        lo, hi, _ = shard_rows(700, 3, shard, 64)
+        same_bits(np.array(got[lo:hi]), emb[lo:hi])
+    with pytest.raises(ValueError, match="needs its row width"):
+        tblocks.load_embedding_block(str(tmp_path), 0, mmap=True)
+    with open(tmp_path / f"{tblocks.EMB_PREFIX}_data_obj_0.pb", "wb") as f:
+        pickle.dump(emb, f, protocol=2)
+    got, _ = tblocks.load_embedding_block(str(tmp_path), 0, mmap=True, dim=48)
+    assert not isinstance(got, np.memmap)
+    same_bits(got, emb)
 
 
 def test_default_prefixes_native_wins_and_bad_rows(tmp_path):

@@ -23,6 +23,11 @@ backward calls on the same inputs (no atomics). The ANN layer (PyTorch
 ops): int8 IVF scores equal the integer oracle's; the ADC scans and IVF
 searches on the card against the CPU's within 1e-5, ids equal but for
 near-ties at the cut; a full IVF probe's sets against ``flat_ip_topk``'s.
+Multi-GPU (one card holds one NCCL rank): the sharded search on a world-1
+NCCL mesh and the S-shard emulation in one process (S = 2, 3, 4; each
+shard's local search, then the merge) equal the unsharded search, scores
+and indices; a data-parallel step on a world-1 mesh equals the unmeshed
+step bit for bit.
 """
 
 import numpy as np
@@ -1069,3 +1074,94 @@ def test_failed_capture_raises_without_fallback(cuda, serve_dirs):
     with pytest.raises(RuntimeError):
         searcher.warmup()
     assert searcher.stats.latencies == []
+
+
+# ---------------------------------------------------------------------------
+# multi-GPU: world size 1 over NCCL (the card holds one rank), and S shards
+# searched in one process and merged (what an S-card run computes)
+# ---------------------------------------------------------------------------
+def shards_of(p, n_shards):
+    """The padded row shards of ``p`` (every shard ``rows`` rows, a multiple
+    of the score kernel's tile; the last ones short or empty)."""
+    from convdr_torch.ops.fused_search import ROW_TILE
+    from convdr_torch.parallel.mesh import shard_rows
+
+    out = []
+    for s in range(n_shards):
+        lo, hi, rows = shard_rows(p.shape[0], n_shards, s, ROW_TILE)
+        shard = torch.zeros((rows, p.shape[1]), dtype=p.dtype, device=p.device)
+        shard[: hi - lo] = p[lo:hi]
+        out.append(shard)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("n_shards", [2, 3, 4])
+def test_sharded_flat_emulation_equals_unsharded(cuda, dtype, n_shards):
+    """Each shard's local search (kernels 2 and 5 at a nonzero base) plus
+    the merge equals the unsharded search, scores and indices; at S = 3
+    the last shard is short."""
+    from convdr_torch.parallel.sharded_search import local_flat_ip_topk, merge_shard_topk
+
+    q, p = search_problem(512, 524288, 768, dtype)
+    want_s, want_i = es.flat_ip_topk(q, p, 100)
+    parts = [local_flat_ip_topk(q, shard, 100, s, n_shards, valid_rows=p.shape[0])
+             for s, shard in enumerate(shards_of(p, n_shards))]
+    got_s, got_i = merge_shard_topk(torch.stack([s for s, _ in parts]),
+                                    torch.stack([i for _, i in parts]), 100)
+    assert torch.equal(got_i, want_i) and torch.equal(got_s, want_s)
+
+
+def test_world1_nccl_sharded_flat_equals_flat(cuda):
+    from convdr_torch.parallel.dryrun import single_rank
+    from convdr_torch.parallel.mesh import get_mesh
+    from convdr_torch.parallel.sharded_search import sharded_flat_ip_topk
+
+    for dtype in (torch.float32, torch.int8):
+        q, p = search_problem(512, 524288, 768, dtype)
+        want = es.flat_ip_topk(q, p, 100)
+        with single_rank(no_cuda=False):
+            got = sharded_flat_ip_topk(get_mesh(("index",)), q, p, 100)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+
+
+def test_world1_nccl_dp_step_equals_unmeshed(cuda):
+    """One KD + ranking step of the tiny model through the flash kernels,
+    with and without a one-rank NCCL mesh: the same loss and gradients, bit
+    for bit (the all-reduce of one rank and the divide by 1 are exact)."""
+    import dataclasses
+
+    from convdr_torch.core.config import TrainConfig
+    from convdr_torch.core.loading import load_model_and_params
+    from convdr_torch.parallel.dryrun import single_rank
+    from convdr_torch.parallel.mesh import get_mesh
+    from convdr_torch.train.trainer import create_train_state, make_train_step
+
+    rng = np.random.RandomState(6)
+    b, k, t, length = 4, 3, 40, 56
+    ids = rng.randint(5, 200, size=(b, t)).astype(np.int32)
+    mask = (np.arange(t)[None, :] < rng.randint(3, t + 1, size=b)[:, None]).astype(np.int32)
+    doc_mask = (np.arange(length) < rng.randint(1, length + 1, size=(b, k, 1))).astype(np.int32)
+    batch = {"concat_ids": ids, "concat_mask": mask, "target_ids": ids[:, :16],
+             "target_mask": mask[:, :16], "doc_mask": doc_mask,
+             "doc_ids": rng.randint(5, 200, size=(b, k, length)).astype(np.int32)}
+    cfg = dataclasses.replace(TrainConfig(ranking_task=True, num_negatives=k - 1),
+                              learning_rate=1e-3)
+
+    def one_step(mesh):
+        student, teacher = (
+            load_model_and_params("rdot_nll", None, device=cuda, arch_preset="tiny",
+                                  seed=seed)[2]
+            for seed in (1, 2))
+        state, tx = create_train_state(student, cfg, 10)
+        step = make_train_step(student, teacher, tx, cfg, mesh=mesh)
+        _, metrics = step(state, {n: torch.from_numpy(a).to(cuda) for n, a in batch.items()})
+        return ({n: float(v) for n, v in metrics.items()},
+                {n: p.grad.clone() for n, p in student.named_parameters()})
+
+    want_m, want_g = one_step(None)
+    with single_rank(no_cuda=False):
+        got_m, got_g = one_step(get_mesh(("data",)))
+    assert got_m == want_m
+    for name, g in want_g.items():
+        assert torch.equal(got_g[name], g), name

@@ -27,7 +27,9 @@ for name in ("convdr_torch.drivers.tokenize_collection", "convdr_torch.native_io
              "convdr_torch.etl.ranking_data", "convdr_torch.scripts.rehearsal",
              "convdr_torch.drivers.build_ivf_index", "convdr_torch.retrieval.ivf",
              "convdr_torch.retrieval.pq_index", "convdr_torch.retrieval.refine",
-             "convdr_torch.ops.kmeans", "convdr_torch.ops.pq", "convdr_torch.utils.transfer"):
+             "convdr_torch.ops.kmeans", "convdr_torch.ops.pq", "convdr_torch.utils.transfer",
+             "convdr_torch.parallel.mesh", "convdr_torch.parallel.sharded_search",
+             "convdr_torch.parallel.dryrun"):
     assert name in names, names
 bad = sorted(
     m for m in sys.modules

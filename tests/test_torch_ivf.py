@@ -20,6 +20,8 @@ import torch
 from convdr_torch.ops import kmeans as tk
 from convdr_torch.ops.exact_search import NEG_INF, topk_oracle
 from convdr_torch.ops.quant import Int8Quantizer, int8_topk_oracle
+from convdr_torch.parallel.dryrun import single_rank
+from convdr_torch.parallel.mesh import get_mesh
 from convdr_torch.retrieval import ivf as tivf
 from convdr_torch.retrieval.blocks import write_embedding_block
 from convdr_torch.retrieval.ivf import IVFIndex
@@ -338,7 +340,7 @@ def test_build_from_blocks_int8_blocks(tmp_path):
         assert set(i[r]) == set(o_i[r])
 
 
-def test_rejects_bad_shapes_and_mesh():
+def test_rejects_bad_shapes_and_non_mesh_and_world1_mesh_equals_unmeshed():
     with pytest.raises(ValueError):
         IVFIndex(np.zeros((4, 8), np.float32), np.zeros((4, 10, 8), np.float32),
                  np.zeros((4, 9), np.int32))
@@ -347,8 +349,16 @@ def test_rejects_bad_shapes_and_mesh():
                  np.zeros((4, 10), np.int32))
     idx = IVFIndex(np.zeros((4, 8), np.float32), np.zeros((4, 10, 8), np.float32),
                    np.zeros((4, 10), np.int32), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         idx.search(np.zeros((1, 8), np.float32), 3, mesh=object())
+    x, q = _gauss(43, 500, 16), _gauss(44, 5, 16)
+    for storage in ("float32", "int8"):
+        built = IVFIndex.build(x, 6, storage_dtype=storage, iters=4, seed=0, device=CPU)
+        want = built.search(q, 10, nprobe=2)
+        with single_rank():
+            got = built.search(q, 10, nprobe=2, mesh=get_mesh(("index",)))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_capacity_guard_message_equals_jax():

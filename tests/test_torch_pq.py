@@ -25,6 +25,8 @@ from convdr_torch.ops import pq as tpq
 from convdr_torch.ops.exact_search import NEG_INF, topk_oracle
 from convdr_torch.ops.pq import PQCodec, pq_adc_oracle, pq_flat_topk
 from convdr_torch.ops.quant import Int8Quantizer
+from convdr_torch.parallel.dryrun import single_rank
+from convdr_torch.parallel.mesh import get_mesh
 from convdr_torch.retrieval.blocks import write_embedding_block
 from convdr_torch.retrieval.ivf import IVFIndex
 from convdr_torch.retrieval.pq_index import PQIndex, is_pq_index_dir
@@ -390,7 +392,7 @@ def test_build_from_blocks_int8(tmp_path):
     assert np.mean([(q in i[q]) for q in range(10)]) >= 0.8
 
 
-def test_validation_errors(built):
+def test_validation_errors_and_world1_mesh_equals_unmeshed(built):
     x, index, _ = built
     with pytest.raises(ValueError):
         PQIndex(index.codec, index.codes.astype(np.int32))
@@ -400,8 +402,13 @@ def test_validation_errors(built):
         PQIndex(index.codec, index.codes, np.arange(3, dtype=np.int32))
     with pytest.raises(ValueError):
         index.search(np.zeros((2, 7), np.float32), 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         index.search(x[:2], 3, mesh=object())
+    want = index.search(x[:5], 7)
+    with single_rank():
+        got = index.search(x[:5], 7, mesh=get_mesh(("index",)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
     codec8 = PQCodec.fit(x, m=8, nbits=8, iters=2, seed=1, device=CPU)
     with pytest.raises(ValueError, match="nbits=4 only"):
         PQIndex(codec8, np.zeros((4, 4), np.uint8), packed=True)

@@ -27,6 +27,8 @@ from convdr_torch.drivers import run_convdr_inference as torch_infer
 from convdr_torch.drivers import run_convdr_train as torch_train
 from convdr_torch.models import encoders as tenc
 from convdr_torch.models.from_jax import flax_params_to_state_dict
+from convdr_torch.parallel.dryrun import single_rank
+from convdr_torch.parallel.mesh import get_mesh
 from convdr_torch.train import checkpoint as tck
 from convdr_torch.train import loop as tloop
 from convdr_tpu.core.config import EncoderArchConfig, ModelConfig, TrainConfig
@@ -162,10 +164,39 @@ def test_dataset_smaller_than_batch_raises(tmp_path):
         tloop.train_one_model(_torch_dataset(topics), student, student, config)
 
 
-def test_multi_device_is_not_ported(tmp_path):
+def test_multi_device_batch_and_world1_mesh_train_as_one_process(tmp_path):
+    """``n_devices`` multiplies the step's batch (the JAX rule); over a
+    one-rank gloo mesh the loop trains bit for bit as without one, its rank
+    writes the checkpoints, and a run preempted after checkpoint-2 resumes
+    under the mesh to the same parameters."""
+    topics = write_topics(tmp_path / "t.jsonl", 6)
     _, _, student = _models(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.train_one_model([], student, student, tcfg.TrainConfig(), n_devices=2)
+    with pytest.raises(ValueError, match=r"needs 12 \(per_device_batch_size=2 x 6 devices\)"):
+        tloop.train_one_model(_torch_dataset(topics), student, student,
+                              tcfg.TrainConfig(**CONFIG), n_devices=6)
+    config = tcfg.TrainConfig(num_train_epochs=1.0, save_steps=2, **CONFIG)
+
+    def run(out, mesh, dataset, resume=False):
+        _, _, student = _models(0)
+        _, _, teacher = _models(1)
+        return tloop.train_one_model(dataset, student, teacher, config,
+                                     tokenizer=TorchBPE.tiny(), output_dir=str(out),
+                                     mesh=mesh, n_devices=1, resume=resume)
+
+    want, want_step, want_avg = run(tmp_path / "plain", None, _torch_dataset(topics))
+    with single_rank():
+        mesh = get_mesh(("data",))
+        got, got_step, got_avg = run(tmp_path / "mesh", mesh, _torch_dataset(topics))
+        with pytest.raises(Preempted):
+            run(tmp_path / "resumed", mesh, _dying_dataset(topics, 2))
+        assert tck.latest_checkpoint(str(tmp_path / "resumed")).endswith("checkpoint-2")
+        resumed, resumed_step, _ = run(tmp_path / "resumed", mesh, _torch_dataset(topics),
+                                       resume=True)
+    assert got_step == resumed_step == want_step == 3 and got_avg == want_avg
+    assert tck.latest_checkpoint(str(tmp_path / "mesh")).endswith("checkpoint-2")
+    for name, value in want.state_dict().items():
+        assert torch.equal(got.state_dict()[name], value), name
+        assert torch.equal(resumed.state_dict()[name], value), name
 
 
 def test_fold_harness_output_dirs(tmp_path):
