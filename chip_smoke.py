@@ -68,6 +68,29 @@
    block quantized on the host, its integer-exact top 200 by a plain
    matmul, those rows refined in f32, the blocks merged in order. The
    score kernel's count is zeroed before and read after.
+F. (after 3b) The raw-input chain at full width: seeded raw CAsT-19 files
+   (a TREC-CAR paragraphs CBOR of 4096 paragraphs written with the port's
+   ``encode_item``, a 4096-passage MARCO tsv with 256 duplicates listed,
+   20 topics x 4 turns of topic JSON / TSV and qrels) through ``python -m
+   convdr_torch.etl.cast19`` (its seconds and every output's sha256
+   printed), the tokenize driver, ``gen_passage_embeddings`` (bf16) and
+   ``run_convdr_inference`` (exact f32): CAR pids from 10,000,000 reach
+   the run through offset2pid, the ETL's qrels score it (the metrics
+   recomputed; each turn's top pid written back as a CAR_/MARCO_ qrel and
+   remapped gives MRR 1), the run rank for rank an exact plain search of
+   the same rows, kernels 1, 2 and 5 counted from zero around the drivers.
+P. (after F) ``--matmul_precision`` over phase 3's rows and queries:
+   ``flat_ip_topk`` at "highest", "high" (a TF32 product) and "default"
+   (bf16 operands, f32 out) timed over one 524288-row block at Q=512, with
+   the product, the bf16 cast and the group maxima alone; each reduced
+   precision's scores not bit-equal to "highest"'s, their normalized error
+   within the rounding's bound, "default" within 1e-5 of its plain
+   emulation, and the top-100 overlap with "highest" over all rows at least
+   0.99 ("high") / 0.95 ("default"); ``run_convdr_inference
+   --matmul_precision default`` against phase 3's run (kernel 2 not
+   launched, kernel 5 launched); ``OnlineSearcher`` at "default" and
+   "highest" over 16 turns, every replay bit-equal to its eager program,
+   their overlap; then the "highest" search again, bit for bit the first.
 4. Then (the backward's checks of 2 run here, after the inference path)
    holds one full-width KD + ranking train step with the kernels against
    the same step with the plain attention forward and backward (swapped in
@@ -180,8 +203,10 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import hashlib
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -213,7 +238,10 @@ from convdr_torch.drivers import (
     run_convdr_train,
     serve_online,
 )
-from convdr_torch.evaluation.metrics import parse_trec_run
+from convdr_torch.data.collection import load_qrels
+from convdr_torch.etl.cbor_car import encode_item
+from convdr_torch.etl.common import CAR_BASE_ID, remap_qrels
+from convdr_torch.evaluation.metrics import evaluate_run, mean_metrics, parse_trec_run
 from convdr_torch.models import attention, transformer
 from convdr_torch.models.attention import (
     flash_attention,
@@ -228,6 +256,8 @@ from convdr_torch.ops import cuda_build
 from convdr_torch.ops.exact_search import (
     flat_ip_topk,
     grouped_topk_last_axis,
+    rounded_scores,
+    rounded_scores_plain,
     select_from_groupmax,
     stable_topk,
 )
@@ -2078,12 +2108,12 @@ def write_collection(path):
             f.write(f"{1000 + i}\t{' '.join(words)}\n")
 
 
-def tokenize_cli(collection, processed, queries):
+def tokenize_cli(collection, processed, queries=None):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     argv = ["--collection", collection, "--out_data_dir", processed,
             "--model_type", "rdot_nll", "--max_seq_length", "512",
-            "--num_workers", str(DP_WORKERS), "--queries", queries]
+            "--num_workers", str(DP_WORKERS)] + (["--queries", queries] if queries else [])
     proc = subprocess.run([sys.executable, "-c", TOKENIZE_CODE, *argv], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
@@ -2963,6 +2993,363 @@ def serving_path(paths):
 
 
 # ---------------------------------------------------------------------------
+# phase F: the raw-input chain (CAsT-19 ETL -> tokenize -> embed -> search)
+# ---------------------------------------------------------------------------
+PF_CAR, PF_MARCO, PF_DUPS, PF_TOPICS, PF_TURNS = 4096, 4096, 256, 20, 4
+
+
+def write_raw_cast19(work):
+    """Seeded raw CAsT-19 inputs in the formats the pre-port chain test
+    writes: a TREC-CAR paragraphs CBOR (the port's ``encode_item``; a v2
+    header item, ParaText and ParaLink bodies) of ``PF_CAR`` paragraphs, a
+    MARCO tsv of ``PF_MARCO`` passages, ``PF_DUPS`` of them listed as
+    duplicates of CAR paragraphs, the topic JSON and resolved TSV of
+    ``PF_TOPICS`` conversations of ``PF_TURNS`` turns, and qrels naming CAR
+    and MARCO ids (no dropped duplicate among them)."""
+    rng = np.random.default_rng(17)
+    cast = os.path.join(work, "cast")
+    os.makedirs(cast)
+
+    def words(lo, hi):
+        return " ".join(rng.choice(DP_WORDS, int(rng.integers(lo, hi + 1))))
+
+    car_ids = [f"{int(rng.integers(0, 1 << 62)):016x}{i:05d}" for i in range(PF_CAR)]
+    with open(os.path.join(work, "car.cbor"), "wb") as f:
+        f.write(encode_item([0, "header", [2, 0]]))
+        for cid in car_ids:
+            bodies = [[0, words(3, 40)]]
+            if rng.random() < 0.5:
+                bodies += [[1, "Page", "page-id", words(1, 3)], [0, words(2, 30)]]
+            f.write(encode_item([1, cid, bodies]))
+    with open(os.path.join(work, "marco.tsv"), "w") as f:
+        for i in range(PF_MARCO):
+            f.write(f"{i}\t{words(4, 80)}\n")
+    dups = rng.choice(PF_MARCO, PF_DUPS, replace=False)
+    with open(os.path.join(work, "dup.txt"), "w") as f:
+        for j, d in enumerate(dups):
+            f.write(f"CAR_{car_ids[j]}:MARCO_{d}\n")
+    kept = np.setdiff1d(np.arange(PF_MARCO), dups)
+    topics = []
+    with open(os.path.join(cast, "evaluation_topics_annotated_resolved_v1.0.tsv"), "w") as fm, \
+            open(os.path.join(cast, "2019qrels.txt"), "w") as fq:
+        for t in range(PF_TOPICS):
+            turns = []
+            for n in range(1, PF_TURNS + 1):
+                turns.append({"number": n, "raw_utterance": words(3, 10)})
+                fm.write(f"{31 + t}_{n}\t{words(3, 10)}\n")
+                for c in rng.choice(PF_CAR, 2, replace=False):
+                    fq.write(f"{31 + t}_{n} 0 CAR_{car_ids[c]} {int(rng.integers(1, 3))}\n")
+                fq.write(f"{31 + t}_{n} 0 MARCO_{int(rng.choice(kept))} 1\n")
+            topics.append({"number": 31 + t, "title": words(1, 3), "description": "",
+                           "turn": turns})
+    with open(os.path.join(cast, "evaluation_topics_v1.0.json"), "w") as f:
+        json.dump(topics, f)
+    return cast
+
+
+def sha256_of(path):
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def raw_chain_path():
+    """Phase F: raw CAsT-19 files -> ``python -m convdr_torch.etl.cast19``
+    -> the tokenize driver -> ``gen_passage_embeddings`` (bf16) ->
+    ``run_convdr_inference`` (exact f32) -> metrics, at full RoBERTa-base
+    width. Held: CAR pids from 10,000,000 reach the run through
+    offset2pid; the ETL's remapped qrels score the run (the driver's
+    metrics recomputed from them; the run's top pid of every turn, written
+    back as a CAR_/MARCO_ qrel and remapped through the ETL's id map, gives
+    MRR 1); the run rank for rank an exact plain-PyTorch search of the same
+    rows; kernels 1, 2 and 5 launched, counted from zero around the
+    drivers."""
+    t_phase = time.time()
+    work = os.path.join(WORK, "raw_chain")
+    os.makedirs(work)
+    cast = write_raw_cast19(work)
+    data, coll = os.path.join(work, "datasets"), os.path.join(work, "collections")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "convdr_torch.etl.cast19", "--car_cbor",
+         os.path.join(work, "car.cbor"), "--msmarco_collection", os.path.join(work, "marco.tsv"),
+         "--duplicate_file", os.path.join(work, "dup.txt"), "--cast_dir", cast,
+         "--out_data_dir", data, "--out_collection_dir", coll],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    etl_s = time.time() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"cast19 ETL failed:\n{proc.stdout}\n{proc.stderr}")
+    digests = {os.path.relpath(os.path.join(d, name), work): sha256_of(os.path.join(d, name))
+               for d in (coll, data) for name in sorted(os.listdir(d))}
+    collection = os.path.join(coll, "collection.tsv")
+    with open(collection) as f:
+        n_coll = sum(1 for _ in f)
+    if n_coll != PF_CAR + PF_MARCO - PF_DUPS or len(digests) != 12:
+        raise AssertionError(f"ETL wrote {n_coll} passages, files {sorted(digests)}")
+    os.symlink(collection, os.path.join(data, "collection.tsv"))
+    processed = os.path.join(work, "processed")
+    tok = tokenize_cli(collection, processed)
+    if tok["tokenize"]["passages"] != n_coll or not tok["merge"]["identical"]:
+        raise AssertionError(f"tokenize over the ETL collection: {tok}")
+    emb_dir, trec = os.path.join(work, "embeddings"), os.path.join(work, "run.trec")
+    argv = ["--model_path", "init", "--model_type", "rdot_nll",
+            "--eval_file", os.path.join(data, "eval_topics.jsonl"),
+            "--ann_data_dir", emb_dir, "--processed_data_dir", processed,
+            "--raw_data_dir", data, "--qrels", os.path.join(data, "qrels.tsv"),
+            "--output_trec_file", trec, "--output_query_type", "raw", "--query", "no_res",
+            "--max_concat_length", str(SERVE_T), "--top_n", str(TOP_N)]
+    for fn in (flash_attention, fused_scores_groupmax, dma_gather_groups):
+        fn.launches = 0
+    t0 = time.time()
+    rows_written = gen_passage_embeddings.main([
+        "--data_dir", processed, "--checkpoint", "init", "--model_type", "rdot_nll",
+        "--output_dir", emb_dir, "--per_gpu_eval_batch_size", "64", "--dtype", "bfloat16"])
+    t_embed = time.time() - t0
+    t0 = time.time()
+    metrics = run_convdr_inference.main(argv)
+    torch.cuda.synchronize()
+    t_infer = time.time() - t0
+    launches = {"flash_attention_fwd": flash_attention.launches,
+                "fused_scores_groupmax": fused_scores_groupmax.launches,
+                "dma_gather_groups": dma_gather_groups.launches}
+    if rows_written != n_coll or min(launches.values()) == 0:
+        raise AssertionError(f"raw-input chain: {rows_written} rows, launches {launches}")
+
+    run = parse_trec_run(trec)
+    offset2pid = np.asarray(load_offset2pid(processed), np.int64)
+    car_pids = offset2pid[offset2pid >= CAR_BASE_ID]
+    in_run = np.array([pid for ranked in run.values() for pid, _ in ranked])
+    if (sorted(car_pids.tolist()) != list(range(CAR_BASE_ID, CAR_BASE_ID + PF_CAR))
+            or not (in_run >= CAR_BASE_ID).any() or not (in_run < PF_MARCO).any()
+            or len(run) != PF_TOPICS * PF_TURNS):
+        raise AssertionError("CAR pids from 10,000,000 do not reach the run")
+    qrels = load_qrels(os.path.join(data, "qrels.tsv"))
+    judged = {pid for rels in qrels.values() for pid in rels}
+    recomputed = mean_metrics(evaluate_run(run, qrels, ndcg_cuts=(3,), recall_cuts=(TOP_N,)))
+    if len(qrels) != len(run) or not judged <= set(offset2pid.tolist()) \
+            or recomputed != metrics:
+        raise AssertionError(f"the ETL's qrels do not score the run: {metrics} against "
+                             f"{recomputed}")
+    with open(os.path.join(coll, "car_idx_to_id.pickle"), "rb") as f:
+        car_idx_to_id = pickle.load(f)
+    with open(os.path.join(coll, "car_id_to_idx.pickle"), "rb") as f:
+        car_id_to_idx = pickle.load(f)
+    top_raw = os.path.join(work, "top1_qrels.txt")
+    with open(top_raw, "w") as f:
+        for qid, ranked in run.items():
+            pid = ranked[0][0]
+            raw_id = (car_idx_to_id[pid - CAR_BASE_ID] if pid >= CAR_BASE_ID
+                      else f"MARCO_{pid}")
+            f.write(f"{qid} 0 {raw_id} 1\n")
+    remap_qrels(top_raw, top_raw + ".tsv", car_id_to_idx)
+    top1 = mean_metrics(evaluate_run(run, load_qrels(top_raw + ".tsv"), recall_cuts=(TOP_N,)))
+    if top1.get("mrr") != 1.0:
+        raise AssertionError(f"the run's top pids do not survive the id remap: {top1}")
+
+    args = run_convdr_inference.get_arguments(argv)
+    qids, q_embs, _ = run_convdr_inference.encode_queries(
+        args, args.model_path, args.eval_file, torch.float32, torch.device("cuda"))
+    rows, offs = load_rows(emb_dir)
+    row_pids = torch.from_numpy(offset2pid).cuda()[offs]
+    q = torch.from_numpy(q_embs).cuda()
+    top_s, top_i = stable_topk(q @ rows.T, TOP_N)
+    ref_pids = row_pids[top_i].cpu().numpy()
+    ref = {qid: list(zip(ref_pids[r].tolist(), top_s[r].tolist())) for r, qid in enumerate(qids)}
+    equal, gap = ranks_match(run, ref, qids, q, rows, row_pids)
+    out = {"etl_s": etl_s, "tokenize_s": tok["tokenize"]["seconds"], "embed_s": t_embed,
+           "inference_s": t_infer, "passages": n_coll, "queries": len(qids),
+           "metrics": metrics, "launches": launches, "ranks_equal": equal,
+           "worst_gap_of_tol": gap, "sha256": digests, "phase_s": time.time() - t_phase}
+    log(f"  python -m convdr_torch.etl.cast19: {PF_CAR} CAR paragraphs + {PF_MARCO} MARCO "
+        f"passages - {PF_DUPS} duplicates = {n_coll} in {etl_s:.2f} s; tokenize "
+        f"{out['tokenize_s']:.2f} s; embed (bf16) {t_embed:.2f} s; inference + exact f32 "
+        f"search {t_infer:.2f} s; launches {launches}; CAR pids {CAR_BASE_ID}.. in the run; "
+        f"metrics {metrics} (recomputed from the ETL qrels: equal; top-1 remap MRR 1.0); run "
+        f"vs exact plain search: {equal}/{len(qids)} queries rank for rank, the others "
+        f"near-ties (worst {gap:.3f} of the tolerance); phase {out['phase_s']:.1f} s")
+    log("  sha256: " + ", ".join(f"{k} {v[:16]}" for k, v in digests.items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase P: --matmul_precision high / default
+# ---------------------------------------------------------------------------
+PRECISIONS = ("highest", "high", "default")
+# |s - s_highest| / (|q| |p|) of each reduced precision: at most 2u + u^2 of
+# sum |q_i p_i| <= |q| |p| (u the operands' unit roundoff: TF32 2^-10 even
+# if its unit truncates, bf16 2^-8) plus both products' f32 accumulation
+# (2 D 2^-24); and above 0 (the rounding happened)
+PRECISION_BOUND = {"high": 2 * 2 ** -10 + 2 ** -20 + 2 * SEARCH_D * 2 ** -24,
+                   "default": 2 * 2 ** -8 + 2 ** -16 + 2 * SEARCH_D * 2 ** -24}
+# the least mean top-100 overlap with "highest" over the ~1.06M rows
+OVERLAP_FLOOR = {"high": 0.99, "default": 0.95}
+PRECISION_TURNS = 16
+
+
+def top_overlap(i_a, i_b):
+    """Mean over rows of |top-k of a & top-k of b| / k ([Q, k] ids)."""
+    hit = (i_a[:, :, None] == i_b[:, None, :]).any(-1)
+    return hit.float().mean().item()
+
+
+def run_overlap(run_a, run_b):
+    return float(np.mean([len({p for p, _ in run_a[q]} & {p for p, _ in run_b[q]})
+                          / len(run_b[q]) for q in run_b]))
+
+
+def precision_path(paths, q_embs):
+    """Phase P over phase 3's rows (1,056,768 f32) and its 512 queries:
+    ``flat_ip_topk`` at "highest", "high" and "default" (its time over one
+    524,288-row block at Q=512, the product alone, the bf16 cast alone;
+    the group maxima of its scores alone; the normalized score error
+    against "highest", which must be above 0
+    and within ``PRECISION_BOUND``; "default" within 1e-5 of |q| |p| of its
+    plain emulation; the top-100 overlap with "highest" over all rows, at
+    least ``OVERLAP_FLOOR``); ``run_convdr_inference --matmul_precision
+    default`` end to end against phase 3's run; ``OnlineSearcher`` at
+    "default" (every replay bit-equal to its eager program; overlap with
+    the "highest" searcher's turns); then the "highest" search again, bit
+    for bit the first (no TF32 leaked)."""
+    t_phase = time.time()
+    rows, _offs = load_rows(paths["emb_dir"])
+    n = rows.shape[0]
+    q = torch.from_numpy(q_embs).cuda()
+    block = rows[N_PASSAGES:N_PASSAGES + SEARCH_N]  # one on-disk block
+    norms = q.norm(dim=1)[:, None] * block.norm(dim=1)[None, :]
+    s_ref = fused_scores_groupmax(q, block, GROUP)[0]
+    smax = s_ref.abs().max().item()
+    out, full = {}, {}
+    for prec in PRECISIONS:
+        res = {"topk_ms": cuda_ms(lambda: flat_ip_topk(q, block, TOP_N, block_rows=SEARCH_N,
+                                                       precision=prec))}
+        if prec == "highest":
+            res["product_ms"] = cuda_ms(lambda: fused_scores_groupmax(q, block, GROUP))
+        else:
+            if prec == "default":
+                res["cast_ms"] = cuda_ms(lambda: block.bfloat16())
+                b16 = block.bfloat16()
+                res["product_ms"] = cuda_ms(lambda: rounded_scores(q, b16, prec))
+                del b16
+            else:
+                res["product_ms"] = cuda_ms(lambda: rounded_scores(q, block, prec))
+            s = rounded_scores(q, block, prec)
+            res["group_max_ms"] = cuda_ms(lambda: s.view(s.shape[0], -1, GROUP).amax(dim=-1))
+            bit_equal = torch.equal(s, s_ref)
+            d = (s - s_ref).abs()
+            res["max_rel_err"] = (d / norms).max().item()
+            res["max_err_over_max_score"] = d.max().item() / smax
+            del d
+            res["vs_plain_emulation"] = ((s - rounded_scores_plain(q, block, prec)).abs()
+                                         / norms).max().item()
+            del s
+            if bit_equal or not 0.0 < res["max_rel_err"] <= PRECISION_BOUND[prec]:
+                raise AssertionError(f"{prec}: bit-equal to highest {bit_equal}, normalized "
+                                     f"error {res['max_rel_err']} (bound "
+                                     f"{PRECISION_BOUND[prec]})")
+            if prec == "default" and res["vs_plain_emulation"] > 1e-5:
+                raise AssertionError(f"default against its plain emulation: "
+                                     f"{res['vs_plain_emulation']}")
+        full[prec] = flat_ip_topk(q, rows, TOP_N, block_rows=SEARCH_N, valid_rows=n,
+                                  precision=prec)
+        if prec != "highest":
+            res["top100_overlap"] = top_overlap(full[prec][1], full["highest"][1])
+            if res["top100_overlap"] < OVERLAP_FLOOR[prec]:
+                raise AssertionError(f"{prec}: top-{TOP_N} overlap {res['top100_overlap']}")
+        out[prec] = res
+        torch.cuda.empty_cache()
+    del norms, s_ref
+    log(f"  flat_ip_topk at Q={SEARCH_Q} over one {SEARCH_N}-row block (ms: top-{TOP_N}, "
+        "product alone; normalized error; top-100 overlap over all rows): "
+        + "; ".join(f"{p} {r['topk_ms']:.3f}, {r['product_ms']:.3f}"
+                    + (f" (+ bf16 cast {r['cast_ms']:.3f})" if "cast_ms" in r else "")
+                    + (f", group max {r['group_max_ms']:.3f}" if "group_max_ms" in r else "")
+                    + (f", err {r['max_rel_err']:.3e} (of the max score "
+                       f"{r['max_err_over_max_score']:.3e}; against its plain emulation "
+                       f"{r['vs_plain_emulation']:.3e}), overlap {r['top100_overlap']:.4f}"
+                       if p != "highest" else "")
+                    for p, r in out.items()))
+
+    # the batch driver at "default", against phase 3's run
+    for fn in (flash_attention, fused_scores_groupmax, dma_gather_groups):
+        fn.launches = 0
+    t0 = time.time()
+    run_convdr_inference.main(
+        inference_argv(WORK, paths["processed"], paths["raw"], paths["emb_dir"], "run_default")
+        + ["--matmul_precision", "default"])
+    torch.cuda.synchronize()
+    driver_s = time.time() - t0
+    launches = {"flash_attention_fwd": flash_attention.launches,
+                "fused_scores_groupmax": fused_scores_groupmax.launches,
+                "dma_gather_groups": dma_gather_groups.launches}
+    overlap = run_overlap(parse_trec_run(os.path.join(WORK, "run_default.trec")),
+                          parse_trec_run(paths["trec"]))
+    if (launches["fused_scores_groupmax"] or not launches["dma_gather_groups"]
+            or not launches["flash_attention_fwd"] or overlap < OVERLAP_FLOOR["default"]):
+        raise AssertionError(f"--matmul_precision default: launches {launches}, overlap "
+                             f"{overlap}")
+    out["driver_default"] = {"inference_s": driver_s, "launches": launches,
+                             "top100_overlap": overlap}
+    log(f"  run_convdr_inference --matmul_precision default: {driver_s:.2f} s, launches "
+        f"{launches}, top-{TOP_N} overlap with phase 3's run {overlap:.4f}")
+
+    # online serving at "default" against "highest"
+    histories = make_histories(PRECISION_TURNS)
+    served = {}
+    for prec in ("highest", "default"):
+        for fn in COUNTED_KERNELS.values():
+            fn.launches = 0
+        searcher = OnlineSearcher.from_blocks(None, paths["emb_dir"], model_type="rdot_nll",
+                                              top_n=TOP_N, max_concat_length=SERVE_T,
+                                              precision=prec)
+        searcher.warmup()
+        turns = []
+        for h in histories:
+            got = searcher.search(h)
+            ids, mask = history_to_inputs(searcher.tokenizer, h, max_concat_length=SERVE_T)
+            s, i = searcher.program(torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda())
+            if not same_bits(got, (s.cpu().numpy(), searcher.rows_to_offsets(i.cpu().numpy()))):
+                raise AssertionError(f"serving at {prec}: a replay differs from the eager program")
+            turns.append(got[1][0])
+        g = searcher.graphs[1]
+        served[prec] = {"rows": torch.from_numpy(np.stack(turns)),
+                        "search": latency_ms(searcher.stats.latencies),
+                        "launches_per_replay": dict(g.launches), "replays": g.replays,
+                        "replay_device_ms": cuda_ms(g.graph.replay, iters=20)}
+        del searcher, g
+        torch.cuda.empty_cache()
+    d = served["default"]
+    serve_overlap = top_overlap(d["rows"], served["highest"]["rows"])
+    if (d["launches_per_replay"]["fused_scores_groupmax"]
+            or not d["launches_per_replay"]["dma_gather_groups"]
+            or serve_overlap < OVERLAP_FLOOR["default"]):
+        raise AssertionError(f"serving at default: {d['launches_per_replay']}, overlap "
+                             f"{serve_overlap}")
+    out["serving"] = {p: {k: v for k, v in r.items() if k != "rows"} for p, r in served.items()}
+    out["serving"]["default"]["top100_overlap"] = serve_overlap
+    log(f"  OnlineSearcher, {PRECISION_TURNS} turns a precision, every replay bit-equal to "
+        f"its eager program: search p50 highest {served['highest']['search']['p50_ms']:.3f} "
+        f"ms, default {d['search']['p50_ms']:.3f} ms; replay on the device "
+        f"{served['highest']['replay_device_ms']:.3f} / {d['replay_device_ms']:.3f} ms; "
+        f"top-{TOP_N} overlap {serve_overlap:.4f}; launches a replay at default "
+        f"{d['launches_per_replay']}")
+
+    again = flat_ip_topk(q, rows, TOP_N, block_rows=SEARCH_N, valid_rows=n)
+    if not (torch.equal(again[0], full["highest"][0]) and torch.equal(again[1], full["highest"][1])
+            and torch.get_float32_matmul_precision() == "highest"
+            and not torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("a highest search after high / default is not bit-equal to the "
+                             "first: TF32 leaked")
+    out["highest_again_bit_equal"] = True
+    out["phase_s"] = time.time() - t_phase
+    log(f"  the highest search again: bit-equal to the first; phase {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase C: multi-GPU at world size 1 (the card holds one NCCL rank)
 # ---------------------------------------------------------------------------
 # a torchrun rank's program: one driver's main, then the meshes it formed
@@ -3204,6 +3591,15 @@ def main(argv=None):
         log("int8 (SQ8) path through the same drivers:")
         int8 = int8_path(paths, qids, q_embs)
         torch.cuda.empty_cache()
+        log("phase F, the raw-input chain (raw CAsT-19 files -> python -m "
+            "convdr_torch.etl.cast19 -> tokenize -> bf16 embed -> exact f32 search; full "
+            "RoBERTa-base width):")
+        raw_chain = raw_chain_path()
+        torch.cuda.empty_cache()
+        log("phase P, --matmul_precision highest / high / default over the inference "
+            "path's rows:")
+        precision = precision_path(paths, q_embs)
+        torch.cuda.empty_cache()
         # the backward's checks come after the inference path, which then
         # runs in the same device-memory state as before training existed
         log("backward kernel check against its plain version:")
@@ -3239,7 +3635,8 @@ def main(argv=None):
         log("phase C, multi-GPU at world size 1 (torchrun with one NCCL rank; the sharded "
             "search and its S-shard emulation; a data-parallel step):")
         multi = multi_gpu_path(paths, gen)
-        log(f"bf16 training phase {bf16['phase_s']:.1f} s, "
+        log(f"phase F {raw_chain['phase_s']:.1f} s, phase P {precision['phase_s']:.1f} s, "
+            f"bf16 training phase {bf16['phase_s']:.1f} s, "
             f"data plane phase {data_plane['phase_s']:.1f} s, rehearsal phase "
             f"{rehearsed['phase_s']:.1f} s, ANN phase {ann['phase_s']:.1f} s, serving phase "
             f"{serving['phase_s']:.1f} s, phase C {multi['phase_s']:.1f} s")
@@ -3300,6 +3697,20 @@ def main(argv=None):
     for entry, kernel in ((fwd, "flash_attention_fwd"), (bwd, "flash_attention_bwd"),
                           (search, "fused_scores_groupmax"), (k5, "dma_gather_groups")):
         entry["launches_by_path"]["multi_gpu_world1"] = multi["launches"][kernel]
+    # phases F and P: the raw-input chain, and the "default" driver and
+    # searcher (kernel 2 does not run at "default": the product is cuBLAS's)
+    default_serving = precision["serving"]["default"]
+    fwd["launches_by_path"].update(
+        raw_input_chain=raw_chain["launches"]["flash_attention_fwd"],
+        precision_default_driver=precision["driver_default"]["launches"]["flash_attention_fwd"],
+        precision_default_serving=default_serving["launches_per_replay"]["flash_attention_fwd"]
+        * default_serving["replays"])
+    search["launches_by_path"]["raw_input_chain"] = raw_chain["launches"]["fused_scores_groupmax"]
+    k5["launches_by_path"].update(
+        raw_input_chain=raw_chain["launches"]["dma_gather_groups"],
+        precision_default_driver=precision["driver_default"]["launches"]["dma_gather_groups"],
+        precision_default_serving=default_serving["launches_per_replay"]["dma_gather_groups"]
+        * default_serving["replays"])
     fwd["serving_B1"] = serving["kernel1_B1"]
     search["serving_Q1"] = serving["kernel2_Q1"]
     k5["serving_Q1"] = serving["kernel5_Q1"]
@@ -3330,6 +3741,7 @@ def main(argv=None):
                        "inference_s": t_infer, "int8": int8, "streaming_phase_s": t_stream,
                        "launch_configs": configs,
                        "train": train, "train_step_check": step_check, "bf16_training": bf16,
+                       "raw_input_chain": raw_chain, "precision": precision,
                        "data_plane": data_plane, "rehearsal": rehearsed, "ann": ann,
                        "serving": serving, "multi_gpu": multi,
                        "total_s": time.time() - t_start}, f, indent=1)

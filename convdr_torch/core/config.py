@@ -137,9 +137,7 @@ class SearchConfig:
     """Exact inner-product retrieval configuration.
 
     Passage blocks mirror the reference's sequential block design
-    (README.md:216). Products are always full f32 (no TF32): the JAX
-    package's "high"/"default" matmul precisions are not ported yet
-    (ROADMAP.md).
+    (README.md:216).
     """
 
     # Passages per scan block: the [Q, block] f32 score buffer of one scan
@@ -150,6 +148,11 @@ class SearchConfig:
     # accumulate in f32) or "int8" (SQ8 scalar quantization, ops/quant.py:
     # a quarter of the device memory, bit-exact vs the int8 oracle).
     storage_dtype: str = "float32"
+    # "highest" = oracle-bit-exact (full f32, no TF32); "high" / "default"
+    # trade score error for matmul speed on the card (a TF32 / a bf16
+    # product, ops/exact_search.py::rounded_scores; full f32 on the CPU).
+    # Ignored for int8 storage, whose scores are exact integers.
+    matmul_precision: str = "highest"
     # int8/bf16 storage only: re-rank the top (rescore_factor * top_n)
     # quantized candidates of each block with full-precision host-side
     # inner products before the final cut (FAISS IndexRefineFlat's
@@ -173,7 +176,6 @@ class DataConfig:
 
 NUM_FOLD = 5  # 5-fold CV harness (utils/util.py:32)
 
-# Ending of the error raised by every option of the JAX package that the
-# port does not have yet: ``--matmul_precision high/default``, orbax
-# checkpoint dirs.
+# Ending of the error raised by the one input of the JAX package that the
+# port does not read: orbax checkpoint dirs.
 NOT_PORTED = "is not yet ported to convdr_torch, see ROADMAP.md"

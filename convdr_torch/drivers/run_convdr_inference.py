@@ -36,8 +36,10 @@ shard the passage rows, sub-lists or codes over it. Only rank 0 writes the
 TREC run and the OpenMatch file and prints the metrics; both files are
 byte-identical to one process's.
 
-Not ported yet (it raises, see ROADMAP.md): ``--matmul_precision
-high/default``. ``--use_gpu`` is accepted.
+``--matmul_precision high/default`` scores the flat search with a TF32 or
+a bf16 product on the card (full f32 on the CPU, as in the JAX package);
+the run then agrees with the exact one on most of each top-N, not rank
+for rank. ``--use_gpu`` is accepted.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ import os
 import numpy as np
 import torch
 
-from convdr_torch.core.config import NOT_PORTED, NUM_FOLD, SearchConfig
+from convdr_torch.core.config import NUM_FOLD, SearchConfig
 from convdr_torch.core.loading import (
     gelu_arch_overrides,
     load_model_and_params,
@@ -128,8 +130,10 @@ def get_arguments(argv=None):
     parser.add_argument(
         "--matmul_precision", default="highest",
         choices=["highest", "high", "default"],
-        help="search matmul precision; only 'highest' (oracle-bit-exact, "
-        "no TF32) is ported",
+        help="flat search matmul precision: 'highest' is oracle-bit-exact "
+        "(FAISS FlatIP parity; full f32, no TF32); 'high' / 'default' are "
+        "a TF32 / a bf16 product on the card (f32 on the CPU), faster, "
+        "close ranks can swap",
     )
     parser.add_argument(
         "--max_device_block_bytes", type=int,
@@ -176,15 +180,8 @@ def get_arguments(argv=None):
 
 
 def check_ported(args) -> None:
-    """Raise on the options of the JAX driver this package lacks, and exit,
-    as the JAX driver does, on a rescore that has nothing to refine."""
-    unported = [
-        (f"--matmul_precision {args.matmul_precision}",
-         args.matmul_precision != "highest"),
-    ]
-    for flag, used in unported:
-        if used:
-            raise NotImplementedError(f"{flag} {NOT_PORTED}")
+    """Exit, as the JAX driver does, on option combinations it refuses: two
+    indexes, or a rescore that has nothing to refine."""
     if args.ivf_dir and args.pq_dir:
         raise SystemExit("--ivf_dir and --pq_dir are mutually exclusive")
     if (args.rescore_factor > 0 and not (args.ivf_dir or args.pq_dir)
@@ -332,6 +329,7 @@ def infer(args, mesh, device):
         searcher = BlockedSearcher(
             SearchConfig(
                 storage_dtype=args.storage_dtype,
+                matmul_precision=args.matmul_precision,
                 max_device_block_bytes=args.max_device_block_bytes,
                 rescore_factor=args.rescore_factor,
             ),

@@ -22,8 +22,9 @@ the tokenizer is outside the timed window here, where
 ``OnlineSearcher.search`` times it in; the capture is a warm-up call,
 left out), and the metrics JSON line when ``--qrels`` is given.
 
-Not ported (it raises, see ROADMAP.md): ``--matmul_precision
-high/default``. ``--dtype bfloat16`` loads the model with the loader's
+``--matmul_precision high/default`` scores the flat backends with a TF32
+or a bf16 product on the card (close ranks can swap; int8 ignores it, as
+does ``--ivf_dir``). ``--dtype bfloat16`` loads the model with the loader's
 default GELU (erf), as the JAX driver does.
 """
 
@@ -36,7 +37,6 @@ import logging
 import numpy as np
 import torch
 
-from convdr_torch.core.config import NOT_PORTED
 from convdr_torch.core.device import resolve_device
 from convdr_torch.core.registry import MODEL_REGISTRY
 from convdr_torch.data.collection import load_qrels
@@ -78,8 +78,9 @@ def get_arguments(argv=None):
     parser.add_argument(
         "--matmul_precision", default="highest",
         choices=["highest", "high", "default"],
-        help="search matmul precision; only 'highest' (oracle-bit-exact, "
-        "no TF32) is ported",
+        help="flat search matmul precision: 'highest' is oracle-bit-exact "
+        "(full f32, no TF32); 'high' / 'default' are a TF32 / a bf16 "
+        "product on the card (f32 on the CPU)",
     )
     parser.add_argument("--max_concat_length", default=256, type=int)
     parser.add_argument("--max_query_length", default=64, type=int)
@@ -90,12 +91,6 @@ def get_arguments(argv=None):
     parser.add_argument("--no_cuda", action="store_true",
                         help="run on the CPU (default: the CUDA device)")
     return parser.parse_args(argv)
-
-
-def check_ported(args) -> None:
-    """Raise on the options of the JAX driver this package lacks."""
-    if args.matmul_precision != "highest":
-        raise NotImplementedError(f"--matmul_precision {args.matmul_precision} {NOT_PORTED}")
 
 
 def build_searcher(args, device: torch.device) -> OnlineSearcher:
@@ -113,7 +108,8 @@ def build_searcher(args, device: torch.device) -> OnlineSearcher:
         return OnlineSearcher.from_ivf(args.model_path, args.ivf_dir, nprobe=args.nprobe,
                                        **common)
     return OnlineSearcher.from_blocks(args.model_path, args.ann_data_dir,
-                                      storage_dtype=args.storage_dtype, **common)
+                                      storage_dtype=args.storage_dtype,
+                                      precision=args.matmul_precision, **common)
 
 
 def main(argv=None):
@@ -122,7 +118,6 @@ def main(argv=None):
         level=logging.INFO,
     )
     args = get_arguments(argv)
-    check_ported(args)
     searcher = build_searcher(args, resolve_device(args.no_cuda))
 
     dataset = ConvSearchDataset(

@@ -15,8 +15,10 @@ The counterpart of ``convdr_tpu/ops/exact_search.py``:
 Exactness contract: scores are accumulated in f32 whatever the storage
 dtype, with no TF32 (:func:`convdr_torch.core.device.set_exact_matmul`);
 ordering is (score desc, candidate index asc), which matches FAISS FlatIP,
-so recall@k is bit-identical to the oracle. ``torch.topk`` does not specify
-its tie order, so every selection here is a stable descending
+so recall@k is bit-identical to the oracle. ``precision="high"`` /
+``"default"`` trade that for speed on the card, as the JAX package's
+matmul precisions do on the TPU (:func:`rounded_scores`). ``torch.topk``
+does not specify its tie order, so every selection here is a stable descending
 ``torch.sort``, and selected group ids are sorted ascending before their
 candidates are gathered, which keeps candidates in global index order.
 """
@@ -29,14 +31,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from convdr_torch.core.config import NOT_PORTED
 from convdr_torch.ops.gather_groups import dma_gather_groups
 
 NEG_INF = float(np.finfo(np.float32).min)
 
-# The JAX package's matmul precisions (``SearchConfig.matmul_precision``).
-# Only "highest" (full f32, oracle-exact) is ported; on the card the others
-# would be TF32 and bf16 products.
+# The JAX package's matmul precisions (``SearchConfig.matmul_precision``);
+# see :func:`rounded_scores` for what each is on the card.
 _PRECISIONS = ("default", "high", "highest")
 
 # Widths at or below this go straight to a stable sort; above it, group-prune
@@ -69,6 +69,60 @@ def topk_oracle(
         top_s = np.concatenate([top_s, pad_s], axis=1)
         order = np.concatenate([order, pad_i], axis=1)
     return top_s.astype(np.float32), order.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# the "high" / "default" products
+# ---------------------------------------------------------------------------
+def rounded_scores(
+    queries: torch.Tensor, passages: torch.Tensor, precision: str
+) -> torch.Tensor:
+    """[Q, N] f32 scores of float passages at a reduced precision, on the
+    card: "high" a TF32 product (operands rounded to 10 mantissa bits, f32
+    accumulation), "default" bf16 operands with f32 accumulation and f32
+    output (the JAX ``preferred_element_type=jnp.float32``; the scores are
+    never rounded to bf16). The JAX package computes these with ``jnp.dot``
+    outside any Pallas kernel; here they are cuBLAS products. f32 passages
+    are cast to bf16 for "default" (a transient copy of the block).
+
+    The TF32 switch is process-wide, and everything else (the query
+    encode, every "highest" search) must stay full f32, so it is held only
+    around the "high" product and the previous setting restored; a CUDA
+    graph captured here keeps the TF32 kernel the switch selected."""
+    if precision == "high":
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            return torch.matmul(queries.float(), passages.float().T)
+        finally:
+            torch.set_float32_matmul_precision(prev)
+    if precision == "default":
+        return torch.mm(queries.bfloat16(), passages.bfloat16().T, out_dtype=torch.float32)
+    raise ValueError(f"rounded_scores takes 'high' or 'default', not {precision!r}")
+
+
+def round_to_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32's 10 mantissa bits (to nearest, ties
+    away from zero), kept in f32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def rounded_scores_plain(
+    queries: torch.Tensor, passages: torch.Tensor, precision: str
+) -> torch.Tensor:
+    """The card's rounding of :func:`rounded_scores` in plain f32 (TF32
+    off): each operand rounded as the precision rounds it, then a full-f32
+    product. It agrees with the card's product up to the order of the f32
+    accumulation (and, for "high", up to how the card's TF32 unit rounds
+    its operands)."""
+    if precision == "high":
+        q, p = round_to_tf32(queries), round_to_tf32(passages)
+    elif precision == "default":
+        q, p = queries.bfloat16().float(), passages.bfloat16().float()
+    else:
+        raise ValueError(f"rounded_scores_plain takes 'high' or 'default', not {precision!r}")
+    return torch.matmul(q, p.T)
 
 
 # ---------------------------------------------------------------------------
@@ -218,9 +272,12 @@ def flat_ip_topk(
         products, equal to ``int8_topk_oracle``'s bit for bit (the f32
         products and sums of int8 values are exact at dim <= 1040).
     valid_rows: logical corpus size if ``passages`` is padded (-1 = N).
-    precision: "highest" (full f32, the default and the only one ported);
-        "high" and "default" raise, unless the passages are int8, where it
-        is ignored as in the JAX package.
+    precision: "highest" (the default) is full f32 through the score
+        kernel, oracle-exact. On the card "high" and "default" score each
+        block with :func:`rounded_scores` (a TF32 / a bf16 product, f32
+        out; close ranks can swap) and then select exactly as "highest"
+        does. On the CPU all three are full f32, as in the JAX package
+        there. int8 passages ignore it, as in the JAX package.
     gather: "auto", "onehot" or "dma", accepted for parity with the JAX
         signature; it selects no code (:func:`_gather_candidate_groups`).
 
@@ -233,8 +290,6 @@ def flat_ip_topk(
         raise ValueError(
             f"unknown matmul precision {precision!r}; choose one of {list(_PRECISIONS)}"
         )
-    if precision != "highest" and passages.dtype != torch.int8:
-        raise NotImplementedError(f"flat_ip_topk precision={precision!r} {NOT_PORTED}")
 
     n = passages.shape[0]
     valid = n if valid_rows < 0 else min(int(valid_rows), n)
@@ -251,6 +306,7 @@ def flat_ip_topk(
             group=group,
             valid_rows=-1 if blk_valid == hi - lo else blk_valid,
             gather=gather,
+            precision=precision,
         )
         blk_i = torch.where(blk_i >= 0, blk_i + lo, blk_i)
         if out_s is None:

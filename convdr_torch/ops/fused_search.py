@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from convdr_torch.ops import cuda_build
-from convdr_torch.ops.exact_search import NEG_INF, select_from_groupmax
+from convdr_torch.ops.exact_search import NEG_INF, rounded_scores, select_from_groupmax
 from convdr_torch.ops.quant import INT8_EXACT_MAX_DIM
 
 # Passage rows per kernel tile; the kernel takes N % ROW_TILE == 0 and the
@@ -149,6 +149,7 @@ def fused_flat_ip_topk(
     group: int = 32,
     valid_rows: int = -1,
     gather: str = "auto",
+    precision: str = "highest",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact FlatIP top-k of one passage block through the fused kernel.
 
@@ -157,6 +158,9 @@ def fused_flat_ip_topk(
     (NEG_INF, -1)). Rows are zero-padded to :data:`ROW_TILE` when needed
     and masked through ``valid_rows``. ``gather`` is checked and selects
     no code (:func:`~convdr_torch.ops.exact_search.select_from_groupmax`).
+    ``precision`` "high" / "default" on float passages on the card takes
+    :func:`~convdr_torch.ops.exact_search.rounded_scores` and its group
+    maxima in place of the kernel; the selection after it is the same.
     """
     qn = queries.shape[0]
     n = passages.shape[0]
@@ -167,8 +171,13 @@ def fused_flat_ip_topk(
         if valid is None:
             valid = n
     n_padded = passages.shape[0]
-    scores, gmax = fused_scores_groupmax(queries, passages, group)
     n_groups = n_padded // group
+    if (precision != "highest" and passages.device.type == "cuda"
+            and passages.dtype != torch.int8):
+        scores = rounded_scores(queries, passages, precision)
+        gmax = scores.view(qn, n_groups, group).amax(dim=-1)
+    else:
+        scores, gmax = fused_scores_groupmax(queries, passages, group)
     k_eff = min(k, n)
     s3 = scores.view(qn, n_groups, group)
     top_s, top_i = select_from_groupmax(s3, gmax, k_eff, group, valid, gather=gather)

@@ -116,10 +116,11 @@ def _shard(mesh, axis: str, rows: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # rank programs: each runs one meshed entry point and returns numpy outputs
 # ---------------------------------------------------------------------------
-def flat_case(queries, passages, k, *, storage="float32", valid_rows=-1, block_rows=65536):
+def flat_case(queries, passages, k, *, storage="float32", valid_rows=-1, block_rows=65536,
+              precision="highest"):
     """``sharded_flat_ip_topk`` over ``passages`` [S * rows, D] (f32, or
     int8 with int-valued queries; ``storage="bfloat16"`` casts the f32
-    rows)."""
+    rows) at the matmul ``precision``."""
     from convdr_torch.parallel.sharded_search import sharded_flat_ip_topk
 
     mesh, device = get_mesh(("index",)), _device()
@@ -127,7 +128,8 @@ def flat_case(queries, passages, k, *, storage="float32", valid_rows=-1, block_r
     if storage == "bfloat16":
         p = p.to(torch.bfloat16)
     s, i = sharded_flat_ip_topk(mesh, torch.from_numpy(queries).to(device), p, k,
-                                valid_rows=valid_rows, block_rows=block_rows)
+                                valid_rows=valid_rows, block_rows=block_rows,
+                                precision=precision)
     return {"scores": s.cpu().numpy(), "ids": i.cpu().numpy()}
 
 
@@ -159,13 +161,15 @@ def pq_index_case(index_dir, queries, k):
     return {"scores": s, "ids": i}
 
 
-def blocks_case(block_dir, queries, k, *, storage="float32", rescore_factor=0):
+def blocks_case(block_dir, queries, k, *, storage="float32", rescore_factor=0,
+                precision="highest"):
     """``BlockedSearcher(mesh=).search_blocks`` over a block directory."""
     from convdr_torch.core.config import SearchConfig
     from convdr_torch.retrieval.searcher import BlockedSearcher
 
     searcher = BlockedSearcher(
-        SearchConfig(storage_dtype=storage, rescore_factor=rescore_factor),
+        SearchConfig(storage_dtype=storage, rescore_factor=rescore_factor,
+                     matmul_precision=precision),
         device=_device(), mesh=get_mesh(("index",)),
     )
     s, o = searcher.search_blocks(block_dir, queries, k)

@@ -50,7 +50,6 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from convdr_torch.core.config import NOT_PORTED
 from convdr_torch.core.device import pick_device
 from convdr_torch.core.loading import load_model_and_params, make_apply_fn
 from convdr_torch.data.conv_dataset import _concat_conversation_ids
@@ -288,8 +287,6 @@ class OnlineSearcher:
 
         if storage_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(f"unknown storage_dtype {storage_dtype!r}")
-        if precision != "highest" and storage_dtype != "int8":
-            raise NotImplementedError(f"matmul precision {precision!r} {NOT_PORTED}")
         device = pick_device(device)
         tokenizer, model, max_concat_length = _load_model(
             model_type, model_path, device, dtype, arch_preset, max_concat_length)

@@ -243,6 +243,7 @@ class BlockedSearcher:
         s, i = local_flat_ip_topk(
             q, self._upload(part, rows, storage), top_n, shard, n_shards,
             valid_rows=n, block_rows=min(self.config.passage_block_size, rows),
+            precision=self.config.matmul_precision,
         )
         if self.mesh is not None:
             s, i = gather_and_merge(self.mesh, self.index_axis, s, i, top_n)

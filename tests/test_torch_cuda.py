@@ -1165,3 +1165,86 @@ def test_world1_nccl_dp_step_equals_unmeshed(cuda):
     assert got_m == want_m
     for name, g in want_g.items():
         assert torch.equal(got_g[name], g), name
+
+
+# ---------------------------------------------------------------------------
+# --matmul_precision high / default on the card
+# ---------------------------------------------------------------------------
+# The normalized score error |s - s_highest| / (|q| |p|) of each reduced
+# precision is bounded by 2u + u^2 of sum |q_i p_i| <= |q| |p| (u the unit
+# roundoff of its operands: TF32 2^-10 even if the unit truncates, bf16
+# 2^-8) plus both products' f32 accumulation (2 D 2^-24).
+PRECISION_BOUND = {"high": 2 * 2 ** -10 + 2 ** -20 + 2 * 768 * 2 ** -24,
+                   "default": 2 * 2 ** -8 + 2 ** -16 + 2 * 768 * 2 ** -24}
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+def test_reduced_precision_rounds_within_its_bound(cuda, precision, storage):
+    """``rounded_scores`` differs from the "highest" scores (the rounding
+    happened) and stays within the bound above; "default" is within 1e-5 of
+    |q| |p| of its plain emulation (bf16 operands, f32 products); the
+    top-k after it is the "highest" selection code on those scores
+    (``flat_ip_topk`` equal to a stable sort of ``rounded_scores``)."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    q = torch.randn(64, 768, generator=gen, device="cuda")
+    p = torch.randn(4096, 768, generator=gen, device="cuda").to(storage)
+    exact = fused_scores_groupmax(q, p, 32)[0]
+    got = es.rounded_scores(q, p, precision)
+    assert got.dtype == torch.float32 and not torch.equal(got, exact)
+    norms = q.norm(dim=1)[:, None] * p.float().norm(dim=1)[None, :]
+    err = ((got - exact).abs() / norms).max().item()
+    assert 0 < err <= PRECISION_BOUND[precision], err
+    if precision == "default":
+        plain = es.rounded_scores_plain(q, p.float(), precision)
+        assert ((got - plain).abs() / norms).max().item() <= 1e-5
+    s, i = es.flat_ip_topk(q, p, 50, block_rows=4096, precision=precision)
+    ref_s, ref_i = es.stable_topk(got, 50)
+    assert torch.equal(s, ref_s) and torch.equal(i, ref_i)
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_highest_after_high_is_bit_equal(cuda):
+    """A "highest" search after a "high" one in the same process is bit for
+    bit the "highest" search before it: the TF32 switch is held only
+    around the "high" product."""
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    q = torch.randn(32, 768, generator=gen, device="cuda")
+    p = torch.randn(8192, 768, generator=gen, device="cuda")
+    matmul_before = q @ p.T
+    before = es.flat_ip_topk(q, p, 100, block_rows=4096)
+    high = es.flat_ip_topk(q, p, 100, block_rows=4096, precision="high")
+    after = es.flat_ip_topk(q, p, 100, block_rows=4096)
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    assert not torch.equal(high[0], before[0])
+    assert torch.equal(q @ p.T, matmul_before)  # a plain f32 product too
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_online_searcher_reduced_precision_replays_bit_equal_to_eager(cuda, serve_dirs,
+                                                                      precision):
+    """``OnlineSearcher.from_blocks(precision=)``: the graph is captured
+    with the reduced-precision product (kernel 2 not launched, the gather
+    kernel still), every replay equals the eager program bit for bit, and a
+    "highest" searcher built afterwards serves as before."""
+    from convdr_torch.retrieval.online import OnlineSearcher
+
+    kw = dict(top_n=20, max_concat_length=32, arch_preset="tiny", device=cuda)
+    exact = OnlineSearcher.from_blocks(None, str(serve_dirs / "blocks"), **kw)
+    exact.warmup()
+    first = [exact.search_tokens(*turn_inputs(exact, h)) for h in SERVE_HISTORIES]
+    searcher = OnlineSearcher.from_blocks(None, str(serve_dirs / "blocks"),
+                                          precision=precision, **kw)
+    searcher.warmup()
+    for history in SERVE_HISTORIES:
+        ids, mask = turn_inputs(searcher, history)
+        got = searcher.search_tokens(ids, mask)
+        want = eager_turn(searcher, ids, mask)
+        assert got[0].tobytes() == want[0].tobytes() and np.array_equal(got[1], want[1])
+    g = searcher.graphs[1]
+    assert g.launches["fused_scores_groupmax"] == 0 and g.launches["dma_gather_groups"] > 0
+    assert torch.get_float32_matmul_precision() == "highest"
+    again = [exact.search_tokens(*turn_inputs(exact, h)) for h in SERVE_HISTORIES]
+    for a, b in zip(first, again):
+        assert a[0].tobytes() == b[0].tobytes() and np.array_equal(a[1], b[1])

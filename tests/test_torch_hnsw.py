@@ -151,8 +151,111 @@ def test_hnsw_library_built_with_the_makefile_flags():
     assert path.endswith(".so") and "libconvdr_hnsw-" in path and os.path.exists(path)
 
 
+def load_jax_native(monkeypatch):
+    """The JAX package's native library, loaded in this process.
+
+    Each pytest-xdist worker builds it at collection (``tests/test_hnsw.py``
+    asks ``native_available()`` in a module-level ``skipif``), and its
+    Makefile links the library in place: a worker that loads it while
+    another worker's ``g++`` is still writing it fails, and
+    ``convdr_tpu.native_io`` caches that failure for the life of the
+    process. No test runs before every worker has collected, so by now the
+    file is whole: a cached failure is cleared (``monkeypatch`` puts the
+    module's state back afterwards) and the load tried once more."""
+    from convdr_tpu import native_io as jio
+
+    if not jio.native_available():
+        monkeypatch.setattr(jio, "_lib", None)
+        monkeypatch.setattr(jio, "_tried", False)
+        jio.native_available()
+    return jio
+
+
+@pytest.fixture
+def jax_native(monkeypatch):
+    return load_jax_native(monkeypatch)
+
+
+def test_jax_native_fixture_recovers_a_raced_load(tmp_path, monkeypatch):
+    """The collection-time race, made on purpose in this process: the JAX
+    package loads a truncated copy of its library and caches the failure;
+    with the path back, the cache still says no, and the fixture's load
+    recovers. Afterwards this process's state is as it was."""
+    from convdr_tpu import native_io as jio
+
+    before = (jio._lib, jio._tried, jio._LIB_PATH)
+    real = jio._LIB_PATH
+    with monkeypatch.context() as m:
+        m.setattr(jio, "_lib", None)
+        m.setattr(jio, "_tried", False)
+        assert jio.native_available(), "the JAX package's native library does not build here"
+        with open(real, "rb") as f:
+            head = f.read(32)  # a torn write: the ELF header cut short
+        torn = tmp_path / "libconvdr_native.so"
+        torn.write_bytes(head)
+        m.setattr(jio, "_lib", None)
+        m.setattr(jio, "_tried", False)
+        m.setattr(jio, "_LIB_PATH", str(torn))
+        assert not jio.native_available()
+        m.setattr(jio, "_LIB_PATH", real)
+        assert not jio.native_available()  # the failure is cached
+        assert load_jax_native(m).native_available()
+        assert jio._LIB_PATH == real
+    assert (jio._lib, jio._tried, jio._LIB_PATH) == before
+
+
+def test_no_port_test_asserts_the_jax_native_library_without_the_fixture():
+    """Every test of a ``tests/test_torch_*.py`` file that asserts the JAX
+    package's ``native_available()`` takes the ``jax_native`` fixture (or
+    calls its ``load_jax_native``), so that a worker which lost the
+    collection-time build race loads again."""
+    import ast
+    import glob
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    bad, found = [], 0
+    for path in sorted(glob.glob(os.path.join(here, "test_torch_*.py"))):
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        modules, funcs = set(), set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.module == "convdr_tpu":
+                modules |= {a.asname or a.name for a in node.names if a.name == "native_io"}
+            elif isinstance(node, ast.ImportFrom) and node.module == "convdr_tpu.native_io":
+                funcs |= {a.asname or a.name for a in node.names if a.name == "native_available"}
+            elif isinstance(node, ast.Import):
+                modules |= {a.asname for a in node.names
+                            if a.name == "convdr_tpu.native_io" and a.asname}
+
+        def asserts_jax_native(fn):
+            for node in ast.walk(fn):
+                if not isinstance(node, ast.Assert):
+                    continue
+                for call in ast.walk(node.test):
+                    if not isinstance(call, ast.Call):
+                        continue
+                    f = call.func
+                    if isinstance(f, ast.Name) and f.id in funcs:
+                        return True
+                    if (isinstance(f, ast.Attribute) and f.attr == "native_available"
+                            and isinstance(f.value, ast.Name) and f.value.id in modules):
+                        return True
+            return False
+
+        for fn in ast.walk(tree):
+            if (isinstance(fn, ast.FunctionDef) and fn.name.startswith("test_")
+                    and asserts_jax_native(fn)):
+                found += 1
+                reloads = any(isinstance(c, ast.Call) and isinstance(c.func, ast.Name)
+                              and c.func.id == "load_jax_native" for c in ast.walk(fn))
+                if "jax_native" not in [a.arg for a in fn.args.args] and not reloads:
+                    bad.append(f"{os.path.basename(path)}::{fn.name}")
+    assert not bad, bad
+    assert found >= 1  # test_hnsw_equals_the_jax_package itself
+
+
 @pytest.mark.parametrize("kind", ["hnsw_index", "dense_indexer"])
-def test_hnsw_equals_the_jax_package(kind):
+def test_hnsw_equals_the_jax_package(kind, jax_native):
     """One build thread, the same seeded rows: neighbour ids and distances
     equal to the JAX package's ``HnswIndex`` / ``DenseHNSWFlatIndexer``
     bit for bit (tolerance 0: the same graph)."""

@@ -11,6 +11,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PROBE = """
@@ -29,7 +31,11 @@ for name in ("convdr_torch.drivers.tokenize_collection", "convdr_torch.native_io
              "convdr_torch.retrieval.pq_index", "convdr_torch.retrieval.refine",
              "convdr_torch.ops.kmeans", "convdr_torch.ops.pq", "convdr_torch.utils.transfer",
              "convdr_torch.parallel.mesh", "convdr_torch.parallel.sharded_search",
-             "convdr_torch.parallel.dryrun"):
+             "convdr_torch.parallel.dryrun", "convdr_torch.etl.cbor_car",
+             "convdr_torch.etl.cast19", "convdr_torch.etl.cast20", "convdr_torch.etl.cast21",
+             "convdr_torch.etl.orquac", "convdr_torch.etl.id_remap",
+             "convdr_torch.data.process_fns", "convdr_torch.evaluation.qa_eval",
+             "convdr_torch.utils.misc"):
     assert name in names, names
 bad = sorted(
     m for m in sys.modules
@@ -51,6 +57,28 @@ def _run(code, cwd):
 
 def test_package_imports_no_jax(tmp_path):
     proc = _run(PROBE, tmp_path)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# the host-surface modules of the last slice (the ETL, process fns, QA
+# matching, misc), each alone in a fresh interpreter
+ALONE = ["convdr_torch.etl.cbor_car", "convdr_torch.etl.common", "convdr_torch.etl.cast19",
+         "convdr_torch.etl.cast20", "convdr_torch.etl.cast21", "convdr_torch.etl.orquac",
+         "convdr_torch.etl.id_remap", "convdr_torch.data.process_fns",
+         "convdr_torch.evaluation.qa_eval", "convdr_torch.utils.misc"]
+
+
+@pytest.mark.parametrize("module", ALONE)
+def test_host_module_imports_alone_without_jax(tmp_path, module):
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'convdr_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = _run(code, tmp_path)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

@@ -273,21 +273,30 @@ def test_from_blocks_int8_sidecar_rules(tmp_path, caplog):
         deq._operands[0][:300].numpy(),
         quant.quantize_passages(rows).astype(np.float32) * quant.scales[None, :])
     assert deq.resident_bytes == 384 * 32 * 4
-    with pytest.raises(NotImplementedError):
-        online.OnlineSearcher.from_blocks(None, str(f32_dir), precision="high", **kw)
+    # "high" raised once; on the CPU it is full f32, so it serves as "highest"
+    ids = np.zeros((2, deq.max_concat_length), np.int32)
+    ids[:, 0], ids[1, 1] = deq.tokenizer.cls_token_id, 7
+    mask = (ids != 0).astype(np.int32)
+    mask[:, 0] = 1
+    high = online.OnlineSearcher.from_blocks(None, str(f32_dir), precision="high", **kw)
+    exact = online.OnlineSearcher.from_blocks(None, str(f32_dir), **kw)
+    for a, b in zip(high.search_tokens(ids, mask), exact.search_tokens(ids, mask)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_driver_errors(served, monkeypatch):
-    """Without ``--no_cuda`` and without a card the driver raises;
-    ``--matmul_precision high`` raises as not ported; exactly one backend."""
+    """Without ``--no_cuda`` and without a card the driver raises; exactly
+    one backend. (``--matmul_precision high`` raised as not ported once; on
+    the CPU it now serves the same run as "highest".)"""
     chain = served["chain"]
     flat = ["--ann_data_dir", str(chain / "torch_emb")]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         torch_serve.main(serve_args(chain, "never", flat))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        torch_serve.main(serve_args(chain, "never", flat + ["--matmul_precision", "high",
+    torch_serve.main(serve_args(chain, "prec_high", flat + ["--matmul_precision", "high",
                                                              "--no_cuda"]))
+    torch_serve.main(serve_args(chain, "prec_highest", flat + ["--no_cuda"]))
+    assert (chain / "prec_high.trec").read_bytes() == (chain / "prec_highest.trec").read_bytes()
     with pytest.raises(ValueError, match="exactly one"):
         torch_serve.main(serve_args(chain, "never", ["--no_cuda"]))
     with pytest.raises(ValueError, match="exactly one"):

@@ -222,8 +222,13 @@ def test_unported_inference_options_raise(chain, flags):
         with pytest.raises(FileNotFoundError):
             torch_infer.main(argv)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_infer.main(argv)
+    # --matmul_precision raised once; on the CPU every precision is full
+    # f32, as in the JAX package there: the run file of "highest"
+    name = f"prec_{flags[1]}"
+    means = torch_infer.main(infer_args(chain, "jax_emb", name, "--no_cuda", *flags))
+    exact = torch_infer.main(infer_args(chain, "jax_emb", "prec_highest", "--no_cuda"))
+    assert means == exact
+    assert (chain / f"{name}.trec").read_bytes() == (chain / "prec_highest.trec").read_bytes()
 
 
 @pytest.mark.parametrize(

@@ -303,9 +303,15 @@ def test_flat_ip_topk_precision_highest_is_the_default(storage):
 
 @pytest.mark.parametrize("precision", ["high", "default"])
 def test_flat_ip_topk_other_precisions_are_not_ported(precision):
+    """They raised once; now, on the CPU, "high" and "default" are full f32,
+    as in the JAX package there: the same top-k as "highest" and as the
+    JAX package's at that precision (tolerance 0 on the indices)."""
     q, p = problem(19, q=2, n=64, d=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_topk(q, p, 5, precision=precision)
+    got = port_topk(q, p, 5, precision=precision)
+    for a, b in zip(got, port_topk(q, p, 5)):
+        np.testing.assert_array_equal(a, b)
+    _js, ji = jes.flat_ip_topk(jnp.asarray(q), jnp.asarray(p), 5, precision=precision)
+    np.testing.assert_array_equal(got[1], np.asarray(ji))
     with pytest.raises(ValueError, match="precision"):
         port_topk(q, p, 5, precision="tf32")
     # int8 passages ignore it, as in the JAX package
