@@ -164,7 +164,8 @@ P. (after F) ``--matmul_precision`` over phase 3's rows and queries:
    without lse); kernel 1b in bf16 at the backward's four shapes under
    every mask kind (each gradient within 2x the error of autograd through
    masked SDPA in bf16, floor 1e-3 of scale, from an f64 plain witness; two
-   calls bit-identical); both timed at B=4 T=256 (the backward at B=40
+   calls bit-identical; its D pre-pass within 1e-5 of each row's sum of
+   |o dO| from the f32 sum); both timed at B=4 T=256 (the backward at B=40
    T=512 too) host-paced and on the device beside the plain version,
    masked SDPA and the bound at the bf16 peaks. One full-width KD + ranking
    step in bf16 (f32 master weights) through the kernels, the plain version
@@ -247,6 +248,7 @@ from convdr_torch.models.attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_config,
+    flash_attention_bwd_delta,
     flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_fwd_config,
@@ -1813,7 +1815,8 @@ def check_bf16_attention_bwd(gen):
     """Kernel 1b in bf16 at the training shapes under every mask kind: each
     gradient within 2x the error of autograd through masked SDPA in bf16
     (floor 1e-3 of scale) from the f64 plain witness, and two calls on the
-    same inputs bit-identical (no atomics)."""
+    same inputs bit-identical (no atomics); at each shape its D pre-pass
+    against the f32 sum of the same products."""
     worst = {}
     for batch, t in BWD_SHAPES:
         for kind in MASK_KINDS:
@@ -1833,6 +1836,17 @@ def check_bf16_attention_bwd(gen):
             if not ok:
                 raise AssertionError(f"bf16 attention backward at B={batch} T={t} {kind}")
             worst[(batch, t, kind)] = {"kernel": kern, "sdpa": lib}
+        # the pre-pass D = rowsum(o * dO) against the f32 sum of the same
+        # products: within 1e-5 of each row's sum of |o * dO| (another order)
+        out, _lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
+        delta = flash_attention_bwd_delta(out, do)
+        prod = out.float() * do.float()
+        slack = ((delta - prod.sum(-1).transpose(1, 2)).abs()
+                 / prod.abs().sum(-1).transpose(1, 2).clamp_min(1e-30)).max().item()
+        log(f"  attention bwd bf16 B={batch} T={t}: pre-pass D max error {slack:.2e} of the "
+            f"row's sum of |o dO| (tol 1e-5) {'ok' if slack <= 1e-5 else 'FAIL'}")
+        if slack > 1e-5:
+            raise AssertionError(f"bf16 backward pre-pass at B={batch} T={t}")
     return worst
 
 
@@ -1885,6 +1899,10 @@ def time_bf16_attention(gen, fwd_worst, bwd_worst):
             "config": flash_attention_bwd_config(batch, t, HEADS, HEAD_DIM, BF16),
             "error_of_scale_vs_f64": bwd_worst[(batch, t, "right")],
         }
+        cfg = shapes[f"B{batch}xT{t}"]["config"]
+        blocks = 2 * -(-t // cfg["block_rows"]) * HEADS * batch
+        shapes[f"B{batch}xT{t}"]["waves"] = blocks / (
+            cfg["blocks_per_sm"] * torch.cuda.get_device_properties(0).multi_processor_count)
     main = shapes[f"B{TRAIN_B}xT{TRAIN_T}"]
     bwd = {
         "name": "flash_attention_bwd_bf16",
@@ -1897,6 +1915,7 @@ def time_bf16_attention(gen, fwd_worst, bwd_worst):
         **{key: main[key] for key in ("ms", "device_ms", "plain_ms", "library_ms",
                                       "library_device_ms", "bound_ms", "bound_by", "config")},
         "shape": f"B={TRAIN_B} T={TRAIN_T} H={HEADS} D={HEAD_DIM} bf16",
+        "waves": main["waves"],
         "by_shape": shapes,
     }
     log("  bf16 training kernels (ms host-paced / on the device; plain; SDPA host-paced / "
@@ -1906,7 +1925,7 @@ def time_bf16_attention(gen, fwd_worst, bwd_worst):
         f"({fwd['bound_by']}); " + "; ".join(
             f"backward {name} {r['ms']:.4f} / {r['device_ms']:.4f}; {r['plain_ms']:.4f}; "
             f"{r['library_ms']:.4f} / {r['library_device_ms']:.4f}; {r['bound_ms']:.4f} "
-            f"({r['bound_by']})" for name, r in shapes.items()))
+            f"({r['bound_by']}), {r['waves']:.2f} waves" for name, r in shapes.items()))
     return fwd, bwd
 
 

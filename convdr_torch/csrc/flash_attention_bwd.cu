@@ -61,25 +61,45 @@
 // accumulated in f32 and each gradient cast to bf16 once at the end
 // (:937-938, :1283). Bound: the same 7 * D multiply-adds a pair on the bf16
 // tensor cores (989 TFLOP/s) against the bytes of eight bf16 [B, T, H, D]
-// tensors; at the student's shape the bytes bound it. The design keeps the
-// f32 kernel's block roles, one launch and no atomics (two calls are
-// bit-identical):
-// * A block is 4 warps and 64 rows, each warp owning 16: its own rows' two
-//   operands (K and V for dK/dV blocks, Q and dO for dQ blocks) live in
-//   registers as `mma.sync` A fragments for the whole walk.
-// * The other side streams through a 2-stage cp.async ring in 64-row tiles
-//   (Q, dO, their lse, D and segment ids; or K, V and ids), rows padded by
-//   16 bytes so `ldmatrix` reads are conflict-free.
-// * Per tile a warp computes its 16 x 64 blocks of S and dP with m16n8k16
-//   bf16 MMAs (B fragments by `ldmatrix` of the tile's rows), forms P and
-//   dS in f32 registers, packs them to bf16 A fragments in place (the C
-//   fragments of two 8-column tiles are one A fragment) and multiplies them
-//   by the tile's rows read through `ldmatrix.trans`: dV += P^T dO and
-//   dK += dS^T Q, or dQ += dS K. Nothing goes through shared memory but
-//   the streamed tiles.
-// * D of a streamed query tile is computed as the tile is issued (2 threads
-//   a row, O and dO read from L2) into the stage; a dQ block computes its
-//   own rows' D with two lanes a row and shuffles.
+// tensors; at the student's shape the bytes bound it, and a block's chain
+// of latencies (loads, five dependent products, exponentials) is what
+// takes the time. The design, for Hopper:
+// * D once: a pre-pass kernel (a thread a row) writes D [B, H, T] f32 into
+//   the caller's scratch; the main kernel is its programmatic dependent, so
+//   its prologue (barriers, tile plan, own operands) overlaps the pre-pass
+//   and only the reads of D wait for it (griddepcontrol.wait). As in
+//   Pallas, D is computed once, outside the products.
+// * The f32 kernel's block roles in one launch, the dK/dV blocks first, no
+//   atomics (two calls are bit-identical): a block owns 64 rows (keys or
+//   queries) and walks the planned 32-row tiles of the other side.
+// * A block is one consumer warpgroup and one producer warp (160 threads).
+//   The producer's lane 0 brings every tile in by TMA (rank-4 tensor maps
+//   over [B, T, H, D], box 1 x 32 x 1 x D: rows past T arrive as zeros),
+//   swizzled by the row's width (128, 64, 32 bytes for D = 64, 32, 16),
+//   into a ring of 4 stages with full and empty mbarriers; each of its 32
+//   lanes copies one row's lse, D and segment id by cp.async, which arrives
+//   on the stage's barrier when it lands, so the producer never waits on a
+//   load.
+// * The consumers compute S^T = K Q^T and dP^T = V dO^T (dQ blocks: S =
+//   Q K^T, dP = dO V^T) with wgmma m64n32k16, both operands in shared
+//   memory (K-major), form P and dS in f32 in the accumulator registers,
+//   round them to bf16 A fragments in place (the f32 accumulator of two
+//   8-column chunks is one k-step's A fragment: no shuffle), and issue
+//   dV += P^T dO (while dS is formed), dK += dS^T Q (dQ += dS K) as wgmma
+//   m64nDk16 with A from registers and the streamed tile as an MN-major B
+//   (the descriptor's transpose bit). The gradients leave through the own
+//   operands' shared memory, laid out in TMA's swizzle, by TMA stores (the
+//   fragments' own 4-byte global stores cut 16-byte row pieces and were
+//   slower on the card).
+// * 32-row tiles keep a consumer's live registers (two [64][D] f32
+//   accumulators, the 64 x 32 S and dP) within the 136 a thread that three
+//   blocks an SM leave (ptxas: 128): the student's 384 blocks run in one
+//   wave on 132 SMs. setmaxnreg, which moves registers between whole
+//   warpgroups, has nothing to take from a single producer warp. Issuing
+//   the next tile's S and dP before this tile's dV / dK have landed needs
+//   more registers than that: ptxas then serializes the wgmma pipeline, and
+//   it ran slower on the card (convdr_torch.scripts.attention_bwd_bench),
+//   at three blocks an SM and at two.
 
 #include <climits>
 #include <cstdint>
@@ -87,6 +107,7 @@
 #include <cuda_bf16.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -542,311 +563,334 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) flash_bwd_kernel(Args a)
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma over TMA tiles
 // ---------------------------------------------------------------------------
-constexpr int kMmaWarps = 4;                 // 16 block rows each
-constexpr int kMmaThreads = 32 * kMmaWarps;  // = kThreads
-constexpr int kMmaRows = 16 * kMmaWarps;     // rows a block owns (= kRows)
-constexpr int kMmaTile = 64;                 // rows of a streamed tile
-static_assert(kMmaThreads == kThreads && kMmaRows == kRows, "one grid for both dtypes");
+constexpr int kWgRows = 64;                    // rows a block owns: one wgmma M
+constexpr int kWgTile = 32;                    // rows of a streamed tile: the wgmma N of S, dP
+constexpr int kWgStages = 4;                   // the ring of streamed tiles
+constexpr int kWgConsumers = 128;              // one warpgroup
+constexpr int kWgThreads = kWgConsumers + 32;  // and the producer warp
+constexpr int kWgMinBlocks = 3;
+constexpr int kRowDotThreads = 256;
 
-struct MmaArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* o;
-  const __nv_bfloat16* dout;
+struct WgArgs {
   const float* lse;
+  const float* delta;  // D = rowsum(o * dO) [B, H, T] f32, from the pre-pass
   const int* seg;
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
   int seq, heads;
   float scale;
 };
 
+// Shared memory of a block (from a 1024-byte aligned base): the two own
+// operands [kWgRows][D], the ring's stages of two streamed [kWgTile][D]
+// tiles (all swizzled by TMA), each stage's metadata (lse, D, segment id of
+// its rows), the barriers, the tile plan.
 template <int D>
-struct MmaBwdTile {
-  static constexpr int kStride = D + 8;  // bf16 a shared row: 16 bytes pad
-  static constexpr int kTileElems = kMmaTile * kStride;
-  // a stage: two [kMmaTile][kStride] tiles, then lse, D and segment ids
-  static constexpr int kStageBytes = 2 * kTileElems * 2 + 3 * kMmaTile * 4;
-  static constexpr int kFixedBytes = 2 * kStageBytes;
+struct WgTile {
+  static constexpr int kRowBytes = 2 * D;
+  static constexpr int kOwnBytes = kWgRows * kRowBytes;
+  static constexpr int kTileBytes = kWgTile * kRowBytes;
+  static constexpr int kStagesOff = 2 * kOwnBytes;
+  static constexpr int kMetaWords = 3 * kWgTile;
+  static constexpr int kMetaOff = kStagesOff + kWgStages * 2 * kTileBytes;
+  static constexpr int kBarOff = kMetaOff + kWgStages * kMetaWords * 4;
+  static constexpr int kPlanOff = kBarOff + (2 * kWgStages + 1) * 8;
+  static_assert(kOwnBytes % 1024 == 0 && kTileBytes % 1024 == 0, "tiles on 1024-byte bases");
 };
 
 // The low and high bf16 of a packed pair as f32 (exact).
 __device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
 
-// The sum over columns [half * D/2, (half + 1) * D/2) of x[row] * y[row] in
-// f32 (0 for a row past T): half of one row's D = rowsum(o * dO).
+// The pre-pass: D[b, h, t] = sum over d of o[b, t, h, d] * dO[b, t, h, d]
+// in f32, once for every row: D / 8 lanes a row, one 16-byte load of each
+// operand a lane (a warp reads whole consecutive rows), summed over the
+// row's lanes by shuffles.
 template <int D>
-__device__ __forceinline__ float half_row_dot(const __nv_bfloat16* x, const __nv_bfloat16* y,
-                                              long long base, long long tok, int row, int half,
-                                              int seq) {
+__global__ void __launch_bounds__(kRowDotThreads)
+    row_dot_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                   float* __restrict__ delta, int seq, int heads, long long rows) {
+  constexpr int kLanes = D / 8;
+  grid_launch_dependents();  // the main kernel's prologue may start
+  const long long r = (static_cast<long long>(blockIdx.x) * kRowDotThreads + threadIdx.x) / kLanes;
+  const int part = threadIdx.x % kLanes;
   float acc = 0.f;
-  if (row >= seq) return acc;
-  const long long off = base + row * tok + half * (D / 2);
-  const uint4* xp = reinterpret_cast<const uint4*>(x + off);
-  const uint4* yp = reinterpret_cast<const uint4*>(y + off);
-#pragma unroll
-  for (int c = 0; c < D / 16; ++c) {  // 8 bf16 a 16-byte load
-    const uint4 xa = __ldg(xp + c);
-    const uint4 yb = __ldg(yp + c);
-    const uint32_t xs[4] = {xa.x, xa.y, xa.z, xa.w};
-    const uint32_t ys[4] = {yb.x, yb.y, yb.z, yb.w};
+  if (r < rows) {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(o + r * D) + part);
+    const uint4 y = __ldg(reinterpret_cast<const uint4*>(dout + r * D) + part);
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+    const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       acc = fmaf(bf16_lo(xs[e]), bf16_lo(ys[e]), acc);
       acc = fmaf(bf16_hi(xs[e]), bf16_hi(ys[e]), acc);
     }
   }
-  return acc;
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (r >= rows || part != 0) return;
+  const long long bt = r / heads;  // r = (b * T + t) * H + h
+  const long long h = r - bt * heads;
+  const long long b = bt / seq;
+  const long long t = bt - b * seq;
+  delta[(b * heads + h) * seq + t] = acc;
 }
 
 // One block's gradients: kKV, dK and dV of keys [blk * 64, + 64) over the
 // planned query tiles; else dQ of queries [blk * 64, + 64) over the planned
-// key tiles. Warp w owns block rows 16w..16w+15; in the mma fragments lane
-// (g = lane / 4, t = lane % 4) holds rows g and g + 8 at columns 2t, 2t + 1.
+// key tiles. own1 / own2 map the block's operands (K, V or Q, dO), str1 /
+// str2 the streamed ones (Q, dO or K, V), out1 / out2 its gradients (dK, dV
+// or dQ). Threads 0-127 are the consumer warpgroup, 128-159 the producer
+// warp.
 template <int D, bool kKV>
-__device__ __forceinline__ void mma_bwd_block(const MmaArgs& a, int blk, unsigned char* smem,
-                                              int* plan) {
-  using Tl = MmaBwdTile<D>;
-  constexpr int kStride = Tl::kStride;
-  constexpr int kChunks = D / 16;          // k-steps over D
-  constexpr int kDTiles = D / 8;           // 8-wide column tiles of a gradient
-  constexpr int kColTiles = kMmaTile / 8;  // 8-wide column tiles of S and dP
-  constexpr int kVecPerRow = D / 8;        // 16-byte chunks a row
+__device__ __forceinline__ void wg_block(const CUtensorMap* own1, const CUtensorMap* own2,
+                                         const CUtensorMap* str1, const CUtensorMap* str2,
+                                         const CUtensorMap* out1, const CUtensorMap* out2,
+                                         const WgArgs& a, int blk, unsigned char* smem) {
+  using Tl = WgTile<D>;
   const int tid = threadIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int seq = a.seq;
+  const int* segb = a.seg + static_cast<long long>(b) * seq;
+  const long long row_stats = (static_cast<long long>(b) * a.heads + h) * seq;
+  const int r0 = blk * kWgRows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Tl::kBarOff);
+  uint64_t* empty = full + kWgStages;
+  uint64_t* own_full = empty + kWgStages;
+  int* plan = reinterpret_cast<int*>(smem + Tl::kPlanOff);
+  float* meta = reinterpret_cast<float*>(smem + Tl::kMetaOff);
+
+  if (tid == kWgConsumers) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full + s, 1 + 32);  // the TMA's bytes, then each lane's metadata
+      mbar_init(empty + s, kWgConsumers);
+    }
+    mbar_init(own_full, 1);
+    mbar_fence_init();
+    // the own operands, while the block plans its tiles
+    mbar_arrive_expect_tx(own_full, 2 * Tl::kOwnBytes);
+#pragma unroll
+    for (int part = 0; part < kWgRows / kWgTile; ++part) {
+      const int row = r0 + part * kWgTile;
+      tma_load_4d(smem + part * Tl::kTileBytes, own1, own_full, 0, h, row, b);
+      tma_load_4d(smem + Tl::kOwnBytes + part * Tl::kTileBytes, own2, own_full, 0, h, row, b);
+    }
+  }
+  // every thread (its barriers also publish the mbarriers' initialisation)
+  const int n = plan_tiles<kWgRows, kWgTile, kWgThreads>(segb, seq, r0, plan);
+
+  if (tid >= kWgConsumers) {  // the producer: streamed tiles and their metadata
+    const int lane = tid - kWgConsumers;
+    if constexpr (kKV) grid_dependency_wait();  // D of the pre-pass
+    for (int idx = 0; idx < n; ++idx) {
+      const int stage = idx % kWgStages;
+      if (idx >= kWgStages) mbar_wait(empty + stage, (idx / kWgStages - 1) & 1);
+      const int c0 = plan[idx] * kWgTile;
+      unsigned char* st = smem + Tl::kStagesOff + stage * 2 * Tl::kTileBytes;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full + stage, 2 * Tl::kTileBytes);
+        tma_load_4d(st, str1, full + stage, 0, h, c0, b);
+        tma_load_4d(st + Tl::kTileBytes, str2, full + stage, 0, h, c0, b);
+      }
+      // the metadata of row c0 + lane by cp.async, which arrives when it has
+      // landed (the producer never waits on a load); a row past T gets a
+      // segment no row has
+      float* m = meta + stage * Tl::kMetaWords;
+      int* mseg = reinterpret_cast<int*>(m + 2 * kWgTile);
+      const int row = c0 + lane;
+      if (row < seq) {
+        cp_async4(mseg + lane, segb + row);
+        if constexpr (kKV) {
+          cp_async4(m + lane, a.lse + row_stats + row);
+          cp_async4(m + kWgTile + lane, a.delta + row_stats + row);
+        }
+        mbar_arrive_cp_async(full + stage);
+      } else {
+        mseg[lane] = kNoSegment;
+        if constexpr (kKV) m[lane] = m[kWgTile + lane] = 0.f;
+        mbar_arrive(full + stage);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: warp w owns block rows 16w + g and 16w + g + 8
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int mi = lane / 8;  // the ldmatrix matrix this lane addresses
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int seq = a.seq;
-  const long long tok = static_cast<long long>(a.heads) * D;
-  const long long base = static_cast<long long>(b) * seq * tok + static_cast<long long>(h) * D;
-  const int* segb = a.seg + static_cast<long long>(b) * seq;
-  const long long row_stats = (static_cast<long long>(b) * a.heads + h) * seq;
-  const int r0 = blk * kMmaRows;
-  // the block's own operands, and the streamed ones
-  const __nv_bfloat16* own1 = kKV ? a.k : a.q;
-  const __nv_bfloat16* own2 = kKV ? a.v : a.dout;
-  const __nv_bfloat16* str1 = kKV ? a.q : a.k;
-  const __nv_bfloat16* str2 = kKV ? a.dout : a.v;
-
   int rows[2];
-  rows[0] = r0 + warp * 16 + g;
-  rows[1] = rows[0] + 8;
   bool live[2];
   int segr[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
+    rows[r] = r0 + 16 * warp + g + 8 * r;
     live[r] = rows[r] < seq;
     segr[r] = live[r] ? segb[rows[r]] : kNoSegment + 1;  // a row past T sees nothing
   }
-  // own rows as A fragments: f[c][0] (row g, cols 16c + 2t, +1), f[c][1]
-  // (row g + 8), f[c][2] / f[c][3] the same rows at cols 16c + 8 + 2t
-  uint32_t f1[kChunks][4], f2[kChunks][4];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = i & 1;
-      const long long off = base + rows[r] * tok + 16 * c + 8 * (i >> 1) + 2 * t;
-      f1[c][i] = live[r] ? ld_u32(own1 + off) : 0u;
-      f2[c][i] = live[r] ? ld_u32(own2 + off) : 0u;
-    }
-  // dQ blocks: their rows' lse (log2 domain) and D, two lanes a row
+  // dQ blocks: their rows' lse (log2 domain) and D
   float lse2[2] = {0.f, 0.f};
   float drow[2] = {0.f, 0.f};
   if constexpr (!kKV) {
-    float acc = half_row_dot<D>(a.o, a.dout, base, tok, r0 + warp * 16 + lane / 2, lane % 2, seq);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    drow[0] = __shfl_sync(0xffffffffu, acc, 2 * g);
-    drow[1] = __shfl_sync(0xffffffffu, acc, 2 * (g + 8));
+    grid_dependency_wait();
 #pragma unroll
-    for (int r = 0; r < 2; ++r) lse2[r] = live[r] ? a.lse[row_stats + rows[r]] * kLog2e : 0.f;
+    for (int r = 0; r < 2; ++r)
+      if (live[r]) {
+        lse2[r] = a.lse[row_stats + rows[r]] * kLog2e;
+        drow[r] = a.delta[row_stats + rows[r]];
+      }
   }
 
-  auto load_tile = [&](int tile, int stage) {
-    __nv_bfloat16* t1 = reinterpret_cast<__nv_bfloat16*>(smem + stage * Tl::kStageBytes);
-    __nv_bfloat16* t2 = t1 + Tl::kTileElems;
-    float* lse_s = reinterpret_cast<float*>(t2 + Tl::kTileElems);
-    float* d_s = lse_s + kMmaTile;
-    int* seg_s = reinterpret_cast<int*>(d_s + kMmaTile);
-    const int c0 = tile * kMmaTile;
-    constexpr int kTotal = kMmaTile * kVecPerRow;
+  constexpr int kAcc = D / 2;  // a [64][D] f32 accumulator's registers a thread
+  float acc1[kAcc];            // dV (dK/dV blocks) or dQ
+  float acc2[kAcc];            // dK (dK/dV blocks)
 #pragma unroll
-    for (int it = 0; it < (kTotal + kMmaThreads - 1) / kMmaThreads; ++it) {
-      const int c = tid + it * kMmaThreads;
-      if (kTotal % kMmaThreads != 0 && c >= kTotal) break;
-      const int r = c / kVecPerRow;
-      const int col = (c % kVecPerRow) * 8;
-      const bool ok = c0 + r < seq;
-      const long long off = ok ? base + (c0 + r) * tok + col : 0;
-      cp_async16(t1 + r * kStride + col, str1 + off, ok);
-      cp_async16(t2 + r * kStride + col, str2 + off, ok);
-    }
-    if (tid < kMmaTile) {
-      if (c0 + tid < seq)
-        cp_async4(seg_s + tid, segb + c0 + tid);
-      else
-        seg_s[tid] = kNoSegment;
-    }
-    if constexpr (kKV) {
-      if (tid < kMmaTile) {
-        if (c0 + tid < seq)
-          cp_async4(lse_s + tid, a.lse + row_stats + c0 + tid);
-        else
-          lse_s[tid] = 0.f;
-      }
-      // D of the tile's queries, two threads a row
-      float acc = half_row_dot<D>(a.o, a.dout, base, tok, c0 + tid / 2, tid % 2, seq);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      if (tid % 2 == 0) d_s[tid / 2] = acc;
-    }
-  };
-
-  const int n = plan_tiles<kMmaRows, kMmaTile, kMmaThreads>(segb, seq, r0, plan);
-  if (n > 0) load_tile(plan[0], 0);
-  cp_async_commit();
-
-  float acc1[kDTiles][4];  // dV (dK/dV blocks) or dQ
-  float acc2[kDTiles][4];  // dK (dK/dV blocks)
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc1[j][i] = acc2[j][i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) acc1[i] = acc2[i] = 0.f;
   const float scale = a.scale;
   const float scale_log2 = scale * kLog2e;
+  const uint32_t base = shared_addr(smem);
+  const uint64_t own1_desc = wgmma_desc(base, Tl::kRowBytes);
+  const uint64_t own2_desc = wgmma_desc(base + Tl::kOwnBytes, Tl::kRowBytes);
+  constexpr uint32_t kStep = 16 * Tl::kRowBytes >> 4;  // 16 rows down, in descriptor units
+  mbar_wait(own_full, 0);
 
   for (int idx = 0; idx < n; ++idx) {
-    cp_async_wait_all();
-    __syncthreads();  // tile idx landed; the other stage is free
-    if (idx + 1 < n) load_tile(plan[idx + 1], (idx + 1) & 1);
-    cp_async_commit();
-
-    const unsigned char* st = smem + (idx & 1) * Tl::kStageBytes;
-    const __nv_bfloat16* t1 = reinterpret_cast<const __nv_bfloat16*>(st);
-    const __nv_bfloat16* t2 = t1 + Tl::kTileElems;
-    const float* lse_s = reinterpret_cast<const float*>(t2 + Tl::kTileElems);
-    const float* d_s = lse_s + kMmaTile;
-    const int* seg_s = reinterpret_cast<const int*>(d_s + kMmaTile);
+    const int stage = idx % kWgStages;
+    mbar_wait(full + stage, (idx / kWgStages) & 1);
+    const uint32_t st = base + Tl::kStagesOff + stage * 2 * Tl::kTileBytes;
+    const uint64_t str1_desc = wgmma_desc(st, Tl::kRowBytes);
+    const uint64_t str2_desc = wgmma_desc(st + Tl::kTileBytes, Tl::kRowBytes);
+    const float* m = meta + stage * Tl::kMetaWords;
+    const int2* seg2 = reinterpret_cast<const int2*>(m + 2 * kWgTile);
 
     // S = own1 str1^T and dP = own2 str2^T (for dK/dV blocks the transposes
-    // S^T and dP^T): s[j] holds the tile's columns 8j..8j+7; one x4
-    // ldmatrix gives the B fragments of column tiles 2jp and 2jp + 1
-    float s[kColTiles][4], dp[kColTiles][4];
+    // S^T and dP^T), 64 x 32 each, issued as two groups: k-steps of 16
+    // columns, 32 bytes along the swizzled rows (the first overwrites)
+    float s[16], dp[16];
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kColTiles; ++j)
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n32(s, own1_desc + 2 * kk, str1_desc + 2 * kk, kk);
+    wgmma_commit();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-#pragma unroll
-    for (int jp = 0; jp < kColTiles / 2; ++jp) {
-      const int roff = (16 * jp + 8 * (mi >> 1) + lane % 8) * kStride + 8 * (mi & 1);
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, t1 + roff + 16 * c);
-        mma_bf16(s[2 * jp], f1[c], bf[0], bf[1]);
-        mma_bf16(s[2 * jp + 1], f1[c], bf[2], bf[3]);
-        ldmatrix_x4(bf, t2 + roff + 16 * c);
-        mma_bf16(dp[2 * jp], f2[c], bf[0], bf[1]);
-        mma_bf16(dp[2 * jp + 1], f2[c], bf[2], bf[3]);
-      }
-    }
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n32(dp, own2_desc + 2 * kk, str2_desc + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    wgmma_fence_regs(s);
 
-    // P = exp(scale S - lse) where the segments match, else 0, and dS =
-    // (dP - D) P scale, in f32 (the query's lse and D: per column for dK/dV
-    // blocks, per row for dQ blocks)
+    // P = exp(scale S - lse) where the segments match, else 0, in f32 (the
+    // query's lse: per column for dK/dV blocks, per row for dQ blocks);
+    // columns 8j + 2t and + 1 of a thread read as pairs. P and dS go to
+    // registers of their own: only wgmma writes its accumulators, or ptxas
+    // serializes the wgmma pipeline.
+    float p[16];
 #pragma unroll
-    for (int j = 0; j < kColTiles; ++j)
+    for (int j = 0; j < 4; ++j) {
+      const int col = 8 * j + 2 * t;
+      const int2 sc = seg2[col / 2];
+      const float2 l2c = kKV ? reinterpret_cast<const float2*>(m)[col / 2] : make_float2(0.f, 0.f);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * j + 2 * t + e;
-        const int sc = seg_s[col];
-        float l2c = 0.f, dc = 0.f;
-        if constexpr (kKV) {
-          l2c = lse_s[col] * kLog2e;
-          dc = d_s[col];
-        }
+      for (int e = 0; e < 2; ++e)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const int i = 2 * r + e;
-          const float l2 = kKV ? l2c : lse2[r];
-          const float dd = kKV ? dc : drow[r];
-          const float p = sc == segr[r] ? fast_exp2(fmaf(s[j][i], scale_log2, -l2)) : 0.f;
-          s[j][i] = p;
-          dp[j][i] = (dp[j][i] - dd) * p * scale;
+          const int i = 4 * j + 2 * r + e;
+          const float l2 = kKV ? (e ? l2c.y : l2c.x) * kLog2e : lse2[r];
+          p[i] = (e ? sc.y : sc.x) == segr[r] ? fast_exp2(fmaf(s[i], scale_log2, -l2)) : 0.f;
         }
-      }
-
-    // dV += P^T dO and dK += dS^T Q (dK/dV blocks), or dQ += dS K: P and dS
-    // as bf16 A fragments, 16 tile rows a k-step; the tile's rows (the
-    // k-dimension) as B fragments through ldmatrix.trans
-#pragma unroll
-    for (int kc = 0; kc < kColTiles / 2; ++kc) {
-      uint32_t pa[4], da[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int j = 2 * kc + (i >> 1);
-        const int r = i & 1;
-        pa[i] = pack_bf16(s[j][2 * r], s[j][2 * r + 1]);
-        da[i] = pack_bf16(dp[j][2 * r], dp[j][2 * r + 1]);
-      }
-#pragma unroll
-      for (int dpi = 0; dpi < kDTiles / 2; ++dpi) {
-        // matrix i: tile rows 16kc + 8*(i&1) .., columns 16dpi + 8*(i>>1) ..;
-        // registers 0/1 feed column tile 2dpi, 2/3 column tile 2dpi + 1
-        const int toff = (16 * kc + 8 * (mi & 1) + lane % 8) * kStride + 16 * dpi + 8 * (mi >> 1);
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, t1 + toff);
-        if constexpr (kKV) {
-          mma_bf16(acc2[2 * dpi], da, bf[0], bf[1]);
-          mma_bf16(acc2[2 * dpi + 1], da, bf[2], bf[3]);
-          ldmatrix_x4_trans(bf, t2 + toff);
-          mma_bf16(acc1[2 * dpi], pa, bf[0], bf[1]);
-          mma_bf16(acc1[2 * dpi + 1], pa, bf[2], bf[3]);
-        } else {
-          mma_bf16(acc1[2 * dpi], da, bf[0], bf[1]);
-          mma_bf16(acc1[2 * dpi + 1], da, bf[2], bf[3]);
-        }
-      }
     }
+    // P rounded to bf16 as A fragments in registers: k-step kk is the
+    // accumulator's columns 16kk..16kk+15, fragment register q the pair of
+    // elements 8kk + 2q, + 1 (row 16w + g + 8 (q & 1), columns 8j + 2t, + 1
+    // with j = 2kk + q / 2). dK/dV blocks issue dV += P^T dO with the
+    // streamed dO as an MN-major B (16 rows a k-step) while dS is formed.
+    if constexpr (kKV) {
+      uint32_t pa[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          pa[kk][q] = pack_bf16(p[8 * kk + 2 * q], p[8 * kk + 2 * q + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) wgmma_rs<D>(acc1, pa[kk], str2_desc + kk * kStep, 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // dP (committed before dV)
+    } else {
+      wgmma_wait<0>();
+    }
+    // dS = (dP - D) P scale in f32, rounded to bf16 the same way
+    wgmma_fence_regs(dp);
+    uint32_t da[2][4];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = 8 * kk + 2 * q;
+        const float2 dd = kKV ? reinterpret_cast<const float2*>(m + kWgTile)[4 * (2 * kk + q / 2) + t]
+                              : make_float2(drow[q & 1], drow[q & 1]);
+        da[kk][q] = pack_bf16((dp[i] - dd.x) * p[i] * scale, (dp[i + 1] - dd.y) * p[i + 1] * scale);
+      }
+    // dK += dS^T Q (dK/dV blocks), or dQ += dS K
+    float (&acc_ds)[kAcc] = kKV ? acc2 : acc1;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) wgmma_rs<D>(acc_ds, da[kk], str1_desc + kk * kStep, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc1);
+    if constexpr (kKV) wgmma_fence_regs(acc2);
+    mbar_arrive(empty + stage);  // the stage's tiles and metadata are read
   }
-  cp_async_wait_all();
 
-  // each gradient cast to bf16 once
-  auto store = [&](__nv_bfloat16* grad, const float (&acc)[kDTiles][4]) {
+  // each gradient cast to bf16 once, laid out in the own operands' shared
+  // memory (free now) as TMA's swizzle wants it, and stored by TMA: rows
+  // past T are not written
+  auto stage_out = [&](unsigned char* dst, const float (&acc)[kAcc]) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (!live[r]) continue;
-      __nv_bfloat16* op = grad + base + rows[r] * tok + 2 * t;
+      const int row = 16 * warp + g + 8 * r;
 #pragma unroll
-      for (int j = 0; j < kDTiles; ++j)
-        *reinterpret_cast<uint32_t*>(op + 8 * j) = pack_bf16(acc[j][2 * r], acc[j][2 * r + 1]);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + swizzled_chunk_offset(row, j, Tl::kRowBytes) + 4 * t) =
+            pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     }
   };
-  if constexpr (kKV) {
-    store(a.dk, acc2);
-    store(a.dv, acc1);
-  } else {
-    store(a.dq, acc1);
+  stage_out(smem, kKV ? acc2 : acc1);  // dK or dQ
+  if constexpr (kKV) stage_out(smem + Tl::kOwnBytes, acc1);  // dV
+  fence_shared_to_async();
+  named_barrier(1, kWgConsumers);
+  if (tid == 0) {
+#pragma unroll
+    for (int part = 0; part < kWgRows / kWgTile; ++part) {
+      const int row = r0 + part * kWgTile;
+      tma_store_4d(out1, smem + part * Tl::kTileBytes, 0, h, row, b);
+      if constexpr (kKV) tma_store_4d(out2, smem + Tl::kOwnBytes + part * Tl::kTileBytes, 0, h, row, b);
+    }
+    tma_store_commit();
+    tma_store_wait_all();
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) flash_bwd_mma_kernel(MmaArgs a) {
-  extern __shared__ __align__(16) unsigned char mma_smem[];
-  int* plan = reinterpret_cast<int*>(mma_smem + MmaBwdTile<D>::kFixedBytes);
+__global__ void __launch_bounds__(kWgThreads, kWgMinBlocks)
+    flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const __grid_constant__ CUtensorMap dq_map,
+                           const __grid_constant__ CUtensorMap dk_map,
+                           const __grid_constant__ CUtensorMap dv_map, const WgArgs a) {
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  // a 1024-byte aligned base: the 128-byte swizzle's atom
+  unsigned char* smem = wg_smem + ((1024u - (shared_addr(wg_smem) & 1023u)) & 1023u);
   const int half = gridDim.x / 2;  // the dK/dV blocks come first
   if (blockIdx.x < half)
-    mma_bwd_block<D, true>(a, blockIdx.x, mma_smem, plan);
+    wg_block<D, true>(&k_map, &v_map, &q_map, &do_map, &dk_map, &dv_map, a, blockIdx.x, smem);
   else
-    mma_bwd_block<D, false>(a, blockIdx.x - half, mma_smem, plan);
+    wg_block<D, false>(&q_map, &do_map, &k_map, &v_map, &dq_map, nullptr, a, blockIdx.x - half,
+                       smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -854,18 +898,20 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_mma_kernel(MmaArgs a) {
 // ---------------------------------------------------------------------------
 struct Config {
   const void* fn;
-  int smem;  // dynamic shared memory bytes
-  int tile;  // rows of a streamed tile
+  int smem;     // dynamic shared memory bytes
+  int tile;     // rows of a streamed tile
+  int threads;  // a block
 };
 
 template <int D>
 Config config(int seq, int dtype) {
-  if (dtype == 1)
-    return Config{reinterpret_cast<const void*>(flash_bwd_mma_kernel<D>),
-                  MmaBwdTile<D>::kFixedBytes + (plan_bytes(seq, kMmaTile) + 15) / 16 * 16,
-                  kMmaTile};
+  if (dtype == 1)  // + 1024 bytes to align the base
+    return Config{reinterpret_cast<const void*>(flash_bwd_wgmma_kernel<D>),
+                  WgTile<D>::kPlanOff + (plan_bytes(seq, kWgTile) + 15) / 16 * 16 + 1024,
+                  kWgTile, kWgThreads};
   return Config{reinterpret_cast<const void*>(flash_bwd_kernel<D>),
-                BwdTile<D>::kFixedBytes + (plan_bytes(seq, kTile) + 15) / 16 * 16, kTile};
+                BwdTile<D>::kFixedBytes + (plan_bytes(seq, kTile) + 15) / 16 * 16, kTile,
+                kThreads};
 }
 
 Config config_for(int seq, int head_dim, int dtype) {
@@ -873,7 +919,7 @@ Config config_for(int seq, int head_dim, int dtype) {
     case 16: return config<16>(seq, dtype);
     case 32: return config<32>(seq, dtype);
     case 64: return config<64>(seq, dtype);
-    default: return Config{nullptr, 0, 0};
+    default: return Config{nullptr, 0, 0, 0};
   }
 }
 
@@ -889,48 +935,104 @@ bool valid_args(int batch, int seq, int heads, int head_dim, int dtype) {
          (head_dim == 16 || head_dim == 32 || head_dim == 64);
 }
 
+template <int D>
+cudaError_t launch_row_dot(const void* o, const void* dout, void* delta, int batch, int seq,
+                           int heads, cudaStream_t st) {
+  const long long rows = static_cast<long long>(batch) * seq * heads;
+  constexpr int kRowsABlock = kRowDotThreads / (D / 8);
+  row_dot_kernel<D><<<static_cast<unsigned>((rows + kRowsABlock - 1) / kRowsABlock),
+                      kRowDotThreads, 0, st>>>(static_cast<const __nv_bfloat16*>(o),
+                                               static_cast<const __nv_bfloat16*>(dout),
+                                               static_cast<float*>(delta), seq, heads, rows);
+  return cudaGetLastError();
+}
+
+cudaError_t row_dot_for(const void* o, const void* dout, void* delta, int batch, int seq,
+                        int heads, int head_dim, cudaStream_t st) {
+  switch (head_dim) {
+    case 16: return launch_row_dot<16>(o, dout, delta, batch, seq, heads, st);
+    case 32: return launch_row_dot<32>(o, dout, delta, batch, seq, heads, st);
+    default: return launch_row_dot<64>(o, dout, delta, batch, seq, heads, st);
+  }
+}
+
+// The bf16 backward: the tensor maps, the D pre-pass, then the main kernel
+// launched as its programmatic dependent (its prologue overlaps the
+// pre-pass; it reads D after griddepcontrol.wait).
+cudaError_t launch_bf16(const Config& cfg, const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const void* lse, const void* seg,
+                        void* delta, void* dq, void* dk, void* dv, int batch, int seq, int heads,
+                        int head_dim, float scale, cudaStream_t st) {
+  CUtensorMap maps[7];
+  const void* base[7] = {q, k, v, dout, dq, dk, dv};
+  for (int i = 0; i < 7; ++i)
+    if (!encode_bthd_map(&maps[i], base[i], batch, seq, heads, head_dim, kWgTile))
+      return cudaErrorInvalidValue;
+  cudaError_t err = row_dot_for(o, dout, delta, batch, seq, heads, head_dim, st);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t lc = {};
+  // one dK/dV and one dQ block per 64 rows, the dK/dV blocks first
+  lc.gridDim = dim3(2 * ((seq + kWgRows - 1) / kWgRows), heads, batch);
+  lc.blockDim = dim3(kWgThreads);
+  lc.dynamicSmemBytes = cfg.smem;
+  lc.stream = st;
+  lc.attrs = attr;
+  lc.numAttrs = 1;
+  const WgArgs args{static_cast<const float*>(lse), static_cast<const float*>(delta),
+                    static_cast<const int*>(seg), seq, heads, scale};
+  using Kernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap,
+                          CUtensorMap, CUtensorMap, WgArgs);
+  return cudaLaunchKernelEx(&lc, reinterpret_cast<Kernel>(const_cast<void*>(cfg.fn)), maps[0],
+                            maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], args);
+}
+
 }  // namespace
 
 // dQ, dK, dV of one flash-attention call, head_dim 16, 32 or 64; dtype 0 =
 // float32 (every tensor f32), 1 = bfloat16 (q, k, v, o, dout and the
 // gradients bf16); o is the forward's output, lse its [B, H, T] f32
-// log-sum-exp. Returns a cudaError_t (0 = launched).
+// log-sum-exp. delta is [B, H, T] f32 scratch the bf16 path fills with D =
+// rowsum(o * dout) before its main kernel reads it (unused by f32; may be
+// null there). Returns a cudaError_t (0 = launched).
 extern "C" int convdr_flash_attention_bwd(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           const void* seg, void* dq, void* dk, void* dv,
-                                          int batch, int seq, int heads, int head_dim,
-                                          float scale, int dtype, void* stream) {
-  if (!valid_args(batch, seq, heads, head_dim, dtype))
+                                          void* delta, int batch, int seq, int heads,
+                                          int head_dim, float scale, int dtype, void* stream) {
+  if (!valid_args(batch, seq, heads, head_dim, dtype) || (dtype == 1 && delta == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Config cfg = config_for(seq, head_dim, dtype);
   cudaError_t err = allow_smem(cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return static_cast<int>(launch_bf16(cfg, q, k, v, o, dout, lse, seg, delta, dq, dk, dv,
+                                        batch, seq, heads, head_dim, scale, st));
   // one dK/dV and one dQ block per 64 rows, the dK/dV blocks first
   const dim3 grid(2 * ((seq + kRows - 1) / kRows), heads, batch);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    using B16 = __nv_bfloat16;
-    const MmaArgs args{static_cast<const B16*>(q),     static_cast<const B16*>(k),
-                       static_cast<const B16*>(v),     static_cast<const B16*>(o),
-                       static_cast<const B16*>(dout),  static_cast<const float*>(lse),
-                       static_cast<const int*>(seg),   static_cast<B16*>(dq),
-                       static_cast<B16*>(dk),          static_cast<B16*>(dv),
-                       seq,                            heads,
-                       scale};
-    reinterpret_cast<void (*)(MmaArgs)>(const_cast<void*>(cfg.fn))
-        <<<grid, kMmaThreads, cfg.smem, st>>>(args);
-  } else {
-    const Args args{static_cast<const float*>(q),    static_cast<const float*>(k),
-                    static_cast<const float*>(v),    static_cast<const float*>(o),
-                    static_cast<const float*>(dout), static_cast<const float*>(lse),
-                    static_cast<const int*>(seg),    static_cast<float*>(dq),
-                    static_cast<float*>(dk),         static_cast<float*>(dv),
-                    seq,                             heads,
-                    scale};
-    reinterpret_cast<void (*)(Args)>(const_cast<void*>(cfg.fn))
-        <<<grid, kThreads, cfg.smem, st>>>(args);
-  }
+  const Args args{static_cast<const float*>(q),    static_cast<const float*>(k),
+                  static_cast<const float*>(v),    static_cast<const float*>(o),
+                  static_cast<const float*>(dout), static_cast<const float*>(lse),
+                  static_cast<const int*>(seg),    static_cast<float*>(dq),
+                  static_cast<float*>(dk),         static_cast<float*>(dv),
+                  seq,                             heads,
+                  scale};
+  reinterpret_cast<void (*)(Args)>(const_cast<void*>(cfg.fn))
+      <<<grid, kThreads, cfg.smem, st>>>(args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 pre-pass alone: delta [B, H, T] f32 = rowsum(o * dout) of bf16
+// [B, T, H, D] o and dout. Returns a cudaError_t.
+extern "C" int convdr_flash_attention_bwd_delta(const void* o, const void* dout, void* delta,
+                                                int batch, int seq, int heads, int head_dim,
+                                                void* stream) {
+  if (!valid_args(batch, seq, heads, head_dim, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(row_dot_for(o, dout, delta, batch, seq, heads, head_dim,
+                                      static_cast<cudaStream_t>(stream)));
 }
 
 // The launch configuration for a problem (dtype as above): out[0] threads a
@@ -946,8 +1048,8 @@ extern "C" int convdr_flash_attention_bwd_config(int batch, int seq, int heads, 
   cudaError_t err = allow_smem(cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cfg.fn, kThreads, cfg.smem);
-  out[0] = kThreads;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cfg.fn, cfg.threads, cfg.smem);
+  out[0] = cfg.threads;
   out[1] = cfg.smem;
   out[2] = kRows;
   out[3] = blocks;

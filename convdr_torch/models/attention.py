@@ -103,7 +103,8 @@ def flash_attention_bwd_plain(q, k, v, o, do, attention_mask):
 
 
 def _check(name, tensors, attention_mask, dtypes):
-    """Validate [B, T, H, D] CUDA operands and the [B, T] mask; -> (b, t, h, d)."""
+    """Validate [B, T, H, D] CUDA operands and the [B, T] mask (if given);
+    -> (b, t, h, d)."""
     q = tensors[0]
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
@@ -124,16 +125,18 @@ def _check(name, tensors, attention_mask, dtypes):
         raise ValueError(f"{name} needs contiguous operands")
     if any(x.data_ptr() % 16 for x in tensors):
         raise ValueError(f"{name} needs 16-byte aligned operands")
-    if tuple(attention_mask.shape) != (b, t):
+    if attention_mask is not None and tuple(attention_mask.shape) != (b, t):
         raise ValueError(f"{name}: mask {tuple(attention_mask.shape)} != {(b, t)}")
-    if any(x.device != q.device for x in tensors) or attention_mask.device != q.device:
+    if any(x.device != q.device for x in tensors) or (
+            attention_mask is not None and attention_mask.device != q.device):
         raise ValueError(f"{name}: operands and mask must share a device")
     return b, t, h, d
 
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGTYPES = [_PTR] * 6 + [_INT] * 4 + [_FLOAT, _INT, _PTR]
-_BWD_ARGTYPES = [_PTR] * 10 + [_INT] * 4 + [_FLOAT, _INT, _PTR]
+_BWD_ARGTYPES = [_PTR] * 11 + [_INT] * 4 + [_FLOAT, _INT, _PTR]
+_DELTA_ARGTYPES = [_PTR] * 3 + [_INT] * 4 + [_PTR]
 
 
 def flash_attention_fwd_config(batch, seq, heads, head_dim, dtype):
@@ -193,12 +196,13 @@ def flash_attention_bwd(q, k, v, o, do, attention_mask, lse):
     with upstream gradient ``do``; ``lse`` [B, H, T] is the forward's
     per-row log-sum-exp.
 
-    CUDA tensors go through the kernel of ``csrc/flash_attention_bwd.cu``
-    (f32, or bf16 with bf16 gradients; one launch computes all three
-    gradients and rowsum(dO * O)); CPU tensors through
-    :func:`flash_attention_bwd_plain` (which needs no ``lse``).
-    ``flash_attention_bwd.launches`` counts kernel launches, one per call on
-    the card.
+    CUDA tensors go through the kernels of ``csrc/flash_attention_bwd.cu``
+    (f32: one launch computes all three gradients and rowsum(dO * O); bf16,
+    with bf16 gradients: a pre-pass writes rowsum(dO * O) into a [B, H, T]
+    f32 scratch made here, then one launch computes the three gradients);
+    CPU tensors through :func:`flash_attention_bwd_plain` (which needs no
+    ``lse``). ``flash_attention_bwd.launches`` counts calls that launched
+    on the card, one per call.
     """
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, attention_mask)
@@ -209,11 +213,14 @@ def flash_attention_bwd(q, k, v, o, do, attention_mask, lse):
     seg = attention_mask.to(torch.int32).contiguous()
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = (torch.empty((b, h, t), device=q.device, dtype=torch.float32)
+             if q.dtype == torch.bfloat16 else None)
     fn = cuda_build.bind("flash_attention_bwd", "convdr_flash_attention_bwd", _BWD_ARGTYPES)
     rc = cuda_build.launch(
         fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), seg.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, t, h, d, 1.0 / d ** 0.5, _DTYPE_CODES[q.dtype],
+        None if delta is None else delta.data_ptr(), b, t, h, d, 1.0 / d ** 0.5,
+        _DTYPE_CODES[q.dtype],
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {rc}")
@@ -222,6 +229,21 @@ def flash_attention_bwd(q, k, v, o, do, attention_mask, lse):
 
 
 flash_attention_bwd.launches = 0
+
+
+def flash_attention_bwd_delta(o, do):
+    """The bf16 backward's pre-pass alone on CUDA tensors: rowsum(o * do) in
+    f32 of bf16 [B, T, H, D] ``o`` and ``do``, as [B, H, T] (the D that
+    :func:`flash_attention_bwd` computes once a call)."""
+    b, t, h, d = _check("flash_attention_bwd_delta", (o, do), None, (torch.bfloat16,))
+    delta = torch.empty((b, h, t), device=o.device, dtype=torch.float32)
+    fn = cuda_build.bind("flash_attention_bwd", "convdr_flash_attention_bwd_delta",
+                         _DELTA_ARGTYPES)
+    rc = cuda_build.launch(fn, o.device, o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+                           b, t, h, d)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd_delta launch failed: CUDA error {rc}")
+    return delta
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -206,7 +206,9 @@ def run(cmd_module, argv, tag, stage_seconds):
 def oracle_subset_check(ann_dir, raw_dir, model_path, args, device):
     """Top-100 exactness on 8 queries: the port's searcher against an exact
     plain search (numpy, blocked, over the same block files) as sets.
-    Returns the number of queries whose sets differ."""
+    Returns the number of queries whose sets differ, and prints each one's
+    differing ids with their f64 scores beside the f64 scores of ranks 100
+    and 101."""
     import torch
 
     from convdr_torch.core.config import SearchConfig
@@ -252,7 +254,23 @@ def oracle_subset_check(ann_dir, raw_dir, model_path, args, device):
             keep = np.argpartition(-cs, 99, axis=1)[:, :100]
             best_s = np.take_along_axis(cs, keep, axis=1)
             best_i = np.take_along_axis(ci, keep, axis=1)
-    return int(sum(set(got_offs[r]) != set(best_i[r]) for r in range(q.shape[0])))
+    mismatches = 0
+    for r in range(q.shape[0]):
+        got, want = set(got_offs[r].tolist()), set(best_i[r].tolist())
+        if got == want:
+            continue
+        mismatches += 1
+        # the f64 scores around the cut, to tell a near-tie from a fault
+        s64 = np.concatenate([emb.astype(np.float64) @ q[r].astype(np.float64)
+                              for _b, emb, _offs in iter_embedding_blocks(ann_dir)])
+        pids = np.concatenate([offs for _b, _emb, offs in iter_embedding_blocks(ann_dir)])
+        by_pid = dict(zip(pids.tolist(), s64.tolist()))
+        cut = np.sort(s64)[::-1][99:101]
+        print(f"[rehearsal] oracle query {r}: searcher only {sorted(got - want)}, numpy only "
+              f"{sorted(want - got)}; f64 scores "
+              + ", ".join(f"{p}: {by_pid[p]!r}" for p in sorted(got ^ want))
+              + f"; f64 ranks 100 / 101: {cut[0]!r} / {cut[1]!r}")
+    return mismatches
 
 
 def main(argv=None):

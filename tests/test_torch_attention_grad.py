@@ -23,6 +23,9 @@ SHAPES = [
     (3, 16, 2, 16, [16, 5, 0]),        # ragged, with an all-pad row
     (2, 37, 3, 32, [37, 1]),           # T not a tile multiple
     (4, 64, 12, 64, [64, 63, 20, 2]),  # base-model head shape
+    # the card's tile cuts: 64-row blocks and 32-row tiles cut by T
+    (5, 200, 12, 64, [200, 131, 64, 33, 1]),
+    (2, 513, 2, 64, [513, 257]),
 ]
 
 

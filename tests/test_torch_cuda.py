@@ -41,6 +41,7 @@ from convdr_torch.models.attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_config,
+    flash_attention_bwd_delta,
     flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_plain,
@@ -347,7 +348,7 @@ def test_flash_bwd_config_fits_three_blocks_an_sm(cuda):
     assert cfg["blocks_per_sm"] == 3 and cfg["smem_bytes"] <= 227 * 1024 // 3
 
 
-def test_flash_bwd_rejects_bf16(cuda):
+def test_flash_bwd_bf16_launches_once_with_finite_grads(cuda):
     """bf16 training raised NOT_PORTED once; now its forward (with lse) and
     its backward each launch once and give finite bf16 gradients."""
     q, k, v, mask = attention_problem(2, 16, 2, 64, torch.bfloat16)
@@ -367,7 +368,11 @@ def test_flash_bwd_rejects_bf16(cuda):
 BF16_LSE_CASES = [(4, 256, 12, 64), (4, 64, 12, 64), (5, 200, 12, 64), (3, 77, 2, 32),
                   (2, 40, 2, 16), (1, 3000, 1, 64)]
 BF16_BWD_CASES = [(4, 256, 12, 64), (4, 64, 12, 64), (5, 200, 12, 64), (3, 77, 2, 32),
-                  (2, 40, 2, 16), (2, 513, 2, 64)]
+                  (2, 40, 2, 16), (2, 513, 2, 64),
+                  # many planned tiles with segment gaps (random mask), a long
+                  # row; 32-row TMA boxes that straddle T
+                  (2, 1024, 2, 64), (1, 3000, 1, 64), (2, 63, 3, 64), (3, 65, 2, 32),
+                  (2, 65, 2, 16)]
 
 
 @pytest.mark.parametrize("mask_kind", ["right", "left", "middle", "random"])
@@ -428,9 +433,31 @@ def test_flash_bwd_bf16_kernel_against_f64_and_sdpa(cuda, b, t, h, d, mask_kind)
 
 
 def test_flash_bwd_bf16_config(cuda):
+    """One consumer warpgroup and one producer warp, 64 rows a block, 32-row
+    streamed tiles; at the student's shape (B=4 T=256 H=12) its 2 x 4 x 12
+    x 4 = 384 blocks run in one wave."""
     cfg = flash_attention_bwd_config(4, 256, 12, 64, torch.bfloat16)
-    assert (cfg["threads"], cfg["block_rows"], cfg["tile_rows"]) == (128, 64, 64)
-    assert cfg["blocks_per_sm"] >= 1
+    assert (cfg["threads"], cfg["block_rows"], cfg["tile_rows"]) == (160, 64, 32)
+    blocks = 2 * (256 // cfg["block_rows"]) * 12 * 4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert cfg["blocks_per_sm"] >= 3 and blocks <= cfg["blocks_per_sm"] * sms
+
+
+@pytest.mark.parametrize("b,t,h,d", [(4, 256, 12, 64), (3, 65, 2, 32), (2, 40, 3, 16)])
+def test_flash_bwd_bf16_delta_prepass(cuda, b, t, h, d):
+    """The pre-pass's D = rowsum(o * dO) [B, H, T] against the f32 sum of
+    the same bf16 products, within 1e-5 of the row's sum of |o * dO| (f32
+    sums in another order)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    o, do = (torch.randn((b, t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    got = flash_attention_bwd_delta(o, do)
+    torch.cuda.synchronize()
+    prod = o.float() * do.float()
+    want = prod.sum(-1).transpose(1, 2)
+    bound = 1e-5 * prod.abs().sum(-1).transpose(1, 2)
+    assert got.shape == (b, h, t) and got.dtype == torch.float32
+    assert bool(((got - want).abs() <= bound).all())
 
 
 def test_train_step_on_card_matches_cpu(cuda):

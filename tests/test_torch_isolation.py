@@ -35,7 +35,7 @@ for name in ("convdr_torch.drivers.tokenize_collection", "convdr_torch.native_io
              "convdr_torch.etl.cast19", "convdr_torch.etl.cast20", "convdr_torch.etl.cast21",
              "convdr_torch.etl.orquac", "convdr_torch.etl.id_remap",
              "convdr_torch.data.process_fns", "convdr_torch.evaluation.qa_eval",
-             "convdr_torch.utils.misc"):
+             "convdr_torch.utils.misc", "convdr_torch.scripts.attention_bwd_bench"):
     assert name in names, names
 bad = sorted(
     m for m in sys.modules
