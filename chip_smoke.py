@@ -191,6 +191,20 @@ C. Multi-GPU at world size 1 (the card holds one NCCL rank): the
    all-gather time of the [1, 512, 100] lists, the sharded and unsharded
    search times and the phase's seconds; the kernels' counts are zeroed
    before and read after (the torchrun ranks print theirs).
+O. (after 4) The JAX package's orbax checkpoints: (a) the committed
+   JAX-written fixture ``tests/fixtures_torch/jax_orbax_tiny`` (the tiny
+   model's TrainState with accumulation 2) decoded by the port's zstd /
+   OCDBT / zarr reader (the decoder built by g++ here) to the sha256 of
+   every array recorded beside it; (b) phase 4's full-width f32 TrainState
+   after 2 steps saved with ``save_orbax_checkpoint`` and restored into a
+   fresh state, every parameter and moment ``torch.equal``; (c)
+   ``run_convdr_inference --model_path <orbax dir>`` over phase 3's blocks
+   and topics, its TREC run byte-identical to the one from the same
+   weights as the port's own model dir; (d) ``run_convdr_train --resume``
+   2 steps from the orbax ``checkpoint-2`` and from ``train_state.pt``,
+   losses and parameters bit-identical. Prints the dir's bytes, write and
+   read s, the decoder's MB/s, the peak RSS over the read and the phase's
+   seconds; kernels 1, 1b, 2 and 5 are counted from zero around it.
 5. Prints the training ms per step and examples/s, a ``{"kernels": [...]}``
    line (launches, max error, kernel / plain / library / bound times in ms,
    CUDA-event timed after warm-up), and last ``{"ok": true, "device": ...}``.
@@ -293,8 +307,11 @@ from convdr_torch.retrieval.online import (
 from convdr_torch.retrieval.pq_index import PQIndex
 from convdr_torch.scripts import rehearsal
 from convdr_torch.scripts.multi_gpu_check import make_train_file
+from convdr_torch import native_io
+from convdr_torch.train import checkpoint as train_checkpoint
 from convdr_torch.train.losses import kd_mse_loss, ranking_nll_loss
 from convdr_torch.train.trainer import create_train_state, make_train_step
+from convdr_torch.utils.ocdbt import OcdbtReader
 from convdr_torch.utils.observability import TRACE_SPAN, profile_trace
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2280,6 +2297,290 @@ def data_plane_path(paths, qids, q_embs):
             "exact_queries": exact, "score_err_at_shape": err.max().item(), "trace": trace}
 
 
+# ---------------------------------------------------------------------------
+# phase O: the JAX package's orbax checkpoints (OCDBT + zarr v2, zstd)
+# ---------------------------------------------------------------------------
+ORBAX_FIXTURE = os.path.join(REPO, "tests", "fixtures_torch", "jax_orbax_tiny")
+
+
+class DecoderClock:
+    """Sums the seconds and decoded bytes of every chunk decode
+    (``native_io.zstd_decompress``, which the zarr layer calls) while
+    active."""
+
+    def __enter__(self):
+        self.seconds, self.nbytes, self.frames, self.largest = 0.0, 0, 0, 0
+        self.real = native_io.zstd_decompress
+
+        def timed(frame, out=None, size=None):
+            t0 = time.perf_counter()
+            got = self.real(frame, out=out, size=size)
+            self.seconds += time.perf_counter() - t0
+            self.nbytes += got.nbytes
+            self.frames += 1
+            self.largest = max(self.largest, len(frame))
+            return got
+
+        native_io.zstd_decompress = timed
+        return self
+
+    def __exit__(self, *exc):
+        native_io.zstd_decompress = self.real
+
+    def summary(self):
+        return {"decoded_bytes": self.nbytes, "decoder_s": self.seconds, "frames": self.frames,
+                "largest_frame_bytes": self.largest,
+                "decoder_MBps": self.nbytes / max(self.seconds, 1e-9) / 1e6}
+
+
+class PeakRss:
+    """The process's peak resident set while active, sampled every 5 ms
+    from /proc/self/statm."""
+
+    def __enter__(self):
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self.rss()
+        self.stop = threading.Event()
+
+        def sample():
+            while not self.stop.wait(0.005):
+                self.peak = max(self.peak, self.rss())
+
+        self.thread = threading.Thread(target=sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def rss(self):
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join()
+        self.peak = max(self.peak, self.rss())
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, n)) for d, _, names in os.walk(path)
+               for n in names)
+
+
+def tree_digests(tree):
+    out = {}
+    for keys, leaf in train_checkpoint.orbax_leaves(tree):
+        if leaf is None:
+            continue
+        t = leaf.contiguous()
+        words = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        out[".".join(k for _, k in keys)] = {
+            "sha256": hashlib.sha256(words.numpy().tobytes()).hexdigest(),
+            "shape": list(t.shape), "dtype": str(t.dtype).replace("torch.", "")}
+    return out
+
+
+def orbax_fixture_check():
+    """(a) The committed JAX-written fixture decodes on this machine (its g++
+    build of the decoder on real zstd frames) to the digests recorded
+    beside it."""
+    with open(os.path.join(ORBAX_FIXTURE, "digests.json")) as f:
+        want = json.load(f)
+    t0 = time.perf_counter()
+    native_io.load_zstd()  # g++ builds it here at first use
+    build_s = time.perf_counter() - t0
+    with DecoderClock() as clock:
+        t0 = time.perf_counter()
+        tree = train_checkpoint.read_orbax_tree(ORBAX_FIXTURE)
+        read_s = time.perf_counter() - t0
+    got = tree_digests(tree)
+    if got != want:
+        bad = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+        raise AssertionError(f"orbax fixture: {len(bad)} arrays differ from digests.json, "
+                             f"e.g. {bad[:3]}")
+    # the steady rate: the fixture's largest chunk frame decoded again and again
+    reader = OcdbtReader(ORBAX_FIXTURE)
+    key = max((k for k in reader.keys() if not k.endswith(".zarray")),
+              key=lambda k: len(reader.read(k)))
+    frame = bytes(reader.read(key))
+    reader.close()
+    out = np.empty(native_io.zstd_content_size(frame) or want_bytes(want, key), np.uint8)
+    reps = 400
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        native_io.zstd_decompress(frame, out=out)
+    steady = reps * out.nbytes / (time.perf_counter() - t0) / 1e6
+    return {"arrays": len(got), "dir_bytes": dir_bytes(ORBAX_FIXTURE), "build_s": build_s,
+            "read_s": read_s, **clock.summary(), "steady_frame": key,
+            "steady_frame_bytes": len(frame), "steady_MBps": steady}
+
+
+def want_bytes(digests, chunk_key):
+    """The bytes of the array a chunk key (``<name>/0.0``) holds, from its
+    recorded shape and dtype, for a frame that declares no content size."""
+    entry = digests[chunk_key.rsplit("/", 1)[0]]
+    return int(np.prod(entry["shape"])) * np.dtype(entry["dtype"]).itemsize
+
+
+def state_tensors(state):
+    """name -> tensor of a TrainState's parameters and moments."""
+    out = {f"param {n}": p for n, p in state.model.named_parameters()}
+    for group in ("mu", "nu", "acc"):
+        for n, t in state.opt_state.get(group, {}).items():
+            out[f"{group} {n}"] = t
+    return out
+
+
+def orbax_train_argv(out_dir, train_file, steps):
+    return ["--output_dir", out_dir, "--train_file", train_file, "--model_type", "rdot_nll",
+            "--model_name_or_path", "init", "--query", "no_res", "--ranking_task",
+            "--num_negatives", str(TRAIN_NEG), "--per_gpu_train_batch_size", str(TRAIN_B),
+            "--max_concat_length", str(TRAIN_T), "--max_doc_length", str(DOC_T),
+            "--learning_rate", "1e-5", "--max_steps", str(steps), "--save_steps", "0",
+            "--resume"]
+
+
+def orbax_path(paths, smi):
+    """Phase O at full width: (a) the committed fixture's digests; (b) phase
+    4's f32 TrainState after 2 steps saved as an orbax ``checkpoint-2`` and
+    restored into a fresh state, every parameter and moment ``torch.equal``;
+    (c) ``run_convdr_inference`` from an orbax dir of the trained student,
+    its TREC run byte-identical to the one from the same weights as the
+    port's own model dir; (d) ``run_convdr_train --resume`` 2 steps from the
+    orbax ``checkpoint-2`` and from the port's ``train_state.pt``, losses
+    and parameters bit-identical. The kernels' counts are zeroed before and
+    read after."""
+    t_phase = time.time()
+    work = os.path.join(WORK, "orbax")
+    os.makedirs(work)
+    fixture = orbax_fixture_check()
+    log(f"  (a) JAX-written fixture: {fixture['arrays']} arrays equal to their digests; "
+        f"{fixture['frames']} zstd frames, {fixture['decoded_bytes']} bytes decoded in "
+        f"{fixture['decoder_s'] * 1e3:.2f} ms = {fixture['decoder_MBps']:.1f} MB/s (largest "
+        f"frame {fixture['largest_frame_bytes']} bytes); read {fixture['read_s'] * 1e3:.1f} ms "
+        f"after the decoder's g++ build ({fixture['build_s']:.2f} s); its largest chunk "
+        f"frame ({fixture['steady_frame']}, {fixture['steady_frame_bytes']} bytes) decoded "
+        f"400 times at {fixture['steady_MBps']:.1f} MB/s")
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    fused_scores_groupmax.launches = 0
+    dma_gather_groups.launches = 0
+    device = torch.device("cuda")
+    # (b) two f32 steps at phase 4's settings, then an orbax round trip
+    _, tok, student = load_model_and_params("rdot_nll", "init", device=device, seed=42,
+                                            f32_params=True)
+    teacher = load_model_and_params("rdot_nll", "init", device=device, seed=0)[2]
+    teacher.requires_grad_(False)
+    config = TrainConfig(ranking_task=True, num_negatives=TRAIN_NEG, learning_rate=1e-5,
+                         per_device_batch_size=TRAIN_B, max_concat_length=TRAIN_T,
+                         max_doc_length=DOC_T)
+    state, tx = create_train_state(student, config, TRAIN_STEPS)
+    step = make_train_step(student, teacher, tx, config)
+    rng = np.random.default_rng(11)
+    for _ in range(2):
+        state, _m = step(state, train_step_batch(rng))
+    torch.cuda.synchronize()
+    del teacher, step
+    resume_orbax = os.path.join(work, "resume_orbax")
+    ckpt = os.path.join(resume_orbax, "checkpoint-2")
+    t0 = time.perf_counter()
+    train_checkpoint.save_orbax_checkpoint(
+        ckpt, train_checkpoint.orbax_tree_of(state, config.weight_decay),
+        metadata={"global_step": 2})
+    write_s = time.perf_counter() - t0
+    ckpt_bytes = dir_bytes(ckpt)
+    fresh_model = load_model_and_params("rdot_nll", "init", device=device, seed=7,
+                                        f32_params=True)[2]
+    fresh, _ = create_train_state(fresh_model, config, TRAIN_STEPS)
+    with PeakRss() as rss, DecoderClock() as clock:
+        t0 = time.perf_counter()
+        fresh = train_checkpoint.restore_checkpoint(ckpt, fresh)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+    source, back = state_tensors(state), state_tensors(fresh)
+    differ = [n for n, t in source.items() if not torch.equal(t, back[n])]
+    if (differ or set(source) != set(back) or fresh.step != 2
+            or fresh.opt_state["count"] != state.opt_state["count"]):
+        raise AssertionError(f"orbax round trip: {len(differ)} tensors differ, e.g. {differ[:3]}")
+    full = {"dir_bytes": ckpt_bytes, "write_s": write_s, "read_s": read_s,
+            "tensors": len(source), "rss_before_read_bytes": rss.start,
+            "peak_rss_over_read_bytes": rss.peak, **clock.summary()}
+    log(f"  (b) full-width f32 TrainState (params + mu + nu, {len(source)} tensors) after 2 "
+        f"steps: orbax dir {ckpt_bytes / 1e6:.1f} MB written in {write_s:.2f} s, restored in "
+        f"{read_s:.2f} s (raw-block frames decoded at {full['decoder_MBps']:.0f} MB/s); host "
+        f"RSS {rss.start / 2**20:.0f} MiB before the read, peak {rss.peak / 2**20:.0f} MiB "
+        f"over it; every tensor torch.equal")
+    del fresh, fresh_model, back
+    torch.cuda.empty_cache()
+    # (c) inference from an orbax dir and from the port's own dir
+    model_dirs = {"orbax": os.path.join(work, "model_orbax"),
+                  "port": os.path.join(work, "model_port")}
+    train_checkpoint.save_orbax_checkpoint(
+        os.path.join(model_dirs["orbax"], "final"), train_checkpoint.orbax_tree_of(student),
+        metadata={"model_type": "rdot_nll", "global_step": 2})
+    os.makedirs(model_dirs["port"])
+    torch.save({k: v.detach().float().cpu() for k, v in student.state_dict().items()},
+               os.path.join(model_dirs["port"], "pytorch_model.bin"))
+    for d in model_dirs.values():
+        tok.save_pretrained(d)
+    runs, infer_s = {}, {}
+    for name, d in model_dirs.items():
+        argv = inference_argv(work, paths["processed"], paths["raw"], paths["emb_dir"],
+                              run_name=f"run_{name}")
+        argv[argv.index("--model_path") + 1] = d
+        t0 = time.time()
+        run_convdr_inference.main(argv)
+        torch.cuda.synchronize()
+        infer_s[name] = time.time() - t0
+        with open(os.path.join(work, f"run_{name}.trec"), "rb") as f:
+            runs[name] = f.read()
+    if runs["orbax"] != runs["port"] or not runs["orbax"]:
+        raise AssertionError("the TREC run from the orbax dir differs from the port dir's")
+    log(f"  (c) run_convdr_inference --model_path <orbax dir> {infer_s['orbax']:.1f} s, from "
+        f"the port's dir {infer_s['port']:.1f} s: TREC runs byte-identical "
+        f"({len(runs['orbax'])} bytes)")
+    # (d) resume 2 steps through the driver from each format
+    resume_port = os.path.join(work, "resume_port")
+    train_checkpoint.save_checkpoint(os.path.join(resume_port, "checkpoint-2"), state,
+                                     metadata={"global_step": 2})
+    del state, student
+    torch.cuda.empty_cache()
+    train_file = os.path.join(work, "train.jsonl")
+    make_train_file(train_file)
+    resumed, resume_s = {}, {}
+    for name, out_dir in (("orbax", resume_orbax), ("port", resume_port)):
+        t0 = time.time()
+        run_convdr_train.main(orbax_train_argv(out_dir, train_file, 4))
+        torch.cuda.synchronize()
+        resume_s[name] = time.time() - t0
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        params = torch.load(os.path.join(out_dir, "pytorch_model.bin"), weights_only=True)
+        resumed[name] = (losses, params)
+    (loss_o, par_o), (loss_p, par_p) = resumed["orbax"], resumed["port"]
+    if len(loss_o) != 2 or loss_o != loss_p or set(par_o) != set(par_p) or not all(
+            torch.equal(par_o[k], par_p[k]) for k in par_p):
+        raise AssertionError(f"resume from orbax differs from resume from train_state.pt: "
+                             f"losses {loss_o} vs {loss_p}")
+    launches = {"flash_attention_fwd": flash_attention.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches,
+                "fused_scores_groupmax": fused_scores_groupmax.launches,
+                "dma_gather_groups": dma_gather_groups.launches}
+    if min(launches.values()) == 0:
+        raise AssertionError(f"phase O did not run through its kernels: {launches}")
+    log(f"  (d) run_convdr_train --resume 2 steps from the orbax checkpoint-2 "
+        f"{resume_s['orbax']:.1f} s, from train_state.pt {resume_s['port']:.1f} s: losses "
+        f"{loss_o} bit-identical, parameters torch.equal; launches {launches}")
+    phase_s = time.time() - t_phase
+    log(f"phase O on {smi}: fixture decoder {fixture['decoder_MBps']:.1f} MB/s, "
+        f"{fixture['steady_MBps']:.1f} MB/s steady on its largest frame; full-width "
+        f"TrainState dir {ckpt_bytes} bytes, write {write_s:.3f} s, read {read_s:.3f} s, "
+        f"peak RSS over the read {rss.peak} bytes; phase {phase_s:.1f} s")
+    return {"fixture": fixture, "full_width_state": full, "inference_s": infer_s,
+            "resume_s": resume_s, "resumed_losses": loss_o, "launches": launches,
+            "phase_s": phase_s}
+
+
 def rehearsal_path():
     """The port's quality rehearsal (``--smoke``: tiny width, 1500 passages,
     6 topics x 4 turns, 500 steps) on the card; its asserts decide: zero
@@ -3628,6 +3929,10 @@ def main(argv=None):
         step_check = check_train_step()
         train_launches, train = train_path()
         torch.cuda.empty_cache()
+        log("phase O, the JAX package's orbax checkpoints (the committed fixture; a "
+            "full-width TrainState round trip; inference and --resume from orbax dirs):")
+        orbax = orbax_path(paths, smi)
+        torch.cuda.empty_cache()
         log("bf16 training (kernel 1 with its lse and kernel 1b in bf16, f32 master weights; "
             "full RoBERTa-base width), then dropout:")
         bf16 = bf16_training_path(gen)
@@ -3655,6 +3960,7 @@ def main(argv=None):
             "search and its S-shard emulation; a data-parallel step):")
         multi = multi_gpu_path(paths, gen)
         log(f"phase F {raw_chain['phase_s']:.1f} s, phase P {precision['phase_s']:.1f} s, "
+            f"phase O {orbax['phase_s']:.1f} s, "
             f"bf16 training phase {bf16['phase_s']:.1f} s, "
             f"data plane phase {data_plane['phase_s']:.1f} s, rehearsal phase "
             f"{rehearsed['phase_s']:.1f} s, ANN phase {ann['phase_s']:.1f} s, serving phase "
@@ -3701,6 +4007,10 @@ def main(argv=None):
                               "rehearsal": rehearsed["launches"]["dma_gather_groups"]}
     bwd["launches_by_path"] = {"train": train_launches["flash_attention_bwd"],
                                "rehearsal": rehearsed["launches"]["flash_attention_bwd"]}
+    # phase O: the orbax checkpoints' steps, inference and resumes
+    for entry, kernel in ((fwd, "flash_attention_fwd"), (bwd, "flash_attention_bwd"),
+                          (search, "fused_scores_groupmax"), (k5, "dma_gather_groups")):
+        entry["launches_by_path"]["orbax"] = orbax["launches"][kernel]
     # the serving phase's replays: each graph's recorded launches x its
     # replays, plus the eager warm-up before its capture
     for backend, b in serving["backends"].items():
@@ -3762,7 +4072,7 @@ def main(argv=None):
                        "train": train, "train_step_check": step_check, "bf16_training": bf16,
                        "raw_input_chain": raw_chain, "precision": precision,
                        "data_plane": data_plane, "rehearsal": rehearsed, "ann": ann,
-                       "serving": serving, "multi_gpu": multi,
+                       "serving": serving, "multi_gpu": multi, "orbax": orbax,
                        "total_s": time.time() - t_start}, f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

@@ -175,7 +175,3 @@ class DataConfig:
 
 
 NUM_FOLD = 5  # 5-fold CV harness (utils/util.py:32)
-
-# Ending of the error raised by the one input of the JAX package that the
-# port does not read: orbax checkpoint dirs.
-NOT_PORTED = "is not yet ported to convdr_torch, see ROADMAP.md"

@@ -11,8 +11,12 @@ flavors:
   * **fresh init** -- checkpoint path ``None``/"init", seeded with an
     explicit ``torch.Generator``.
 
-The JAX package's orbax directories are not ported (ROADMAP.md) and
-raise. Tokenizers load from vocab files
+  * **the JAX package's orbax dirs** -- ``final/`` of a train run (or the
+    dir itself), read without orbax by
+    :func:`convdr_torch.train.checkpoint.read_orbax_tree` and mapped by
+    :func:`~convdr_torch.models.from_jax.flax_params_to_state_dict`.
+
+Tokenizers load from vocab files
 colocated with the checkpoint, an explicit path, or the deterministic
 "tiny" test vocab.
 """
@@ -27,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from convdr_torch.core.config import NOT_PORTED, EncoderArchConfig, ModelConfig
+from convdr_torch.core.config import EncoderArchConfig, ModelConfig
 from convdr_torch.core.registry import get_model_config
 from convdr_torch.data.tokenizers import ByteLevelBPETokenizer, WordPieceTokenizer
 from convdr_torch.models.encoders import build_model
@@ -71,19 +75,26 @@ def load_tokenizer_for(config: ModelConfig, path: Optional[str]) -> Any:
     )
 
 
-def _is_orbax_dir(path: str) -> bool:
-    """A directory the JAX package's orbax checkpointer wrote (itself or its
-    ``final/``): orbax's ``_CHECKPOINT_METADATA``, or the JAX package's
+def resolve_orbax_dir(path: str) -> Optional[str]:
+    """The orbax tree dir the JAX package's checkpointer wrote at ``path``
+    (itself, or its ``final/`` as the train drivers write it), else None:
+    orbax's ``_CHECKPOINT_METADATA``, or the JAX package's
     ``convdr_meta.json`` side file without the port's own ``train_state.pt``
     beside it (:mod:`convdr_torch.train.checkpoint` writes both)."""
-    def has(cand, name):
-        return os.path.exists(os.path.join(cand, name))
+    if not os.path.isdir(path):
+        return None
+    for cand in (path, os.path.join(path, "final")):
+        def has(name):
+            return os.path.exists(os.path.join(cand, name))
 
-    return any(
-        has(cand, "_CHECKPOINT_METADATA")
-        or (has(cand, "convdr_meta.json") and not has(cand, "train_state.pt"))
-        for cand in (path, os.path.join(path, "final"))
-    )
+        if has("_CHECKPOINT_METADATA") or (has("convdr_meta.json")
+                                           and not has("train_state.pt")):
+            return cand
+    return None
+
+
+def _is_orbax_dir(path: str) -> bool:
+    return resolve_orbax_dir(path) is not None
 
 
 def _is_torch_checkpoint(path: str) -> bool:
@@ -216,13 +227,18 @@ def load_model_and_params(
     if checkpoint_path in (None, "init"):
         init_weights(model, seed)
     else:
-        if os.path.isdir(checkpoint_path) and _is_orbax_dir(checkpoint_path):
-            raise NotImplementedError(f"loading orbax checkpoints {NOT_PORTED}")
-        if not _is_torch_checkpoint(checkpoint_path):
+        if _is_orbax_dir(checkpoint_path):
+            # deferred: train.checkpoint imports this module through the trainer
+            from convdr_torch.train.checkpoint import load_orbax_params, read_orbax_tree
+
+            state_dict = load_orbax_params(model, read_orbax_tree(checkpoint_path),
+                                           checkpoint_path)
+        elif _is_torch_checkpoint(checkpoint_path):
+            state_dict = load_torch_state_dict(checkpoint_path)
+            if config.two_tower:
+                state_dict = dpr_state_dict(state_dict)
+        else:
             raise FileNotFoundError(f"No checkpoint at {checkpoint_path}")
-        state_dict = load_torch_state_dict(checkpoint_path)
-        if config.two_tower:
-            state_dict = dpr_state_dict(state_dict)
         load_state_dict_checked(
             model, resize_token_embeddings(state_dict, config.arch.vocab_size, seed)
         )

@@ -47,6 +47,7 @@ import numpy as np
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(PKG_DIR, "csrc", "host", "convdr_native.cpp")
 HNSW_SOURCE = os.path.join(PKG_DIR, "csrc", "host", "hnsw.cpp")
+ZSTD_SOURCE = os.path.join(PKG_DIR, "csrc", "host", "zstd.cpp")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 # the JAX package's Makefile flags: floating-point contraction and unrolling
@@ -58,6 +59,7 @@ HNSW_CXX_FLAGS = ("-O3", "-march=native", "-funroll-loops", "-std=c++17", "-fPIC
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _hnsw_lib: Optional[ctypes.CDLL] = None
+_zstd_lib: Optional[ctypes.CDLL] = None
 
 _HEADER_BYTES = 32
 _MAGIC = 0x434E5642304B4C42
@@ -101,6 +103,13 @@ _HNSW_SIGNATURES = {
         ctypes.c_void_p, _F32P, _I64, _I64, _F32P, _I64P, _I64,
     ]),
 }
+_ZSTD_SIGNATURES = {
+    "zstd_decompress": (_I64, [ctypes.c_void_p, _I64, ctypes.c_void_p, _I64]),
+    "zstd_content_size": (_I64, [ctypes.c_void_p, _I64]),
+    "zstd_compress_raw": (_I64, [ctypes.c_void_p, _I64, ctypes.c_void_p, _I64]),
+    "zstd_error_name": (ctypes.c_char_p, [_I64]),
+    "convdr_crc32c": (ctypes.c_uint32, [ctypes.c_void_p, _I64, ctypes.c_uint32]),
+}
 
 
 def _cpu_fingerprint() -> bytes:
@@ -131,6 +140,10 @@ def library_path() -> str:
 
 def hnsw_library_path() -> str:
     return _library_path("libconvdr_hnsw", HNSW_SOURCE, HNSW_CXX_FLAGS, native=True)
+
+
+def zstd_library_path() -> str:
+    return _library_path("libconvdr_zstd", ZSTD_SOURCE, CXX_FLAGS)
 
 
 def _build(so: str, source: str = SOURCE, flags=CXX_FLAGS) -> None:
@@ -186,6 +199,18 @@ def load_hnsw() -> ctypes.CDLL:
             _hnsw_lib = _open(hnsw_library_path(), HNSW_SOURCE, HNSW_CXX_FLAGS,
                               _HNSW_SIGNATURES)
         return _hnsw_lib
+
+
+def load_zstd() -> ctypes.CDLL:
+    """The zstd library (``csrc/host/zstd.cpp``: the decoder, the raw-block
+    encoder and CRC-32C; its own ``.so`` built with
+    :data:`CXX_FLAGS`), built on first use; raises if it cannot be built or
+    loaded. Nothing falls back to a system libzstd or to Python."""
+    global _zstd_lib
+    with _lock:
+        if _zstd_lib is None:
+            _zstd_lib = _open(zstd_library_path(), ZSTD_SOURCE, CXX_FLAGS, _ZSTD_SIGNATURES)
+        return _zstd_lib
 
 
 def native_available() -> bool:
@@ -446,3 +471,73 @@ def merge_topk_host_plain(
                 out_s[q, o], out_i[q, o] = s_b[q, p2], i_b[q, p2]
                 p2 += 1
     return out_s, out_i
+
+
+# ---------------------------------------------------------------------------
+# zstd and checksums (``csrc/host/zstd.cpp``)
+# ---------------------------------------------------------------------------
+def _bytes_view(buf) -> np.ndarray:
+    """A uint8 view of ``buf`` (bytes, memoryview, mmap slice or array),
+    without a copy."""
+    if isinstance(buf, np.ndarray):
+        return buf.reshape(-1).view(np.uint8)
+    return np.frombuffer(buf, np.uint8)
+
+
+def _zstd_check(rc: int, what: str) -> int:
+    if rc < 0:
+        name = load_zstd().zstd_error_name(rc).decode()
+        raise ValueError(f"{what}: {name}")
+    return rc
+
+
+def zstd_content_size(frame) -> Optional[int]:
+    """The content size a zstd frame declares, None when it declares none;
+    raises ``ValueError`` for a malformed header."""
+    src = _bytes_view(frame)
+    rc = load_zstd().zstd_content_size(src.ctypes.data, src.size)
+    return None if rc == -1 else _zstd_check(rc, "zstd header")
+
+
+def zstd_decompress(frame, out: Optional[np.ndarray] = None,
+                    size: Optional[int] = None) -> np.ndarray:
+    """Decode the zstd frame(s) in ``frame``. With ``out`` (a writable,
+    C-contiguous array) the bytes land there and must fill it exactly.
+    Otherwise they go to a new uint8 array, returned at the decoded
+    length: of the declared content size, or at most ``size`` bytes.
+    Raises ``ValueError`` naming the fault."""
+    src = _bytes_view(frame)
+    exact = out is not None
+    if not exact:
+        if size is None:
+            size = zstd_content_size(src)
+            if size is None:
+                raise ValueError("zstd frame declares no content size; pass size")
+        out = np.empty(size, np.uint8)
+    if not (out.flags.c_contiguous and out.flags.writeable):
+        raise ValueError("zstd_decompress needs a writable C-contiguous output")
+    dst = out.reshape(-1).view(np.uint8)
+    n = _zstd_check(load_zstd().zstd_decompress(src.ctypes.data, src.size, dst.ctypes.data,
+                                                dst.size), "zstd frame")
+    if not exact:
+        return out[:n]
+    if n != dst.size:
+        raise ValueError(f"zstd frame: decoded {n} bytes into a buffer of {dst.size}")
+    return out
+
+
+def zstd_compress_raw(data) -> bytes:
+    """One zstd frame of raw blocks holding ``data`` (with its content
+    size): valid zstd that any decoder reads, at no compression."""
+    src = _bytes_view(data)
+    cap = src.size + 14 + 3 * max(1, -(-src.size // (1 << 17)))
+    out = np.empty(cap, np.uint8)
+    n = _zstd_check(load_zstd().zstd_compress_raw(src.ctypes.data, src.size, out.ctypes.data,
+                                                  cap), "zstd encode")
+    return out[:n].tobytes()
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC-32C (Castagnoli), the checksum of OCDBT manifests and nodes."""
+    src = _bytes_view(data)
+    return int(load_zstd().convdr_crc32c(src.ctypes.data, src.size, crc))

@@ -35,11 +35,13 @@ for name in ("convdr_torch.drivers.tokenize_collection", "convdr_torch.native_io
              "convdr_torch.etl.cast19", "convdr_torch.etl.cast20", "convdr_torch.etl.cast21",
              "convdr_torch.etl.orquac", "convdr_torch.etl.id_remap",
              "convdr_torch.data.process_fns", "convdr_torch.evaluation.qa_eval",
-             "convdr_torch.utils.misc", "convdr_torch.scripts.attention_bwd_bench"):
+             "convdr_torch.utils.misc", "convdr_torch.scripts.attention_bwd_bench",
+             "convdr_torch.utils.ocdbt", "convdr_torch.utils.zarr2"):
     assert name in names, names
 bad = sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "convdr_tpu")
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "convdr_tpu", "orbax",
+                           "tensorstore", "zstandard")
 )
 print(len(names), bad)
 sys.exit(1 if bad else 0)
@@ -65,7 +67,10 @@ def test_package_imports_no_jax(tmp_path):
 ALONE = ["convdr_torch.etl.cbor_car", "convdr_torch.etl.common", "convdr_torch.etl.cast19",
          "convdr_torch.etl.cast20", "convdr_torch.etl.cast21", "convdr_torch.etl.orquac",
          "convdr_torch.etl.id_remap", "convdr_torch.data.process_fns",
-         "convdr_torch.evaluation.qa_eval", "convdr_torch.utils.misc"]
+         "convdr_torch.evaluation.qa_eval", "convdr_torch.utils.misc",
+         # the orbax checkpoint layers
+         "convdr_torch.utils.ocdbt", "convdr_torch.utils.zarr2",
+         "convdr_torch.train.checkpoint"]
 
 
 @pytest.mark.parametrize("module", ALONE)
@@ -74,7 +79,8 @@ def test_host_module_imports_alone_without_jax(tmp_path, module):
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'convdr_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'convdr_tpu', 'orbax', 'tensorstore', "
+        "'zstandard'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -87,7 +93,8 @@ def test_chip_smoke_imports_no_jax(tmp_path):
         "import runpy, sys\n"
         f"runpy.run_path({os.path.join(REPO, 'chip_smoke.py')!r}, run_name='chip_smoke')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'convdr_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'convdr_tpu', 'orbax', 'tensorstore', "
+        "'zstandard'))\n"
         "sys.exit(1 if bad else 0)\n"
     )
     proc = _run(code, tmp_path)

@@ -234,8 +234,10 @@ def test_init_is_seeded_and_unported_checkpoints_raise(tmp_path):
     b = load_model_and_params("rdot_nll", None, device=cpu, arch_preset="tiny", seed=1)[2]
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
+    # orbax dirs are ported (tests/test_torch_orbax.py): one without orbax's
+    # _METADATA is no checkpoint and raises, naming the file
     (tmp_path / "convdr_meta.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="holds no orbax _METADATA"):
         load_model_and_params("rdot_nll", str(tmp_path), device=cpu,
                               tokenizer_path="tiny", arch_preset="tiny")
     # dpr checkpoints are ported: a file that is no checkpoint fails to load

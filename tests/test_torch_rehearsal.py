@@ -81,3 +81,38 @@ def test_rehearsal_smoke(tmp_path):
     assert summary["trained"]["ndcg_cut_3"] > summary["baseline"]["ndcg_cut_3"]
     assert summary["trained"]["mrr"] > summary["baseline"]["mrr"]
     assert summary["oracle_set_mismatches_8q"] == 0
+
+
+# ---------------- the oracle check's near-tie rule ----------------
+def _oracle_blocks():
+    """One query, 300 passages in two blocks: f64 scores 1.0 down in steps
+    of 1e-3 (the first coordinate; the others are orthogonal noise), with
+    ranks 100 and 101 0.1 * tol apart."""
+    rng = np.random.RandomState(0)
+    q = np.zeros((1, 6), np.float32)
+    q[0, 0] = 1.0
+    emb = np.zeros((300, 6), np.float32)
+    emb[:, 0] = 1.0 - 1e-3 * np.arange(300)
+    emb[:, 1:] = rng.randn(300, 5) * 0.1
+    pnorm = np.linalg.norm(emb.astype(np.float64), axis=1).max()
+    tol = 1e-5 * pnorm
+    emb[100, 0] = emb[99, 0] - np.float32(0.1 * tol)  # a near-tie at the cut
+    emb[250, 0] = emb[99, 0] - np.float32(100 * tol)  # far below the cut
+    ids = np.arange(300, dtype=np.int64) + 1000
+    blocks = lambda: iter([(emb[:150], ids[:150]), (emb[150:], ids[150:])])  # noqa: E731
+    return q, ids, blocks
+
+
+@pytest.mark.parametrize("case,want", [("equal", 0), ("near_tie_swap", 0), ("wrong_row", 1),
+                                       ("missing_row", 1)])
+def test_oracle_mismatches_accepts_only_near_ties(case, want):
+    q, ids, blocks = _oracle_blocks()
+    top = list(ids[:100])
+    if case == "near_tie_swap":  # the searcher keeps rank 101 instead of rank 100
+        top[99] = ids[100]
+    elif case == "wrong_row":  # a row 100 * tol below the cut instead of rank 100
+        top[99] = ids[250]
+    elif case == "missing_row":  # rank 100 left out: one id twice
+        top[99] = top[0]
+    got = np.array([top], np.int64)
+    assert trh.oracle_mismatches(q, got, blocks) == want

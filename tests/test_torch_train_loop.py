@@ -240,15 +240,29 @@ def test_port_checkpoints_are_not_taken_for_orbax(tmp_path):
         assert torch.equal(a, b)
 
 
-def test_jax_orbax_checkpoint_still_raises(tmp_path):
+def test_jax_orbax_tree_that_does_not_fit_raises_naming_the_key(tmp_path):
     from convdr_tpu.train.checkpoint import save_checkpoint as jax_save
 
     jax_save(str(tmp_path / "final"), {"w": np.zeros(3, np.float32)},
              metadata={"model_type": "rdot_nll"})
     TorchBPE.tiny().save_pretrained(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="orbax checkpoints is not yet ported"):
+    with pytest.raises(ValueError, match="missing key 'params/backbone/"):
         load_model_and_params("rdot_nll", str(tmp_path), device=torch.device("cpu"),
                               arch_preset="tiny")
+
+
+def test_jax_orbax_final_loads(tmp_path):
+    from convdr_tpu.core.loading import load_model_and_params as jax_load
+    from convdr_tpu.train.checkpoint import save_checkpoint as jax_save
+
+    cfg, tok, _jmodel, params = jax_load("rdot_nll", "init", arch_preset="tiny", seed=2)
+    jax_save(str(tmp_path / "final"), params, metadata={"model_type": "rdot_nll"})
+    tok.save_pretrained(str(tmp_path))
+    config, _, model = load_model_and_params("rdot_nll", str(tmp_path),
+                                             device=torch.device("cpu"), arch_preset="tiny")
+    want = flax_params_to_state_dict(jax.tree.map(np.asarray, params), config)
+    for key, value in model.state_dict().items():
+        assert torch.equal(value, want[key]), key
 
 
 # ---------------- the driver ----------------
