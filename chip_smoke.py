@@ -201,10 +201,16 @@ O. (after 4) The JAX package's orbax checkpoints: (a) the committed
    ``run_convdr_inference --model_path <orbax dir>`` over phase 3's blocks
    and topics, its TREC run byte-identical to the one from the same
    weights as the port's own model dir; (d) ``run_convdr_train --resume``
-   2 steps from the orbax ``checkpoint-2`` and from ``train_state.pt``,
-   losses and parameters bit-identical. Prints the dir's bytes, write and
-   read s, the decoder's MB/s, the peak RSS over the read and the phase's
-   seconds; kernels 1, 1b, 2 and 5 are counted from zero around it.
+   2 steps from the orbax ``checkpoint-2`` (under ``--save_format orbax
+   --export_torch``) and from ``train_state.pt``, both with ``--save_steps
+   2``: losses and parameters bit-identical, the orbax run's dir in the
+   JAX driver's layout (``checkpoint-2/4``, ``final/``, the export, the
+   tokenizer, ``metrics.jsonl``), its ``final/`` read back by
+   ``load_model_and_params`` and its export each ``torch.equal`` to the
+   port run's ``pytorch_model.bin``. Prints the dir's bytes, write and
+   read s, the decoder's MB/s, the peak RSS over the read, the driver's
+   ``checkpoint-4`` (both formats) and ``final/`` write seconds and the
+   phase's seconds; kernels 1, 1b, 2 and 5 are counted from zero around it.
 5. Prints the training ms per step and examples/s, a ``{"kernels": [...]}``
    line (launches, max error, kernel / plain / library / bound times in ms,
    CUDA-event timed after warm-up), and last ``{"ok": true, "device": ...}``.
@@ -309,6 +315,7 @@ from convdr_torch.scripts import rehearsal
 from convdr_torch.scripts.multi_gpu_check import make_train_file
 from convdr_torch import native_io
 from convdr_torch.train import checkpoint as train_checkpoint
+from convdr_torch.train import loop as train_loop
 from convdr_torch.train.losses import kd_mse_loss, ranking_nll_loss
 from convdr_torch.train.trainer import create_train_state, make_train_step
 from convdr_torch.utils.ocdbt import OcdbtReader
@@ -1119,6 +1126,7 @@ def time_streaming(q, p, worst, launches):
                 lambda: streaming_groupmax(qd[:qn], pd, group))
             k4["ms_by_config"][f"Q{qn}_G{group}_{dtype_name(dtype)}"] = pass_b_times(
                 qd[:qn], pd, gsel[:qn], group)
+        k3[f"{dtype_name(dtype)}_storage"] = streaming_dtype_row(qd, pd, group, gsel)
         del qd, pd
     e2e = {}
     for qn in (SEARCH_Q, SMALL_Q):
@@ -1134,6 +1142,14 @@ def time_streaming(q, p, worst, launches):
                 lambda: flat_ip_topk(q[:qn], p, TOP_N, block_rows=SEARCH_N)),
         }
     k3["top100_ms"] = e2e
+    for name in ("bfloat16_storage", "int8_storage"):
+        row = k3[name]
+        log(f"  pass A {name} Q={SEARCH_Q} G={group}: kernel {row['ms']:.3f} ms, plain "
+            f"{row['plain_ms']:.3f}, bound {row['bound_ms']:.3f} ({row['bound_by']}), "
+            f"{row['library']} {row['library_ms']:.3f} (matmul alone {row['matmul_ms']:.3f}); "
+            f"pass B's plain {row['extract_candidate_scores_plain_ms']:.3f} ms, library "
+            f"{row['extract_candidate_scores_library']} "
+            f"{row['extract_candidate_scores_library_ms']:.3f} ms")
     log(f"  pass A {k3['ms']:.3f} ms (bound {bound3[0]:.3f}; {k3['library']} "
         f"{k3['library_ms']:.3f}, matmul alone {k3['matmul_ms']:.3f}; by config "
         + ", ".join(f"{c} {v:.3f}" for c, v in k3["ms_by_config"].items())
@@ -1146,6 +1162,38 @@ def time_streaming(q, p, worst, launches):
         + "; ".join(f"{k}: " + ", ".join(f"{n} {v:.2f}" for n, v in d.items())
                     for k, d in e2e.items()))
     return k3, k4
+
+
+def streaming_dtype_row(q, p, group, gsel):
+    """Kernel 3 at Q=512 G=128 on bf16 or int8 passages: its time, its bound
+    as kernel 2's rows count it (int8 queries and the int8 tensor-core peak
+    for int8 passages, f32 queries at the f32 peak otherwise), the library
+    call of the same function (:func:`library_scores`), its plain version's
+    time, and kernel 4's plain version and library call at the same
+    operands: the product of :func:`library_scores` then ``torch.gather``
+    of the picked groups."""
+    qn, n_groups = q.shape[0], p.shape[0] // group
+    q_bytes = q.numel() * (1 if p.dtype == torch.int8 else 4)
+    bound = kernel_bound(2.0 * qn * p.shape[0] * p.shape[1],
+                         q_bytes + p.numel() * p.element_size() + qn * n_groups * 4,
+                         torch.int8 if p.dtype == torch.int8 else torch.float32)
+    idx = gsel[:, :, None].expand(-1, -1, group)
+    if p.dtype == torch.int8:
+        qi, pt = q.to(torch.int8), p.T
+        gather = lambda: torch.gather(  # noqa: E731
+            torch._int_mm(qi, pt).float().view(qn, -1, group), 1, idx)
+        gather_name = "torch._int_mm + .float() + torch.gather"
+    else:
+        pf = p.float()
+        gather = lambda: torch.gather(torch.matmul(q, pf.T).view(qn, -1, group), 1, idx)  # noqa: E731
+        gather_name = "torch.matmul (TF32 off) + torch.gather"
+    return {"ms": cuda_ms(lambda: streaming_groupmax(q, p, group)),
+            "plain_ms": cuda_ms(lambda: streaming_groupmax_plain(q, p, group), iters=5),
+            **library_scores(q, p, group), "bound_ms": bound[0], "bound_by": bound[1],
+            "extract_candidate_scores_plain_ms": cuda_ms(
+                lambda: extract_candidate_scores_plain(q, p, gsel, group), iters=3),
+            "extract_candidate_scores_library_ms": cuda_ms(gather, iters=5),
+            "extract_candidate_scores_library": gather_name}
 
 
 def check_and_time_gather(q, p):
@@ -2436,8 +2484,93 @@ def orbax_train_argv(out_dir, train_file, steps):
             "--model_name_or_path", "init", "--query", "no_res", "--ranking_task",
             "--num_negatives", str(TRAIN_NEG), "--per_gpu_train_batch_size", str(TRAIN_B),
             "--max_concat_length", str(TRAIN_T), "--max_doc_length", str(DOC_T),
-            "--learning_rate", "1e-5", "--max_steps", str(steps), "--save_steps", "0",
+            "--learning_rate", "1e-5", "--max_steps", str(steps), "--save_steps", "2",
             "--resume"]
+
+
+# what the JAX driver writes for phase O (d)'s argv with --export_torch
+# (convdr_tpu/drivers/run_convdr_train.py:243-257, convdr_tpu/train/loop.py:191-199)
+JAX_DRIVER_LAYOUT = ["checkpoint-2", "checkpoint-4", "final", "merges.txt", "metrics.jsonl",
+                     "pytorch_model.bin", "vocab.json"]
+ORBAX_FILES = ("_CHECKPOINT_METADATA", "_METADATA", "convdr_meta.json")
+
+
+class SaveClock:
+    """Host seconds of each ``save_state`` that the train loop and the
+    train driver make while active, by the name of the dir written."""
+
+    modules = (train_loop, run_convdr_train)
+
+    def __enter__(self):
+        self.seconds = {}
+        real = self.real = train_checkpoint.save_state
+
+        def timed(path, *a, **kw):
+            t0 = time.perf_counter()
+            real(path, *a, **kw)
+            self.seconds[os.path.basename(path)] = time.perf_counter() - t0
+
+        for module in self.modules:
+            module.save_state = timed
+        return self.seconds
+
+    def __exit__(self, *exc):
+        for module in self.modules:
+            module.save_state = self.real
+
+
+def resume_both_formats(resume_orbax, resume_port, train_file, device, extra=(),
+                        arch_preset=None):
+    """Phase O (d): ``run_convdr_train --resume`` 2 steps from each dir's
+    ``checkpoint-2``, the orbax one under ``--save_format orbax
+    --export_torch``. Its output dir must list as the JAX driver's, each
+    checkpoint dir hold orbax's files, and its ``final/`` (read by
+    ``load_model_and_params``) and exported ``pytorch_model.bin`` equal the
+    port-format run's ``pytorch_model.bin``; the logged losses
+    bit-identical."""
+    runs = {}
+    for name, out_dir, flags in (
+            ("orbax", resume_orbax, ["--save_format", "orbax", "--export_torch"]),
+            ("port", resume_port, [])):
+        with SaveClock() as saves:
+            t0 = time.time()
+            run_convdr_train.main(orbax_train_argv(out_dir, train_file, 4) + flags + list(extra))
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.time() - t0
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        params = torch.load(os.path.join(out_dir, "pytorch_model.bin"), weights_only=True)
+        runs[name] = {"seconds": seconds, "save_s": saves, "losses": losses, "params": params}
+    orbax, port = runs["orbax"], runs["port"]
+    listing = sorted(os.listdir(resume_orbax))
+    if listing != JAX_DRIVER_LAYOUT:
+        raise AssertionError(f"--save_format orbax wrote {listing}, the JAX driver "
+                             f"{JAX_DRIVER_LAYOUT}")
+    for sub in ("checkpoint-2", "checkpoint-4", "final"):
+        names = os.listdir(os.path.join(resume_orbax, sub))
+        if not set(ORBAX_FILES) <= set(names) or train_checkpoint.STATE_FILE in names:
+            raise AssertionError(f"{sub} of the orbax run holds {sorted(names)}")
+    if train_checkpoint.STATE_FILE not in os.listdir(os.path.join(resume_port, "checkpoint-4")):
+        raise AssertionError("the port-format run wrote no train_state.pt in checkpoint-4")
+    final = load_model_and_params("rdot_nll", resume_orbax, device=device,
+                                  arch_preset=arch_preset)[2]
+    final_sd = {k: v.cpu() for k, v in final.state_dict().items()}
+    del final
+    want = port["params"]
+    for what, got in (("final/", final_sd), ("the exported pytorch_model.bin", orbax["params"])):
+        if list(got) != list(want) or not all(torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"the orbax run's {what} differs from the port-format run's "
+                                 "pytorch_model.bin")
+    if len(orbax["losses"]) != 2 or orbax["losses"] != port["losses"]:
+        raise AssertionError(f"resume from orbax differs from resume from train_state.pt: "
+                             f"losses {orbax['losses']} vs {port['losses']}")
+    return {"resume_s": {k: r["seconds"] for k, r in runs.items()},
+            "save_s": {k: r["save_s"] for k, r in runs.items()},
+            "losses": orbax["losses"], "layout": listing,
+            "final_bytes": dir_bytes(os.path.join(resume_orbax, "final")),
+            "checkpoint_4_bytes": {k: dir_bytes(os.path.join(d, "checkpoint-4")) for k, d in
+                                   (("orbax", resume_orbax), ("port", resume_port))}}
 
 
 def orbax_path(paths, smi):
@@ -2447,9 +2580,10 @@ def orbax_path(paths, smi):
     (c) ``run_convdr_inference`` from an orbax dir of the trained student,
     its TREC run byte-identical to the one from the same weights as the
     port's own model dir; (d) ``run_convdr_train --resume`` 2 steps from the
-    orbax ``checkpoint-2`` and from the port's ``train_state.pt``, losses
-    and parameters bit-identical. The kernels' counts are zeroed before and
-    read after."""
+    orbax ``checkpoint-2`` under ``--save_format orbax`` and from the port's
+    ``train_state.pt`` (:func:`resume_both_formats`), losses and parameters
+    bit-identical, the orbax run's dir in the JAX driver's layout. The
+    kernels' counts are zeroed before and read after."""
     t_phase = time.time()
     work = os.path.join(WORK, "orbax")
     os.makedirs(work)
@@ -2547,30 +2681,25 @@ def orbax_path(paths, smi):
     torch.cuda.empty_cache()
     train_file = os.path.join(work, "train.jsonl")
     make_train_file(train_file)
-    resumed, resume_s = {}, {}
-    for name, out_dir in (("orbax", resume_orbax), ("port", resume_port)):
-        t0 = time.time()
-        run_convdr_train.main(orbax_train_argv(out_dir, train_file, 4))
-        torch.cuda.synchronize()
-        resume_s[name] = time.time() - t0
-        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
-            losses = [json.loads(line)["loss"] for line in f]
-        params = torch.load(os.path.join(out_dir, "pytorch_model.bin"), weights_only=True)
-        resumed[name] = (losses, params)
-    (loss_o, par_o), (loss_p, par_p) = resumed["orbax"], resumed["port"]
-    if len(loss_o) != 2 or loss_o != loss_p or set(par_o) != set(par_p) or not all(
-            torch.equal(par_o[k], par_p[k]) for k in par_p):
-        raise AssertionError(f"resume from orbax differs from resume from train_state.pt: "
-                             f"losses {loss_o} vs {loss_p}")
+    resumed = resume_both_formats(resume_orbax, resume_port, train_file, device)
+    resume_s, save_s, loss_o = resumed["resume_s"], resumed["save_s"], resumed["losses"]
     launches = {"flash_attention_fwd": flash_attention.launches,
                 "flash_attention_bwd": flash_attention_bwd.launches,
                 "fused_scores_groupmax": fused_scores_groupmax.launches,
                 "dma_gather_groups": dma_gather_groups.launches}
     if min(launches.values()) == 0:
         raise AssertionError(f"phase O did not run through its kernels: {launches}")
-    log(f"  (d) run_convdr_train --resume 2 steps from the orbax checkpoint-2 "
-        f"{resume_s['orbax']:.1f} s, from train_state.pt {resume_s['port']:.1f} s: losses "
-        f"{loss_o} bit-identical, parameters torch.equal; launches {launches}")
+    log(f"  (d) run_convdr_train --resume 2 steps from the orbax checkpoint-2 under "
+        f"--save_format orbax --export_torch {resume_s['orbax']:.1f} s, from train_state.pt "
+        f"{resume_s['port']:.1f} s: losses {loss_o} bit-identical; the orbax run's dir lists "
+        f"as the JAX driver's {resumed['layout']}, its final/ and exported pytorch_model.bin "
+        f"torch.equal to the port run's pytorch_model.bin; checkpoint-4 written in "
+        f"{save_s['orbax']['checkpoint-4']:.3f} s as orbax "
+        f"({resumed['checkpoint_4_bytes']['orbax']} bytes), "
+        f"{save_s['port']['checkpoint-4']:.3f} s as train_state.pt "
+        f"({resumed['checkpoint_4_bytes']['port']} bytes); final/ in "
+        f"{save_s['orbax']['final']:.3f} s ({resumed['final_bytes']} bytes); "
+        f"launches {launches}")
     phase_s = time.time() - t_phase
     log(f"phase O on {smi}: fixture decoder {fixture['decoder_MBps']:.1f} MB/s, "
         f"{fixture['steady_MBps']:.1f} MB/s steady on its largest frame; full-width "
@@ -2578,7 +2707,9 @@ def orbax_path(paths, smi):
         f"peak RSS over the read {rss.peak} bytes; phase {phase_s:.1f} s")
     return {"fixture": fixture, "full_width_state": full, "inference_s": infer_s,
             "resume_s": resume_s, "resumed_losses": loss_o, "launches": launches,
-            "phase_s": phase_s}
+            "driver_save_s": save_s, "driver_layout": resumed["layout"],
+            "final_bytes": resumed["final_bytes"],
+            "checkpoint_4_bytes": resumed["checkpoint_4_bytes"], "phase_s": phase_s}
 
 
 def rehearsal_path():

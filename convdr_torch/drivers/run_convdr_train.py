@@ -6,11 +6,15 @@ The counterpart of ``convdr_tpu/drivers/run_convdr_train.py``, flag for flag
 accumulation/save/log knobs and the --cross_validate /
 --init_from_multiple_models fold harness). Training runs on the card
 unless ``--no_cuda`` asks for the CPU; without a card it raises. Scalars go
-to ``metrics.jsonl`` in the output dir, checkpoints are ``checkpoint-N``
-dirs (:mod:`convdr_torch.train.checkpoint`), and the trained student is
-written as ``pytorch_model.bin`` in the reference's HF layout plus its
-tokenizer, which ``load_model_and_params`` (so ``run_convdr_inference``)
-reads.
+to ``metrics.jsonl`` in the output dir and checkpoints are ``checkpoint-N``
+dirs (:mod:`convdr_torch.train.checkpoint`). ``--save_format torch`` (the
+default) writes each as the port's ``train_state.pt`` and the trained
+student as ``pytorch_model.bin`` in the reference's HF layout;
+``--save_format orbax`` writes the JAX driver's layout: orbax TrainState
+checkpoints, the student's orbax params in ``final/``, and
+``pytorch_model.bin`` only under ``--export_torch`` for ``rdot*`` models.
+The tokenizer goes beside them; ``load_model_and_params`` (so
+``run_convdr_inference``) and the JAX package read either layout.
 
 ``--dtype bfloat16`` computes in bf16 over f32 master weights: the teacher
 is cast to bf16 for its frozen forwards, the student keeps f32 parameters
@@ -41,6 +45,7 @@ from convdr_torch.core.registry import MODEL_REGISTRY
 from convdr_torch.data.conv_dataset import RESPONSE_TOKEN
 from convdr_torch.parallel.mesh import axis_size, barrier, driver_mesh
 from convdr_torch.retrieval.embed_corpus import default_length_buckets
+from convdr_torch.train.checkpoint import SAVE_FORMATS, save_state
 from convdr_torch.train.loop import run_training
 
 logger = logging.getLogger(__name__)
@@ -99,11 +104,18 @@ def get_arguments(argv=None):
                         choices=["auto", "erf", "tanh"],
                         help="GELU flavor; auto = tanh under bf16, erf under f32")
     parser.add_argument("--export_torch", action="store_true",
-                        help="accepted and changes nothing: the trained model "
-                        "is always written in the reference HF format "
-                        "(pytorch_model.bin)")
+                        help="under --save_format orbax, also write the trained "
+                        "rdot* student in the reference HF format "
+                        "(pytorch_model.bin), as the JAX driver does; under "
+                        "torch it changes nothing (pytorch_model.bin is always "
+                        "written)")
+    parser.add_argument("--save_format", default="torch", choices=list(SAVE_FORMATS),
+                        help="torch: checkpoint-N/train_state.pt and "
+                        "pytorch_model.bin; orbax: the JAX driver's layout "
+                        "(orbax checkpoint-N and final/)")
     parser.add_argument("--resume", action="store_true",
-                        help="resume from the newest checkpoint-N in output_dir")
+                        help="resume from the newest checkpoint-N in output_dir "
+                        "(the highest N, whatever its format)")
     parser.add_argument("--use_dropout", action="store_true",
                         help="train with the student's dropout active")
     parser.add_argument("--arch_size", default="base", choices=["base", "tiny"],
@@ -238,9 +250,15 @@ def train(args, mesh, device):
         )
         return s_tok, student
 
+    orbax = args.save_format == "orbax"
+
     def save_fn(student, out_dir, tokenizer):
-        state = {k: v.detach().float().cpu() for k, v in student.state_dict().items()}
-        torch.save(state, os.path.join(out_dir, "pytorch_model.bin"))
+        if orbax:
+            save_state(os.path.join(out_dir, "final"), student, "orbax",
+                       metadata={"model_type": args.model_type})
+        if not orbax or (args.export_torch and args.model_type.startswith("rdot")):
+            state = {k: v.detach().float().cpu() for k, v in student.state_dict().items()}
+            torch.save(state, os.path.join(out_dir, "pytorch_model.bin"))
         tokenizer.save_pretrained(out_dir)
 
     outputs = run_training(
@@ -257,6 +275,7 @@ def train(args, mesh, device):
         n_devices=1 if mesh is None else axis_size(mesh, "data"),
         save_fn=save_fn,
         resume=args.resume,
+        save_format=args.save_format,
     )
     logger.info("training complete: %s", outputs)
     return outputs

@@ -17,7 +17,8 @@ tree; :func:`save_orbax_checkpoint` writes one that the JAX package's
 ``restore_checkpoint`` reads. :func:`restore_checkpoint` takes a JAX
 ``checkpoint-N`` (a TrainState: ``[params, opt_state, step]``) or
 ``final/`` (bare params) as it takes the port's own, through the mappings
-of :mod:`convdr_torch.models.from_jax`.
+of :mod:`convdr_torch.models.from_jax`. :func:`save_state` writes either
+format (the train loop's ``save_format``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ STATE_FILE = "train_state.pt"
 META_FILE = "convdr_meta.json"
 ORBAX_METADATA = "_METADATA"
 ORBAX_CHECKPOINT_METADATA = "_CHECKPOINT_METADATA"
+SAVE_FORMATS = ("torch", "orbax")
 # orbax's key types in _METADATA: a sequence index, a dict key
 _SEQUENCE, _DICT = 1, 2
 _HANDLER = "orbax.checkpoint._src.handlers.standard_checkpoint_handler.StandardCheckpointHandler"
@@ -56,6 +58,20 @@ def save_checkpoint(path: str, state: Union[TrainState, nn.Module],
     torch.save(payload, target + ".tmp")
     os.replace(target + ".tmp", target)
     _write_metadata(path, metadata)
+
+
+def save_state(path: str, state: Union[TrainState, nn.Module], fmt: str = "torch",
+               weight_decay: float = 0.0, metadata: Optional[dict] = None) -> None:
+    """Save a TrainState (or a bare model) to the directory ``path`` in
+    ``fmt``: ``"torch"`` is :func:`save_checkpoint`, ``"orbax"`` the JAX
+    package's layout (:func:`save_orbax_checkpoint` of :func:`orbax_tree_of`,
+    whose optax tree follows ``weight_decay``). A failing write raises."""
+    if fmt == "torch":
+        save_checkpoint(path, state, metadata)
+    elif fmt == "orbax":
+        save_orbax_checkpoint(path, orbax_tree_of(state, weight_decay), metadata)
+    else:
+        raise ValueError(f"save format {fmt!r} is not one of {SAVE_FORMATS}")
 
 
 def _write_metadata(path: str, metadata: Optional[dict]) -> None:

@@ -30,10 +30,11 @@ from convdr_torch.core.config import NUM_FOLD, TrainConfig
 from convdr_torch.data.conv_dataset import ConvSearchDataset
 from convdr_torch.parallel.mesh import axis_max, barrier, batch_rows, is_main_rank, replicate
 from convdr_torch.train.checkpoint import (
+    SAVE_FORMATS,
     latest_checkpoint,
     load_metadata,
     restore_checkpoint,
-    save_checkpoint,
+    save_state,
 )
 from convdr_torch.train.ranking_data import (
     DocumentTokenizerCache,
@@ -94,12 +95,18 @@ def train_one_model(
     fold_id: int = 0,
     n_devices: int = 1,
     resume: bool = False,
+    save_format: str = "torch",
 ):
     """Run the epoch/step loop; returns (student, global_step, avg_loss).
 
+    Every ``save_steps`` optimizer steps the main rank writes
+    ``checkpoint-N`` in ``save_format`` (``save_state``: ``"torch"``, the
+    port's ``train_state.pt``, or ``"orbax"``, the JAX package's TrainState
+    tree).
+
     ``resume=True`` restores the newest ``checkpoint-N`` under
-    ``output_dir`` (parameters, optimizer state, step) and continues until
-    the original ``t_total``. Batch order is re-derived from the epoch seed
+    ``output_dir``, in either format (parameters, optimizer state, step),
+    and continues until the original ``t_total``. Batch order is re-derived from the epoch seed
     and the negative sample from ``(seed, micro_step)``, so a resumed run is
     bit-identical to an uninterrupted one.
 
@@ -107,6 +114,8 @@ def train_one_model(
     ``mesh`` (pass ``n_devices`` = its ``data`` size) each rank computes
     ``per_device_batch_size`` of them.
     """
+    if save_format not in SAVE_FORMATS:
+        raise ValueError(f"save format {save_format!r} is not one of {SAVE_FORMATS}")
     batch_size = config.per_device_batch_size * max(1, n_devices)
     if len(dataset) < batch_size:
         # drop_last: a smaller dataset would yield ZERO batches and the loop
@@ -188,7 +197,8 @@ def train_one_model(
                 if output_dir and config.save_steps > 0 and global_step % config.save_steps == 0:
                     ckpt = os.path.join(output_dir, f"checkpoint-{global_step}")
                     if is_main_rank(mesh):
-                        save_checkpoint(ckpt, state, metadata={"global_step": global_step})
+                        save_state(ckpt, state, save_format, config.weight_decay,
+                                   metadata={"global_step": global_step})
                         logger.info("Saved checkpoint %s", ckpt)
                     barrier(mesh)
             if config.max_steps > 0 and global_step >= config.max_steps:
@@ -222,12 +232,14 @@ def run_training(
     n_devices: int = 1,
     save_fn: Optional[Callable] = None,
     resume: bool = False,
+    save_format: str = "torch",
 ) -> List[str]:
     """Train once or per fold. ``load_student(fold)`` -> (tokenizer,
     student); ``save_fn(student, out_dir, tokenizer)`` persists the final
-    model (default: ``<out_dir>/final`` via :func:`save_checkpoint`).
-    Returns the list of output dirs written. ``mesh`` and ``n_devices`` as
-    in :func:`train_one_model`; only the main rank writes."""
+    model (default: ``<out_dir>/final`` in ``save_format``). Returns the
+    list of output dirs written. ``mesh``, ``n_devices`` and
+    ``save_format`` as in :func:`train_one_model`; only the main rank
+    writes."""
     outputs = []
     folds = range(NUM_FOLD) if cross_validate else [None]
     writer = is_main_rank(mesh)
@@ -253,7 +265,7 @@ def run_training(
         student, global_step, avg_loss = train_one_model(
             dataset, student, teacher, config, tokenizer=tokenizer,
             output_dir=out_dir, mesh=mesh, metrics=metrics, fold_id=fold_id,
-            n_devices=n_devices, resume=resume,
+            n_devices=n_devices, resume=resume, save_format=save_format,
         )
         logger.info("fold %s: global_step=%d avg_loss=%.5f", fold_id, global_step, avg_loss)
         if writer:
@@ -261,8 +273,8 @@ def run_training(
             if save_fn is not None:
                 save_fn(student, out_dir, tokenizer)
             else:
-                save_checkpoint(
-                    os.path.join(out_dir, "final"), student,
+                save_state(
+                    os.path.join(out_dir, "final"), student, save_format,
                     metadata={"model_type": model_type, "global_step": global_step},
                 )
         barrier(mesh)

@@ -14,7 +14,9 @@ test. ``run_convdr_train`` over two ranks (a ``("data",)`` mesh, 2 examples
 a rank, each rank tokenizing only its rows) logs the losses and grad norms
 of the unmeshed run on the same 4-example global batches (within 5e-6
 absolute, the norms 1e-6 relative), one long positive document giving the
-ranks' slices different length rungs. ``dryrun_multichip(2)`` and ``(8)``
+ranks' slices different length rungs; under ``--save_format orbax`` its
+output dir lists as the unmeshed run's (rank 0 writes the orbax
+``checkpoint-2`` and ``final/``). ``dryrun_multichip(2)`` and ``(8)``
 run the JAX dry run's checks and print its one-line summary.
 """
 
@@ -90,6 +92,9 @@ def _train_argv(tmp, out, batch):
             "--arch_size", "tiny", "--no_cuda"]
 
 
+ORBAX = ["--save_format", "orbax", "--save_steps", "2"]
+
+
 def _write_train_topics(tmp):
     """8 examples, 6 negatives each; the first positive runs past the
     64-token rung."""
@@ -126,8 +131,12 @@ def runs(corpus):
         run_convdr_inference.main(_ann_argv(corpus, name, f"single_{name}"))
     _write_train_topics(corpus)
     run_convdr_train.main(_train_argv(corpus, "train_single", 4))
+    run_convdr_train.main(_train_argv(corpus, "train_single_orbax", 4) + ORBAX)
     cases = {"train": ("driver", dict(module="run_convdr_train",
                                       argv=_train_argv(corpus, "train_mesh", 2))),
+             "train_orbax": ("driver", dict(module="run_convdr_train",
+                                            argv=_train_argv(corpus, "train_mesh_orbax", 2)
+                                            + ORBAX)),
              "embed": ("driver", dict(module="gen_passage_embeddings",
                                       argv=_embed_argv(corpus, "emb_mesh"))),
              "infer": ("driver", dict(module="run_convdr_inference",
@@ -188,6 +197,22 @@ def test_meshed_train_logs_the_unmeshed_losses(corpus, runs):
         np.testing.assert_allclose(row["grad_norm"], want_row["grad_norm"], rtol=1e-6, atol=0)
     assert sorted(os.listdir(corpus / "train_mesh")) == sorted(
         os.listdir(corpus / "train_single"))
+
+
+def test_meshed_orbax_train_writes_the_unmeshed_layout(corpus, runs):
+    """Under ``--save_format orbax`` only rank 0 writes, and the two ranks'
+    output dir lists as the one process's: the JAX driver's layout."""
+    single, mesh = corpus / "train_single_orbax", corpus / "train_mesh_orbax"
+    assert sorted(os.listdir(mesh)) == sorted(os.listdir(single)) == [
+        "checkpoint-2", "final", "merges.txt", "metrics.jsonl", "vocab.json"]
+    for sub in ("checkpoint-2", "final"):
+        names = set(os.listdir(mesh / sub))
+        assert {"_CHECKPOINT_METADATA", "_METADATA", "convdr_meta.json"} <= names, sub
+        assert "train_state.pt" not in names
+        for name in ("_METADATA", "convdr_meta.json"):
+            with open(mesh / sub / name) as a, open(single / sub / name) as b:
+                assert json.load(a) == json.load(b), (sub, name)
+    assert [r["step"] for r in _metrics(mesh / "metrics.jsonl")] == [1, 2, 3]
 
 
 @pytest.mark.parametrize("n", [2, 8])

@@ -2,7 +2,8 @@
 
 ``train_one_model`` against the JAX package's on one tiny topics file (the
 same global step, the average loss to rtol 1e-4); resume from a
-``checkpoint-N`` bit-identical to an uninterrupted run; the guards; the
+``checkpoint-N`` in either save format bit-identical to an uninterrupted
+run; the guards; the
 fold harness's output dirs; checkpoint detection; and the train driver end
 to end, its output directory then read by the port's embed and inference
 drivers.
@@ -122,7 +123,8 @@ def _dying_dataset(path, fail_after):
     return ds
 
 
-def test_resume_is_bit_identical(tmp_path):
+@pytest.mark.parametrize("save_format", ["torch", "orbax"])
+def test_resume_is_bit_identical(tmp_path, save_format):
     topics = write_topics(tmp_path / "train.jsonl", 8)
     config = tcfg.TrainConfig(num_train_epochs=2.0, save_steps=2, **CONFIG)
 
@@ -140,7 +142,7 @@ def test_resume_is_bit_identical(tmp_path):
         ds = _torch_dataset(topics) if fail_after is None else _dying_dataset(topics, fail_after)
         model, step, _ = tloop.train_one_model(
             ds, student, teacher, config, tokenizer=TorchBPE.tiny(),
-            output_dir=str(out_dir), metrics=rec, resume=resume,
+            output_dir=str(out_dir), metrics=rec, resume=resume, save_format=save_format,
         )
         return rec.rows, model, step
 
@@ -149,6 +151,9 @@ def test_resume_is_bit_identical(tmp_path):
         run(tmp_path / "resumed", fail_after=3)  # dies after checkpoint-2
     assert tck.latest_checkpoint(str(tmp_path / "resumed")).endswith("checkpoint-2")
     assert tck.load_metadata(str(tmp_path / "resumed" / "checkpoint-2")) == {"global_step": 2}
+    written = set(os.listdir(tmp_path / "resumed" / "checkpoint-2"))
+    assert ("train_state.pt" in written) == (save_format == "torch")
+    assert ("_METADATA" in written) == (save_format == "orbax")
     tail, model, step = run(tmp_path / "resumed", resume=True)
     assert step == full_step == 8
     assert tail == [(s, v) for s, v in full if s > 2]
