@@ -153,7 +153,12 @@ P. (after F) ``--matmul_precision`` over phase 3's rows and queries:
    device ms of a replay, of the encode and of the search; every replay
    equal bit for bit to the eager program. Kernel 1 at B=1 T=256 f32 and
    kernel 2 at Q=1 (f32, bf16, int8) against their plain versions, bounds
-   and library calls. Then ``serve_online.main`` over the 512 evaluation
+   and library calls; at Q=1 f32 and bf16 take the small-Q path, held bit
+   for bit to the 128-row query tile's first row. The Q sweep of kernels 2
+   and 3 (``convdr_torch/scripts/score_sweep.py``: Q = 1..64, f32 and bf16,
+   one 524288-row block; each reading ``torch.equal`` to the first Q rows
+   of a Q=65 batch on the tile path, on the device beside its bound and
+   ``matmul`` + ``amax``) with each Q's launch configuration. Then ``serve_online.main`` over the 512 evaluation
    turns against ``run_convdr_inference --per_gpu_eval_batch_size 1``
    (flat f32 and int8): the runs rank for rank. The serving launches are
    counted from zero around each backend: each graph's recorded launches
@@ -311,7 +316,7 @@ from convdr_torch.retrieval.online import (
     history_to_inputs,
 )
 from convdr_torch.retrieval.pq_index import PQIndex
-from convdr_torch.scripts import rehearsal
+from convdr_torch.scripts import rehearsal, score_sweep
 from convdr_torch.scripts.multi_gpu_check import make_train_file
 from convdr_torch import native_io
 from convdr_torch.train import checkpoint as train_checkpoint
@@ -559,25 +564,33 @@ def attention_bwd_configs():
     return configs
 
 
+SCORE_PATHS = ("FMA tile", "small-Q TMA", "int8 tensor cores")
+
+
 def score_kernel_configs():
     """The score kernel's launch configuration per passage dtype and query
-    count (threads, dynamic shared memory, query rows a block, resident
-    blocks an SM), as ``convdr_scores_groupmax_config`` reports it."""
-    fn = cuda_build.load("scores_groupmax").convdr_scores_groupmax_config
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    count at D=768 (threads, dynamic shared memory, query rows a block,
+    resident blocks an SM, the path, the blocks an SM of the small-Q path's
+    persistent grid), as ``convdr_scores_groupmax_config`` reports it, at
+    Q=512, 64 and every Q of the small-Q sweep."""
+    fn = cuda_build.bind("scores_groupmax", "convdr_scores_groupmax_config",
+                         [ctypes.c_int] * 3 + [ctypes.c_void_p])
     configs = {}
     for code, dtype in enumerate(STORAGE):
-        for qn in (SEARCH_Q, SMALL_Q):
-            out = (ctypes.c_int * 4)()
-            rc = fn(code, qn, ctypes.addressof(out))
+        for qn in sorted({SEARCH_Q, SMALL_Q, *score_sweep.QS}):
+            out = (ctypes.c_int * 6)()
+            rc = fn(code, qn, SEARCH_D, ctypes.addressof(out))
             if rc != 0:
                 raise RuntimeError(f"convdr_scores_groupmax_config: CUDA error {rc}")
-            configs[f"{dtype_name(dtype)}_Q{qn}"] = dict(
-                zip(("threads", "smem_bytes", "block_queries", "blocks_per_sm"), out))
-    log("  scores_groupmax launch configs: " + "; ".join(
-        f"{k} {v['threads']} threads, {v['smem_bytes']} B smem, {v['block_queries']} queries a "
-        f"block, {v['blocks_per_sm']} blocks/SM" for k, v in configs.items()))
+            cfg = dict(zip(("threads", "smem_bytes", "block_queries", "blocks_per_sm", "path",
+                            "persistent_blocks_per_sm"), out))
+            cfg["path"] = SCORE_PATHS[cfg["path"]]
+            configs[f"{dtype_name(dtype)}_Q{qn}"] = cfg
+    log("  scores_groupmax launch configs (D=768): " + "; ".join(
+        f"{k} {v['path']}, {v['threads']} threads, {v['smem_bytes']} B smem, "
+        f"{v['block_queries']} queries a block, {v['blocks_per_sm']} blocks/SM"
+        + (f" ({v['persistent_blocks_per_sm']} launched)" if v["persistent_blocks_per_sm"] else "")
+        for k, v in configs.items()))
     return configs
 
 
@@ -899,18 +912,18 @@ def check_and_time_search(q32, p32):
         ms_q64 = cuda_ms(lambda: fused_scores_groupmax(q[:SMALL_Q], p, GROUP))
         plain_ms = cuda_ms(lambda: fused_scores_groupmax_plain(q, p, GROUP), iters=5)
         lib = library_scores(q, p, GROUP)
-        # the kernel's operands: int8 passages take int8 queries
-        q_bytes = q.numel() * (1 if dtype == torch.int8 else 4)
-        nbytes = (q_bytes + p.numel() * p.element_size()
-                  + SEARCH_Q * SEARCH_N * 4 + SEARCH_Q * (SEARCH_N // GROUP) * 4)
-        bound_ms, bound_by = kernel_bound(2.0 * SEARCH_Q * SEARCH_N * SEARCH_D, nbytes,
-                                          torch.int8 if dtype == torch.int8 else torch.float32)
+        lib_q64 = library_scores(q[:SMALL_Q], p, GROUP)
+        bound_ms, bound_by = score_sweep.bound_ms(SEARCH_Q, p, GROUP, True)
+        bound_q64, bound_by_q64 = score_sweep.bound_ms(SMALL_Q, p, GROUP, True)
         log(f"    kernel {ms:.3f} ms (Q={SMALL_Q}: {ms_q64:.3f}), plain {plain_ms:.3f} ms, "
-            f"{lib['library']} {lib['library_ms']:.3f} ms, matmul alone "
-            f"{lib['matmul_ms']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+            f"{lib['library']} {lib['library_ms']:.3f} ms (Q={SMALL_Q}: "
+            f"{lib_q64['library_ms']:.3f}), matmul alone {lib['matmul_ms']:.3f} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by}; Q={SMALL_Q}: {bound_q64:.3f}, {bound_by_q64})")
         result = {
             "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms, **lib,
             "bound_ms": bound_ms, "bound_by": bound_by, f"ms_Q{SMALL_Q}": ms_q64,
+            f"library_ms_Q{SMALL_Q}": lib_q64["library_ms"], f"bound_ms_Q{SMALL_Q}": bound_q64,
+            f"bound_by_Q{SMALL_Q}": bound_by_q64,
         }
         if dtype == torch.float32:  # the main path's storage
             entry = {
@@ -1042,14 +1055,32 @@ def pass_b_bound(q, p, gsel, group):
                         torch.int8 if p.dtype == torch.int8 else torch.float32)
 
 
+def pass_b_library(q, p, gsel, group):
+    """One PyTorch call computing kernel 4's function, and its name: the
+    product of :func:`library_scores` (``torch.matmul`` with TF32 off on f32
+    operands; int8: ``torch._int_mm`` + ``.float()``), then ``torch.gather``
+    of the picked groups."""
+    qn = q.shape[0]
+    idx = gsel[:, :, None].expand(-1, -1, group)
+    if p.dtype == torch.int8:
+        qi, pt = q.to(torch.int8), p.T
+        return (lambda: torch.gather(torch._int_mm(qi, pt).float().view(qn, -1, group), 1, idx),
+                "torch._int_mm + .float() + torch.gather")
+    pf = p.float()
+    return (lambda: torch.gather(torch.matmul(q, pf.T).view(qn, -1, group), 1, idx),
+            "torch.matmul (TF32 off) + torch.gather")
+
+
 def pass_b_times(q, p, gsel, group):
     """Kernel 4 at one configuration: the public entry host-paced, the
-    streaming search's entry on the device, and the bound."""
+    streaming search's entry on the device, the bound and the library call
+    (:func:`pass_b_library`)."""
     bound = pass_b_bound(q, p, gsel, group)
+    library = pass_b_library(q, p, gsel, group)[0]
     return {"ms": cuda_ms(lambda: extract_candidate_scores(q, p, gsel, group)),
             "device_ms": device_ms(
                 lambda: extract_candidate_scores_unchecked(q, p, gsel, group)),
-            "bound_ms": bound[0], "bound_by": bound[1]}
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": cuda_ms(library, iters=5)}
 
 
 def check_work_list(gsel, n_groups):
@@ -1157,8 +1188,8 @@ def time_streaming(q, p, worst, launches):
         f"(bound {k4['bound_ms']:.3f}, {k4['bound_by']}; {picked}/{n_groups} groups picked; "
         f"work list {k4['work_list']['items']} items, {k4['work_list']['device_ms']:.4f} ms; "
         f"by config " + ", ".join(
-            f"{c} {v['ms']:.3f}/{v['device_ms']:.3f} (bound {v['bound_ms']:.3f})"
-            for c, v in k4["ms_by_config"].items()) + f"); top-{TOP_N} "
+            f"{c} {v['ms']:.3f}/{v['device_ms']:.3f} (bound {v['bound_ms']:.3f}, library "
+            f"{v['library_ms']:.3f})" for c, v in k4["ms_by_config"].items()) + f"); top-{TOP_N} "
         + "; ".join(f"{k}: " + ", ".join(f"{n} {v:.2f}" for n, v in d.items())
                     for k, d in e2e.items()))
     return k3, k4
@@ -1177,16 +1208,7 @@ def streaming_dtype_row(q, p, group, gsel):
     bound = kernel_bound(2.0 * qn * p.shape[0] * p.shape[1],
                          q_bytes + p.numel() * p.element_size() + qn * n_groups * 4,
                          torch.int8 if p.dtype == torch.int8 else torch.float32)
-    idx = gsel[:, :, None].expand(-1, -1, group)
-    if p.dtype == torch.int8:
-        qi, pt = q.to(torch.int8), p.T
-        gather = lambda: torch.gather(  # noqa: E731
-            torch._int_mm(qi, pt).float().view(qn, -1, group), 1, idx)
-        gather_name = "torch._int_mm + .float() + torch.gather"
-    else:
-        pf = p.float()
-        gather = lambda: torch.gather(torch.matmul(q, pf.T).view(qn, -1, group), 1, idx)  # noqa: E731
-        gather_name = "torch.matmul (TF32 off) + torch.gather"
+    gather, gather_name = pass_b_library(q, p, gsel, group)
     return {"ms": cuda_ms(lambda: streaming_groupmax(q, p, group)),
             "plain_ms": cuda_ms(lambda: streaming_groupmax_plain(q, p, group), iters=5),
             **library_scores(q, p, group), "bound_ms": bound[0], "bound_by": bound[1],
@@ -3261,7 +3283,8 @@ def serving_kernel_times(tokenizer, histories):
     """Kernel 1 at the serving encode's shape (B=1, T=256, f32, the mask of
     a served history); kernel 2 at Q=1 over the flat search's full block
     (524288 rows) and its short last one (``SERVE_SHORT``) with f32, bf16
-    and int8 passages; kernel 5 at Q=1 on each of those score blocks and
+    and int8 passages (f32 and bf16: the small-Q path, held bit for bit to
+    the first row of a Q=65 batch on the tile path); kernel 5 at Q=1 on each of those score blocks and
     the groups their maxima pick. Each against its plain version (attention
     within 1e-5; f32/bf16 scores within 1e-5*|q|*max|p|, int8 scores and
     every gather equal). Timed at the full block, host-paced and on the
@@ -3297,6 +3320,8 @@ def serving_kernel_times(tokenizer, histories):
         f"{attn['config']}")
     q32 = torch.randn(1, SEARCH_D, generator=gen, device="cuda")
     p32 = torch.randn(SEARCH_N, SEARCH_D, generator=gen, device="cuda")
+    # the other 64 rows of a Q=65 batch: the 128-row query tile's path
+    q_rest = torch.randn(score_sweep.TILE_Q - 1, SEARCH_D, generator=gen, device="cuda")
     scores, gather = {}, None
     for dtype in STORAGE:
         qd, p = search_operands(q32, p32, dtype)
@@ -3304,6 +3329,12 @@ def serving_kernel_times(tokenizer, histories):
         for n in (SERVE_SHORT, SEARCH_N):
             s, g = fused_scores_groupmax(qd, p[:n], GROUP)
             s_ref, g_ref = fused_scores_groupmax_plain(qd, p[:n], GROUP)
+            if dtype != torch.int8:  # the small-Q path against the query tile's
+                s_t, g_t = fused_scores_groupmax(torch.cat([qd, q_rest]), p[:n], GROUP)
+                if not (torch.equal(s, s_t[:1]) and torch.equal(g, g_t[:1])):
+                    raise AssertionError(f"kernel 2 at Q=1 N={n} ({dtype}) differs from the "
+                                         f"tile path's first row")
+                del s_t, g_t
             diff = max(diff, (s - s_ref).abs().max().item())
             tol = 1e-5 * qd.norm().item() * p[:n].float().norm(dim=1).max().item()
             exact = torch.equal(s, s_ref) and torch.equal(g, g_ref)
@@ -3438,9 +3469,12 @@ def serving_path(paths):
                                  f"{b['launches']}")
     tokenizer = load_tokenizer_for(get_model_config("rdot_nll"), None)  # the served one
     attn, scores, gather = serving_kernel_times(tokenizer, histories)
+    log("kernels 2 and 3 across Q (small-Q path up to Q*, then the tile path; one 524288-row "
+        "block, D=768, device ms):")
+    q_sweep = score_sweep.sweep(log=log)
     drivers = {st: serve_driver_vs_batch(paths, st) for st in ("float32", "int8")}
     return {"backends": backends, "kernel1_B1": attn, "kernel2_Q1": scores, "kernel5_Q1": gather,
-            "driver_vs_batch": drivers, "phase_s": time.time() - t_phase}
+            "q_sweep": q_sweep, "driver_vs_batch": drivers, "phase_s": time.time() - t_phase}
 
 
 # ---------------------------------------------------------------------------
@@ -4173,6 +4207,13 @@ def main(argv=None):
         * default_serving["replays"])
     fwd["serving_B1"] = serving["kernel1_B1"]
     search["serving_Q1"] = serving["kernel2_Q1"]
+    # the Q sweep: kernel 2's readings on its entry, kernel 3's on its own
+    search["q_sweep"] = {dt: {q: {k: v for k, v in row.items() if not k.startswith("kernel3")}
+                              for q, row in rows.items()}
+                         for dt, rows in serving["q_sweep"].items()}
+    k3["q_sweep"] = {dt: {q: {k: v for k, v in row.items() if not k.startswith("kernel2")}
+                          for q, row in rows.items()}
+                     for dt, rows in serving["q_sweep"].items()}
     k5["serving_Q1"] = serving["kernel5_Q1"]
     log(f"inference + search over {N_PASSAGES + 2 * N_EXTRA} rows, same call: f32 "
         f"{t_infer:.2f} s, int8 {int8['inference_s']:.2f} s, int8 + rescore 2 over the f32 "

@@ -101,6 +101,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The box of a rank-2 map at (c0, c1), innermost first; as tma_load_4d.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(shared_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(shared_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // The box of a rank-4 map at (c0, c1, c2, c3) from shared memory at src
 // (elements outside the tensor are not written), as one bulk group.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
@@ -327,6 +337,26 @@ inline bool encode_bthd_map(CUtensorMap* map, const void* base, int batch, int s
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The map of a row-major [rows, cols] matrix (f32 or bf16; a row pitch of
+// `cols` elements, a multiple of 16 bytes) whose box is `box_rows` rows of
+// 128 bytes (32 f32 or 64 bf16 columns), swizzled by 128 bytes; columns
+// past `cols` arrive as zeros. Returns false if the driver refuses it.
+inline bool encode_rows_map(CUtensorMap* map, const void* base, bool bf16, int cols, int rows,
+                            int box_rows) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t elem = bf16 ? 2 : 4;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {elem * cols};  // bytes, dim 1
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1u, 1u};
+  return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

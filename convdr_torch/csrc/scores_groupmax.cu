@@ -11,7 +11,7 @@
 // reach device memory and they are bit-identical to kernel 2's.
 //
 // Computes S = Q P^T ([Q, N] f32) and the maximum of every run of G
-// consecutive columns ([Q, N/G]). P is f32, bf16 or int8 [N, D]. Two paths:
+// consecutive columns ([Q, N/G]). P is f32, bf16 or int8 [N, D]. Three paths:
 //
 // f32 and bf16 passages: f32 FMAs on the CUDA cores. What bounds them on an
 // H100 is operations: 2*Q*N*D at the 67 TFLOP/s f32 peak (412 GFLOP, ~6.2 ms
@@ -43,6 +43,36 @@
 //   * the grid walks query tiles fastest, so the Q/BM blocks that share a
 //     passage tile run together and read it from device memory once.
 //
+// f32 and bf16 passages at Q <= 32 (kSmallQMax, Q*; the serving search is
+// Q=1): the tile above would compute 64 query rows for each live one, and
+// what bounds the work is bytes (the block, 0.48 ms f32 / 0.24 ms bf16 at
+// N=524288, D=768), so this path streams the block once at the lowest cost
+// an element, in the same chain order:
+//   * one consumer thread a passage row, holding one accumulator a query
+//     (Q rounded up to a power of two, 1..32, a template instance each); k
+//     is never split: each score is still the single chain above, bf16
+//     widened exactly by __bfloat1622float2 before its FMA;
+//   * [128 rows x 128 bytes of k] boxes (32 f32 / 64 bf16 k) come in by TMA
+//     (cp.async.bulk.tensor.2d, k past D zero-filled) into a ring of 3
+//     stages, issued by one producer thread and drained under full / empty
+//     mbarriers (csrc/hopper.cuh); the 128-byte swizzle puts a warp's 32
+//     rows of one 16-byte chunk on all banks (4 wavefronts an LDS.128);
+//   * the queries are copied to shared memory once a block as [k/4][Q]
+//     float4 and read as broadcasts: one LDS.128 feeds 4 FMAs a query;
+//   * a persistent grid (up to 2 blocks an SM) walks the 128-row tiles, the
+//     ring running across tiles, so the next tile's loads overlap this
+//     tile's FMAs and epilogue;
+//   * epilogue from the registers: scores 128 bytes a warp a query
+//     (compiled out for pass A); the max of G consecutive rows, i.e. G
+//     consecutive threads, by __shfl_xor_sync for G <= 32 and one
+//     shared-memory step across warps for G = 64, 128 (a max is exact, so
+//     its order is free).
+// Its queries must fit in shared memory beside the ring (D <= 1408 at
+// Q = 17..32, 2816 at Q = 9..16); larger D takes the tile path. Q* is the
+// largest Q at which this path beat the tile path on an H100 in both
+// dtypes (convdr_torch/scripts/score_sweep.py, which chip_smoke.py runs:
+// kernels 2 and 3 at Q = 1..64, bit for bit equal to the tile path).
+//
 // int8 passages (SQ8 storage, ops/quant.py): the wrapper turns the
 // int-valued f32 queries into int8 (exact in [-127, 127]), and the product
 // runs on the int8 tensor cores: mma.sync m16n8k32 s8 x s8 -> s32, fragments
@@ -53,7 +83,7 @@
 // integer oracle bit for bit. The bound there is bytes (the int8 block plus
 // the [Q, N] f32 score store), ~0.44 ms at the shape above.
 //
-// Epilogue (both paths): the accumulator tile goes through shared memory
+// Epilogue (the tile paths): the accumulator tile goes through shared memory
 // (pitch BN + 8 floats, conflict-free), then each warp takes whole rows:
 // 16-byte score stores, 512 contiguous bytes a row (compiled out for pass
 // A), and the max of each group of G columns by __shfl_xor_sync over the G/4
@@ -67,6 +97,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -298,6 +330,195 @@ scores_groupmax_fma(const float* __restrict__ q, const P* __restrict__ p,
 }
 
 // ---------------------------------------------------------------------------
+// f32 / bf16 passages at Q <= kSmallQMax: one thread a passage row
+// ---------------------------------------------------------------------------
+constexpr int kSmallQMax = 32;                 // Q*: the largest Q this path takes
+constexpr int kSqRows = 128;                   // passage rows a tile, one a consumer
+constexpr int kSqConsumers = kSqRows;          // 4 warps
+constexpr int kSqWarps = kSqConsumers / 32;
+constexpr int kSqThreads = kSqConsumers + 32;  // + the TMA producer warp
+constexpr int kSqStages = 3;                   // mbarrier ring depth
+constexpr int kSqStageBytes = kSqRows * 128;   // 128 bytes of k a row: 16 KB
+constexpr int kSqMaxBlocksPerSm = 2;           // the persistent grid
+constexpr int kMaxSmem = 227 * 1024;           // a block's dynamic shared memory
+constexpr int kUnrollFmas = 1024;              // FMAs a thread in the unrolled stage body
+
+// Queries a block computes for Q: Q rounded up to a power of two.
+inline int sq_bucket(int nq) {
+  int b = 1;
+  while (b < nq) b <<= 1;
+  return b;
+}
+
+// Shared memory from a 1024-byte aligned base (the 128-byte swizzle's
+// atom): the ring's stages, the queries as [dk / 4][kQ] float4 (dk = D
+// rounded up to a stage's k; zero past Q and past D), the cross-warp
+// group maxima [kSqWarps][kQ], the full and empty barriers; + 1024 bytes
+// to align the base.
+inline int sq_smem_bytes(int kq, int dk) {
+  return 1024 + kSqStages * kSqStageBytes + kq * dk * 4 + kSqWarps * kq * 4 +
+         2 * kSqStages * 8;
+}
+
+// 4 consecutive k of a passage row into every query's chain, k in order;
+// q4[j] holds query j's 4 values at these k.
+template <int kQ>
+__device__ __forceinline__ void sq_fma4(float (&acc)[kQ], const float4* q4, float p0, float p1,
+                                        float p2, float p3) {
+#pragma unroll
+  for (int j = 0; j < kQ; ++j) {
+    const float4 a = q4[j];
+    acc[j] = fmaf(a.x, p0, acc[j]);
+    acc[j] = fmaf(a.y, p1, acc[j]);
+    acc[j] = fmaf(a.z, p2, acc[j]);
+    acc[j] = fmaf(a.w, p3, acc[j]);
+  }
+}
+
+__device__ __forceinline__ float2 widen_bf16x2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));  // exact
+}
+
+// One 16-byte chunk of a passage row: 4 f32 or 8 bf16 k, in order.
+template <typename P, int kQ>
+__device__ __forceinline__ void sq_chunk(float (&acc)[kQ], const float4* q4, uint4 raw) {
+  if constexpr (sizeof(P) == 4) {
+    sq_fma4<kQ>(acc, q4, __uint_as_float(raw.x), __uint_as_float(raw.y), __uint_as_float(raw.z),
+                __uint_as_float(raw.w));
+  } else {
+    const float2 k01 = widen_bf16x2(raw.x), k23 = widen_bf16x2(raw.y);
+    const float2 k45 = widen_bf16x2(raw.z), k67 = widen_bf16x2(raw.w);
+    sq_fma4<kQ>(acc, q4, k01.x, k01.y, k23.x, k23.y);
+    sq_fma4<kQ>(acc, q4 + kQ, k45.x, k45.y, k67.x, k67.y);
+  }
+}
+
+// A persistent grid walks the 128-row passage tiles (tile blockIdx.x, then
+// + gridDim.x). Thread 128 (the producer warp's first lane) streams each
+// tile's [128 rows x 128 bytes of k] boxes by TMA into a ring of kSqStages
+// stages, across tiles, so the next tile's loads overlap this one's FMAs
+// and epilogue; consumer thread t owns row t of every tile and holds kQ
+// accumulators. A stage lands on its full barrier and is released by all
+// 128 consumers on its empty barrier.
+template <typename P, int kQ, bool kStore>
+__global__ void __launch_bounds__(kSqThreads, 1)
+scores_groupmax_small_q(const __grid_constant__ CUtensorMap p_map, const float* __restrict__ q,
+                        float* __restrict__ scores, float* __restrict__ gmax, int nq, int n,
+                        int d, int group) {
+  constexpr int kBoxK = 128 / static_cast<int>(sizeof(P));  // k of a stage: 32 or 64
+  constexpr int kChunk4 = 4 / static_cast<int>(sizeof(P));   // float4 of q a chunk: 1 or 2
+  constexpr int kChunkFmas = kQ * 4 * kChunk4;               // FMAs of a chunk a thread
+  constexpr int kUnroll = kChunkFmas * 8 <= kUnrollFmas ? 8 : kUnrollFmas / kChunkFmas;
+  extern __shared__ __align__(16) unsigned char sq_smem[];
+  unsigned char* smem = sq_smem + ((1024u - (shared_addr(sq_smem) & 1023u)) & 1023u);
+  const int nk = (d + kBoxK - 1) / kBoxK;
+  const int dk4 = nk * (kBoxK / 4);  // float4 of k a query
+  float4* qs = reinterpret_cast<float4*>(smem + kSqStages * kSqStageBytes);
+  float* red = reinterpret_cast<float*>(qs + dk4 * kQ);
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + kSqWarps * kQ);
+  uint64_t* empty = full + kSqStages;
+  const int tid = threadIdx.x;
+  const int tiles = n / kSqRows;
+
+  if (tid == kSqConsumers) {
+    for (int s = 0; s < kSqStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kSqConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kSqConsumers) {  // the producer
+    if (tid == kSqConsumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        for (int kc = 0; kc < nk; ++kc, ++it) {
+          const int s = it % kSqStages;
+          if (it >= kSqStages) mbar_wait(empty + s, (it / kSqStages - 1) & 1);
+          mbar_arrive_expect_tx(full + s, kSqStageBytes);
+          tma_load_2d(smem + s * kSqStageBytes, &p_map, full + s, kc * kBoxK, tile * kSqRows);
+        }
+    }
+    return;
+  }
+
+  // the queries, once a block, while the first stages load
+  for (int i = tid; i < kQ * dk4; i += kSqConsumers) {
+    const int j = i / dk4;
+    const int k4 = i - j * dk4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j < nq && 4 * k4 < d)
+      v = *reinterpret_cast<const float4*>(q + static_cast<long long>(j) * d + 4 * k4);
+    qs[k4 * kQ + j] = v;
+  }
+  named_barrier(1, kSqConsumers);
+
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int gshift = __ffs(group) - 1;
+  const int groups_per_row = n >> gshift;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float acc[kQ];
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) acc[j] = 0.f;
+    for (int kc = 0; kc < nk; ++kc, ++it) {
+      const int s = it % kSqStages;
+      mbar_wait(full + s, (it / kSqStages) & 1);
+      const unsigned char* rows = smem + s * kSqStageBytes;
+      const float4* q4 = qs + kc * (kBoxK / 4) * kQ;
+      // the row's 8 chunks in k order; the swizzle spreads the warp's 32
+      // rows of one chunk over all banks (4 wavefronts an LDS.128). The
+      // unrolled body stays within kUnrollFmas FMAs a thread: at 2048 (bf16,
+      // Q=32) the stage ran at half the rate of f32's 1024
+#pragma unroll 1
+      for (int c0 = 0; c0 < 8; c0 += kUnroll) {
+#pragma unroll
+        for (int c = c0; c < c0 + kUnroll; ++c) {
+          const uint4 raw =
+              *reinterpret_cast<const uint4*>(rows + swizzled_chunk_offset(tid, c, 128));
+          sq_chunk<P, kQ>(acc, q4 + c * kChunk4 * kQ, raw);
+        }
+      }
+      mbar_arrive(empty + s);
+    }
+
+    // scores: 128 bytes a warp a query; maxima: G consecutive threads
+    const int row = tile * kSqRows + tid;
+#pragma unroll
+    for (int j = 0; j < kQ; ++j) {
+      if (j < nq) {
+        if constexpr (kStore) scores[static_cast<long long>(j) * n + row] = acc[j];
+        float mx = acc[j];
+        for (int off = 1; off < group && off < 32; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        if (group <= 32) {
+          if ((lane & (group - 1)) == 0)
+            gmax[static_cast<long long>(j) * groups_per_row + (row >> gshift)] = mx;
+        } else if (lane == 0) {
+          red[warp * kQ + j] = mx;
+        }
+      }
+    }
+    if (group > 32) {  // G = 64, 128: the warps' maxima through shared memory
+      named_barrier(1, kSqConsumers);
+      const int warps_a_group = group / 32;
+      const int groups_a_tile = kSqRows / group;
+      if (tid < nq * groups_a_tile) {
+        const int j = tid / groups_a_tile;
+        const int g = tid - j * groups_a_tile;
+        float mx = red[g * warps_a_group * kQ + j];
+        for (int w = 1; w < warps_a_group; ++w)
+          mx = fmaxf(mx, red[(g * warps_a_group + w) * kQ + j]);
+        gmax[static_cast<long long>(j) * groups_per_row + tile * groups_a_tile + g] = mx;
+      }
+      named_barrier(1, kSqConsumers);  // red is free for the next tile
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // int8 passages: s8 x s8 -> s32 on the tensor cores
 // ---------------------------------------------------------------------------
 constexpr int kI8BM = 128;
@@ -416,25 +637,89 @@ scores_groupmax_i8(const int8_t* __restrict__ q, const int8_t* __restrict__ p,
 // launch
 // ---------------------------------------------------------------------------
 struct Config {
-  int threads, smem, rows;  // block threads, dynamic shared bytes, BM
+  int threads, smem, rows;  // block threads, dynamic shared bytes, query rows a block
   const void* fn;
+  int path;                 // kPathTile, kPathSmallQ or kPathInt8
 };
+constexpr int kPathTile = 0, kPathSmallQ = 1, kPathInt8 = 2;
 
+template <typename P, bool kStore>
+const void* small_q_fn(int kq) {
+  switch (kq) {
+    case 1: return (const void*)scores_groupmax_small_q<P, 1, kStore>;
+    case 2: return (const void*)scores_groupmax_small_q<P, 2, kStore>;
+    case 4: return (const void*)scores_groupmax_small_q<P, 4, kStore>;
+    case 8: return (const void*)scores_groupmax_small_q<P, 8, kStore>;
+    case 16: return (const void*)scores_groupmax_small_q<P, 16, kStore>;
+    default: return (const void*)scores_groupmax_small_q<P, kSmallQMax, kStore>;
+  }
+}
+
+// f32 and bf16 passages take the small-Q path at Q <= kSmallQMax when its
+// queries fit in shared memory beside the ring (D <= 1408 at Q = 17..32;
+// the tile path takes larger D).
 template <bool kStore>
-Config config(int p_dtype, int nq) {
+Config config(int p_dtype, int nq, int d) {
+  if (p_dtype != 2 && nq <= kSmallQMax) {
+    const int kq = sq_bucket(nq);
+    const int box_k = p_dtype == 0 ? 32 : 64;
+    const int smem = sq_smem_bytes(kq, (d + box_k - 1) / box_k * box_k);
+    if (smem <= kMaxSmem)
+      return Config{kSqThreads, smem, kq,
+                    p_dtype == 0 ? small_q_fn<float, kStore>(kq)
+                                 : small_q_fn<__nv_bfloat16, kStore>(kq),
+                    kPathSmallQ};
+  }
   const bool small = nq <= 64;
   if (p_dtype == 0)
     return small ? Config{128, fma_smem_bytes<float, 64>(), 64,
-                          (const void*)scores_groupmax_fma<float, 64, kStore>}
+                          (const void*)scores_groupmax_fma<float, 64, kStore>, kPathTile}
                  : Config{256, fma_smem_bytes<float, 128>(), 128,
-                          (const void*)scores_groupmax_fma<float, 128, kStore>};
+                          (const void*)scores_groupmax_fma<float, 128, kStore>, kPathTile};
   if (p_dtype == 1)
     return small ? Config{128, fma_smem_bytes<__nv_bfloat16, 64>(), 64,
-                          (const void*)scores_groupmax_fma<__nv_bfloat16, 64, kStore>}
+                          (const void*)scores_groupmax_fma<__nv_bfloat16, 64, kStore>, kPathTile}
                  : Config{256, fma_smem_bytes<__nv_bfloat16, 128>(), 128,
-                          (const void*)scores_groupmax_fma<__nv_bfloat16, 128, kStore>};
+                          (const void*)scores_groupmax_fma<__nv_bfloat16, 128, kStore>, kPathTile};
   return Config{kI8Threads, i8_smem_bytes(), kI8BM,
-                (const void*)scores_groupmax_i8<kStore>};
+                (const void*)scores_groupmax_i8<kStore>, kPathInt8};
+}
+
+// Resident blocks an SM of cfg (after its shared-memory attribute is set).
+cudaError_t blocks_per_sm(const Config& cfg, int* blocks) {
+  cudaError_t err =
+      cudaFuncSetAttribute(cfg.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, cfg.fn, cfg.threads, cfg.smem);
+}
+
+// The small-Q path's persistent grid: up to kSqMaxBlocksPerSm blocks an
+// SM, no more blocks than tiles.
+cudaError_t small_q_grid(const Config& cfg, int tiles, int* grid) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t err = blocks_per_sm(cfg, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int per = per_sm < kSqMaxBlocksPerSm ? per_sm : kSqMaxBlocksPerSm;
+  *grid = tiles < sms * per ? tiles : sms * per;
+  return cudaSuccess;
+}
+
+cudaError_t launch_small_q(const Config& cfg, const float* q, const void* p, float* scores,
+                           float* gmax, int nq, int n, int d, int group, int p_dtype,
+                           cudaStream_t s) {
+  alignas(64) CUtensorMap map;
+  if (!encode_rows_map(&map, p, p_dtype == 1, d, n, kSqRows)) return cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t err = small_q_grid(cfg, n / kSqRows, &grid);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&map, &q, &scores, &gmax, &nq, &n, &d, &group};
+  err = cudaLaunchKernel(cfg.fn, dim3(grid), dim3(cfg.threads), args, cfg.smem, s);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <bool kStore>
@@ -447,18 +732,20 @@ int launch(const void* q, const void* p, void* scores, void* gmax, int nq,
   if (p_dtype < 0 || p_dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
   const int vec = p_dtype == 0 ? 4 : p_dtype == 1 ? 8 : 16;
   if (d % vec != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Config cfg = config<kStore>(p_dtype, nq);
+  const Config cfg = config<kStore>(p_dtype, nq, d);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* sf = static_cast<float*>(scores);
+  float* gf = static_cast<float*>(gmax);
+  const float* qf = static_cast<const float*>(q);
+  if (cfg.path == kPathSmallQ)
+    return static_cast<int>(launch_small_q(cfg, qf, p, sf, gf, nq, n, d, group, p_dtype, s));
   const long long blocks =
       static_cast<long long>((nq + cfg.rows - 1) / cfg.rows) * (n / kTileN);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       cfg.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(static_cast<unsigned>(blocks));
-  float* sf = static_cast<float*>(scores);
-  float* gf = static_cast<float*>(gmax);
-  const float* qf = static_cast<const float*>(q);
   if (p_dtype == 0) {
     const float* pp = static_cast<const float*>(p);
     if (cfg.rows == 64)
@@ -506,23 +793,28 @@ extern "C" int convdr_streaming_groupmax(const void* q, const void* p,
   return launch<false>(q, p, nullptr, gmax, nq, n, d, group, p_dtype, stream);
 }
 
-// The launch configuration chosen for (p_dtype, nq): out[0] threads a
-// block, out[1] dynamic shared memory bytes, out[2] query rows a block,
-// out[3] resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-// after the shared-memory attribute is set). Returns a cudaError_t.
-extern "C" int convdr_scores_groupmax_config(int p_dtype, int nq, int* out) {
-  if (p_dtype < 0 || p_dtype > 2 || nq <= 0)
+// The launch configuration chosen for (p_dtype, nq, d), d as the kernel
+// takes it (padded to 16 bytes of P): out[0] threads a block, out[1]
+// dynamic shared memory bytes, out[2] query rows a block (the small-Q
+// path: Q rounded up to a power of two), out[3] resident blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the shared-memory
+// attribute is set), out[4] the path (0 the FMA tile, 1 the small-Q TMA
+// path, 2 int8 tensor cores), out[5] the blocks an SM the small-Q path's
+// persistent grid launches (0 on the tile paths: one block a tile).
+// Returns a cudaError_t.
+extern "C" int convdr_scores_groupmax_config(int p_dtype, int nq, int d, int* out) {
+  if (p_dtype < 0 || p_dtype > 2 || nq <= 0 || d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Config cfg = config<true>(p_dtype, nq);
-  cudaError_t err = cudaFuncSetAttribute(
-      cfg.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const Config cfg = config<true>(p_dtype, nq, d);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cfg.fn,
-                                                      cfg.threads, cfg.smem);
+  const cudaError_t err = blocks_per_sm(cfg, &blocks);
   out[0] = cfg.threads;
   out[1] = cfg.smem;
   out[2] = cfg.rows;
   out[3] = blocks;
+  out[4] = cfg.path;
+  out[5] = cfg.path == kPathSmallQ
+               ? (blocks < kSqMaxBlocksPerSm ? blocks : kSqMaxBlocksPerSm)
+               : 0;
   return static_cast<int>(err);
 }

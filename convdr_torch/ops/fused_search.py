@@ -12,7 +12,10 @@ search path (``exact_search._chunked_topk``). int8 passages (SQ8 storage,
 :mod:`convdr_torch.ops.quant`) take the int-valued f32 queries of
 ``quantize_queries``; their scores are then exact integers, equal to
 ``int8_topk_oracle``'s. On the card the kernel takes them as int8 and runs
-the product on the int8 tensor cores.
+the product on the int8 tensor cores. f32 and bf16 passages at Q <= 32
+(the serving search is Q=1) take the kernel's small-Q path, one thread a
+passage row fed by TMA, whose scores and maxima equal the query-tile
+path's bit for bit (the same FMA chain a score).
 """
 
 from __future__ import annotations
@@ -114,8 +117,10 @@ def fused_scores_groupmax(
 
     CUDA tensors go through ``csrc/scores_groupmax.cu`` (passages f32,
     bf16 or int8, N a multiple of :data:`ROW_TILE`, ``group`` in
-    :data:`GROUPS`); CPU tensors through :func:`fused_scores_groupmax_plain`.
-    ``fused_scores_groupmax.launches`` counts kernel launches.
+    :data:`GROUPS`; the kernel picks its path by Q, D and the passage
+    dtype, and any failed launch raises); CPU tensors through
+    :func:`fused_scores_groupmax_plain`. ``fused_scores_groupmax.launches``
+    counts kernel launches.
     """
     if passages.device.type == "cpu":
         return fused_scores_groupmax_plain(queries, passages, group)

@@ -5,7 +5,8 @@ The counterpart of the streaming half of ``convdr_tpu/ops/pallas_search.py``
 
   * :func:`streaming_groupmax`       -- pass A, the [Q, N/G] group maxima in
     one passage pass (the score kernel with its score store compiled out,
-    ``convdr_streaming_groupmax`` in ``csrc/scores_groupmax.cu``);
+    ``convdr_streaming_groupmax`` in ``csrc/scores_groupmax.cu``; its
+    small-Q path too at Q <= 32 on f32 and bf16 passages);
   * :func:`extract_candidate_scores` -- pass B, the [Q, kg, G] scores of the
     selected groups only (``csrc/streaming_search.cu``);
   * :func:`streaming_flat_ip_topk`   -- group selection on the maxima, pass

@@ -1,0 +1,202 @@
+"""Kernels 2 and 3 (``csrc/scores_groupmax.cu``) across the query count, on the card.
+
+Over one block of 524,288 seeded N(0, 1) rows of D=768, stored in f32 and
+in bf16, at Q = 1, 2, 4, 8, 16, 32 and 64: kernel 2
+(``fused_scores_groupmax``, G=32) and kernel 3 (``streaming_groupmax``,
+G=128) are called at Q and held bit for bit (``torch.equal``) to the first
+Q rows of a Q=65 batch, which takes the 128-row query tile whatever the
+small-Q limit; a mismatch raises. Each is timed on the device (the calls
+queued behind a spin kernel, so no host time is in it) beside its bound
+(the larger of the bytes over 3.35 TB/s and 2QND operations over the 67
+TFLOP/s f32 peak), one library call of the same function (``torch.matmul``
+with TF32 off on f32 operands, then ``amax``; the bf16 block cast to f32
+beforehand) and the Q=65 batch. Kernel 2 at Q=1 is also timed host-paced.
+
+``--root`` imports ``convdr_torch`` from another checkout (a parent
+unpacked with ``git archive``), so two versions compare within one call on
+one card; ``--digests`` adds a digest of every output, and of kernels 2
+and 3 at Q=512 (f32, bf16) and with int8 passages at Q = 1, 64 and 512, so
+that the outputs of two checkouts compare bit for bit across processes:
+
+    python -m convdr_torch.scripts.score_sweep --root parent --label parent --digests
+    python -m convdr_torch.scripts.score_sweep --label change --digests
+
+Needs the card; prints one JSON line a version.
+"""
+
+import argparse
+import hashlib
+import json
+import sys
+
+import torch
+
+N, D, GROUP, STREAM_GROUP = 524288, 768, 32, 128
+QS = (1, 2, 4, 8, 16, 32, 64)
+TILE_Q = 65  # the smallest batch the 128-row query tile takes
+DIGEST_QS = (1, 64, 512)  # int8 passages, and Q=512 in f32 and bf16
+# published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
+HBM_BYTES_PER_S, F32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
+
+
+def device_ms(fn, iters=20):
+    """Mean device time of ``fn()`` in ms, the calls queued behind a ~50 ms
+    spin kernel so that the events time the kernels back to back."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_paced_ms(fn, iters=50):
+    """Mean time of ``fn()`` in ms with the host launching each call."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(qn, p, group, scores):
+    """The least time (ms) of one call at Q=qn over passages ``p``: each
+    input read once (int8 queries for int8 passages), each output written
+    once ([Q, N] scores if ``scores``, [Q, N/G] maxima), against 2QND
+    operations at the f32 peak (int8: the int8 tensor-core peak); and
+    which of the two bounds it."""
+    n, d = p.shape
+    int8 = p.dtype == torch.int8
+    nbytes = qn * d * (1 if int8 else 4) + p.numel() * p.element_size() + qn * (n // group) * 4
+    if scores:
+        nbytes += qn * n * 4
+    ops_ms = 2.0 * qn * n * d / (INT8_OPS if int8 else F32_FLOPS) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
+
+
+def digest(*tensors):
+    h = hashlib.blake2b(digest_size=16)
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sweep(qs=QS, n=N, d=D, seed=0, digests=False, log=print):
+    """The readings above, as ``{dtype: {"Q<q>": row, "tile_Q65": ...}}``;
+    with ``digests``, each row's ``digest`` and a ``digests`` entry of the
+    Q=512 and int8 outputs."""
+    from convdr_torch.ops.fused_search import fused_scores_groupmax
+    from convdr_torch.ops.streaming_search import streaming_groupmax
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q_all = torch.randn(TILE_Q, d, generator=gen, device="cuda")
+    p32 = torch.randn(n, d, generator=gen, device="cuda")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        p = p32.to(dtype)
+        pf = p.float()
+        s_tile, g_tile = fused_scores_groupmax(q_all, p, GROUP)
+        m_tile = streaming_groupmax(q_all, p, STREAM_GROUP)
+        rows = {"tile_Q65": {
+            "kernel2_ms": device_ms(lambda: fused_scores_groupmax(q_all, p, GROUP)),
+            "kernel3_ms": device_ms(lambda: streaming_groupmax(q_all, p, STREAM_GROUP))}}
+        for qn in qs:
+            q = q_all[:qn].contiguous()
+            s, g = fused_scores_groupmax(q, p, GROUP)
+            m = streaming_groupmax(q, p, STREAM_GROUP)
+            if not (torch.equal(s, s_tile[:qn]) and torch.equal(g, g_tile[:qn])
+                    and torch.equal(m, m_tile[:qn])):
+                raise AssertionError(f"{name} Q={qn}: kernels 2 / 3 differ from the first "
+                                     f"{qn} rows of the Q={TILE_Q} tile path")
+            k2 = lambda: fused_scores_groupmax(q, p, GROUP)  # noqa: E731
+            k3 = lambda: streaming_groupmax(q, p, STREAM_GROUP)  # noqa: E731
+            lib2 = lambda: torch.matmul(q, pf.T).view(qn, -1, GROUP).amax(-1)  # noqa: E731
+            lib3 = lambda: torch.matmul(q, pf.T).view(qn, -1, STREAM_GROUP).amax(-1)  # noqa: E731
+            b2, by2 = bound_ms(qn, p, GROUP, True)
+            b3, by3 = bound_ms(qn, p, STREAM_GROUP, False)
+            row = {"equal_to_tile_path": True,
+                   "kernel2_ms": device_ms(k2), "kernel2_bound_ms": b2,
+                   "kernel2_bound_by": by2, "kernel2_library_ms": device_ms(lib2),
+                   "kernel3_ms": device_ms(k3), "kernel3_bound_ms": b3,
+                   "kernel3_bound_by": by3, "kernel3_library_ms": device_ms(lib3)}
+            if qn == 1:
+                row["kernel2_host_paced_ms"] = host_paced_ms(k2)
+                row["kernel2_library_host_paced_ms"] = host_paced_ms(lib2)
+            if digests:
+                row["digest"] = digest(s, g, m)
+            rows[f"Q{qn}"] = row
+            log(f"  {name} Q={qn}: kernel 2 {row['kernel2_ms']:.4f} ms (bound {b2:.4f}, "
+                f"{by2}; library {row['kernel2_library_ms']:.4f}), kernel 3 "
+                f"{row['kernel3_ms']:.4f} ms (bound {b3:.4f}; library "
+                f"{row['kernel3_library_ms']:.4f}); equal to the Q={TILE_Q} tile path's rows")
+        log(f"  {name} Q={TILE_Q} (tile path): kernel 2 {rows['tile_Q65']['kernel2_ms']:.4f} ms, "
+            f"kernel 3 {rows['tile_Q65']['kernel3_ms']:.4f} ms")
+        out[name] = rows
+        del p, pf, s_tile, g_tile, m_tile
+    if digests:
+        out["digests"] = other_digests(p32, seed)
+    del p32
+    torch.cuda.empty_cache()
+    return out
+
+
+def other_digests(p32, seed):
+    """Digests of kernels 2 and 3 at Q=512 (f32, bf16) and with int8
+    passages (the device SQ8 of the rows, scales fitted on the first 65536,
+    and the int-valued queries of the same quantizer) at Q = 1, 64, 512."""
+    from convdr_torch.ops.fused_search import fused_scores_groupmax
+    from convdr_torch.ops.quant import Int8Quantizer, quantize_passages_dev
+    from convdr_torch.ops.streaming_search import streaming_groupmax
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    q512 = torch.randn(512, p32.shape[1], generator=gen, device="cuda")
+    quant = Int8Quantizer.fit(p32[:65536].cpu().numpy())
+    p8 = quantize_passages_dev(p32, torch.from_numpy(quant.scales).cuda())
+    q8 = torch.from_numpy(quant.quantize_queries(q512.cpu().numpy())[0]).cuda()
+    out = {}
+    for name, q, p, qs in (("float32", q512, p32, (512,)),
+                           ("bfloat16", q512, p32.to(torch.bfloat16), (512,)),
+                           ("int8", q8, p8, DIGEST_QS)):
+        for qn in qs:
+            s, g = fused_scores_groupmax(q[:qn], p, GROUP)
+            out[f"{name}_Q{qn}"] = digest(s, g, streaming_groupmax(q[:qn], p, STREAM_GROUP))
+            del s, g
+    return out
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default="", help="checkout to import convdr_torch from")
+    parser.add_argument("--label", default="this checkout")
+    parser.add_argument("--digests", action="store_true",
+                        help="also digest every output (Q=512 and int8 included)")
+    args = parser.parse_args(argv)
+    if args.root:
+        sys.path.insert(0, args.root)
+        for name in [m for m in sys.modules if m.split(".")[0] == "convdr_torch"]:
+            del sys.modules[name]
+    if not torch.cuda.is_available():
+        raise SystemExit("score_sweep needs a CUDA device")
+    from convdr_torch.core.device import set_exact_matmul
+    from convdr_torch.ops import cuda_build
+
+    set_exact_matmul()
+    cuda_build.build(["scores_groupmax"])
+    result = sweep(digests=args.digests, log=lambda *a: print(*a, file=sys.stderr, flush=True))
+    print(json.dumps({"label": args.label, "card": torch.cuda.get_device_name(0),
+                      "sweep": result}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -17,7 +17,8 @@ bf16, within 2x the error of autograd through masked SDPA in bf16 (floor
 within 1e-5 relative of a torch.logsumexp.
 Equal, not close: the streaming passes against the score kernel (the same
 f32 FMA chain per score; int8: exact integer sums, on the tensor cores in
-the score kernel), int8 scores against the plain version (exact integer
+the score kernel), the score kernel's small-Q path against its query-tile
+path (the first Q rows of a Q=65 batch: the same chain), int8 scores against the plain version (exact integer
 arithmetic), the gathers against ``torch.gather`` (copies), and two
 backward calls on the same inputs (no atomics). The ANN layer (PyTorch
 ops): int8 IVF scores equal the integer oracle's; the ADC scans and IVF
@@ -29,6 +30,8 @@ shard's local search, then the merge) equal the unsharded search, scores
 and indices; a data-parallel step on a world-1 mesh equals the unmeshed
 step bit for bit.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -46,6 +49,7 @@ from convdr_torch.models.attention import (
     flash_attention_fwd,
     flash_attention_plain,
 )
+from convdr_torch.ops import cuda_build
 from convdr_torch.ops import exact_search as es
 from convdr_torch.ops.fused_search import (
     fused_flat_ip_topk,
@@ -178,10 +182,12 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
 
 
 # (Q, N, D) cutting the kernel's tiles: 64- and 128-query blocks, 128-row
-# tiles, D padded to 16 bytes of the passages; D=1040 is int8's exact limit
+# tiles, D padded to 16 bytes of the passages; D=1040 is int8's exact limit;
+# the small-Q path's query buckets (2, 16) and the first Q past it (17 < Q*:
+# the 32-query bucket, 15 rows empty)
 SCORE_SHAPES = [(70, 384, 100), (512, 4096, 768), (1, 128, 8), (63, 384, 768),
                 (64, 4224, 100), (65, 4224, 8), (129, 384, 768), (512, 4224, 100),
-                (65, 384, 1040)]
+                (65, 384, 1040), (2, 4224, 768), (16, 384, 100), (17, 384, 1040)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
@@ -214,10 +220,51 @@ def test_scores_groupmax_kernel_rejects_bad_shapes(cuda):
                               torch.zeros(128, 1056, dtype=torch.int8, device="cuda"), 32)
 
 
+def score_path(p_dtype, qn, d):
+    """The path ``convdr_scores_groupmax_config`` reports for (passage
+    dtype code, Q, D): 0 the FMA tile, 1 small-Q, 2 int8."""
+    fn = cuda_build.bind("scores_groupmax", "convdr_scores_groupmax_config",
+                         [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 6)()
+    assert fn(p_dtype, qn, d, ctypes.addressof(out)) == 0
+    return out[4]
+
+
+def small_q_max(p_dtype, d=768):
+    """Q*: the largest Q the small-Q path takes at this D."""
+    return max(qn for qn in range(1, 65) if score_path(p_dtype, qn, d) == 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [8, 32, 64, 128])
+@pytest.mark.parametrize("d", [100, 768, 1040])
+@pytest.mark.parametrize("n", [384, 4224])
+def test_small_q_path_equals_tile_path(cuda, dtype, group, d, n):
+    """Kernels 2 and 3 at Q in {1, 2, 3, 8, Q*-1, Q*} (the small-Q path:
+    one thread a passage row, TMA ring) equal the first Q rows of a Q=65
+    batch (the 128-query tile) bit for bit: the direct proof that the new
+    path keeps each score's FMA chain order."""
+    code = 0 if dtype == torch.float32 else 1
+    top = small_q_max(code)
+    q, p = search_problem(65, n, d, dtype, seed=5)
+    assert score_path(code, 65, d) == 0
+    s_tile, g_tile = fused_scores_groupmax(q, p, group)
+    m_tile = streaming_groupmax(q, p, group)
+    for qn in sorted({1, 2, 3, 8, top - 1, top}):
+        assert score_path(code, qn, d) == 1
+        s, g = fused_scores_groupmax(q[:qn], p, group)
+        torch.cuda.synchronize()
+        assert torch.equal(s, s_tile[:qn]) and torch.equal(g, g_tile[:qn]), qn
+        assert torch.equal(streaming_groupmax(q[:qn], p, group), m_tile[:qn]), qn
+    assert score_path(code, top + 1, d) == 0  # past Q*: the tile path
+    assert score_path(2, 1, d) == 2  # int8 keeps its tensor-core kernel
+
+
+@pytest.mark.parametrize("qn", [65, 1])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-def test_score_kernels_take_unaligned_operands(cuda, dtype):
+def test_score_kernels_take_unaligned_operands(cuda, dtype, qn):
     # views 4 bytes (one f32) past a 16-byte boundary: the wrapper copies them
-    q, p = search_problem(65, 384, 96, dtype, seed=2)
+    q, p = search_problem(qn, 384, 96, dtype, seed=2)
     flat_q = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
     flat_p = torch.empty(p.numel() * p.element_size() + 4, dtype=torch.uint8, device="cuda")
     q_off = flat_q[1:].view(q.shape).copy_(q)
@@ -231,7 +278,9 @@ def test_score_kernels_take_unaligned_operands(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("group", [32, 128])
-@pytest.mark.parametrize("qn,n,d", [(1, 128, 8), (65, 4224, 100), (129, 384, 768)])
+@pytest.mark.parametrize("qn,n,d", [(1, 128, 8), (65, 4224, 100), (129, 384, 768),
+                                    (1, 4224, 768), (2, 384, 100), (3, 384, 1040),
+                                    (8, 4224, 100), (31, 384, 768), (32, 128, 1040)])
 def test_pass_b_over_every_group_equals_score_kernel(cuda, dtype, group, qn, n, d):
     """Pass B given every group of the block scores every (query, row):
     equal to kernel 2's whole score matrix, the direct proof that both keep

@@ -46,9 +46,11 @@ def port_topk(q, p, k, **kw):
 
 
 # (Q, N, D) at the edges of the card kernel's tiles (128 or 64 queries x 128
-# rows, D padded to 16 bytes of the passages), at CPU sizes
+# rows, D padded to 16 bytes of the passages; the small-Q path's query
+# buckets at Q <= 32), at CPU sizes
 EDGE_SHAPES = [(4, 256, 32), (1, 128, 8), (63, 384, 100), (64, 384, 8),
-               (65, 128, 768), (129, 384, 100)]
+               (65, 128, 768), (129, 384, 100), (2, 256, 32), (16, 384, 100),
+               (17, 128, 768)]
 
 
 @pytest.mark.parametrize("qn,n,d", EDGE_SHAPES)
@@ -107,6 +109,21 @@ def test_flat_ip_matches_jax_and_oracle(block_rows):
     np.testing.assert_array_equal(i, oi)
     np.testing.assert_array_equal(i, np.asarray(ji))
     np.testing.assert_allclose(s, os_, rtol=1e-5)
+
+
+@pytest.mark.parametrize("block_rows", [128, 500])
+def test_flat_ip_single_query_over_blocks_matches_jax(block_rows):
+    """Q=1, the serving search's shape (the card's small-Q path), over
+    several blocks: the same indices as the JAX ``flat_ip_topk`` and the
+    oracle."""
+    q, p = problem(4, q=1, n=1300, d=100)
+    os_, oi = jes.topk_oracle(q, p, 100)
+    js, ji = jes.flat_ip_topk(jnp.asarray(q), jnp.asarray(p), 100, block_rows=block_rows)
+    s, i = port_topk(q, p, 100, block_rows=block_rows)
+    np.testing.assert_array_equal(i, oi)
+    np.testing.assert_array_equal(i, np.asarray(ji))
+    np.testing.assert_allclose(s, os_, rtol=1e-5)
+    np.testing.assert_allclose(s, np.asarray(js), rtol=1e-5)
 
 
 @pytest.mark.parametrize(
