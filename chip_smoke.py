@@ -158,7 +158,13 @@ P. (after F) ``--matmul_precision`` over phase 3's rows and queries:
    and 3 (``convdr_torch/scripts/score_sweep.py``: Q = 1..64, f32 and bf16,
    one 524288-row block; each reading ``torch.equal`` to the first Q rows
    of a Q=65 batch on the tile path, on the device beside its bound and
-   ``matmul`` + ``amax``) with each Q's launch configuration. Then ``serve_online.main`` over the 512 evaluation
+   ``matmul`` + ``amax``) with each Q's launch configuration. Kernel 1's
+   f32 forward across its two paths (``convdr_torch/scripts/attention_sweep.py``:
+   B = 1..8 and 40 x T = 64..512 at H=12, served and right-padded masks;
+   the small-grid path's out and lse ``torch.equal`` to the 64-row tile's
+   on the same problem repeated to a tile-path batch, on the device beside
+   the bound, masked SDPA and the repeated batch). Then
+   ``serve_online.main`` over the 512 evaluation
    turns against ``run_convdr_inference --per_gpu_eval_batch_size 1``
    (flat f32 and int8): the runs rank for rank. The serving launches are
    counted from zero around each backend: each graph's recorded launches
@@ -316,7 +322,17 @@ from convdr_torch.retrieval.online import (
     history_to_inputs,
 )
 from convdr_torch.retrieval.pq_index import PQIndex
-from convdr_torch.scripts import rehearsal, score_sweep
+from convdr_torch.scripts import attention_sweep, rehearsal, score_sweep
+from convdr_torch.scripts.attention_sweep import (
+    ATTN_SHAPES,
+    F32_SHAPES,
+    HEAD_DIM,
+    HEADS,
+    SERVE_T,
+    make_histories,
+)
+from convdr_torch.scripts.attention_sweep import bound_ms as attention_bound_ms
+from convdr_torch.scripts.score_sweep import HBM_BYTES_PER_S, PEAK_FLOPS
 from convdr_torch.scripts.multi_gpu_check import make_train_file
 from convdr_torch import native_io
 from convdr_torch.train import checkpoint as train_checkpoint
@@ -329,14 +345,11 @@ from convdr_torch.utils.observability import TRACE_SPAN, profile_trace
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, ".smoke_work")
 
-# Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
-
-# (batch, T) of gen_passage_embeddings' length rungs at 64 rows x 512 tokens
-# (retrieval/embed_corpus.py _BucketBuffer), and the query encoder's shape.
-ATTN_SHAPES = [(512, 64), (256, 128), (128, 256), (64, 384), (64, 512)]
-HEADS, HEAD_DIM = 12, 64
+# The card's peaks (HBM_BYTES_PER_S, PEAK_FLOPS) come from scripts/score_sweep.py;
+# the attention shapes (ATTN_SHAPES: the corpus encoder's bf16 length rungs;
+# F32_SHAPES: a train step's f32 forwards; SERVE_T: the serving encode's
+# concat length) and the base model's HEADS, HEAD_DIM from
+# scripts/attention_sweep.py.
 N_PASSAGES, N_EXTRA, N_TOPICS, N_TURNS = 8192, 524288, 64, 8
 SEARCH_Q, SEARCH_N, SEARCH_D, GROUP, TOP_N = 512, 524288, 768, 32, 100
 # the streaming search: a small query batch beside 512, its groups; the
@@ -347,9 +360,9 @@ STORAGE = (torch.float32, torch.bfloat16, torch.int8)
 TRAIN_B, TRAIN_NEG, TRAIN_T, TARGET_T, DOC_T, TRAIN_STEPS = 4, 9, 256, 64, 512, 16
 BWD_SHAPES = [(TRAIN_B, TRAIN_T), (TRAIN_B, TARGET_T), (5, 200), (40, DOC_T)]
 MASK_KINDS = ("right", "left", "middle", "random")
-# the f32 forward's shapes in a train step: the student's concat, the
-# teacher's targets and documents (batch x (negatives + 1) rows of 512)
-F32_SHAPES = [(TRAIN_B, TRAIN_T), (TRAIN_B, TARGET_T), (TRAIN_B * (TRAIN_NEG + 1), DOC_T)]
+# F32_SHAPES must be the train step's: the student's concat, the teacher's
+# targets and documents (batch x (negatives + 1) rows of 512)
+assert F32_SHAPES == [(TRAIN_B, TRAIN_T), (TRAIN_B, TARGET_T), (TRAIN_B * (TRAIN_NEG + 1), DOC_T)]
 KERNELS = ["flash_attention", "scores_groupmax", "flash_attention_bwd",
            "streaming_search", "gather_groups"]
 # the ANN phase: mixture rows and centres, queries (pq8: fewer, see there),
@@ -363,7 +376,7 @@ ANN_NLIST, ANN_NPROBES, DRIVER_NLIST = 1024, (8, 32, 128), 256
 ANN_BUDGET_MIB, ADC_BUDGET_MIB, ANN_SLACK_MIB = 2048, 256, 256
 # the serving phase: distinct three-turn histories served one at a time,
 # the IVF probes, and the ANN phase's indexes, saved for it
-SERVE_TURNS, SERVE_NPROBES, SERVE_T = 64, (8, 32), 256
+SERVE_TURNS, SERVE_NPROBES = 64, (8, 32)
 # the served flat corpus is scanned in SEARCH_N-row blocks; its last is short
 SERVE_SHORT = (N_PASSAGES + 2 * N_EXTRA) % SEARCH_N
 SERVE_IVF_DIRS = {"ivf_int8": os.path.join(WORK, "serve_ivf_int8"),
@@ -542,13 +555,16 @@ def attention_configs():
     """The forward kernel's launch configuration at every timed shape, as
     ``convdr_flash_attention_fwd_config`` reports it."""
     configs = {}
-    for dtype, shapes in ((torch.bfloat16, ATTN_SHAPES), (torch.float32, F32_SHAPES)):
+    for dtype, shapes in ((torch.bfloat16, ATTN_SHAPES),
+                          (torch.float32, F32_SHAPES + [(1, SERVE_T)])):
         for batch, t in shapes:
-            configs[f"{dtype_name(dtype)}_B{batch}xT{t}"] = flash_attention_fwd_config(
-                batch, t, HEADS, HEAD_DIM, dtype)
+            cfg = flash_attention_fwd_config(batch, t, HEADS, HEAD_DIM, dtype)
+            cfg["grid_blocks"] = -(-t // cfg["block_queries"]) * HEADS * batch
+            configs[f"{dtype_name(dtype)}_B{batch}xT{t}"] = cfg
     log("  flash_attention_fwd launch configs: " + "; ".join(
-        f"{k} {v['threads']} threads, {v['smem_bytes']} B smem, {v['block_queries']} queries x "
-        f"{v['tile_keys']} keys, {v['blocks_per_sm']} blocks/SM" for k, v in configs.items()))
+        f"{k} {v['path']}, {v['threads']} threads, {v['smem_bytes']} B smem, "
+        f"{v['block_queries']} queries x {v['tile_keys']} keys, {v['grid_blocks']} blocks, "
+        f"{v['blocks_per_sm']} blocks/SM" for k, v in configs.items()))
     return configs
 
 
@@ -619,20 +635,6 @@ def attention_inputs(batch, t, dtype, gen, mask_kind="right"):
         valid = torch.rand((batch, t), generator=gen, device="cuda") < 0.5
         valid[-1] = False
     return q, k, v, valid.to(torch.int32)
-
-
-def attention_bound_ms(q, mask, lse=False):
-    """Bytes (q, k, v, out, mask once each, and the f32 lse written with
-    ``lse``) vs the operations this data needs: a query attends to the L
-    valid or the T-L pad keys of its row."""
-    b, t, h, d = q.shape
-    lens = mask.sum(1).double()
-    pairs = float((lens ** 2 + (t - lens) ** 2).sum())
-    flops = 4.0 * h * d * pairs
-    nbytes = 4 * q.numel() * q.element_size() + mask.numel() * 4 + (b * h * t * 4 if lse else 0)
-    ops_ms = flops / PEAK_FLOPS[q.dtype] * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
 
 
 def check_attention(gen):
@@ -3108,16 +3110,6 @@ def ann_path(paths, flat_metrics, qids, q_embs):
 # ---------------------------------------------------------------------------
 # 4e. online serving: one captured CUDA graph a turn
 # ---------------------------------------------------------------------------
-def make_histories(n):
-    """n distinct three-turn conversations, the current question last
-    (scripts/bench_online.py's)."""
-    subjects = ["throat cancer", "bronze age trade", "lucid dreaming", "coral reefs",
-                "rust compilers", "monsoon seasons", "jazz harmony", "glacier melt"]
-    return [[f"tell me about {subjects[i % len(subjects)]} case {i}",
-             f"what causes it in region {i % 7}",
-             f"how is it treated or managed today, variant {i}"] for i in range(n)]
-
-
 def latency_ms(lat):
     """count and p50 / p90 / p99 / mean in ms of latencies in seconds."""
     a = np.asarray(lat) * 1e3
@@ -3472,9 +3464,13 @@ def serving_path(paths):
     log("kernels 2 and 3 across Q (small-Q path up to Q*, then the tile path; one 524288-row "
         "block, D=768, device ms):")
     q_sweep = score_sweep.sweep(log=log)
+    log("kernel 1's f32 forward on its two paths (small grid up to the tile grid's "
+        "kSmallGridBlocks, then the 64-row tile; H=12 D=64, device ms):")
+    attn_sweep = attention_sweep.sweep(histories, log=log)
     drivers = {st: serve_driver_vs_batch(paths, st) for st in ("float32", "int8")}
     return {"backends": backends, "kernel1_B1": attn, "kernel2_Q1": scores, "kernel5_Q1": gather,
-            "q_sweep": q_sweep, "driver_vs_batch": drivers, "phase_s": time.time() - t_phase}
+            "q_sweep": q_sweep, "attention_sweep": attn_sweep, "driver_vs_batch": drivers,
+            "phase_s": time.time() - t_phase}
 
 
 # ---------------------------------------------------------------------------

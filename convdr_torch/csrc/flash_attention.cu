@@ -19,16 +19,16 @@
 // count: a key tile whose segment range holds no query of the block is
 // neither loaded nor multiplied.
 //
-// Both paths share the block's prologue and its load pipeline:
-// * The tile plan. Each block scans its row's segment ids once: the
-//   [min, max] segment range of every key tile, kept only if some live
-//   query of the block has a segment in it. The kept tiles' indices go, in
-//   order, to shared memory after the fixed buffers (one int a tile), so
-//   the main loop walks only tiles it needs and knows the next one while
-//   the current one computes.
-// * K/V tiles and the tile's segment ids arrive by cp.async (16-byte .cg
-//   copies, 4-byte .ca for the ids; K/V rows past T zero-filled, the ids of
-//   keys past T set to a segment no query has), issued a tile ahead.
+// Every kernel here shares the block's prologue, the tile plan. Each block
+// scans its row's segment ids once: the [min, max] segment range of every
+// key tile, kept only if some live query of the block has a segment in
+// it. The kept tiles' indices go, in order, to shared memory after the
+// fixed buffers (one int a tile), so the main loop walks only tiles it
+// needs and knows the next one while the current one computes. In the
+// bf16 kernel and the f32 64-row tile, K/V tiles and the tile's segment
+// ids arrive by cp.async (16-byte .cg copies, 4-byte .ca for the ids; K/V
+// rows past T zero-filled, the ids of keys past T set to a segment no
+// query has), issued a tile ahead.
 //
 // * bf16 (the corpus encoder): tensor cores. A block is 4 warps and 64
 //   queries, each warp owning 16 and holding their Q fragments and f32
@@ -55,25 +55,59 @@
 //   from it); out's arithmetic does not change with it, so the inference
 //   path, which passes a null lse, keeps its bits.
 // * f32 (the query encoder, training): two register-tiled products on the
-//   CUDA cores, full f32, no TF32. A block of 128 threads owns 64 queries
-//   and walks 32-key tiles: thread (ty, tx) holds 4 query rows (ty + 16i)
-//   x 4 keys (8j + tx) of S and the same 4 rows x D/8 columns of O, so a
-//   row's softmax statistics stay in the 8 lanes of one warp (shuffle
-//   reductions) and the rescale is local. S reads Q and K k-contiguous as
-//   copied (row pitch D+4 floats: the 8 key rows a phase reads hit
-//   distinct banks, the Q rows are broadcasts). P goes to shared memory
-//   (row pitch 40), read back only by its own warp; O += P V reads P as
-//   broadcasts and V rows as contiguous 16-byte chunks. K and V
-//   have one buffer each, staggered: V of this tile loads while S
-//   computes, K of the next while P V computes (two barriers a tile, 44 KB,
-//   three blocks an SM). Of the shapes timed on the card (64 or 32 keys,
-//   32-128 queries, 4 or 8 rows a thread, a 2-stage ring) this one was the
-//   fastest at both B=4 T=256 and B=40 T=512, so no shape depends on the
-//   grid. For training it also writes each row's log-sum-exp of the scaled
+//   CUDA cores, full f32, no TF32, on one of two paths chosen by the grid.
+//   For training it also writes each row's log-sum-exp of the scaled
 //   scores, lse [B, H, T] f32, which the backward (flash_attention_bwd.cu)
 //   uses to recompute P; inference passes a null lse (both dtypes).
+//   What fixes a row's bits, on both paths: the 32-key tile; the 8 lanes
+//   of one warp that hold the row, lane tx the keys 8j + tx; the order of
+//   each lane's fmaf chains (S over d = 0..D-1, O over the tile's keys in
+//   order, O's columns tx*kVec + 8*kVec*ch); the xor-1/2/4 shuffle sums;
+//   fast_exp2 and the base_max rule; and the rounding that both kernels
+//   write out with intrinsics rather than leave to the compiler's
+//   contraction: l * alpha + p as one fmaf at a tile's first key, then
+//   adds, and lse as __fmul_rn(m, ln2) and logf(l) rounded apart. Not the
+//   rows a thread or a block holds: a tile that a block plans, or a warp
+//   would walk, none of whose keys is in a row's segment leaves that row's
+//   m, l and o as they were (alpha = ex2(0) = 1, p = ex2(-inf) = 0,
+//   o + 0 * v = o, the sign of an exact zero aside), and a smaller block's
+//   plan is a subset of the 64-row block's. So the two paths give the same out and lse bit for
+//   bit, and the card tests hold them to that (torch.equal).
+//   - The 64-row tile (grids of more than kSmallGridBlocks blocks). A
+//     block of 128 threads owns 64 queries and walks 32-key tiles: thread
+//     (ty, tx) holds 4 query rows (ty + 16i) x 4 keys (8j + tx) of S and
+//     the same 4 rows x D/8 columns of O, so a row's softmax statistics
+//     stay in the 8 lanes of one warp (shuffle reductions) and the
+//     rescale is local. S reads Q and K k-contiguous as copied (row pitch
+//     D+4 floats: the 8 key rows a phase reads hit distinct banks, the Q
+//     rows are broadcasts). P goes to shared memory (row pitch 40), read
+//     back only by its own warp; O += P V reads P as broadcasts and V rows
+//     as contiguous 16-byte chunks. K and V have one buffer each,
+//     staggered: V of this tile loads while S computes, K of the next
+//     while P V computes (two barriers a tile, 44 KB, three blocks an SM).
+//     Of the shapes timed on the card (64 or 32 keys, 32-128 queries, 4 or
+//     8 rows a thread, a 2-stage ring) this one was the fastest at both
+//     B=4 T=256 and B=40 T=512.
+//   - The small grid (the serving encode's B=1 T=256: 48 tile blocks for
+//     132 SMs; the teacher's targets, B=4 T=64). What is scarce there is
+//     blocks in flight and copy latency. Blocks of 32 rows, 2 rows a
+//     thread: 4 consumer warps and one producer warp. The producer's lane
+//     0 issues each planned tile's K and V by TMA (a 4-D map over [B, T,
+//     H, D]; two 32-float boxes a row under the 128-byte swizzle, so the 8
+//     key rows a phase reads still hit distinct banks) into a 3-stage ring
+//     under full / empty mbarriers, and its lanes copy the tile's key ids
+//     beside them; each consumer warp releases a stage on its own, so the
+//     loop has no block barrier, and a warp skips a tile none of whose
+//     keys is in its rows' segment range. Q stays in registers. What
+//     bounds it is shared-memory reads: the 4 row groups of a warp read the
+//     same K and V, so an LDS.128 gives 128 useful bytes in 4 wavefronts,
+//     and 2 rows a thread halve them per row. (On the card, PERF.md: 16-row
+//     blocks, which fill all 132 SMs at the serving encode, ran 10% slower
+//     there than 32-row ones; a cp.async ring of the same depth lost to
+//     TMA at both the serving encode's and the teacher's shapes; 8-row
+//     blocks and 1 row a thread were slower.)
 //
-// Both keep the online softmax in the log2 domain (scores scaled by
+// All keep the online softmax in the log2 domain (scores scaled by
 // log2(e)/sqrt(d) in the exponent's FFMA, ex2.approx) with f32 running max
 // and sum per row.
 
@@ -84,6 +118,7 @@
 #include <math_constants.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -607,14 +642,14 @@ flash_fwd_fma_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
       // no allowed key yet: keep everything at 0 instead of exp(-inf + inf)
       const float base_max = m_new == -CUDART_INF_F ? 0.f : m_new;
       const float alpha = fast_exp2(m[i] - base_max);
-      l[i] *= alpha;
 #pragma unroll
       for (int c = 0; c < kOC; ++c) o[i][c] *= alpha;
       m[i] = m_new;
 #pragma unroll
       for (int j = 0; j < kKJ; ++j) {
         const float p = fast_exp2(fmaf(s[i][j], scale_log2, -base_max));  // 0 if masked
-        l[i] += p;
+        // l * alpha + p in one FFMA, then + p (both f32 paths, see the header)
+        l[i] = j == 0 ? fmaf(l[i], alpha, p) : l[i] + p;
         p_row[i * kRG * kPPitch + j * 8 + tx] = p;
       }
     }
@@ -669,66 +704,387 @@ flash_fwd_fma_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
             make_float2(o[i][2 * ch] * inv, o[i][2 * ch + 1] * inv);
       }
     }
-    // a live row always sees its own key, so l > 0 and lse is finite
+    // a live row always sees its own key, so l > 0 and lse is finite;
+    // m * ln2 and logf(l) rounded apart (both f32 paths)
     if (lse != nullptr && tx == 0)
       lse[(static_cast<long long>(b) * heads + h) * seq + row] =
-          m[i] * kLn2 + logf(l[i]);
+          __fadd_rn(__fmul_rn(m[i], kLn2), logf(l[i]));
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// f32, small grids: few-row blocks over a K/V ring
+// ---------------------------------------------------------------------------
+// The tile path's grid, ceil(T / 64) * H * B, at or below which f32 takes
+// this path: where it stopped winning on the card (scripts/attention_sweep.py;
+// at 192 it lost or tied at all but one of the shapes timed).
+constexpr int kSmallGridBlocks = 96;
+constexpr int kSgRows = 32;          // query rows a block
+constexpr int kSgRowsAThread = 2;
+constexpr int kSgStages = 3;         // K/V ring depth
+
+template <int D>
+struct SgTile {
+  static_assert(kFmaBK == 32, "a producer lane a key id");
+  static constexpr int kRG = kSgRows / kSgRowsAThread;  // row groups: rows ty + i*kRG
+  static constexpr int kConsumers = kRG * 8;            // row groups x 8 lanes
+  static_assert(kConsumers % 32 == 0, "whole consumer warps");
+  static constexpr int kThreads = kConsumers + 32;      // + the producer warp
+  static_assert(kSgRowsAThread * D <= 128, "a thread's Q rows in registers");
+  static constexpr int kBoxF = D < 32 ? D : 32;  // floats a TMA box row: 64 or 128 bytes
+  static constexpr int kBox = kFmaBK * kBoxF;      // floats a TMA box
+  // A stage holds the tile's K rows, then its V rows: D / kBoxF boxes of
+  // [32 rows x kBoxF] each, swizzled.
+  static constexpr int kKFloats = kFmaBK * D;
+  static constexpr int kStageFloats = 2 * kKFloats;
+  static constexpr int kPPitch = kFmaBK + 8;
+  // 1024 bytes to align the ring (the swizzle's period), the ring, the key
+  // ids of each stage, P, the full and empty barriers; then the plan
+  static constexpr int kFixedBytes =
+      1024 + 4 * (kSgStages * (kStageFloats + kFmaBK) + kSgRows * kPPitch) + 16 * kSgStages;
+  static int smem_bytes(int seq) { return kFixedBytes + plan_bytes(seq, kFmaBK); }
+
+  // The float offset of (row r, column c) of a K or V tile in a stage (c
+  // a multiple of 2; 4 for K); `kv` 0 for K, 1 for V.
+  __device__ __forceinline__ static int at(int kv, int r, int c) {
+    const int w = c % kBoxF;
+    const int xr = kBoxF == 32 ? (r & 7) : ((r >> 1) & 3);  // the 16-byte chunk's xor
+    return kv * kKFloats + c / kBoxF * kBox + r * kBoxF + 4 * ((w >> 2) ^ xr) + (w & 3);
+  }
+};
+
+// Kernel 1's f32 forward for small grids: each row's arithmetic is the
+// tile kernel's (see the header), in blocks of kSgRows rows, kSgRowsAThread
+// a thread. The last warp produces: lane 0 issues the K and V boxes of
+// each planned tile by TMA into a ring of kSgStages stages, every lane
+// copies one of the tile's key ids by cp.async (keys past T are masked by
+// position), and the stage lands on its full barrier (lane 0's arrival
+// with the boxes' bytes, one cp.async arrival a lane); each consumer warp
+// releases a stage on its empty barrier when done with it. No block
+// barrier in the loop: a warp's P goes through shared memory under
+// __syncwarp only.
+template <int D>
+__global__ void __launch_bounds__(SgTile<D>::kThreads)
+flash_fwd_small_kernel(const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, const float* __restrict__ q,
+                       const int* __restrict__ seg, float* __restrict__ out,
+                       float* __restrict__ lse, int seq, int heads, float scale) {
+  using Tile = SgTile<D>;
+  constexpr int BQ = kSgRows;
+  constexpr int RM = kSgRowsAThread;
+  constexpr int BK = kFmaBK;
+  constexpr int kRG = Tile::kRG;
+  constexpr int kKJ = BK / 8;  // keys a thread: j*8 + tx
+  constexpr int kPPitch = Tile::kPPitch;
+  constexpr int kVec = D >= 32 ? 4 : 2;  // O columns a chunk
+  constexpr int kOC = D / 8;             // O columns a thread
+  constexpr int kChunks = kOC / kVec;
+  constexpr int kConsumers = Tile::kConsumers;
+  extern __shared__ __align__(16) unsigned char sg_smem[];
+  unsigned char* smem = sg_smem + ((1024u - (shared_addr(sg_smem) & 1023u)) & 1023u);
+  float* ring = reinterpret_cast<float*>(smem);
+  int* ids = reinterpret_cast<int*>(ring + kSgStages * Tile::kStageFloats);
+  float* ps = reinterpret_cast<float*>(ids + kSgStages * BK);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ps + BQ * kPPitch);
+  uint64_t* empty = full + kSgStages;
+  int* plan = reinterpret_cast<int*>(empty + kSgStages);
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long tok = static_cast<long long>(heads) * D;
+  const long long base = static_cast<long long>(b) * seq * tok +
+                         static_cast<long long>(h) * D;
+  const int* segb = seg + static_cast<long long>(b) * seq;
+  const int q0 = blockIdx.x * BQ;
+
+  if (tid == 0) {
+    for (int s = 0; s < kSgStages; ++s) {
+      mbar_init(full + s, 33);
+      mbar_init(empty + s, kConsumers / 32);
+    }
+    mbar_fence_init();
+  }
+  const int n = plan_tiles<BQ, BK, Tile::kThreads>(segb, seq, q0, plan);  // barriers seen
+
+  if (tid >= kConsumers) {  // the producer warp
+    for (int idx = 0; idx < n; ++idx) {
+      const int st = idx % kSgStages;
+      if (idx >= kSgStages) mbar_wait(empty + st, (idx / kSgStages - 1) & 1);
+      const int k0 = plan[idx] * BK;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(full + st, Tile::kStageFloats * 4);
+        float* kt = ring + st * Tile::kStageFloats;
+#pragma unroll
+        for (int c = 0; c < D / Tile::kBoxF; ++c) {
+          tma_load_4d(kt + c * Tile::kBox, &k_map, full + st, c * Tile::kBoxF, h, k0, b);
+          tma_load_4d(kt + Tile::kKFloats + c * Tile::kBox, &v_map, full + st,
+                      c * Tile::kBoxF, h, k0, b);
+        }
+      }
+      if (k0 + lane < seq) cp_async4(ids + st * BK + lane, segb + k0 + lane);
+      mbar_arrive_cp_async(full + st);
+    }
+    return;
+  }
+
+  const int tx = lane % 8;
+  const int ty = (tid / 32) * 4 + lane / 8;
+  // the thread's Q rows in registers (the 8 lanes of a row read the same
+  // addresses), and the range of the warp's live row segments
+  int segq[RM];
+  float4 qr[RM][D / 4];
+  int wlo = INT_MAX;
+  int whi = INT_MIN;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = q0 + ty + i * kRG;
+    const bool live = row < seq;  // a row past T writes nothing
+    segq[i] = live ? segb[row] : 0;
+    if (live) {
+      wlo = min(wlo, segq[i]);
+      whi = max(whi, segq[i]);
+    }
+    const float4* src = reinterpret_cast<const float4*>(q + base + (live ? row : 0) * tok);
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) qr[i][c] = live ? src[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    wlo = min(wlo, __shfl_xor_sync(0xffffffffu, wlo, off));
+    whi = max(whi, __shfl_xor_sync(0xffffffffu, whi, off));
+  }
+  float o[RM][kOC];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int c = 0; c < kOC; ++c) o[i][c] = 0.f;
+  float m[RM], l[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = -CUDART_INF_F;  // running max, log2 domain
+    l[i] = 0.f;            // this thread's share of the running sum
+  }
+  const float scale_log2 = scale * kLog2e;
+  float* p_row = ps + ty * kPPitch;  // row i at + i * kRG * kPPitch
+
+  for (int idx = 0; idx < n; ++idx) {
+    const int st = idx % kSgStages;
+    mbar_wait(full + st, (idx / kSgStages) & 1);
+    const float* kv = ring + st * Tile::kStageFloats;
+    const int k0 = plan[idx] * BK;
+    // A warp none of whose live rows' segment range holds a key's segment
+    // skips the tile: for each of its rows the tile would change nothing.
+    const int segl = k0 + lane < seq ? ids[st * BK + lane] : kNoSegment;
+    if (!__any_sync(0xffffffffu, segl >= wlo && segl <= whi)) {
+      if (lane == 0) mbar_arrive(empty + st);
+      continue;
+    }
+
+    // S = Q K^T over d, 4 at a time: RM Q rows and kKJ K rows a step
+    float s[RM][kKJ];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j) s[i][j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < D; d += 4) {
+      float4 a[RM];
+      float4 bk[kKJ];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+        a[i] = qr[i][d / 4];
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j)
+        bk[j] = *reinterpret_cast<const float4*>(kv + Tile::at(0, j * 8 + tx, d));
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < kKJ; ++j) {
+          s[i][j] = fmaf(a[i].x, bk[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, bk[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, bk[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, bk[j].w, s[i][j]);
+        }
+    }
+
+    // mask, online softmax; P to shared memory (rows of this warp only)
+    int segk[kKJ];
+#pragma unroll
+    for (int j = 0; j < kKJ; ++j)
+      segk[j] = k0 + j * 8 + tx < seq ? ids[st * BK + j * 8 + tx] : kNoSegment;
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      float tile_max = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j) {
+        s[i][j] = segk[j] == segq[i] ? s[i][j] : -CUDART_INF_F;  // raw: scale > 0
+        tile_max = fmaxf(tile_max, s[i][j]);
+      }
+      // the 8 lanes of a row group hold the row between them
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
+      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 4));
+      const float m_new = fmaxf(m[i], tile_max * scale_log2);
+      // no allowed key yet: keep everything at 0 instead of exp(-inf + inf)
+      const float base_max = m_new == -CUDART_INF_F ? 0.f : m_new;
+      const float alpha = fast_exp2(m[i] - base_max);
+#pragma unroll
+      for (int c = 0; c < kOC; ++c) o[i][c] *= alpha;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < kKJ; ++j) {
+        const float p = fast_exp2(fmaf(s[i][j], scale_log2, -base_max));  // 0 if masked
+        // l * alpha + p in one FFMA, then + p, as in the tile kernel
+        l[i] = j == 0 ? fmaf(l[i], alpha, p) : l[i] + p;
+        p_row[i * kRG * kPPitch + j * 8 + tx] = p;
+      }
+    }
+    __syncwarp();  // the warp's P written
+
+    // O += P V over the tile's keys, 4 at a time
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 p4[RM];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+        p4[i] = *reinterpret_cast<const float4*>(p_row + i * kRG * kPPitch + kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float vv[kOC];
+#pragma unroll
+        for (int ch = 0; ch < kChunks; ++ch)
+          load_vec<kVec>(vv + ch * kVec, kv + Tile::at(1, kk + e, tx * kVec + ch * 8 * kVec));
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const float p = e == 0 ? p4[i].x : e == 1 ? p4[i].y : e == 2 ? p4[i].z : p4[i].w;
+#pragma unroll
+          for (int c = 0; c < kOC; ++c) o[i][c] = fmaf(p, vv[c], o[i][c]);
+        }
+      }
+    }
+    __syncwarp();  // the warp is done with the stage and with P
+    if (lane == 0) mbar_arrive(empty + st);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+    const int row = q0 + ty + i * kRG;
+    if (row >= seq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    float* op = out + base + row * tok + tx * kVec;
+#pragma unroll
+    for (int ch = 0; ch < kChunks; ++ch) {
+      float* dst = op + ch * 8 * kVec;
+      if constexpr (kVec == 4) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(o[i][4 * ch] * inv, o[i][4 * ch + 1] * inv,
+                        o[i][4 * ch + 2] * inv, o[i][4 * ch + 3] * inv);
+      } else {
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(o[i][2 * ch] * inv, o[i][2 * ch + 1] * inv);
+      }
+    }
+    // m * ln2 and logf(l) rounded apart, as in the tile kernel
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * heads + h) * seq + row] =
+          __fadd_rn(__fmul_rn(m[i], kLn2), logf(l[i]));
   }
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-using KernelFn = void (*)(const void*, const void*, const void*, const int*,
-                          void*, float*, int, int, float);
+// path: the bf16 tensor-core kernel, the f32 64-row tile, the f32 small grid
+constexpr int kPathMma = 0;
+constexpr int kPathTile = 1;
+constexpr int kPathSmall = 2;
 
 struct Config {
-  KernelFn fn;
-  int threads, smem, rows, keys;  // block threads, dynamic bytes, BQ, BK
+  const void* fn;
+  int threads, smem, rows, keys, path;  // block threads, dynamic bytes, BQ, BK, path
 };
 
 template <int D, int kMinBlocks>
 Config mma_config(int seq) {
-  return Config{flash_fwd_mma_kernel<D, kMinBlocks>, 32 * kMmaWarps,
-                MmaTile<D>::smem_bytes(seq), 16 * kMmaWarps, kMmaKeys};
+  return Config{reinterpret_cast<const void*>(flash_fwd_mma_kernel<D, kMinBlocks>),
+                32 * kMmaWarps, MmaTile<D>::smem_bytes(seq), 16 * kMmaWarps, kMmaKeys,
+                kPathMma};
 }
 
 template <int D>
 Config fma_config(int seq) {
-  return Config{flash_fwd_fma_kernel<D>, FmaTile<D>::kThreads,
-                FmaTile<D>::kFixedBytes + plan_bytes(seq, kFmaBK), kFmaBQ, kFmaBK};
+  return Config{reinterpret_cast<const void*>(flash_fwd_fma_kernel<D>), FmaTile<D>::kThreads,
+                FmaTile<D>::kFixedBytes + plan_bytes(seq, kFmaBK), kFmaBQ, kFmaBK, kPathTile};
+}
+
+template <int D>
+Config small_config(int seq) {
+  return Config{reinterpret_cast<const void*>(flash_fwd_small_kernel<D>), SgTile<D>::kThreads,
+                SgTile<D>::smem_bytes(seq), kSgRows, kFmaBK, kPathSmall};
 }
 
 // The kernel for a problem. bf16: registers capped for 4 blocks an SM at
 // T <= 64 (one key tile: the faster there) and 3 above (the cap of 4 makes
-// the kernel spill, slower at T >= 128 on the card).
+// the kernel spill, slower at T >= 128 on the card). f32: the small-grid
+// path while the tile path's grid is at most kSmallGridBlocks blocks.
 template <int D>
-Config choose(int seq, int dtype) {
+Config choose(int batch, int seq, int heads, int dtype) {
   if (dtype == 1) return seq <= 64 ? mma_config<D, 4>(seq) : mma_config<D, 3>(seq);
-  return fma_config<D>(seq);
+  const long long rows = static_cast<long long>(heads) * batch;
+  if ((seq + kFmaBQ - 1) / kFmaBQ * rows > kSmallGridBlocks) return fma_config<D>(seq);
+  return small_config<D>(seq);
 }
 
-Config config_for(int seq, int head_dim, int dtype) {
+Config config_for(int batch, int seq, int heads, int head_dim, int dtype) {
   switch (head_dim) {
-    case 16: return choose<16>(seq, dtype);
-    case 32: return choose<32>(seq, dtype);
-    case 64: return choose<64>(seq, dtype);
-    default: return Config{nullptr, 0, 0, 0, 0};
+    case 16: return choose<16>(batch, seq, heads, dtype);
+    case 32: return choose<32>(batch, seq, heads, dtype);
+    case 64: return choose<64>(batch, seq, heads, dtype);
+    default: return Config{nullptr, 0, 0, 0, 0, 0};
   }
 }
 
 // Launches above 48 KB of dynamic shared memory (the plan grows with T,
-// and bf16 adds its flush copy past T = 512) need the limit raised first.
+// bf16 adds its flush copy past T = 512, the small-grid ring is ~56 KB at
+// D = 64) need the limit raised first.
 cudaError_t allow_smem(const Config& cfg) {
   if (cfg.smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(reinterpret_cast<const void*>(cfg.fn),
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
+  return cudaFuncSetAttribute(cfg.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
 }
 
 bool valid_args(int batch, int seq, int heads, int head_dim, int dtype) {
   return batch > 0 && seq > 0 && heads > 0 && batch <= 65535 && heads <= 65535 &&
          (dtype == 0 || dtype == 1) &&
          (head_dim == 16 || head_dim == 32 || head_dim == 64);
+}
+
+// Launches cfg's kernel on a problem: the small-grid path with its K and V
+// tensor maps (encoded here, passed by value), the others with pointers.
+cudaError_t launch_config(const Config& cfg, const void* q, const void* k, const void* v,
+                          const int* seg, void* out, float* lse, int batch, int seq, int heads,
+                          int head_dim, float scale, cudaStream_t stream) {
+  cudaError_t err = allow_smem(cfg);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + cfg.rows - 1) / cfg.rows, heads, batch);
+  if (cfg.path != kPathSmall) {
+    void* args[] = {&q, &k, &v, &seg, &out, &lse, &seq, &heads, &scale};
+    err = cudaLaunchKernel(cfg.fn, grid, dim3(cfg.threads), args, cfg.smem, stream);
+  } else {
+    alignas(64) CUtensorMap maps[2] = {};
+    if (!(encode_bthd_map(&maps[0], k, batch, seq, heads, head_dim, kFmaBK, true) &&
+          encode_bthd_map(&maps[1], v, batch, seq, heads, head_dim, kFmaBK, true)))
+      return cudaErrorInvalidValue;
+    void* args[] = {&maps[0], &maps[1], &q, &seg, &out, &lse, &seq, &heads, &scale};
+    err = cudaLaunchKernel(cfg.fn, grid, dim3(cfg.threads), args, cfg.smem, stream);
+  }
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -743,36 +1099,33 @@ extern "C" int convdr_flash_attention_fwd(const void* q, const void* k,
                                           void* stream) {
   if (!valid_args(batch, seq, heads, head_dim, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Config cfg = config_for(seq, head_dim, dtype);
-  cudaError_t err = allow_smem(cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq + cfg.rows - 1) / cfg.rows, heads, batch);
-  cfg.fn<<<grid, cfg.threads, cfg.smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, static_cast<const int*>(seg), out, static_cast<float*>(lse), seq,
-      heads, scale);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_config(
+      config_for(batch, seq, heads, head_dim, dtype), q, k, v, static_cast<const int*>(seg), out,
+      static_cast<float*>(lse), batch, seq, heads, head_dim, scale,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // The launch configuration chosen for a problem: out[0] threads a block,
 // out[1] dynamic shared memory bytes, out[2] query rows a block, out[3]
 // resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-// after the shared-memory attribute is set), out[4] keys a tile. Returns a
-// cudaError_t.
+// after the shared-memory attribute is set), out[4] keys a tile, out[5]
+// the path (0 the bf16 tensor-core kernel, 1 the f32 64-row tile, 2 the
+// f32 small grid). Returns a cudaError_t.
 extern "C" int convdr_flash_attention_fwd_config(int batch, int seq,
                                                  int heads, int head_dim,
                                                  int dtype, int* out) {
   if (!valid_args(batch, seq, heads, head_dim, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Config cfg = config_for(seq, head_dim, dtype);
+  const Config cfg = config_for(batch, seq, heads, head_dim, dtype);
   cudaError_t err = allow_smem(cfg);
   if (err != cudaSuccess) return static_cast<int>(err);
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, reinterpret_cast<const void*>(cfg.fn), cfg.threads, cfg.smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, cfg.fn, cfg.threads, cfg.smem);
   out[0] = cfg.threads;
   out[1] = cfg.smem;
   out[2] = cfg.rows;
   out[3] = blocks;
   out[4] = cfg.keys;
+  out[5] = cfg.path;
   return static_cast<int>(err);
 }

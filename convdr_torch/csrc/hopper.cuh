@@ -316,27 +316,31 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// The map of a contiguous bf16 [B, T, H, D] tensor whose box is `rows`
-// consecutive t of one (b, h): D x 1 x rows x 1, innermost first, swizzled
-// by the row's width (D = 16, 32, 64: 32, 64, 128 bytes); rows past T
-// arrive as zeros. Returns false if the driver refuses it.
+// The map of a contiguous [B, T, H, D] tensor, bf16 (or f32 with `f32`),
+// whose box is `rows` consecutive t of one (b, h) and at most 128 bytes
+// of d: all of a bf16 row (D = 16, 32, 64), min(D, 32) floats of an f32
+// one (D = 64 takes two boxes a row, at d = 0 and 32); swizzled by the
+// box row's width (32, 64 or 128 bytes); rows past T arrive as zeros.
+// Returns false if the driver refuses it.
 inline bool encode_bthd_map(CUtensorMap* map, const void* base, int batch, int seq, int heads,
-                            int head_dim, int rows) {
+                            int head_dim, int rows, bool f32 = false) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
-  const cuuint64_t row = 2ull * head_dim;
+  const cuuint64_t elem = f32 ? 4 : 2;
+  const cuuint64_t row = elem * head_dim;
+  const cuuint32_t box_d = f32 && head_dim > 32 ? 32 : head_dim;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};  // bytes, dims 1..3
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(head_dim), 1u, static_cast<cuuint32_t>(rows),
-                             1u};
+  const cuuint32_t box[4] = {box_d, 1u, static_cast<cuuint32_t>(rows), 1u};
   const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
-  const CUtensorMapSwizzle swizzle = head_dim == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : head_dim == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                      : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const cuuint64_t box_bytes = elem * box_d;
+  const CUtensorMapSwizzle swizzle = box_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -139,19 +139,26 @@ _BWD_ARGTYPES = [_PTR] * 11 + [_INT] * 4 + [_FLOAT, _INT, _PTR]
 _DELTA_ARGTYPES = [_PTR] * 3 + [_INT] * 4 + [_PTR]
 
 
+FWD_PATHS = ("bf16 mma", "f32 tile", "f32 small grid")
+
+
 def flash_attention_fwd_config(batch, seq, heads, head_dim, dtype):
     """The forward kernel's launch configuration for a problem, as the C
     query ``convdr_flash_attention_fwd_config`` reports it: threads a
     block, dynamic shared memory bytes, query rows a block, resident blocks
-    an SM and keys a tile (needs the card)."""
+    an SM, keys a tile and the path (one of ``FWD_PATHS``: f32 takes the
+    small-grid path while the 64-row tile's grid, ceil(T / 64) * H * B, is
+    at most the kernel source's ``kSmallGridBlocks``; needs the card)."""
     fn = cuda_build.bind("flash_attention", "convdr_flash_attention_fwd_config",
                          [_INT] * 5 + [_PTR])
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     rc = fn(batch, seq, heads, head_dim, _DTYPE_CODES[dtype], ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"convdr_flash_attention_fwd_config: CUDA error {rc}")
-    return dict(zip(("threads", "smem_bytes", "block_queries", "blocks_per_sm",
-                     "tile_keys"), out))
+    cfg = dict(zip(("threads", "smem_bytes", "block_queries", "blocks_per_sm",
+                    "tile_keys"), out))
+    cfg["path"] = FWD_PATHS[out[5]]
+    return cfg
 
 
 def flash_attention_bwd_config(batch, seq, heads, head_dim, dtype=torch.float32):
@@ -172,7 +179,10 @@ def flash_attention_bwd_config(batch, seq, heads, head_dim, dtype=torch.float32)
 def flash_attention_fwd(q, k, v, attention_mask, with_lse: bool):
     """Launch the forward kernel on CUDA tensors; -> (out, lse [B, H, T] f32
     or None). ``with_lse`` also writes each row's log-sum-exp of the scaled
-    scores, which the backward needs; ``out`` is the same either way."""
+    scores, which the backward needs; ``out`` is the same either way. f32
+    takes one of two kernels by the grid's size (the 64-row tile, or
+    32-row blocks over a TMA ring for small grids such as the serving
+    encode's B=1); both give the same out and lse bit for bit."""
     b, t, h, d = _check("flash_attention", (q, k, v), attention_mask,
                         tuple(_DTYPE_CODES))
     seg = attention_mask.to(torch.int32).contiguous()

@@ -1,0 +1,217 @@
+"""Kernel 1's f32 forward (``csrc/flash_attention.cu``) on its two paths, on the card.
+
+The f32 forward takes the small-grid path (32-row blocks over a TMA ring)
+while the 64-row tile's grid, ceil(T / 64) * H * B, is at most the
+source's ``kSmallGridBlocks``, and the 64-row tile above. At H=12 D=64,
+B = 1, 2, 4, 8 and 40 (the teacher's documents) x T = 64, 128, 256, 512,
+with the masks of served histories (``history_to_inputs``, right-padded)
+and random right-padded masks, the public entry's out and lse are held bit
+for bit (``torch.equal``) to batch elements [0, B) of the same problem
+repeated to a batch that takes the tile path; a mismatch raises. Each
+shape is timed on the device (the calls queued behind a spin kernel, so
+no host time is in it) through the entry, beside its bound (bytes over
+3.35 TB/s against the in-segment pairs' 4HD operations over the 67
+TFLOP/s f32 peak), masked SDPA and the repeated batch on the tile path
+(and the plain version at the serving encode's and the teacher's
+targets' shapes).
+
+``--root`` imports ``convdr_torch`` from another checkout (a parent
+unpacked with ``git archive``), so two versions compare within one call
+on one card: a tree from before the small-grid path times the 64-row tile
+at every shape. ``--digests`` adds digests of every f32 out and lse and
+the f32 backward's gradients at chip_smoke's f32 shapes, of the serving
+shape, and of the bf16 outputs at the corpus rungs, so that two
+checkouts compare bit for bit across processes:
+
+    python -m convdr_torch.scripts.attention_sweep --root parent --label parent --digests
+    python -m convdr_torch.scripts.attention_sweep --label change --digests
+
+Needs the card; prints one JSON line a version.
+"""
+
+import argparse
+import json
+import sys
+
+import torch
+import torch.nn.functional as F
+
+from convdr_torch.scripts.score_sweep import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms, digest
+
+HEADS, HEAD_DIM = 12, 64
+SWEEP_B, SWEEP_T = (1, 2, 4, 8), (64, 128, 256, 512)
+EXTRA_SHAPES = ((40, 512),)  # the teacher's documents
+# where the plain version is timed too: the serving encode, the teacher's targets
+PLAIN_SHAPES = ((1, 256), (4, 64))
+MASKS = ("served", "right")
+# (batch, T) of gen_passage_embeddings' length rungs at 64 rows x 512 tokens
+# (retrieval/embed_corpus.py _BucketBuffer), bf16
+ATTN_SHAPES = [(512, 64), (256, 128), (128, 256), (64, 384), (64, 512)]
+# the f32 forward's shapes in chip_smoke's train step: the student's concat
+# (batch 4 x 256), the teacher's targets (4 x 64) and documents (4 x 10
+# rows of 512: a positive and 9 negatives)
+F32_SHAPES = [(4, 256), (4, 64), (40, 512)]
+SERVE_T = 256  # the serving encode's concat length (batch 1)
+
+
+def make_histories(n):
+    """n distinct three-turn conversations, the current question last
+    (scripts/bench_online.py's)."""
+    subjects = ["throat cancer", "bronze age trade", "lucid dreaming", "coral reefs",
+                "rust compilers", "monsoon seasons", "jazz harmony", "glacier melt"]
+    return [[f"tell me about {subjects[i % len(subjects)]} case {i}",
+             f"what causes it in region {i % 7}",
+             f"how is it treated or managed today, variant {i}"] for i in range(n)]
+
+
+def bound_ms(q, mask, lse=False):
+    """The least time (ms) of one forward: the bytes of q, k, v, out and
+    the mask once each (and the f32 lse with ``lse``) against the
+    operations this data needs (a query attends to the L valid or the T-L
+    pad keys of its row, 4HD each); and which of the two bounds it."""
+    b, t, h, d = q.shape
+    lens = mask.sum(1).double()
+    pairs = float((lens ** 2 + (t - lens) ** 2).sum())
+    ops_ms = 4.0 * h * d * pairs / PEAK_FLOPS[q.dtype] * 1e3
+    nbytes = 4 * q.numel() * q.element_size() + mask.numel() * 4 + (b * h * t * 4 if lse else 0)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
+
+
+def served_mask(batch, t, histories=None):
+    """[batch, t] int32 masks of served histories (row i the i-th), as the
+    serving encode pads them at concat length t."""
+    from convdr_torch.core.loading import load_tokenizer_for
+    from convdr_torch.core.registry import get_model_config
+    from convdr_torch.retrieval.online import history_to_inputs
+
+    tokenizer = load_tokenizer_for(get_model_config("rdot_nll"), None)
+    histories = histories or make_histories(batch)
+    rows = [history_to_inputs(tokenizer, histories[i % len(histories)],
+                              max_concat_length=t)[1][0] for i in range(batch)]
+    return torch.tensor(rows, dtype=torch.int32, device="cuda")
+
+
+def right_mask(batch, t, gen):
+    """Right-padded masks of random lengths in [1, t]."""
+    lens = torch.randint(1, t + 1, (batch,), generator=gen, device="cuda")
+    return (torch.arange(t, device="cuda")[None, :] < lens[:, None]).int()
+
+
+def problem(batch, t, dtype, gen, mask):
+    q, k, v = (torch.randn((batch, t, HEADS, HEAD_DIM), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    return q, k, v, mask
+
+
+def fwd_path(batch, t, h=HEADS, d=HEAD_DIM):
+    from convdr_torch.models.attention import flash_attention_fwd_config
+
+    # a tree from before the small-grid path reports no path: the tile
+    return flash_attention_fwd_config(batch, t, h, d, torch.float32).get("path", "f32 tile")
+
+
+def tile_repeats(batch, t, h=HEADS, d=HEAD_DIM):
+    """The smallest count of copies of a B=batch problem that takes the f32
+    forward's 64-row tile path."""
+    r = 1
+    while fwd_path(batch * r, t, h, d) != "f32 tile":
+        r *= 2
+    return r
+
+
+def sweep(histories=None, seed=0, log=print):
+    """The readings above as ``{"B<b>xT<t>_<mask>": row}``; raises if an
+    output of the small-grid path differs from the tile path's."""
+    from convdr_torch.models.attention import flash_attention_fwd, flash_attention_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for b, t in [(b, t) for b in SWEEP_B for t in SWEEP_T] + list(EXTRA_SHAPES):
+        for kind in MASKS:
+            mask = served_mask(b, t, histories) if kind == "served" else right_mask(b, t, gen)
+            q, k, v, mask = problem(b, t, torch.float32, gen, mask)
+            o, lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
+            r = tile_repeats(b, t)
+            tiled = [x.repeat(r, *([1] * (x.dim() - 1))) for x in (q, k, v, mask)]
+            o_t, lse_t = flash_attention_fwd(*tiled, with_lse=True)
+            if not (torch.equal(o, o_t[:b]) and torch.equal(lse, lse_t[:b])):
+                raise AssertionError(f"B={b} T={t} {kind}: the f32 forward differs from the "
+                                     f"tile path's first {b} batch elements")
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            allowed = mask[:, None, :, None] == mask[:, None, None, :]
+            bnd, by = bound_ms(q, mask)
+            row = {"path": fwd_path(b, t), "tile_grid": -(-t // 64) * HEADS * b,
+                   "valid_tokens": int(mask.sum()), "equal_to_tile_path": True,
+                   "ms": device_ms(lambda: flash_attention_fwd(q, k, v, mask, False)),
+                   "tile_repeats": r,
+                   "tile_batch_ms": device_ms(lambda: flash_attention_fwd(*tiled, False)),
+                   "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, attn_mask=allowed)),
+                   "bound_ms": bnd, "bound_by": by}
+            if (b, t) in PLAIN_SHAPES:
+                row["plain_ms"] = device_ms(lambda: flash_attention_plain(q, k, v, mask), iters=5)
+            out[f"B{b}xT{t}_{kind}"] = row
+            log(f"  f32 B={b} T={t} {kind} ({row['valid_tokens']} valid; tile grid "
+                f"{row['tile_grid']}): {row['path']} {row['ms']:.4f} ms; "
+                f"x{r} on the tile path {row['tile_batch_ms']:.4f}, "
+                + (f"plain {row['plain_ms']:.4f}, " if "plain_ms" in row else "")
+                + f"SDPA {row['sdpa_ms']:.4f}; bound {bnd:.4f} ({by}); equal to the tile path")
+    return out
+
+
+def digests(histories=None, seed=1):
+    """Digests of the f32 out and lse (and out without lse), and of the f32
+    backward's dQ, dK, dV from that lse, at ``F32_SHAPES`` (right-padded
+    random lengths) and at B=1 T=``SERVE_T`` (a served history); of the bf16
+    out at ``ATTN_SHAPES`` and of bf16 out and lse at B=4 T=256."""
+    from convdr_torch.models.attention import flash_attention_bwd, flash_attention_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    result = {}
+    shapes = [(b, t, torch.float32, None) for b, t in F32_SHAPES]
+    shapes.append((1, SERVE_T, torch.float32, served_mask(1, SERVE_T, histories)))
+    shapes += [(b, t, torch.bfloat16, None) for b, t in ATTN_SHAPES + [(4, 256)]]
+    for b, t, dtype, mask in shapes:
+        q, k, v, mask = problem(b, t, dtype, gen,
+                                right_mask(b, t, gen) if mask is None else mask)
+        name = f"{str(dtype)[6:]}_B{b}xT{t}"
+        if dtype == torch.bfloat16 and (b, t) != (4, 256):
+            result[name] = digest(flash_attention_fwd(q, k, v, mask, False)[0])
+            continue
+        o, lse = flash_attention_fwd(q, k, v, mask, True)
+        result[name] = digest(o, lse, flash_attention_fwd(q, k, v, mask, False)[0])
+        if dtype == torch.float32:
+            do = torch.randn(q.shape, generator=gen, device="cuda")
+            result[name + "_bwd"] = digest(*flash_attention_bwd(q, k, v, o, do, mask, lse))
+    return result
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default="", help="checkout to import convdr_torch from")
+    parser.add_argument("--label", default="this checkout")
+    parser.add_argument("--digests", action="store_true",
+                        help="also digest the forward's outputs at chip_smoke's shapes")
+    args = parser.parse_args(argv)
+    if args.root:
+        sys.path.insert(0, args.root)
+        for name in [m for m in sys.modules if m.split(".")[0] == "convdr_torch"]:
+            del sys.modules[name]
+    if not torch.cuda.is_available():
+        raise SystemExit("attention_sweep needs a CUDA device")
+    from convdr_torch.core.device import set_exact_matmul
+    from convdr_torch.ops import cuda_build
+
+    set_exact_matmul()
+    cuda_build.build(["flash_attention", "flash_attention_bwd"])
+    log = lambda *a: print(*a, file=sys.stderr, flush=True)  # noqa: E731
+    result = {"label": args.label, "card": torch.cuda.get_device_name(0),
+              "sweep": sweep(log=log)}
+    if args.digests:
+        result["digests"] = digests()
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()

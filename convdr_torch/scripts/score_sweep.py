@@ -35,8 +35,10 @@ N, D, GROUP, STREAM_GROUP = 524288, 768, 32, 128
 QS = (1, 2, 4, 8, 16, 32, 64)
 TILE_Q = 65  # the smallest batch the 128-row query tile takes
 DIGEST_QS = (1, 64, 512)  # int8 passages, and Q=512 in f32 and bf16
-# published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
-HBM_BYTES_PER_S, F32_FLOPS, INT8_OPS = 3.35e12, 67e12, 1979e12
+# published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit),
+# which chip_smoke and scripts/attention_sweep.py take from here
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 
 
 def device_ms(fn, iters=20):
@@ -79,15 +81,16 @@ def bound_ms(qn, p, group, scores):
     nbytes = qn * d * (1 if int8 else 4) + p.numel() * p.element_size() + qn * (n // group) * 4
     if scores:
         nbytes += qn * n * 4
-    ops_ms = 2.0 * qn * n * d / (INT8_OPS if int8 else F32_FLOPS) * 1e3
+    ops_ms = 2.0 * qn * n * d / PEAK_FLOPS[torch.int8 if int8 else torch.float32] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
 
 
 def digest(*tensors):
+    """A digest of the tensors' bytes (any dtype, bf16 included)."""
     h = hashlib.blake2b(digest_size=16)
     for t in tensors:
-        h.update(t.contiguous().cpu().numpy().tobytes())
+        h.update(t.contiguous().flatten().view(torch.uint8).cpu().numpy().tobytes())
     return h.hexdigest()
 
 

@@ -37,6 +37,8 @@ def _jax_naive(q, k, v, mask):
         (3, 16, 2, 16, [16, 5, 0]),       # ragged, with an all-pad row
         (2, 37, 3, 32, [37, 1]),          # T not a tile multiple
         (4, 64, 12, 64, [64, 63, 20, 2]),  # base-model head shape
+        (1, 256, 4, 64, [111]),           # the serving encode (a served history)
+        (4, 64, 2, 64, [64, 40, 9, 1]),   # the teacher's targets
     ],
 )
 def test_plain_flash_matches_jax_naive_on_valid_positions(b, t, h, d, lengths):

@@ -18,7 +18,10 @@ within 1e-5 relative of a torch.logsumexp.
 Equal, not close: the streaming passes against the score kernel (the same
 f32 FMA chain per score; int8: exact integer sums, on the tensor cores in
 the score kernel), the score kernel's small-Q path against its query-tile
-path (the first Q rows of a Q=65 batch: the same chain), int8 scores against the plain version (exact integer
+path (the first Q rows of a Q=65 batch: the same chain), the attention
+forward's small-grid path against its 64-row tile (out and lse of the same
+problem repeated to a batch that takes the tile; the same chains), int8
+scores against the plain version (exact integer
 arithmetic), the gathers against ``torch.gather`` (copies), and two
 backward calls on the same inputs (no atomics). The ANN layer (PyTorch
 ops): int8 IVF scores equal the integer oracle's; the ADC scans and IVF
@@ -47,6 +50,7 @@ from convdr_torch.models.attention import (
     flash_attention_bwd_delta,
     flash_attention_bwd_plain,
     flash_attention_fwd,
+    flash_attention_fwd_config,
     flash_attention_plain,
 )
 from convdr_torch.ops import cuda_build
@@ -74,6 +78,7 @@ from convdr_torch.ops.streaming_search import (
     streaming_groupmax_plain,
 )
 from convdr_torch.retrieval.searcher import BlockedSearcher
+from convdr_torch.scripts.attention_sweep import tile_repeats
 
 pytestmark = pytest.mark.cuda
 
@@ -179,6 +184,43 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="aligned"):
         flat = torch.zeros(q.numel() + 1, device="cuda")
         flash_attention(flat[1:].view(q.shape), k, v, mask)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("t", [1, 33, 64, 200, 256, 512])
+@pytest.mark.parametrize("h", [1, 12])
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_flash_small_grid_path_equals_tile_path(cuda, b, t, h, d):
+    """The f32 forward's small-grid path (32-row blocks over a TMA ring)
+    gives out and lse equal bit for bit to the 64-row tile path's on the
+    same problem repeated to a batch that takes the tile path, for four
+    mask kinds, with and without lse: the direct proof that each row's
+    order of operations is kept."""
+    r = tile_repeats(b, t, h, d)
+    for mask_kind in ("right", "left", "middle", "random"):
+        # the first b rows of b + 1: none of them the all-pad last row
+        q, k, v, mask = (x[:b].contiguous() for x in attention_problem(
+            b + 1, t, h, d, torch.float32, seed=3, mask=mask_kind))
+        tile = [x.repeat(r, *([1] * (x.dim() - 1))) for x in (q, k, v, mask)]
+        out_t, lse_t = flash_attention_fwd(*tile, with_lse=True)
+        out, lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
+        bare, _ = flash_attention_fwd(q, k, v, mask, with_lse=False)
+        torch.cuda.synchronize()
+        assert torch.equal(out, out_t[:b]) and torch.equal(lse, lse_t[:b]), mask_kind
+        assert torch.equal(bare, out), mask_kind
+
+
+def test_flash_fwd_config_reports_the_path(cuda):
+    """The serving encode's shape (B=1 T=256 H=12) takes the small-grid
+    path, whose 32-row blocks give it 96 blocks where the 64-row tile
+    gives 48; the teacher's documents (B=40 T=512) and bf16 keep their
+    kernels."""
+    small = flash_attention_fwd_config(1, 256, 12, 64, torch.float32)
+    assert small["path"] == "f32 small grid"
+    assert -(-256 // small["block_queries"]) * 12 == 96
+    assert small["blocks_per_sm"] >= 1
+    assert flash_attention_fwd_config(40, 512, 12, 64, torch.float32)["path"] == "f32 tile"
+    assert flash_attention_fwd_config(1, 256, 12, 64, torch.bfloat16)["path"] == "bf16 mma"
 
 
 # (Q, N, D) cutting the kernel's tiles: 64- and 128-query blocks, 128-row
