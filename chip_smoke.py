@@ -19,7 +19,7 @@
    train step's f32 shapes (B=4 T=256 and T=64, B=40 T=512), in bf16 and
    f32, timed beside masked SDPA and its bound at every rung and at the
    f32 B=4 T=256 and B=40 T=512 shapes (device-only times too at B=4 T=256
-   f32 and B=512 T=64 bf16); its backward (dQ, dK, dV, f32, one launch) at
+   f32 and at every bf16 rung); its backward (dQ, dK, dV, f32, one launch) at
    the student's B=4 T=256, at T=64, at T=200 and at B=40 T=512, each under
    right-, left-, middle-padded and random masks with an all-pad row, two
    calls bit-identical, timed at B=4 T=256 host-paced and on the device
@@ -702,7 +702,7 @@ def time_attention(gen, worst):
     for b2, t2 in ATTN_SHAPES:
         per_rung[f"B{b2}xT{t2}"] = {
             "max_abs_err": worst[(dtype, b2, t2)],
-            **time_attention_shape(b2, t2, dtype, gen, plain=False, device=b2 == 512)}
+            **time_attention_shape(b2, t2, dtype, gen, plain=False, device=True)}
     log("  flash_attention_fwd ms (kernel / SDPA / bound): " + "; ".join(
         f"{name} {r['ms']:.4f} / {r['library_ms']:.4f} / {r['bound_ms']:.4f}"
         + (f" (device {r['device_ms']:.4f} / {r['library_device_ms']:.4f})"

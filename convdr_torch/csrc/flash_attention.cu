@@ -13,9 +13,10 @@
 // writes 0 (no NaN).
 //
 // What bounds it on an H100: in bf16 the bytes of q, k, v and out (about
-// 4*B*T*H*D elements) against 3.35 TB/s, the 4*B*H*D*pairs operations being
-// far below the tensor-core roofline; in f32, which may not use TF32, the
-// same operations on the CUDA cores (67 TFLOP/s). Only in-segment pairs
+// 4*B*T*H*D elements) against 3.35 TB/s, the function's 4*B*H*D*pairs
+// operations being below the tensor-core roofline (the kernel's own
+// products are twice those, see below); in f32, which may not use TF32,
+// the same operations on the CUDA cores (67 TFLOP/s). Only in-segment pairs
 // count: a key tile whose segment range holds no query of the block is
 // neither loaded nor multiplied.
 //
@@ -24,36 +25,60 @@
 // key tile, kept only if some live query of the block has a segment in
 // it. The kept tiles' indices go, in order, to shared memory after the
 // fixed buffers (one int a tile), so the main loop walks only tiles it
-// needs and knows the next one while the current one computes. In the
-// bf16 kernel and the f32 64-row tile, K/V tiles and the tile's segment
-// ids arrive by cp.async (16-byte .cg copies, 4-byte .ca for the ids; K/V
-// rows past T zero-filled, the ids of keys past T set to a segment no
-// query has), issued a tile ahead.
+// needs. In the f32 64-row tile, K/V tiles and the tile's segment ids
+// arrive by cp.async (16-byte .cg copies, 4-byte .ca for the ids; K/V rows
+// past T zero-filled, the ids of keys past T set to a segment no query
+// has), issued a tile ahead; the bf16 kernel and the f32 small grid take
+// K/V by TMA.
 //
-// * bf16 (the corpus encoder): tensor cores. A block is 4 warps and 64
-//   queries, each warp owning 16 and holding their Q fragments and f32
-//   output accumulators in registers; 64-key K/V tiles go through a 2-stage
-//   ring, one barrier a tile (it publishes the tile that landed and frees
-//   the other stage, into which the next tile's copies go before this one
-//   computes). S = Q K^T and O += P V are `mma.sync` m16n8k16 bf16 with f32
-//   accumulation; K fragments come through `ldmatrix`, V fragments through
-//   `ldmatrix.trans`, from rows padded by 16 bytes (conflict-free). P enters
-//   P V as three bf16 terms made by truncation (mask the low 16 bits,
-//   subtract: exact), packed with one `prmt` each; the three hold all 24
-//   bits of an f32 P, so the result is an f32-order rounding of the plain
-//   f32 softmax before the final bf16 store. Past 8 tiles a row (T > 512)
-//   the MMA accumulators are added into an IEEE f32 sum every 8 tiles
-//   (kFlushTiles): accumulated in the tensor cores alone, T = 30000 missed
-//   one bf16 ulp on the card. A warp skips a tile none of whose key
-//   segments lies in its rows' segment range, and masks nothing where its
-//   live rows and the tile's keys share one segment. (On the
-//   card, 8-warp 128-query blocks were slower at every corpus rung, so was
-//   a register cap of 128 above T = 64, where the kernel spills, and so
-//   was skipping 16-key groups inside a tile.)
-//   For bf16 training it also writes lse [B, H, T] f32 from the same
-//   running max and sum that normalise out (the backward recomputes P
-//   from it); out's arithmetic does not change with it, so the inference
-//   path, which passes a null lse, keeps its bits.
+// * bf16 (the corpus encoder): wgmma, for Hopper. A block is one
+//   warpgroup that owns 64 queries. Its thread 0 issues Q once by TMA (a
+//   4-D map over [B, T, H, D], a box of 64 rows, swizzled by the row's
+//   width: 32, 64 or 128 bytes for D = 16, 32, 64; rows past T arrive as
+//   zeros), and warp 0 each planned tile's 64-key K and V boxes into a
+//   2-stage ring under full / empty mbarriers, its lanes copying the
+//   tile's key ids by cp.async onto the same full barrier (keys past T are
+//   masked by position); a stage is refilled, with the tile two ahead, as
+//   soon as every warp is done with it. S = Q K^T is wgmma m64n64k16 with
+//   both operands in shared memory, K-major (D/16 k-steps). Masking and
+//   the online softmax work on the accumulator fragments in place, whose
+//   layout keeps a row in the 4 lanes of a quad: the xor-1/2 row
+//   reductions, fast_exp2, the base_max and all -inf rules are mma.sync's.
+//   P enters O += P V as three bf16 terms made by truncation (mask the low
+//   16 bits, subtract: exact), packed with one `prmt` each: the A operand
+//   from registers (the packed S fragments are the A fragments), V from
+//   shared memory as an MN-major B, the three parts of each 16-key k-step
+//   in turn (12 products a tile; in this order the card gave the mma.sync
+//   kernel's outputs, and a full bf16 train step its loss). The three hold
+//   all 24 bits of an f32 P, so out is an f32-order rounding of the plain
+//   f32 softmax before the final bf16 store (one bf16 ulp of the plain
+//   version; rounding P to one bf16, as the Pallas kernel does, misses
+//   that at about a fifth of the outputs). So the tensor cores do 8*H*D
+//   operations a pair, twice the function's, and that is this design's
+//   floor beside the bytes bound: at the corpus rungs the kernel is bound
+//   by the tensor cores' rate on these m64n64 products, not by bytes.
+//   Each tile runs S, softmax, P V in turn, with no other wgmma in flight
+//   (no instruction but wgmma writes an accumulator while one is); what
+//   hides the latencies is occupancy: the loop fits 128 registers, so
+//   four blocks share an SM (which a producer warp of their own would cut
+//   to three) and one block's softmax runs while another's products do.
+//   A block skips a tile none of whose keys lies in its rows' segment
+//   range, masks nothing where its live rows and the tile's keys share
+//   one segment, and skips O's rescale in a warp whose rows kept their
+//   max. Past 8 tiles a row (T > 512) the accumulators are added into an
+//   IEEE f32 sum in shared memory every 8 tiles (kFlushTiles): accumulated
+//   in the tensor cores alone, T = 30000 missed one bf16 ulp on the card.
+//   out leaves through the Q tile by a TMA store; for bf16 training lse
+//   [B, H, T] f32 comes from the same running max and sum that normalise
+//   out (the backward recomputes P from it), and out's arithmetic does not
+//   change with it, so the inference path, which passes a null lse, keeps
+//   its bits. (On the card, scripts/attention_sweep.py and PERF.md: B=64
+//   T=512 0.212 ms against the mma.sync kernel's 0.282. Slower, in scratch
+//   variants not kept: a producer warp with three blocks an SM, 0.219; two
+//   blocks an SM of one or two warpgroups, whose 168-register cap made
+//   the loop spill, 0.37-0.41; issuing the next tile's S before this
+//   tile's P V, the same; a persistent grid, 0.232, though faster at T <=
+//   128; 3- and 4-stage rings, the same as 2.)
 // * f32 (the query encoder, training): two register-tiled products on the
 //   CUDA cores, full f32, no TF32, on one of two paths chosen by the grid.
 //   For training it also writes each row's log-sum-exp of the scaled
@@ -123,32 +148,46 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma over a TMA ring
 // ---------------------------------------------------------------------------
-constexpr int kMmaKeys = 64;  // keys per tile
+constexpr int kWgKeys = 64;      // keys a tile: the N of S
+constexpr int kWgRows = 64;      // query rows a block: one wgmma M
+constexpr int kWgStages = 2;     // K/V ring depth
+constexpr int kWgMinBlocks = 4;  // blocks an SM: registers capped at 128 a thread
 // P enters P V as the sum of this many bf16 terms (8 more bits of P each).
 // Two leave errors of about 2^-18 of the summed terms, more than one bf16
 // ulp of an output near zero; three hold all 24 bits of P.
 constexpr int kParts = 3;
-
-constexpr int kMmaWarps = 4;  // 16 queries each
-// The error of the tensor cores' f32 accumulation grows with the MMAs
-// summed into one register (T = 30000 missed one bf16 ulp on the card).
-// Past kFlushTiles tiles a row (T > 512) a warp adds its accumulators, in
-// IEEE f32, into a copy in shared memory every kFlushTiles tiles and
-// restarts them from 0.
+// The error of the tensor cores' f32 accumulation grows with the products
+// summed into one register (T = 30000 missed one bf16 ulp on the card with
+// mma.sync). Past kFlushTiles tiles a row (T > 512) a thread adds its
+// accumulators, in IEEE f32, into a copy in shared memory every kFlushTiles
+// tiles and restarts them from 0.
 constexpr int kFlushTiles = 8;
 
+// Shared memory of a block (from a 1024-byte aligned base): the Q tile
+// (then the out tile), the ring's stages of a K and a V tile (all [64][D]
+// bf16, swizzled by TMA with the row's width), each stage's key ids, the
+// barriers, the tile plan, and past kFlushTiles tiles the flush copy of
+// every thread's O.
 template <int D>
-struct MmaTile {
-  static constexpr int kStride = D + 8;  // bf16 a shared row: 16 bytes pad
-  static constexpr int kStageBytes = 2 * kMmaKeys * kStride * 2 + kMmaKeys * 4;
-  static constexpr int kFixedBytes = 2 * kStageBytes;
-  static constexpr int kFlushBytes = D / 8 * 4 * 32 * kMmaWarps * 4;  // o a thread
-  // the two stages, the plan (rounded to 16 bytes), the flush copy if used
+struct WgFwdTile {
+  static constexpr int kRowBytes = 2 * D;
+  static constexpr int kTileBytes = kWgKeys * kRowBytes;
+  static constexpr int kThreads = 128;  // one warpgroup: 64 query rows
+  static constexpr int kRingOff = kTileBytes;
+  static constexpr int kIdsOff = kRingOff + kWgStages * 2 * kTileBytes;
+  static constexpr int kBarOff = kIdsOff + kWgStages * kWgKeys * 4;
+  static constexpr int kPlanOff = kBarOff + (2 * kWgStages + 1) * 8;
+  static constexpr int kAcc = D / 2;  // O's f32 registers a thread
+  static_assert(kTileBytes % 1024 == 0, "tiles on 1024-byte bases");
+  __host__ __device__ static int flush_off(int seq) {
+    return kPlanOff + (plan_bytes(seq, kWgKeys) + 15) / 16 * 16;
+  }
+  // + 1024 bytes to align the base
   static int smem_bytes(int seq) {
-    const int nt = (seq + kMmaKeys - 1) / kMmaKeys;
-    return kFixedBytes + (4 * (nt + 1) + 15) / 16 * 16 + (nt > kFlushTiles ? kFlushBytes : 0);
+    const int nt = (seq + kWgKeys - 1) / kWgKeys;
+    return 1024 + flush_off(seq) + (nt > kFlushTiles ? 4 * kAcc * kThreads : 0);
   }
 };
 
@@ -163,100 +202,114 @@ __device__ __forceinline__ float trunc_rest(float x) {
   return x - __uint_as_float(__float_as_uint(x) & 0xffff0000u);
 }
 
-template <int D, int kMinBlocks>
-__global__ void __launch_bounds__(32 * kMmaWarps, kMinBlocks)
-flash_fwd_mma_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
-                     const void* __restrict__ v_, const int* __restrict__ seg,
-                     void* __restrict__ out_, float* __restrict__ lse,
-                     int seq, int heads, float scale) {
-  using Tile = MmaTile<D>;
-  constexpr int kThreads = 32 * kMmaWarps;
-  constexpr int kRows = 16 * kMmaWarps;
-  constexpr int kStride = Tile::kStride;
-  constexpr int kChunks = D / 16;  // k-steps of Q K^T
-  constexpr int kDTiles = D / 8;   // 8-wide column tiles of O
-  constexpr int kKeyTiles = kMmaKeys / 8;
-  constexpr int kVecPerRow = D / 8;  // 16-byte chunks a K/V row
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(q_);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(k_);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(v_);
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(out_);
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* plan = reinterpret_cast<int*>(smem + Tile::kFixedBytes);
-  const int nt = (seq + kMmaKeys - 1) / kMmaKeys;
-  float* flushed_o = reinterpret_cast<float*>(
-      smem + Tile::kFixedBytes + (4 * (nt + 1) + 15) / 16 * 16);  // [j*4+i][tid]
+// S = Q K^T of 64 queries and a 64-key tile: D / 16 k-steps of 16 columns,
+// 32 bytes along the swizzled rows of both operands; one commit group.
+template <int D>
+__device__ __forceinline__ void issue_s(float (&s)[32], uint64_t q_desc, uint64_t k_desc) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(s, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+  wgmma_commit();
+}
+
+// O += P V: 4 k-steps of 16 keys, each P's kParts parts in turn (from
+// registers; the mma.sync kernel's order, whose bits it kept on the card),
+// V an MN-major B (16 rows down a k-step); one commit group.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[kParts][4][4],
+                                         uint64_t v_desc) {
+  constexpr uint32_t kStep = 16 * 2 * D >> 4;  // 16 rows down, in descriptor units
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int part = 0; part < kParts; ++part) wgmma_rs<D>(o, pa[part][kk], v_desc + kk * kStep, 1);
+  wgmma_commit();
+}
+
+// One warpgroup owns 64 query rows; its warp 0 issues the copies. See
+// the header for the design.
+template <int D>
+__global__ void __launch_bounds__(WgFwdTile<D>::kThreads, kWgMinBlocks)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const __grid_constant__ CUtensorMap out_map, const int* __restrict__ seg,
+                       float* __restrict__ lse, int seq, int heads, float scale) {
+  using Tl = WgFwdTile<D>;
+  constexpr int kAcc = Tl::kAcc;
+  extern __shared__ __align__(16) unsigned char wf_smem[];
+  unsigned char* smem = wf_smem + ((1024u - (shared_addr(wf_smem) & 1023u)) & 1023u);
+  int* ids = reinterpret_cast<int*>(smem + Tl::kIdsOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Tl::kBarOff);
+  uint64_t* empty = full + kWgStages;
+  uint64_t* q_full = empty + kWgStages;
+  int* plan = reinterpret_cast<int*>(smem + Tl::kPlanOff);
+  float* flushed_o = reinterpret_cast<float*>(smem + Tl::flush_off(seq));  // [i][tid]
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;  // fragment row (and row + 8)
-  const int t = lane % 4;  // fragment column pair
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const long long tok = static_cast<long long>(heads) * D;
-  const long long base = static_cast<long long>(b) * seq * tok +
-                         static_cast<long long>(h) * D;
   const int* segb = seg + static_cast<long long>(b) * seq;
-  const int q0 = blockIdx.x * kRows;
+  const int q0 = blockIdx.x * kWgRows;
 
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full + s, 1 + 32);  // the TMA's bytes, then each lane's key ids
+      mbar_init(empty + s, 4);      // each warp
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
+    // the Q tile (rows past T arrive as zeros), while the block plans
+    mbar_arrive_expect_tx(q_full, Tl::kTileBytes);
+    tma_load_4d(smem, &q_map, q_full, 0, h, q0, b);
+  }
+  // every thread (its barriers also publish the mbarriers' initialisation)
+  const int n = plan_tiles<kWgRows, kWgKeys, Tl::kThreads>(segb, seq, q0, plan);
+
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  // Planned tile idx into its stage, by warp 0: lane 0 issues the K and V
+  // boxes by TMA, each lane copies two key ids by cp.async, which arrives
+  // when they have landed (keys past T are masked by position).
+  auto load_tile = [&](int idx) {
+    const int st = idx % kWgStages;
+    const int k0 = plan[idx] * kWgKeys;
+    if (lane == 0) {
+      unsigned char* kv = smem + Tl::kRingOff + st * 2 * Tl::kTileBytes;
+      mbar_arrive_expect_tx(full + st, 2 * Tl::kTileBytes);
+      tma_load_4d(kv, &k_map, full + st, 0, h, k0, b);
+      tma_load_4d(kv + Tl::kTileBytes, &v_map, full + st, 0, h, k0, b);
+    }
+    int* sk = ids + st * kWgKeys;
+    if (k0 + lane < seq) cp_async4(sk + lane, segb + k0 + lane);
+    if (k0 + lane + 32 < seq) cp_async4(sk + lane + 32, segb + k0 + lane + 32);
+    mbar_arrive_cp_async(full + st);
+  };
+  if (warp == 0)
+    for (int idx = 0; idx < min(n, kWgStages); ++idx) load_tile(idx);
+
+  // warp w owns rows 16w + g and 16w + g + 8
+  const int g = lane / 4;
+  const int t = lane % 4;
   int rows[2];
-  rows[0] = q0 + warp * 16 + g;
-  rows[1] = rows[0] + 8;
   bool live[2];
   int segq[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    live[r] = rows[r] < seq;
+    rows[r] = q0 + 16 * warp + g + 8 * r;
+    live[r] = rows[r] < seq;  // a row past T writes nothing
     segq[r] = live[r] ? segb[rows[r]] : 0;
   }
-  // Q as A fragments: a0 (row g, cols 2t..2t+1), a1 (row g+8), a2/a3 the
-  // same rows at cols 8+2t.
-  uint32_t qf[kChunks][4];
-#pragma unroll
-  for (int c = 0; c < kChunks; ++c) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = i & 1;
-      const int col = 16 * c + 8 * (i >> 1) + 2 * t;
-      qf[c][i] = live[r] ? ld_u32(q + base + rows[r] * tok + col) : 0u;
-    }
-  }
-
-  auto load_tile = [&](int tile, int stage) {
-    unsigned char* st = smem + stage * Tile::kStageBytes;
-    __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(st);
-    __nv_bfloat16* vs = ks + kMmaKeys * kStride;
-    int* sk = reinterpret_cast<int*>(vs + kMmaKeys * kStride);
-    const int k0 = tile * kMmaKeys;
-    constexpr int kTotal = kMmaKeys * kVecPerRow;
-#pragma unroll
-    for (int it = 0; it < (kTotal + kThreads - 1) / kThreads; ++it) {
-      const int c = tid + it * kThreads;
-      if (kTotal % kThreads != 0 && c >= kTotal) break;
-      const int r = c / kVecPerRow;
-      const int col = (c % kVecPerRow) * 8;
-      const bool ok = k0 + r < seq;
-      const long long off = ok ? base + (k0 + r) * tok + col : 0;
-      cp_async16(ks + r * kStride + col, k + off, ok);
-      cp_async16(vs + r * kStride + col, v + off, ok);
-    }
-    if (tid < kMmaKeys) {
-      if (k0 + tid < seq)
-        cp_async4(sk + tid, segb + k0 + tid);
-      else
-        sk[tid] = kNoSegment;
-    }
-  };
-
-  // the range of this warp's live row segments (empty: no live row)
+  // the range of the block's live row segments, which each warp reads
+  // whole, so that every decision made from it is the same in the four
   int wlo = INT_MAX;
   int whi = INT_MIN;
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-    if (live[r]) {
-      wlo = min(wlo, segq[r]);
-      whi = max(whi, segq[r]);
+  for (int c = lane; c < kWgRows; c += 32)
+    if (q0 + c < seq) {
+      wlo = min(wlo, segb[q0 + c]);
+      whi = max(whi, segb[q0 + c]);
     }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -264,180 +317,165 @@ flash_fwd_mma_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
     whi = max(whi, __shfl_xor_sync(0xffffffffu, whi, off));
   }
 
-  const int n = plan_tiles<kRows, kMmaKeys, kThreads>(segb, seq, q0, plan);
-  if (n > 0) load_tile(plan[0], 0);
-  cp_async_commit();
-
-  float o[kDTiles][4];
+  const uint32_t base = shared_addr(smem);
+  const uint64_t q_desc = wgmma_desc(base, Tl::kRowBytes);
+  float o[kAcc];  // O, the accumulator fragments of [64][D]
 #pragma unroll
-  for (int j = 0; j < kDTiles; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+  for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max, log2 domain
   float l[2] = {0.f, 0.f};  // this thread's share of the running sum
   float since_flush[2] = {1.f, 1.f};  // product of the rescales since a flush
-  int tiles = 0;                      // tiles accumulated since a flush
+  int tiles = 0;                      // P V products in o since a flush
   bool flushed = false;
   const float scale_log2 = scale * kLog2e;
-  const int mi = lane / 8;  // the ldmatrix matrix this lane addresses
+  mbar_wait(q_full, 0);
 
+  // One tile at a time: S, the softmax in S's registers, P split, P V; the
+  // stage is released when P V has landed. The other blocks of the SM keep
+  // its tensor cores busy meanwhile.
   for (int idx = 0; idx < n; ++idx) {
-    cp_async_wait_all();
-    __syncthreads();  // tile idx landed; the other stage is free
-    if (idx + 1 < n) load_tile(plan[idx + 1], (idx + 1) & 1);
-    cp_async_commit();
-
-    const unsigned char* st = smem + (idx & 1) * Tile::kStageBytes;
-    const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(st);
-    const __nv_bfloat16* vs = ks + kMmaKeys * kStride;
-    const int* sk = reinterpret_cast<const int*>(vs + kMmaKeys * kStride);
-
-    // A warp none of whose rows' segment range holds a key's segment
-    // skips the tile; one whose live rows and keys all share one segment
+    const int st = idx % kWgStages;
+    mbar_wait(full + st, (idx / kWgStages) & 1);
+    // A tile none of whose keys lies in the rows' segment range changes
+    // none of them; one whose live rows and keys all share one segment
     // needs no mask.
-    const int sa = sk[lane];
-    const int sb = sk[lane + 32];
-    if (!__any_sync(0xffffffffu, (sa >= wlo && sa <= whi) || (sb >= wlo && sb <= whi)))
-      continue;
-    const bool unmasked = wlo == whi && __all_sync(0xffffffffu, sa == wlo && sb == wlo);
-
-    // S = Q K^T: tile j holds keys 8j..8j+7; s[j][0..1] are row g at keys
-    // 8j+2t, 8j+2t+1 and s[j][2..3] the same keys for row g+8. One x4
-    // ldmatrix gives the B fragments of key tiles 2jp and 2jp+1.
-    float s[kKeyTiles][4];
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-#pragma unroll
-    for (int jp = 0; jp < kKeyTiles / 2; ++jp) {
-      const __nv_bfloat16* kp =
-          ks + (16 * jp + 8 * (mi >> 1) + lane % 8) * kStride + 8 * (mi & 1);
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, kp + 16 * c);
-        mma_bf16(s[2 * jp], qf[c], kf[0], kf[1]);
-        mma_bf16(s[2 * jp + 1], qf[c], kf[2], kf[3]);
+    const int lim = seq - plan[idx] * kWgKeys;  // keys at or past lim are past T
+    const int* sk = ids + st * kWgKeys;
+    const int sa = lane < lim ? sk[lane] : kNoSegment;
+    const int sb = lane + 32 < lim ? sk[lane + 32] : kNoSegment;
+    // Each warp is done with the stage: then warp 0 refills it with the
+    // tile kWgStages ahead.
+    auto refill = [&]() {
+      if (lane == 0) mbar_arrive(empty + st);
+      if (warp == 0 && idx + kWgStages < n) {
+        mbar_wait(empty + st, (idx / kWgStages) & 1);
+        load_tile(idx + kWgStages);
       }
+    };
+    if (!__any_sync(0xffffffffu, (sa >= wlo && sa <= whi) || (sb >= wlo && sb <= whi))) {
+      refill();
+      continue;
     }
+    const bool unmasked = wlo == whi && __all_sync(0xffffffffu, sa == wlo && sb == wlo);
+    const uint32_t kv = base + Tl::kRingOff + st * 2 * Tl::kTileBytes;
+
+    float s[32];  // S = Q K^T, then P in place
+    issue_s<D>(s, q_desc, wgmma_desc(kv, Tl::kRowBytes));
+    wgmma_wait<0>();
+    wgmma_fence_regs(s);
 
     float tile_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
     if (unmasked) {
 #pragma unroll
-      for (int j = 0; j < kKeyTiles; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) tile_max[i >> 1] = fmaxf(tile_max[i >> 1], s[j][i]);
+      for (int i = 0; i < 32; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
     } else {
 #pragma unroll
-      for (int j = 0; j < kKeyTiles; ++j) {
-        const int2 sg = *reinterpret_cast<const int2*>(sk + 8 * j + 2 * t);
+      for (int j = 0; j < 8; ++j) {
+        const int key = 8 * j + 2 * t;
+        int2 sg = *reinterpret_cast<const int2*>(sk + key);
+        if (key >= lim) sg.x = kNoSegment;
+        if (key + 1 >= lim) sg.y = kNoSegment;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = i >> 1;
+        for (int i = 4 * j; i < 4 * j + 4; ++i) {
+          const int r = (i >> 1) & 1;
           const bool allowed = ((i & 1) ? sg.y : sg.x) == segq[r];
-          s[j][i] = allowed ? s[j][i] : -CUDART_INF_F;  // raw: scale > 0
-          tile_max[r] = fmaxf(tile_max[r], s[j][i]);
+          s[i] = allowed ? s[i] : -CUDART_INF_F;  // raw: scale > 0
+          tile_max[r] = fmaxf(tile_max[r], s[i]);
         }
       }
     }
     float base_max[2];
+    float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       // the four lanes of a quad hold one row between them
-      tile_max[r] = fmaxf(tile_max[r],
-                          __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
-      tile_max[r] = fmaxf(tile_max[r],
-                          __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
       const float m_new = fmaxf(m[r], tile_max[r] * scale_log2);
       // no allowed key yet: keep everything at 0 instead of exp(-inf + inf)
       base_max[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
-      const float alpha = fast_exp2(m[r] - base_max[r]);
-      l[r] *= alpha;
-      since_flush[r] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kDTiles; ++j) {
-        o[j][2 * r] *= alpha;
-        o[j][2 * r + 1] *= alpha;
-      }
+      alpha[r] = fast_exp2(m[r] - base_max[r]);
+      l[r] *= alpha[r];
       m[r] = m_new;
     }
-
-    // O += P V, 16 keys per step: P's A fragment is the S fragments of key
-    // tiles 2kc and 2kc+1, split into kParts truncated bf16 terms.
+    if (tiles == kFlushTiles) {  // warpgroup-uniform; this tile follows
 #pragma unroll
-    for (int kc = 0; kc < kKeyTiles / 2; ++kc) {
-      uint32_t pf[kParts][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int j = 2 * kc + (i >> 1);
-        const int r = i & 1;
-        float p0 = fast_exp2(fmaf(s[j][2 * r], scale_log2, -base_max[r]));
-        float p1 = fast_exp2(fmaf(s[j][2 * r + 1], scale_log2, -base_max[r]));
-        l[r] += p0 + p1;
-#pragma unroll
-        for (int part = 0; part < kParts; ++part) {
-          pf[part][i] = pack_trunc(p0, p1);
-          if (part + 1 < kParts) {
-            p0 = trunc_rest(p0);
-            p1 = trunc_rest(p1);
-          }
-        }
+      for (int i = 0; i < kAcc; ++i) {
+        float* f = flushed_o + i * Tl::kThreads + tid;
+        *f = flushed ? fmaf(*f, since_flush[(i >> 1) & 1], o[i]) : o[i];
+        o[i] = 0.f;
       }
-#pragma unroll
-      for (int dp = 0; dp < kDTiles / 2; ++dp) {
-        // matrix i of the x4 load: keys 16kc + 8*(i&1) .., columns
-        // 16dp + 8*(i>>1) ..; registers 0/1 feed column tile 2dp, 2/3 2dp+1
-        const __nv_bfloat16* vp =
-            vs + (16 * kc + 8 * (mi & 1) + lane % 8) * kStride + 16 * dp + 8 * (mi >> 1);
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vp);
-#pragma unroll
-        for (int part = 0; part < kParts; ++part) {
-          mma_bf16(o[2 * dp], pf[part], vf[0], vf[1]);
-          mma_bf16(o[2 * dp + 1], pf[part], vf[2], vf[3]);
-        }
-      }
-    }
-    if (++tiles == kFlushTiles && idx + 1 < n) {  // warp-uniform
-#pragma unroll
-      for (int j = 0; j < kDTiles; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float* f = flushed_o + (j * 4 + i) * kThreads + tid;
-          *f = flushed ? fmaf(*f, since_flush[i >> 1], o[j][i]) : o[j][i];
-          o[j][i] = 0.f;
-        }
       since_flush[0] = since_flush[1] = 1.f;
       tiles = 0;
       flushed = true;
     }
+    // (a rescale by 1 changes nothing: a warp whose rows kept their max skips it)
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) o[i] *= alpha[(i >> 1) & 1];
+      since_flush[0] *= alpha[0];
+      since_flush[1] *= alpha[1];
+    }
+
+    // P, and its A fragments: k-step kk is columns 16kk..16kk+15, register
+    // q the pair s[8kk + 2q], s[8kk + 2q + 1], split into kParts truncated
+    // terms
+    uint32_t pa[kParts][4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = 8 * kk + 2 * q;
+        const int r = q & 1;
+        float x = fast_exp2(fmaf(s[i], scale_log2, -base_max[r]));  // 0 if masked
+        float y = fast_exp2(fmaf(s[i + 1], scale_log2, -base_max[r]));
+        l[r] += x + y;
+#pragma unroll
+        for (int part = 0; part < kParts; ++part) {
+          pa[part][kk][q] = pack_trunc(x, y);
+          if (part + 1 < kParts) {
+            x = trunc_rest(x);
+            y = trunc_rest(y);
+          }
+        }
+      }
+    issue_pv<D>(o, pa, wgmma_desc(kv + Tl::kTileBytes, Tl::kRowBytes));
+    wgmma_wait<0>();
+    wgmma_fence_regs(o);
+    refill();
+    ++tiles;
   }
-  cp_async_wait_all();
   if (flushed) {
 #pragma unroll
-    for (int j = 0; j < kDTiles; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        o[j][i] = fmaf(flushed_o[(j * 4 + i) * kThreads + tid], since_flush[i >> 1], o[j][i]);
+    for (int i = 0; i < kAcc; ++i)
+      o[i] = fmaf(flushed_o[i * Tl::kThreads + tid], since_flush[(i >> 1) & 1], o[i]);
   }
 
+  // out in bf16, laid out in the Q tile (every S has landed) as TMA's
+  // swizzle wants it, and stored by TMA: rows past T are not written
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (!live[r]) continue;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    __nv_bfloat16* op = out + base + rows[r] * tok + 2 * t;
+    const int row = 16 * warp + g + 8 * r;
 #pragma unroll
-    for (int j = 0; j < kDTiles; ++j) {
-      *reinterpret_cast<uint32_t*>(op + 8 * j) =
-          pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
-    }
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(smem + swizzled_chunk_offset(row, j, Tl::kRowBytes) + 4 * t) =
+          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     // the running max and sum that made this row's out (a live row sees
-    // its own key, so l > 0 and lse is finite); the flush rescales only o
-    if (lse != nullptr && t == 0)
-      lse[(static_cast<long long>(b) * heads + h) * seq + rows[r]] = m[r] * kLn2 + logf(l[r]);
+    // its own key, so l > 0 and lse is finite), m * ln2 and logf(l)
+    // rounded apart; the flush rescales only o
+    if (lse != nullptr && t == 0 && live[r])
+      lse[(static_cast<long long>(b) * heads + h) * seq + rows[r]] =
+          __fadd_rn(__fmul_rn(m[r], kLn2), logf(l[r]));
+  }
+  fence_shared_to_async();
+  named_barrier(1, Tl::kThreads);
+  if (tid == 0) {
+    tma_store_4d(&out_map, smem, 0, h, q0, b);
+    tma_store_commit();
+    tma_store_wait_read();
   }
 }
 
@@ -1000,8 +1038,8 @@ flash_fwd_small_kernel(const __grid_constant__ CUtensorMap k_map,
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-// path: the bf16 tensor-core kernel, the f32 64-row tile, the f32 small grid
-constexpr int kPathMma = 0;
+// path: the bf16 wgmma kernel, the f32 64-row tile, the f32 small grid
+constexpr int kPathWgmma = 0;
 constexpr int kPathTile = 1;
 constexpr int kPathSmall = 2;
 
@@ -1010,11 +1048,10 @@ struct Config {
   int threads, smem, rows, keys, path;  // block threads, dynamic bytes, BQ, BK, path
 };
 
-template <int D, int kMinBlocks>
-Config mma_config(int seq) {
-  return Config{reinterpret_cast<const void*>(flash_fwd_mma_kernel<D, kMinBlocks>),
-                32 * kMmaWarps, MmaTile<D>::smem_bytes(seq), 16 * kMmaWarps, kMmaKeys,
-                kPathMma};
+template <int D>
+Config wgmma_config(int seq) {
+  return Config{reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<D>), WgFwdTile<D>::kThreads,
+                WgFwdTile<D>::smem_bytes(seq), kWgRows, kWgKeys, kPathWgmma};
 }
 
 template <int D>
@@ -1029,13 +1066,11 @@ Config small_config(int seq) {
                 SgTile<D>::smem_bytes(seq), kSgRows, kFmaBK, kPathSmall};
 }
 
-// The kernel for a problem. bf16: registers capped for 4 blocks an SM at
-// T <= 64 (one key tile: the faster there) and 3 above (the cap of 4 makes
-// the kernel spill, slower at T >= 128 on the card). f32: the small-grid
+// The kernel for a problem. bf16: the wgmma kernel. f32: the small-grid
 // path while the tile path's grid is at most kSmallGridBlocks blocks.
 template <int D>
 Config choose(int batch, int seq, int heads, int dtype) {
-  if (dtype == 1) return seq <= 64 ? mma_config<D, 4>(seq) : mma_config<D, 3>(seq);
+  if (dtype == 1) return wgmma_config<D>(seq);
   const long long rows = static_cast<long long>(heads) * batch;
   if ((seq + kFmaBQ - 1) / kFmaBQ * rows > kSmallGridBlocks) return fma_config<D>(seq);
   return small_config<D>(seq);
@@ -1064,16 +1099,26 @@ bool valid_args(int batch, int seq, int heads, int head_dim, int dtype) {
          (head_dim == 16 || head_dim == 32 || head_dim == 64);
 }
 
-// Launches cfg's kernel on a problem: the small-grid path with its K and V
-// tensor maps (encoded here, passed by value), the others with pointers.
+// Launches cfg's kernel on a problem: the bf16 path with its Q, K, V and
+// out tensor maps and the small-grid path with its K and V maps (encoded
+// here, passed by value), the tile path with pointers. A map the driver
+// refuses is an error, as a refused launch is.
 cudaError_t launch_config(const Config& cfg, const void* q, const void* k, const void* v,
                           const int* seg, void* out, float* lse, int batch, int seq, int heads,
                           int head_dim, float scale, cudaStream_t stream) {
   cudaError_t err = allow_smem(cfg);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + cfg.rows - 1) / cfg.rows, heads, batch);
-  if (cfg.path != kPathSmall) {
+  if (cfg.path == kPathTile) {
     void* args[] = {&q, &k, &v, &seg, &out, &lse, &seq, &heads, &scale};
+    err = cudaLaunchKernel(cfg.fn, grid, dim3(cfg.threads), args, cfg.smem, stream);
+  } else if (cfg.path == kPathWgmma) {
+    alignas(64) CUtensorMap maps[4] = {};
+    const void* bases[4] = {q, k, v, out};
+    for (int i = 0; i < 4; ++i)
+      if (!encode_bthd_map(&maps[i], bases[i], batch, seq, heads, head_dim, kWgKeys))
+        return cudaErrorInvalidValue;
+    void* args[] = {&maps[0], &maps[1], &maps[2], &maps[3], &seg, &lse, &seq, &heads, &scale};
     err = cudaLaunchKernel(cfg.fn, grid, dim3(cfg.threads), args, cfg.smem, stream);
   } else {
     alignas(64) CUtensorMap maps[2] = {};
@@ -1109,8 +1154,8 @@ extern "C" int convdr_flash_attention_fwd(const void* q, const void* k,
 // out[1] dynamic shared memory bytes, out[2] query rows a block, out[3]
 // resident blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
 // after the shared-memory attribute is set), out[4] keys a tile, out[5]
-// the path (0 the bf16 tensor-core kernel, 1 the f32 64-row tile, 2 the
-// f32 small grid). Returns a cudaError_t.
+// the path (0 the bf16 wgmma kernel, 1 the f32 64-row tile, 2 the f32
+// small grid). Returns a cudaError_t.
 extern "C" int convdr_flash_attention_fwd_config(int batch, int seq,
                                                  int heads, int head_dim,
                                                  int dtype, int* out) {
@@ -1129,3 +1174,4 @@ extern "C" int convdr_flash_attention_fwd_config(int batch, int seq,
   out[5] = cfg.path;
   return static_cast<int>(err);
 }
+

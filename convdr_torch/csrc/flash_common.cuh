@@ -1,7 +1,7 @@
 // Pieces shared by the flash-attention forward (flash_attention.cu) and
 // backward (flash_attention_bwd.cu): the log2-domain exponential,
-// cp.async copies, the bf16 tensor-core fragments (mma.sync m16n8k16,
-// ldmatrix) and the per-block tile plan over segment ranges.
+// cp.async copies, a bf16 pair's rounding and the per-block tile plan over
+// segment ranges.
 #pragma once
 
 #include <climits>
@@ -57,46 +57,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core fragments
+// bf16
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d += a (16x16, row-major fragment) * b (16x8, column fragment), f32 acc.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices: lanes 8i..8i+7 give the row addresses of matrix i,
-// and each lane receives (row lane/4, cols 2*(lane%4) and +1) of each.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const __nv_bfloat16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// The same, transposed: each lane receives (rows 2*(lane%4) and +1, col
-// lane/4) of each matrix.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
 }
 
 // ---------------------------------------------------------------------------

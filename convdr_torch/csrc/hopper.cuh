@@ -131,6 +131,12 @@ __device__ __forceinline__ void tma_store_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// Waits until this thread's committed TMA stores have read their shared
+// memory (the writes to global memory may still be in flight).
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // Orders this thread's shared-memory writes before later TMA reads of them.
 __device__ __forceinline__ void fence_shared_to_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -220,6 +226,30 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, ui
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64) (+)= A (64 x 16, shared, K-major) * B (64 x 16, shared, K-major)^T:
+// S of 64 queries and a 64-key tile, d[4j + 2r + e] = row 16w + g + 8r, key
+// 8j + 2t + e (the fragments above); kk-th k-step at +2 * kk in both
+// descriptors (32 bytes along the swizzled rows). Its columns 16kk..16kk+15
+// packed as bf16 pairs, {d[8kk], d[8kk + 1]}, {d[8kk + 2], d[8kk + 3]}, ...,
+// are the A fragment of k-step kk of a product with S (or P) as A.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

@@ -139,7 +139,7 @@ _BWD_ARGTYPES = [_PTR] * 11 + [_INT] * 4 + [_FLOAT, _INT, _PTR]
 _DELTA_ARGTYPES = [_PTR] * 3 + [_INT] * 4 + [_PTR]
 
 
-FWD_PATHS = ("bf16 mma", "f32 tile", "f32 small grid")
+FWD_PATHS = ("bf16 wgmma", "f32 tile", "f32 small grid")
 
 
 def flash_attention_fwd_config(batch, seq, heads, head_dim, dtype):

@@ -1,4 +1,6 @@
-"""Kernel 1's f32 forward (``csrc/flash_attention.cu``) on its two paths, on the card.
+"""Kernel 1's forward (``csrc/flash_attention.cu``) on the card: the f32
+forward on its two paths, and the bf16 forward at the corpus encoder's
+shapes.
 
 The f32 forward takes the small-grid path (32-row blocks over a TMA ring)
 while the 64-row tile's grid, ceil(T / 64) * H * B, is at most the
@@ -15,6 +17,18 @@ TFLOP/s f32 peak), masked SDPA and the repeated batch on the tile path
 (and the plain version at the serving encode's and the teacher's
 targets' shapes).
 
+The bf16 part (``--parts bf16``) times the bf16 forward on the device at
+the corpus rungs (``ATTN_SHAPES``), at the bf16 student's B=4 T=256 with
+lse and at one T past 512 (``FLUSH_SHAPE``: the accumulator flush), each
+beside its bytes bound, the kernel's own tensor-core operations (the
+three-part P: 8HD a pair, ``bf16_operations``) at the bf16 peak, masked
+SDPA, the launch configuration and path; and one full-width ``rdot_nll``
+bf16 ``body_emb`` (random weights from a seed, 12 layers) at each rung,
+beside 12 times the kernel. ``--save_bf16 DIR`` keeps the bf16 outputs and
+``--against_bf16 DIR`` reports each output's largest distance, in bf16
+ulps, from the ones another run kept (the same seeded inputs), over all
+positions and over those of magnitude at least 1e-4.
+
 ``--root`` imports ``convdr_torch`` from another checkout (a parent
 unpacked with ``git archive``), so two versions compare within one call
 on one card: a tree from before the small-grid path times the 64-row tile
@@ -25,6 +39,11 @@ checkouts compare bit for bit across processes:
 
     python -m convdr_torch.scripts.attention_sweep --root parent --label parent --digests
     python -m convdr_torch.scripts.attention_sweep --label change --digests
+
+    python -m convdr_torch.scripts.attention_sweep --parts bf16 --root parent \
+        --label parent --save_bf16 /tmp/bf16_parent
+    python -m convdr_torch.scripts.attention_sweep --parts bf16 --label change \
+        --against_bf16 /tmp/bf16_parent
 
 Needs the card; prints one JSON line a version.
 """
@@ -52,6 +71,11 @@ ATTN_SHAPES = [(512, 64), (256, 128), (128, 256), (64, 384), (64, 512)]
 # rows of 512: a positive and 9 negatives)
 F32_SHAPES = [(4, 256), (4, 64), (40, 512)]
 SERVE_T = 256  # the serving encode's concat length (batch 1)
+# the bf16 part: the bf16 student's forward with lse, and a T past 512
+# (more than 8 key tiles a row: the bf16 kernel's accumulator flush)
+BF16_LSE_SHAPE = (4, 256)
+FLUSH_SHAPE = (8, 2048)
+ENCODER_LAYERS = 12  # rdot_nll: RoBERTa-base
 
 
 def make_histories(n):
@@ -64,15 +88,43 @@ def make_histories(n):
              f"how is it treated or managed today, variant {i}"] for i in range(n)]
 
 
+def in_segment_pairs(mask):
+    """The (query, key) pairs of a [B, T] 0/1 mask that share a segment: a
+    query attends to the L valid or the T - L pad keys of its row."""
+    lens = mask.sum(1).double()
+    return float((lens ** 2 + (mask.shape[1] - lens) ** 2).sum())
+
+
+def bf16_operations(mask, heads, head_dim):
+    """The tensor-core operations of the bf16 kernel on this data: S is 2D
+    a pair and head, P V 2D for each of P's three bf16 parts, so 8HD a
+    pair, twice the function's 4HD (the planned tiles' masked pairs not
+    counted)."""
+    return 8.0 * heads * head_dim * in_segment_pairs(mask)
+
+
+def bf16_ulps(a, b, min_abs=0.0):
+    """The largest distance between two bf16 tensors of one shape, in bf16
+    ulps (steps between neighbouring bf16 values; +0 and -0 count as one value), over
+    the positions where either is at least ``min_abs`` in magnitude (two
+    outputs of opposite sign near zero are as many steps apart as there
+    are bf16 values between them)."""
+    def ordered(x):
+        bits = x.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    steps = (ordered(a) - ordered(b)).abs()
+    if min_abs > 0:
+        steps = steps[torch.maximum(a.float().abs(), b.float().abs()) >= min_abs]
+    return int(steps.max()) if steps.numel() else 0
+
+
 def bound_ms(q, mask, lse=False):
     """The least time (ms) of one forward: the bytes of q, k, v, out and
     the mask once each (and the f32 lse with ``lse``) against the
     operations this data needs (a query attends to the L valid or the T-L
     pad keys of its row, 4HD each); and which of the two bounds it."""
     b, t, h, d = q.shape
-    lens = mask.sum(1).double()
-    pairs = float((lens ** 2 + (t - lens) ** 2).sum())
-    ops_ms = 4.0 * h * d * pairs / PEAK_FLOPS[q.dtype] * 1e3
+    ops_ms = 4.0 * h * d * in_segment_pairs(mask) / PEAK_FLOPS[q.dtype] * 1e3
     nbytes = 4 * q.numel() * q.element_size() + mask.numel() * 4 + (b * h * t * 4 if lse else 0)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
@@ -160,6 +212,78 @@ def sweep(histories=None, seed=0, log=print):
     return out
 
 
+def bf16_sweep(seed=2, save=None, against=None, log=print):
+    """The bf16 readings above as ``{"B<b>xT<t>[_lse]": row}``, right-padded
+    random lengths; with ``save`` each out goes to ``save/<name>.pt``, with
+    ``against`` each row gets ``ulps_from_other``."""
+    import os
+
+    from convdr_torch.models.attention import flash_attention_fwd, flash_attention_fwd_config
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out_rows = {}
+    shapes = [(b, t, False) for b, t in ATTN_SHAPES]
+    for b, t, lse in shapes + [(*BF16_LSE_SHAPE, True), (*FLUSH_SHAPE, False)]:
+        q, k, v, mask = problem(b, t, torch.bfloat16, gen, right_mask(b, t, gen))
+        name = f"B{b}xT{t}" + ("_lse" if lse else "")
+        out, _ = flash_attention_fwd(q, k, v, mask, lse)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        allowed = mask[:, None, :, None] == mask[:, None, None, :]
+        bnd, by = bound_ms(q, mask, lse)
+        ops = bf16_operations(mask, HEADS, HEAD_DIM)
+        row = {"config": flash_attention_fwd_config(b, t, HEADS, HEAD_DIM, torch.bfloat16),
+               "valid_tokens": int(mask.sum()),
+               "ms": device_ms(lambda: flash_attention_fwd(q, k, v, mask, lse)),
+               "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=allowed)),
+               "bound_ms": bnd, "bound_by": by, "kernel_operations": ops,
+               "kernel_operations_ms": ops / PEAK_FLOPS[torch.bfloat16] * 1e3}
+        if save:
+            os.makedirs(save, exist_ok=True)
+            torch.save(out.cpu(), os.path.join(save, name + ".pt"))
+        if against:
+            other = torch.load(os.path.join(against, name + ".pt")).cuda()
+            row["ulps_from_other"] = bf16_ulps(out, other)
+            row["ulps_from_other_above_1e-4"] = bf16_ulps(out, other, 1e-4)
+        out_rows[name] = row
+        cfg = row["config"]
+        log(f"  bf16 {name} ({row['valid_tokens']} valid): {cfg.get('path', '?')}, "
+            f"{cfg['threads']} threads, {cfg['smem_bytes']} B, {cfg['blocks_per_sm']} blocks/SM: "
+            f"{row['ms']:.4f} ms; SDPA {row['sdpa_ms']:.4f}; bound {bnd:.4f} ({by}); "
+            f"three-part operations {ops:.3e} = {row['kernel_operations_ms']:.4f} ms at peak"
+            + (f"; {row['ulps_from_other']} ulps from the other run "
+               f"({row['ulps_from_other_above_1e-4']} where |out| >= 1e-4)" if against else ""))
+    return out_rows
+
+
+def encoder_sweep(seed=3, log=print):
+    """One full-width rdot_nll bf16 ``body_emb`` (random weights from
+    ``seed``) at each corpus rung, on the device, with the attention
+    launches of one call: ``{"B<b>xT<t>": {"ms": .., "attention_launches": ..}}``."""
+    from convdr_torch.core.loading import gelu_arch_overrides, load_model_and_params
+    from convdr_torch.models.attention import flash_attention
+
+    _config, _tok, model = load_model_and_params(
+        "rdot_nll", None, device=torch.device("cuda"), dtype=torch.bfloat16,
+        arch_overrides=gelu_arch_overrides("auto", "bfloat16"), seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {}
+    with torch.inference_mode():
+        for b, t in ATTN_SHAPES:
+            ids = torch.randint(3, model.config.arch.vocab_size, (b, t), generator=gen,
+                                device="cuda")
+            mask = right_mask(b, t, gen)
+            before = flash_attention.launches
+            model.body_emb(ids, mask)
+            torch.cuda.synchronize()
+            launches = flash_attention.launches - before
+            rows[f"B{b}xT{t}"] = {"ms": device_ms(lambda: model.body_emb(ids, mask), iters=5),
+                                  "attention_launches": launches}
+            log(f"  bf16 encoder B={b} T={t}: {rows[f'B{b}xT{t}']['ms']:.3f} ms, "
+                f"{launches} attention launches")
+    return rows
+
+
 def digests(histories=None, seed=1):
     """Digests of the f32 out and lse (and out without lse), and of the f32
     backward's dQ, dK, dV from that lse, at ``F32_SHAPES`` (right-padded
@@ -193,7 +317,13 @@ def main(argv=None):
     parser.add_argument("--label", default="this checkout")
     parser.add_argument("--digests", action="store_true",
                         help="also digest the forward's outputs at chip_smoke's shapes")
+    parser.add_argument("--parts", default="f32,bf16",
+                        help="comma-separated: f32 (both f32 paths), bf16 (kernel and encoder)")
+    parser.add_argument("--save_bf16", default="", help="directory to keep the bf16 outputs in")
+    parser.add_argument("--against_bf16", default="",
+                        help="directory of another run's bf16 outputs to count ulps against")
     args = parser.parse_args(argv)
+    parts = set(args.parts.split(","))
     if args.root:
         sys.path.insert(0, args.root)
         for name in [m for m in sys.modules if m.split(".")[0] == "convdr_torch"]:
@@ -206,8 +336,14 @@ def main(argv=None):
     set_exact_matmul()
     cuda_build.build(["flash_attention", "flash_attention_bwd"])
     log = lambda *a: print(*a, file=sys.stderr, flush=True)  # noqa: E731
-    result = {"label": args.label, "card": torch.cuda.get_device_name(0),
-              "sweep": sweep(log=log)}
+    result = {"label": args.label, "card": torch.cuda.get_device_name(0)}
+    if "f32" in parts:
+        result["sweep"] = sweep(log=log)
+    if "bf16" in parts:
+        result["bf16"] = bf16_sweep(save=args.save_bf16, against=args.against_bf16, log=log)
+        result["encoder"] = encoder_sweep(log=log)
+        for name, row in result["encoder"].items():
+            row["kernel_share"] = ENCODER_LAYERS * result["bf16"][name]["ms"] / row["ms"]
     if args.digests:
         result["digests"] = digests()
     print(json.dumps(result), flush=True)

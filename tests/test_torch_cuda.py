@@ -134,6 +134,8 @@ FLASH_CASES = [
     (3, 200, 2, 16, "middle"), (3, 200, 2, 32, "left"), (24, 300, 12, 32, "random"),
     # bf16: flushes of the MMA accumulators; f32: a plan past 48 KB of shared memory
     (1, 30000, 1, 16, "middle"),
+    # bf16: the flush at the base model's head width, planned tiles with gaps
+    (2, 2048, 2, 64, "random"),
 ]
 
 
@@ -213,14 +215,46 @@ def test_flash_small_grid_path_equals_tile_path(cuda, b, t, h, d):
 def test_flash_fwd_config_reports_the_path(cuda):
     """The serving encode's shape (B=1 T=256 H=12) takes the small-grid
     path, whose 32-row blocks give it 96 blocks where the 64-row tile
-    gives 48; the teacher's documents (B=40 T=512) and bf16 keep their
-    kernels."""
+    gives 48; the teacher's documents (B=40 T=512) keep the tile; bf16
+    takes the wgmma kernel at every shape."""
     small = flash_attention_fwd_config(1, 256, 12, 64, torch.float32)
     assert small["path"] == "f32 small grid"
     assert -(-256 // small["block_queries"]) * 12 == 96
     assert small["blocks_per_sm"] >= 1
     assert flash_attention_fwd_config(40, 512, 12, 64, torch.float32)["path"] == "f32 tile"
-    assert flash_attention_fwd_config(1, 256, 12, 64, torch.bfloat16)["path"] == "bf16 mma"
+    assert flash_attention_fwd_config(1, 256, 12, 64, torch.bfloat16)["path"] == "bf16 wgmma"
+
+
+# the corpus rungs, the bf16 student, the flush's T and the other head dims
+BF16_CONFIG_SHAPES = [(512, 64, 64), (256, 128, 64), (128, 256, 64), (64, 384, 64),
+                      (64, 512, 64), (4, 256, 64), (2, 2048, 64), (1, 30000, 16), (3, 77, 32)]
+
+
+@pytest.mark.parametrize("b,t,d", BF16_CONFIG_SHAPES)
+def test_flash_fwd_bf16_config_fits_the_card(cuda, b, t, d):
+    """The bf16 forward's launch configuration: the wgmma path, shared
+    memory within what a block of this card may have (less the 1 KB the
+    SM keeps for each block) and, for the blocks an SM it reports, within
+    the SM's; at least one block resident an SM."""
+    cfg = flash_attention_fwd_config(b, t, 12, d, torch.bfloat16)
+    props = torch.cuda.get_device_properties(0)
+    per_sm = props.shared_memory_per_multiprocessor
+    assert cfg["path"] == "bf16 wgmma"
+    assert 0 < cfg["smem_bytes"] <= getattr(props, "shared_memory_per_block_optin", per_sm - 1024)
+    assert cfg["blocks_per_sm"] >= 1
+    assert cfg["blocks_per_sm"] * cfg["smem_bytes"] <= per_sm
+
+
+@pytest.mark.parametrize("b,t,h,d,mask_kind", [(64, 512, 12, 64, "right"), (4, 256, 12, 64, "random"),
+                                               (2, 2048, 2, 64, "middle"), (3, 77, 2, 32, "left")])
+def test_flash_fwd_bf16_is_deterministic(cuda, b, t, h, d, mask_kind):
+    """Two bf16 forward calls on the same inputs give the same out and lse
+    bit for bit (no atomics, no order that depends on the schedule)."""
+    q, k, v, mask = attention_problem(b, t, h, d, torch.bfloat16, mask=mask_kind)
+    first = flash_attention_fwd(q, k, v, mask, with_lse=True)
+    second = flash_attention_fwd(q, k, v, mask, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 # (Q, N, D) cutting the kernel's tiles: 64- and 128-query blocks, 128-row
