@@ -158,7 +158,10 @@ P. (after F) ``--matmul_precision`` over phase 3's rows and queries:
    and 3 (``convdr_torch/scripts/score_sweep.py``: Q = 1..64, f32 and bf16,
    one 524288-row block; each reading ``torch.equal`` to the first Q rows
    of a Q=65 batch on the tile path, on the device beside its bound and
-   ``matmul`` + ``amax``) with each Q's launch configuration. Kernel 1's
+   ``matmul`` + ``amax``; int8 passages at Q = 1..512 on the ``wgmma``
+   kernel, ``torch.equal`` to the plain version, beside the bound and
+   ``_int_mm`` + ``.float()`` + ``amax``) with each Q's launch
+   configuration. Kernel 1's
    f32 forward across its two paths (``convdr_torch/scripts/attention_sweep.py``:
    B = 1..8 and 40 x T = 64..512 at H=12, served and right-padded masks;
    the small-grid path's out and lse ``torch.equal`` to the 64-row tile's
@@ -580,7 +583,7 @@ def attention_bwd_configs():
     return configs
 
 
-SCORE_PATHS = ("FMA tile", "small-Q TMA", "int8 tensor cores")
+SCORE_PATHS = ("FMA tile", "small-Q TMA", "int8 wgmma")
 
 
 def score_kernel_configs():

@@ -5,13 +5,15 @@
 // only there).
 //
 // Conventions of the shared-memory operands. A tile is rows of `row_bytes`
-// (16, 32 or 64 bf16: 32, 64 or 128 bytes) written by TMA with the swizzle
-// of the same width (CU_TENSOR_MAP_SWIZZLE_32B / 64B / 128B), based at a
-// multiple of 1024 bytes. A wgmma descriptor of such a tile gives the same
-// swizzle and a stride of 8 * row_bytes between 8-row groups; one swizzle
-// atom spans a whole row, so the tile reads both as K-major (rows = M or N,
-// 16-element k-steps at +32 bytes inside the row) and as MN-major (rows =
-// K, k-steps at +16 rows; the row is all of N, at most one atom).
+// (16, 32 or 64 bf16: 32, 64 or 128 bytes; 128 int8) written by TMA with
+// the swizzle of the same width (CU_TENSOR_MAP_SWIZZLE_32B / 64B / 128B),
+// based at a multiple of 1024 bytes. A wgmma descriptor of such a tile
+// gives the same swizzle and a stride of 8 * row_bytes between 8-row
+// groups; one swizzle atom spans a whole row, so the tile reads both as
+// K-major (rows = M or N, k-steps of 32 bytes, 16 bf16 or 32 int8, at +32
+// bytes inside the row) and as MN-major (rows = K, k-steps at +16 rows;
+// the row is all of N, at most one atom; bf16 only: wgmma takes 8-bit
+// operands K-major alone).
 #pragma once
 
 #include <cstdint>
@@ -122,6 +124,25 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
       : "memory");
 }
 
+// An L2 policy that evicts first what it marks (data not read again soon).
+__device__ __forceinline__ uint64_t l2_evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// The box of a rank-2 map at (c0, c1) from shared memory at src, written
+// under the L2 policy `policy` (elements outside the tensor are not
+// written), as one bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3}], [%1], %4;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(shared_addr(src)), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -131,10 +152,12 @@ __device__ __forceinline__ void tma_store_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// Waits until this thread's committed TMA stores have read their shared
-// memory (the writes to global memory may still be in flight).
+// Waits until this thread's committed TMA stores, all but the N most
+// recent groups, have read their shared memory (the writes to global
+// memory may still be in flight).
+template <int N = 0>
 __device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // Orders this thread's shared-memory writes before later TMA reads of them.
@@ -206,6 +229,11 @@ template <int N>
 __device__ __forceinline__ void wgmma_fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // Accumulator fragments (m64nN, f32): warp w of the warpgroup, lane (g =
@@ -319,6 +347,53 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)
   wgmma_rs_n64(d, a, desc_b, accumulate);
 }
 
+// d (64 x 256, s32) (+)= A (64 x 32, s8, shared, K-major) * B (256 x 32,
+// s8, shared, K-major)^T. 8-bit operands are K-major only: a tile of
+// 128-byte rows is read with wgmma_desc(addr, 128), k-step kk (32 int8) at
+// +2 * kk in both descriptors; d's fragments are the f32 ones above, as s32
+// (integer sums: exact in any order).
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
+        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
+        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
+        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
+        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
+        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
@@ -374,24 +449,29 @@ inline bool encode_bthd_map(CUtensorMap* map, const void* base, int batch, int s
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The map of a row-major [rows, cols] matrix (f32 or bf16; a row pitch of
-// `cols` elements, a multiple of 16 bytes) whose box is `box_rows` rows of
-// 128 bytes (32 f32 or 64 bf16 columns), swizzled by 128 bytes; columns
-// past `cols` arrive as zeros. Returns false if the driver refuses it.
-inline bool encode_rows_map(CUtensorMap* map, const void* base, bool bf16, int cols, int rows,
-                            int box_rows) {
+// The map of a row-major [rows, cols] matrix of `elem_bytes` elements (1
+// int8, copied as bytes; 2 bf16; 4 f32; a row pitch of `cols` elements, a
+// multiple of 16 bytes) whose box is `box_rows` rows of 128 bytes (128
+// int8, 64 bf16 or 32 f32 columns), swizzled by 128 bytes; elements past
+// `cols` or `rows` arrive as zeros (a store writes none of them). Returns
+// false if the driver refuses it.
+inline bool encode_rows_map(CUtensorMap* map, const void* base, int elem_bytes, int cols,
+                            int rows, int box_rows) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
-  const cuuint64_t elem = bf16 ? 2 : 4;
+  const cuuint64_t elem = static_cast<cuuint64_t>(elem_bytes);
+  const CUtensorMapDataType type = elem_bytes == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                   : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {elem * cols};  // bytes, dim 1
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1u, 1u};
-  return encode(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -75,15 +75,38 @@
 //
 // int8 passages (SQ8 storage, ops/quant.py): the wrapper turns the
 // int-valued f32 queries into int8 (exact in [-127, 127]), and the product
-// runs on the int8 tensor cores: mma.sync m16n8k32 s8 x s8 -> s32, fragments
-// by ldmatrix from the same cp.async ring (128 k a stage, row pitch 144
-// bytes, conflict-free for ldmatrix). The sums are integers, so any order
-// gives the same result, and the s32 -> f32 conversion is exact because
-// |sum| <= 1040 * 127^2 < 2^24: the scores equal the plain version and the
-// integer oracle bit for bit. The bound there is bytes (the int8 block plus
-// the [Q, N] f32 score store), ~0.44 ms at the shape above.
+// runs on Hopper's int8 tensor cores: wgmma m64n256k32 s8 x s8 -> s32, both
+// operands K-major from shared memory as they are stored ([Q, D], [N, D]:
+// no transpose). The sums are integers, so any order gives the same result,
+// and the s32 -> f32 conversion is exact because |sum| <= 1040 * 127^2 <
+// 2^24: the scores equal the plain version and the integer oracle bit for
+// bit. At Q=512, N=524288, D=768 kernel 2 is bound by bytes (the int8 block
+// plus the [Q, N] f32 score store, ~0.45 ms) and pass A by operations
+// (2QND at the 1979 TOP/s int8 peak, ~0.21 ms; bytes ~0.12). The design:
+//   * a persistent grid, one block an SM: a TMA producer warp and two
+//     consumer warpgroups of 64 query rows, over tiles of 128 queries x 256
+//     passage rows (wgmma m64n256k32: 128 s32 registers a thread), query
+//     tiles fastest, so the blocks that share a passage tile run together
+//     and it comes from device memory once;
+//   * [rows x 128 bytes of k] boxes by TMA (128-byte swizzle; rows past Q
+//     and k past D arrive as zeros) into a ring of 4 (pass A) or 3 (kernel
+//     2, beside its staging) 48 KB stages that runs across tiles, under
+//     full / empty mbarriers, so the next tile's loads overlap this tile's
+//     products and epilogue; a stage is four k32 steps in one commit group,
+//     released once the next stage's group is issued and its own has
+//     landed;
+//   * the epilogue from the registers: the max of G consecutive columns over
+//     a thread's 8-column chunks and the quad's 4 lanes (__shfl_xor_sync;
+//     G a template argument, so the groups' chains unroll and interleave),
+//     with no shared-memory step; kernel 2's scores as f32, 64 columns a
+//     round, into one of two staging halves a warpgroup laid out as TMA's
+//     swizzle wants it, then out by TMA stores marked L2 evict-first that
+//     drain while the next rounds and tiles compute (compiled out for pass
+//     A). On an H100 this beat 128-row tiles (more query bytes a product),
+//     st.global from the registers (the warps stall on the stores) and one
+//     128-column round (its second round waits on the first's reads).
 //
-// Epilogue (the tile paths): the accumulator tile goes through shared memory
+// Epilogue (the FMA tile path): the accumulator tile goes through shared memory
 // (pitch BN + 8 floats, conflict-free), then each warp takes whole rows:
 // 16-byte score stores, 512 contiguous bytes a row (compiled out for pass
 // A), and the max of each group of G columns by __shfl_xor_sync over the G/4
@@ -98,6 +121,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <climits>
+
 #include "hopper.cuh"
 
 namespace {
@@ -107,7 +132,7 @@ constexpr int kStages = 3;    // cp.async ring depth
 constexpr int kCPitch = kTileN + 8;  // epilogue tile pitch (floats)
 
 // ---------------------------------------------------------------------------
-// cp.async and tensor-core helpers
+// cp.async helpers
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -131,24 +156,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Copies a [rows, 16-byte chunks] tile of a row-major [nrows, d] operand
@@ -519,118 +526,226 @@ scores_groupmax_small_q(const __grid_constant__ CUtensorMap p_map, const float* 
 }
 
 // ---------------------------------------------------------------------------
-// int8 passages: s8 x s8 -> s32 on the tensor cores
+// int8 passages: wgmma s8 x s8 -> s32 over a TMA ring
 // ---------------------------------------------------------------------------
-constexpr int kI8BM = 128;
-constexpr int kI8TileK = 128;              // bytes of k a stage
-constexpr int kI8Pitch = kI8TileK + 16;    // 144 bytes: ldmatrix conflict-free
-constexpr int kI8Threads = 256;            // 8 warps: 2 (queries) x 4 (rows)
-constexpr int kI8Stage = (kI8BM + kTileN) * kI8Pitch;
+constexpr int kI8Rows = 64;                    // query rows a consumer warpgroup: wgmma's M
+constexpr int kI8BM = 2 * kI8Rows;             // query rows a tile: two consumer warpgroups
+constexpr int kI8BN = 256;                     // passage rows a tile: wgmma's N
+constexpr int kI8KBytes = 128;                 // k a stage: one 128-byte swizzled row (128 int8)
+constexpr int kI8Consumers = 256;              // two warpgroups
+constexpr int kI8Threads = kI8Consumers + 32;  // + the TMA producer warp
+constexpr int kI8MaxStages = 4;
+constexpr int kI8MaxBlocksPerSm = 1;           // the persistent grid
+constexpr int kI8StoreCols = 64;               // score columns a warpgroup stores a round
+constexpr int kI8BoxBytes = kI8Rows * 32 * 4;  // a TMA store box: [64 rows][32 f32]
 
-constexpr int i8_smem_bytes() {
-  constexpr int ring = kStages * kI8Stage;
-  constexpr int c = kI8BM * kCPitch * 4;
-  return ring > c ? ring : c;
+// Shared memory of a block (from a 1024-byte aligned base): the ring's
+// stages ([kI8BM][128] query bytes, then [kI8BN][128] passage bytes, both
+// as TMA's 128-byte swizzle lays them), for kernel 2 two staging halves of
+// [64][kI8StoreCols] f32 a warpgroup (TMA store boxes of [64][32],
+// swizzled alike), the full and empty barriers; as many stages as fit, up
+// to kI8MaxStages: 4 for pass A, 3 beside kernel 2's staging.
+template <bool kStore>
+struct I8Tile {
+  static constexpr int kABytes = kI8BM * kI8KBytes;
+  static constexpr int kStageBytes = kABytes + kI8BN * kI8KBytes;
+  static constexpr int kHalfBytes = kI8Rows * kI8StoreCols * 4;
+  static constexpr int kStagingBytes = kStore ? 2 * 2 * kHalfBytes : 0;
+  static constexpr int kFit =
+      (kMaxSmem - 1024 - kStagingBytes - 2 * 8 * kI8MaxStages) / kStageBytes;
+  static constexpr int kRing = kFit < kI8MaxStages ? kFit : kI8MaxStages;
+  static constexpr int kSmem = 1024 + kRing * kStageBytes + kStagingBytes + 2 * 8 * kRing;
+  static_assert(kRing >= 3, "a ring of three stages at least");
+  static_assert(kStageBytes % 1024 == 0 && kHalfBytes % 1024 == 0, "1024-byte bases");
+};
+
+// The group maxima of a warpgroup's 64 x kI8BN tile from its accumulator
+// fragments (row 16w + g + 8r, column 8j + 2t + e): a group is kGJ of a
+// thread's 8-column chunks j across the quad's 4 lanes. int max (exact),
+// the quad's xor shuffles, then one conversion (|sum| < 2^24); lane t
+// stores the groups k with k % 4 == t, so a warp's store covers 4
+// consecutive maxima of 8 rows. kGJ is a template argument so that the
+// groups unroll with no branch between them (a loop over a runtime G made
+// pass A 1.3x slower on an H100).
+template <int kGJ>
+__device__ __forceinline__ void i8_group_max(const int (&acc)[kI8BN / 2],
+                                             float* __restrict__ gmax, int row_base, int nq,
+                                             int n0, int n, int gshift, int t) {
+  constexpr int kGroups = kI8BN / 8 / kGJ;  // groups a row of the tile
+  const int groups_per_row = n >> gshift;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_base + 8 * r;
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      int m = INT_MIN;
+#pragma unroll
+      for (int j = k * kGJ; j < (k + 1) * kGJ; ++j)
+        m = max(m, max(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]));
+      m = max(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = max(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      if (row < nq) {
+        if ((k & 3) == t && n0 + 8 * kGJ * k < n)
+          gmax[static_cast<long long>(row) * groups_per_row + (n0 >> gshift) + k] =
+              __int2float_rn(m);
+      }
+    }
+  }
 }
 
+// A persistent grid walks the [kI8BM queries x kI8BN passages] tiles,
+// query tiles fastest (tile % q_tiles), so the blocks that share a passage
+// tile run together and it comes from device memory once. Thread 256 (the
+// producer warp's first lane) streams each tile's query and passage boxes
+// ([rows x 128 bytes of k], rows past Q and k past D as zeros) by TMA into
+// a ring of kRing stages that runs across tiles, so the next tile's loads
+// overlap this tile's products and epilogue. Consumer warpgroup w owns
+// query rows 64w..64w+63 of every tile: per stage 4 wgmma m64n256k32 from
+// shared memory, one commit group, stage s-1 released once stage s's group
+// is issued and s-1's has landed. Epilogue from the registers: the group
+// maxima, then (kernel 2) the scores as f32, kI8StoreCols columns a round,
+// into one of the warpgroup's two staging halves and out by TMA stores
+// (L2 evict-first: the scores are not read again here, the passage tiles
+// are) that drain while the next rounds and the next tile compute.
+// Registers: 288 threads cap a thread at 65,536 / 384 = 168 (ptxas), the
+// 128 accumulators leave 40; the producer in a consumer thread (256
+// threads, 255 registers) put a branch among the products in flight and
+// ptxas serialized them (C7518), and setmaxnreg did not lift the cap
+// ptxas allocates by.
 template <bool kStore>
-__global__ void __launch_bounds__(kI8Threads, 2)
-scores_groupmax_i8(const int8_t* __restrict__ q, const int8_t* __restrict__ p,
-                   float* __restrict__ scores, float* __restrict__ gmax,
-                   int nq, int n, int d, int group) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* ring = reinterpret_cast<int8_t*>(smem);
-
+__global__ void __launch_bounds__(kI8Threads, kI8MaxBlocksPerSm)
+scores_groupmax_s8(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap p_map,
+                   const __grid_constant__ CUtensorMap s_map, float* __restrict__ gmax, int nq,
+                   int n, int d, int group) {
+  using Tl = I8Tile<kStore>;
+  constexpr int kRing = Tl::kRing;
+  constexpr int kAcc = kI8BN / 2;  // s32 registers a thread: the 64 x kI8BN accumulator
+  extern __shared__ __align__(16) unsigned char i8_smem[];
+  unsigned char* smem = i8_smem + ((1024u - (shared_addr(i8_smem) & 1023u)) & 1023u);
+  unsigned char* staging = smem + kRing * Tl::kStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(staging + Tl::kStagingBytes);
+  uint64_t* empty = full + kRing;
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int wm = warp / 4;  // 64 query rows each
-  const int wn = warp % 4;  // 32 passage rows each
   const int q_tiles = (nq + kI8BM - 1) / kI8BM;
-  const int m0 = (blockIdx.x % q_tiles) * kI8BM;
-  const int n0 = (blockIdx.x / q_tiles) * kTileN;
-  const int nk = (d + kI8TileK - 1) / kI8TileK;
+  const int tiles = q_tiles * ((n + kI8BN - 1) / kI8BN);
+  const int nk = (d + kI8KBytes - 1) / kI8KBytes;
 
-  auto load_stage = [&](int kt) {
-    int8_t* a_s = ring + (kt % kStages) * kI8Stage;
-    int8_t* b_s = a_s + kI8BM * kI8Pitch;
-    load_tile<int8_t, kI8BM, kI8TileK / 16, kI8Pitch, kI8Threads>(
-        a_s, q, m0, nq, kt * kI8TileK, d, tid);
-    load_tile<int8_t, kTileN, kI8TileK / 16, kI8Pitch, kI8Threads>(
-        b_s, p + static_cast<long long>(n0) * d, 0, kTileN, kt * kI8TileK, d, tid);
-  };
-
-  int acc[4][4][4];  // [m16 tile][n8 tile][fragment]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  // ldmatrix row addresses: lane l feeds row l % 8 of matrix l / 8.
-  // A (16x32 of a m16 tile): matrices (rows 0-7 | 8-15) x (k 0-15 | 16-31).
-  const int a_row = wm * 64 + (lane % 8) + ((lane / 8) % 2) * 8;
-  const int a_k = (lane / 16) * 16;
-  // B (two n8 tiles x 32 k): matrices (tile j, k 0-15), (j, k 16-31),
-  // (j+1, k 0-15), (j+1, k 16-31).
-  const int b_row = wn * 32 + (lane / 16) * 8 + (lane % 8);
-  const int b_k = ((lane / 8) % 2) * 16;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_stage(s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (kt + kStages - 1 < nk) load_stage(kt + kStages - 1);
-    cp_async_commit();
-    const int8_t* a_s = ring + (kt % kStages) * kI8Stage;
-    const int8_t* b_s = a_s + kI8BM * kI8Pitch;
-#pragma unroll
-    for (int ks = 0; ks < kI8TileK; ks += 32) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(a[i], a_s + (a_row + i * 16) * kI8Pitch + ks + a_k);
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        uint32_t r[4];
-        ldmatrix_x4(r, b_s + (b_row + j * 8) * kI8Pitch + ks + b_k);
-        b[j][0] = r[0];
-        b[j][1] = r[1];
-        b[j + 1][0] = r[2];
-        b[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
+  if (tid == kI8Consumers) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kI8Consumers / 32);  // each consumer warp
     }
+    mbar_fence_init();
   }
-  cp_async_wait<0>();
   __syncthreads();
 
-  // C fragment: c0, c1 at (row g, cols 2t, 2t+1), c2, c3 at row g + 8.
-  float* cs = reinterpret_cast<float*>(smem);
+  if (tid >= kI8Consumers) {  // the producer
+    if (tid == kI8Consumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % q_tiles) * kI8BM;
+        const int n0 = (tile / q_tiles) * kI8BN;
+        for (int kc = 0; kc < nk; ++kc, ++it) {
+          const int s = it % kRing;
+          if (it >= kRing) mbar_wait(empty + s, (it / kRing - 1) & 1);
+          unsigned char* st = smem + s * Tl::kStageBytes;
+          mbar_arrive_expect_tx(full + s, Tl::kStageBytes);
+          tma_load_2d(st, &q_map, full + s, kc * kI8KBytes, m0);
+          tma_load_2d(st + Tl::kABytes, &p_map, full + s, kc * kI8KBytes, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const int wtid = tid % 128;
+  const int warp = wtid / 32;  // rows 16 warp + g, + 8 of the warpgroup's 64
+  const int lane = tid % 32;
   const int g = lane / 4;
   const int t = lane % 4;
+  const int gj = group >> 3;  // 8-column chunks a group: 1..16
+  const int gshift = __ffs(group) - 1;
+  const uint32_t base = shared_addr(smem);
+  unsigned char* my_staging = staging + wg * (Tl::kStagingBytes / 2);
+  // This thread's float2 at row 16 warp + g (+ 8: + 1024 bytes) and
+  // 8-column chunk c of a [64][32] f32 box lies at sw + 32 * (c ^ g / 2):
+  // the 128-byte swizzle XORs the 16-byte chunk 2c + t/2 with g
+  const int sw = (16 * warp + g) * 128 + 16 * ((t / 2) ^ (g & 1)) + 8 * (t & 1);
+  const int gh = g >> 1;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = (tile / q_tiles) * kI8BN;
+    const int row0 = (tile % q_tiles) * kI8BM + kI8Rows * wg;  // this warpgroup's first row
+    int acc[kAcc];
+    for (int kc = 0; kc < nk; ++kc, ++it) {
+      const int s = it % kRing;
+      mbar_wait(full + s, (it / kRing) & 1);
+      const uint32_t st = base + s * Tl::kStageBytes;
+      const uint64_t da = wgmma_desc(st + wg * kI8Rows * kI8KBytes, kI8KBytes);
+      const uint64_t db = wgmma_desc(st + Tl::kABytes, kI8KBytes);
+      wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = wm * 64 + i * 16 + g;
-      const int c = wn * 32 + j * 8 + 2 * t;
-      // exact: |sum| <= 1040 * 127^2 < 2^24
-      *reinterpret_cast<float2*>(cs + r * kCPitch + c) =
-          make_float2(static_cast<float>(acc[i][j][0]), static_cast<float>(acc[i][j][1]));
-      *reinterpret_cast<float2*>(cs + (r + 8) * kCPitch + c) =
-          make_float2(static_cast<float>(acc[i][j][2]), static_cast<float>(acc[i][j][3]));
+      for (int kk = 0; kk < kI8KBytes / 32; ++kk)
+        wgmma_s8_n256(acc, da + 2 * kk, db + 2 * kk, (kc | kk) != 0);
+      wgmma_commit();
+      if (kc > 0) {  // the previous stage's products have landed: release it
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(empty + (it - 1) % kRing);
+      }
     }
-  __syncthreads();
-  store_tile<kI8BM, kI8Threads, kStore>(cs, scores, gmax, m0, n0, nq, n, group, tid);
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc);
+    if (lane == 0) mbar_arrive(empty + (it - 1) % kRing);
+    if (row0 >= nq) continue;  // warpgroup-uniform: none of its rows is a query
+
+    const int row_base = row0 + 16 * warp + g;
+    switch (gj) {
+      case 1: i8_group_max<1>(acc, gmax, row_base, nq, n0, n, gshift, t); break;
+      case 2: i8_group_max<2>(acc, gmax, row_base, nq, n0, n, gshift, t); break;
+      case 4: i8_group_max<4>(acc, gmax, row_base, nq, n0, n, gshift, t); break;
+      case 8: i8_group_max<8>(acc, gmax, row_base, nq, n0, n, gshift, t); break;
+      default: i8_group_max<16>(acc, gmax, row_base, nq, n0, n, gshift, t); break;
+    }
+
+    if constexpr (kStore) {
+      // the scores: round c0 into staging half (c0 / 64) % 2, laid out as
+      // TMA's swizzle lays two [64][32] f32 boxes (a warp's float2 writes
+      // fill all banks twice: 2 wavefronts for 256 bytes), once the stores
+      // of the round before last have read that half; then 2 TMA stores.
+      // Rows past Q and columns past N are not written.
+#pragma unroll
+      for (int c0 = 0; c0 < kI8BN; c0 += kI8StoreCols) {
+        if (n0 + c0 >= n) break;  // uniform
+        unsigned char* half = my_staging + ((c0 / kI8StoreCols) & 1) * Tl::kHalfBytes;
+        if (wtid == 0) tma_store_wait_read<1>();
+        named_barrier(1 + wg, 128);
+#pragma unroll
+        for (int jj = 0; jj < kI8StoreCols / 8; ++jj) {
+          const int j = c0 / 8 + jj;
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<float2*>(half + (jj / 4) * kI8BoxBytes + sw +
+                                       32 * ((jj % 4) ^ gh) + 1024 * r) =
+                make_float2(__int2float_rn(acc[4 * j + 2 * r]),
+                            __int2float_rn(acc[4 * j + 2 * r + 1]));
+        }
+        fence_shared_to_async();
+        named_barrier(1 + wg, 128);
+        if (wtid == 0) {
+          const uint64_t policy = l2_evict_first_policy();
+#pragma unroll
+          for (int b = 0; b < kI8StoreCols / 32; ++b)
+            tma_store_2d(&s_map, half + b * kI8BoxBytes, n0 + c0 + 32 * b, row0, policy);
+          tma_store_commit();
+        }
+      }
+    }
+  }
+  if constexpr (kStore) {
+    if (wtid == 0) tma_store_wait_read<0>();  // the staging outlives its reads
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -655,12 +770,17 @@ const void* small_q_fn(int kq) {
   }
 }
 
-// f32 and bf16 passages take the small-Q path at Q <= kSmallQMax when its
-// queries fit in shared memory beside the ring (D <= 1408 at Q = 17..32;
-// the tile path takes larger D).
+// int8 passages take the wgmma kernel at every Q. f32 and bf16 passages
+// take the small-Q path at Q <= kSmallQMax when its queries fit in shared
+// memory beside the ring (D <= 1408 at Q = 17..32; the tile path takes
+// larger D).
 template <bool kStore>
 Config config(int p_dtype, int nq, int d) {
-  if (p_dtype != 2 && nq <= kSmallQMax) {
+  if (p_dtype == 2) {
+    return Config{kI8Threads, I8Tile<kStore>::kSmem, kI8BM,
+                  (const void*)scores_groupmax_s8<kStore>, kPathInt8};
+  }
+  if (nq <= kSmallQMax) {
     const int kq = sq_bucket(nq);
     const int box_k = p_dtype == 0 ? 32 : 64;
     const int smem = sq_smem_bytes(kq, (d + box_k - 1) / box_k * box_k);
@@ -676,13 +796,16 @@ Config config(int p_dtype, int nq, int d) {
                           (const void*)scores_groupmax_fma<float, 64, kStore>, kPathTile}
                  : Config{256, fma_smem_bytes<float, 128>(), 128,
                           (const void*)scores_groupmax_fma<float, 128, kStore>, kPathTile};
-  if (p_dtype == 1)
-    return small ? Config{128, fma_smem_bytes<__nv_bfloat16, 64>(), 64,
-                          (const void*)scores_groupmax_fma<__nv_bfloat16, 64, kStore>, kPathTile}
-                 : Config{256, fma_smem_bytes<__nv_bfloat16, 128>(), 128,
-                          (const void*)scores_groupmax_fma<__nv_bfloat16, 128, kStore>, kPathTile};
-  return Config{kI8Threads, i8_smem_bytes(), kI8BM,
-                (const void*)scores_groupmax_i8<kStore>, kPathInt8};
+  return small ? Config{128, fma_smem_bytes<__nv_bfloat16, 64>(), 64,
+                        (const void*)scores_groupmax_fma<__nv_bfloat16, 64, kStore>, kPathTile}
+               : Config{256, fma_smem_bytes<__nv_bfloat16, 128>(), 128,
+                        (const void*)scores_groupmax_fma<__nv_bfloat16, 128, kStore>, kPathTile};
+}
+
+// The blocks an SM a persistent grid launches: up to max_per_sm.
+int persistent_per_sm(const Config& cfg, int blocks_per_sm) {
+  const int cap = cfg.path == kPathSmallQ ? kSqMaxBlocksPerSm : kI8MaxBlocksPerSm;
+  return blocks_per_sm < cap ? blocks_per_sm : cap;
 }
 
 // Resident blocks an SM of cfg (after its shared-memory attribute is set).
@@ -693,9 +816,9 @@ cudaError_t blocks_per_sm(const Config& cfg, int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, cfg.fn, cfg.threads, cfg.smem);
 }
 
-// The small-Q path's persistent grid: up to kSqMaxBlocksPerSm blocks an
-// SM, no more blocks than tiles.
-cudaError_t small_q_grid(const Config& cfg, int tiles, int* grid) {
+// A persistent grid (the small-Q and int8 paths): persistent_per_sm
+// blocks an SM, no more blocks than tiles.
+cudaError_t persistent_grid(const Config& cfg, long long tiles, int* grid) {
   int per_sm = 0, dev = 0, sms = 0;
   cudaError_t err = blocks_per_sm(cfg, &per_sm);
   if (err != cudaSuccess) return err;
@@ -703,8 +826,8 @@ cudaError_t small_q_grid(const Config& cfg, int tiles, int* grid) {
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int per = per_sm < kSqMaxBlocksPerSm ? per_sm : kSqMaxBlocksPerSm;
-  *grid = tiles < sms * per ? tiles : sms * per;
+  const long long most = static_cast<long long>(sms) * persistent_per_sm(cfg, per_sm);
+  *grid = static_cast<int>(tiles < most ? tiles : most);
   return cudaSuccess;
 }
 
@@ -712,11 +835,35 @@ cudaError_t launch_small_q(const Config& cfg, const float* q, const void* p, flo
                            float* gmax, int nq, int n, int d, int group, int p_dtype,
                            cudaStream_t s) {
   alignas(64) CUtensorMap map;
-  if (!encode_rows_map(&map, p, p_dtype == 1, d, n, kSqRows)) return cudaErrorInvalidValue;
+  if (!encode_rows_map(&map, p, p_dtype == 1 ? 2 : 4, d, n, kSqRows))
+    return cudaErrorInvalidValue;
   int grid = 0;
-  cudaError_t err = small_q_grid(cfg, n / kSqRows, &grid);
+  cudaError_t err = persistent_grid(cfg, n / kSqRows, &grid);
   if (err != cudaSuccess) return err;
   void* args[] = {&map, &q, &scores, &gmax, &nq, &n, &d, &group};
+  err = cudaLaunchKernel(cfg.fn, dim3(grid), dim3(cfg.threads), args, cfg.smem, s);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The int8 kernel: maps of the int8 queries [Q, D] and passages [N, D]
+// (boxes of kI8BM and kI8BN rows of 128 bytes) and, for kernel 2, of the
+// f32 scores [Q, N] (boxes of [64 rows][32 columns]).
+template <bool kStore>
+cudaError_t launch_s8(const Config& cfg, const void* q, const void* p, float* scores,
+                      float* gmax, int nq, int n, int d, int group, cudaStream_t s) {
+  alignas(64) CUtensorMap maps[3] = {};
+  if (!encode_rows_map(&maps[0], q, 1, d, nq, kI8BM) ||
+      !encode_rows_map(&maps[1], p, 1, d, n, kI8BN) ||
+      (kStore && !encode_rows_map(&maps[2], scores, 4, n, nq, kI8Rows)))
+    return cudaErrorInvalidValue;
+  const long long tiles =
+      static_cast<long long>((nq + kI8BM - 1) / kI8BM) * ((n + kI8BN - 1) / kI8BN);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t err = persistent_grid(cfg, tiles, &grid);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&maps[0], &maps[1], &maps[2], &gmax, &nq, &n, &d, &group};
   err = cudaLaunchKernel(cfg.fn, dim3(grid), dim3(cfg.threads), args, cfg.smem, s);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -736,6 +883,8 @@ int launch(const void* q, const void* p, void* scores, void* gmax, int nq,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sf = static_cast<float*>(scores);
   float* gf = static_cast<float*>(gmax);
+  if (cfg.path == kPathInt8)
+    return static_cast<int>(launch_s8<kStore>(cfg, q, p, sf, gf, nq, n, d, group, s));
   const float* qf = static_cast<const float*>(q);
   if (cfg.path == kPathSmallQ)
     return static_cast<int>(launch_small_q(cfg, qf, p, sf, gf, nq, n, d, group, p_dtype, s));
@@ -754,7 +903,7 @@ int launch(const void* q, const void* p, void* scores, void* gmax, int nq,
     else
       scores_groupmax_fma<float, 128, kStore><<<grid, cfg.threads, cfg.smem, s>>>(
           qf, pp, sf, gf, nq, n, d, group);
-  } else if (p_dtype == 1) {
+  } else {
     const __nv_bfloat16* pp = static_cast<const __nv_bfloat16*>(p);
     if (cfg.rows == 64)
       scores_groupmax_fma<__nv_bfloat16, 64, kStore><<<grid, cfg.threads, cfg.smem, s>>>(
@@ -762,10 +911,6 @@ int launch(const void* q, const void* p, void* scores, void* gmax, int nq,
     else
       scores_groupmax_fma<__nv_bfloat16, 128, kStore><<<grid, cfg.threads, cfg.smem, s>>>(
           qf, pp, sf, gf, nq, n, d, group);
-  } else {
-    scores_groupmax_i8<kStore><<<grid, cfg.threads, cfg.smem, s>>>(
-        static_cast<const int8_t*>(q), static_cast<const int8_t*>(p), sf, gf,
-        nq, n, d, group);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -799,8 +944,9 @@ extern "C" int convdr_streaming_groupmax(const void* q, const void* p,
 // path: Q rounded up to a power of two), out[3] resident blocks an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the shared-memory
 // attribute is set), out[4] the path (0 the FMA tile, 1 the small-Q TMA
-// path, 2 int8 tensor cores), out[5] the blocks an SM the small-Q path's
-// persistent grid launches (0 on the tile paths: one block a tile).
+// path, 2 the int8 wgmma kernel), out[5] the blocks an SM the persistent
+// grids of the small-Q and int8 paths launch (0 on the tile paths: one
+// block a tile).
 // Returns a cudaError_t.
 extern "C" int convdr_scores_groupmax_config(int p_dtype, int nq, int d, int* out) {
   if (p_dtype < 0 || p_dtype > 2 || nq <= 0 || d <= 0)
@@ -813,8 +959,6 @@ extern "C" int convdr_scores_groupmax_config(int p_dtype, int nq, int d, int* ou
   out[2] = cfg.rows;
   out[3] = blocks;
   out[4] = cfg.path;
-  out[5] = cfg.path == kPathSmallQ
-               ? (blocks < kSqMaxBlocksPerSm ? blocks : kSqMaxBlocksPerSm)
-               : 0;
+  out[5] = cfg.path == kPathTile ? 0 : persistent_per_sm(cfg, blocks);
   return static_cast<int>(err);
 }

@@ -12,7 +12,9 @@ search path (``exact_search._chunked_topk``). int8 passages (SQ8 storage,
 :mod:`convdr_torch.ops.quant`) take the int-valued f32 queries of
 ``quantize_queries``; their scores are then exact integers, equal to
 ``int8_topk_oracle``'s. On the card the kernel takes them as int8 and runs
-the product on the int8 tensor cores. f32 and bf16 passages at Q <= 32
+the product on Hopper's int8 tensor cores (``wgmma`` s8 x s8 -> s32 over a
+TMA-fed ring, a persistent grid; integer sums, so equal to the plain
+version whatever their order). f32 and bf16 passages at Q <= 32
 (the serving search is Q=1) take the kernel's small-Q path, one thread a
 passage row fed by TMA, whose scores and maxima equal the query-tile
 path's bit for bit (the same FMA chain a score).

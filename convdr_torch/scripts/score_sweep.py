@@ -12,6 +12,14 @@ TFLOP/s f32 peak), one library call of the same function (``torch.matmul``
 with TF32 off on f32 operands, then ``amax``; the bf16 block cast to f32
 beforehand) and the Q=65 batch. Kernel 2 at Q=1 is also timed host-paced.
 
+With int8 passages (the device SQ8 of the same rows, scales fitted on the
+first 65,536, and the int-valued queries of the same quantizer) at Q = 1,
+8, 32, 64, 128, 256 and 512: kernels 2 and 3 held bit for bit to the plain
+version (integer sums, exact in f32), timed on the device beside their
+bound (bytes, or 2QND at the 1979 TOP/s int8 peak) and one library call
+(``torch._int_mm``, then ``.float()`` and ``amax``; none below Q=17, which
+``_int_mm`` does not take).
+
 ``--root`` imports ``convdr_torch`` from another checkout (a parent
 unpacked with ``git archive``), so two versions compare within one call on
 one card; ``--digests`` adds a digest of every output, and of kernels 2
@@ -34,6 +42,8 @@ import torch
 N, D, GROUP, STREAM_GROUP = 524288, 768, 32, 128
 QS = (1, 2, 4, 8, 16, 32, 64)
 TILE_Q = 65  # the smallest batch the 128-row query tile takes
+INT8_QS = (1, 8, 32, 64, 128, 256, 512)
+INT8_MM_MIN_Q = 17  # torch._int_mm takes no fewer rows
 DIGEST_QS = (1, 64, 512)  # int8 passages, and Q=512 in f32 and bf16
 # published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit),
 # which chip_smoke and scripts/attention_sweep.py take from here
@@ -94,10 +104,10 @@ def digest(*tensors):
     return h.hexdigest()
 
 
-def sweep(qs=QS, n=N, d=D, seed=0, digests=False, log=print):
-    """The readings above, as ``{dtype: {"Q<q>": row, "tile_Q65": ...}}``;
-    with ``digests``, each row's ``digest`` and a ``digests`` entry of the
-    Q=512 and int8 outputs."""
+def sweep(qs=QS, n=N, d=D, seed=0, digests=False, int8_qs=INT8_QS, log=print):
+    """The readings above, as ``{dtype: {"Q<q>": row, "tile_Q65": ...},
+    "int8": {"Q<q>": row}}``; with ``digests``, each row's ``digest`` and a
+    ``digests`` entry of the Q=512 and int8 outputs."""
     from convdr_torch.ops.fused_search import fused_scores_groupmax
     from convdr_torch.ops.streaming_search import streaming_groupmax
 
@@ -147,6 +157,7 @@ def sweep(qs=QS, n=N, d=D, seed=0, digests=False, log=print):
             f"kernel 3 {rows['tile_Q65']['kernel3_ms']:.4f} ms")
         out[name] = rows
         del p, pf, s_tile, g_tile, m_tile
+    out["int8"] = int8_sweep(p32, seed, int8_qs, digests, log)
     if digests:
         out["digests"] = other_digests(p32, seed)
     del p32
@@ -154,19 +165,72 @@ def sweep(qs=QS, n=N, d=D, seed=0, digests=False, log=print):
     return out
 
 
+def int8_operands(p32, q32):
+    """The device SQ8 of ``p32`` (scales fitted on its first 65536 rows)
+    and the int-valued f32 queries of the same quantizer."""
+    from convdr_torch.ops.quant import Int8Quantizer, quantize_passages_dev
+
+    quant = Int8Quantizer.fit(p32[:65536].cpu().numpy())
+    p8 = quantize_passages_dev(p32, torch.from_numpy(quant.scales).cuda())
+    q8 = torch.from_numpy(quant.quantize_queries(q32.cpu().numpy())[0]).cuda()
+    return q8, p8
+
+
+def int8_sweep(p32, seed, qs, digests, log):
+    """Kernels 2 and 3 on int8 passages at each Q: equal to the plain
+    version (else raises), device ms beside the bound and ``_int_mm`` +
+    ``.float()`` + ``amax`` (None below :data:`INT8_MM_MIN_Q`)."""
+    from convdr_torch.ops.fused_search import fused_scores_groupmax, fused_scores_groupmax_plain
+    from convdr_torch.ops.streaming_search import streaming_groupmax
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    q_all, p = int8_operands(p32, torch.randn(max(qs), p32.shape[1], generator=gen,
+                                              device="cuda"))
+    pt = p.T
+    rows = {}
+    for qn in qs:
+        q = q_all[:qn].contiguous()
+        s, g = fused_scores_groupmax(q, p, GROUP)
+        m = streaming_groupmax(q, p, STREAM_GROUP)
+        s_ref, g_ref = fused_scores_groupmax_plain(q, p, GROUP)
+        m_ref = s_ref.view(qn, -1, STREAM_GROUP).amax(-1)
+        if not (torch.equal(s, s_ref) and torch.equal(g, g_ref) and torch.equal(m, m_ref)):
+            raise AssertionError(f"int8 Q={qn}: kernels 2 / 3 differ from the plain version")
+        del s_ref, g_ref, m_ref
+        b2, by2 = bound_ms(qn, p, GROUP, True)
+        b3, by3 = bound_ms(qn, p, STREAM_GROUP, False)
+        row = {"equal_to_plain": True,
+               "kernel2_ms": device_ms(lambda: fused_scores_groupmax(q, p, GROUP)),
+               "kernel2_bound_ms": b2, "kernel2_bound_by": by2, "kernel2_library_ms": None,
+               "kernel3_ms": device_ms(lambda: streaming_groupmax(q, p, STREAM_GROUP)),
+               "kernel3_bound_ms": b3, "kernel3_bound_by": by3, "kernel3_library_ms": None}
+        if qn >= INT8_MM_MIN_Q:
+            q8 = q.to(torch.int8)
+            for k, group in (("kernel2", GROUP), ("kernel3", STREAM_GROUP)):
+                row[f"{k}_library_ms"] = device_ms(
+                    lambda grp=group: torch._int_mm(q8, pt).float().view(qn, -1, grp).amax(-1))
+        if digests:
+            row["digest"] = digest(s, g, m)
+        rows[f"Q{qn}"] = row
+        lib = lambda k: ("none" if row[f"{k}_library_ms"] is None  # noqa: E731
+                         else f"{row[f'{k}_library_ms']:.4f}")
+        log(f"  int8 Q={qn}: kernel 2 {row['kernel2_ms']:.4f} ms (bound {b2:.4f}, {by2}; "
+            f"library {lib('kernel2')}), kernel 3 {row['kernel3_ms']:.4f} ms (bound {b3:.4f}, "
+            f"{by3}; library {lib('kernel3')}); equal to the plain version")
+        del s, g, m
+    return rows
+
+
 def other_digests(p32, seed):
     """Digests of kernels 2 and 3 at Q=512 (f32, bf16) and with int8
     passages (the device SQ8 of the rows, scales fitted on the first 65536,
     and the int-valued queries of the same quantizer) at Q = 1, 64, 512."""
     from convdr_torch.ops.fused_search import fused_scores_groupmax
-    from convdr_torch.ops.quant import Int8Quantizer, quantize_passages_dev
     from convdr_torch.ops.streaming_search import streaming_groupmax
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     q512 = torch.randn(512, p32.shape[1], generator=gen, device="cuda")
-    quant = Int8Quantizer.fit(p32[:65536].cpu().numpy())
-    p8 = quantize_passages_dev(p32, torch.from_numpy(quant.scales).cuda())
-    q8 = torch.from_numpy(quant.quantize_queries(q512.cpu().numpy())[0]).cuda()
+    q8, p8 = int8_operands(p32, q512)
     out = {}
     for name, q, p, qs in (("float32", q512, p32, (512,)),
                            ("bfloat16", q512, p32.to(torch.bfloat16), (512,)),

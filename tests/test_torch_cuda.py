@@ -260,10 +260,16 @@ def test_flash_fwd_bf16_is_deterministic(cuda, b, t, h, d, mask_kind):
 # (Q, N, D) cutting the kernel's tiles: 64- and 128-query blocks, 128-row
 # tiles, D padded to 16 bytes of the passages; D=1040 is int8's exact limit;
 # the small-Q path's query buckets (2, 16) and the first Q past it (17 < Q*:
-# the 32-query bucket, 15 rows empty)
+# the 32-query bucket, 15 rows empty); the int8 kernel's tiles (128 queries,
+# two warpgroups of 64, x 128 or 256 rows, 128 bytes of k a stage): Q = 1,
+# 63-65, 257 and 512 against N = 128 and 384 (fewer tiles than the
+# persistent grid's blocks), 4224 (one wave at Q=512), 32768 and 65536
+# (several tiles a block, the ring running across them), D = 16, 112, 1040
 SCORE_SHAPES = [(70, 384, 100), (512, 4096, 768), (1, 128, 8), (63, 384, 768),
                 (64, 4224, 100), (65, 4224, 8), (129, 384, 768), (512, 4224, 100),
-                (65, 384, 1040), (2, 4224, 768), (16, 384, 100), (17, 384, 1040)]
+                (65, 384, 1040), (2, 4224, 768), (16, 384, 100), (17, 384, 1040),
+                (1, 4224, 16), (63, 128, 112), (64, 384, 1040), (65, 128, 16),
+                (257, 4224, 112), (512, 128, 1040), (257, 65536, 112), (512, 32768, 1040)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
@@ -276,11 +282,34 @@ def test_scores_groupmax_kernel_matches_plain(cuda, dtype, group, qn, n, d):
     torch.cuda.synchronize()
     assert fused_scores_groupmax.launches == before + 1
     s_ref, g_ref = fused_scores_groupmax_plain(q, p, group)
-    if dtype == torch.int8:  # tensor-core integer sums: equal
+    if dtype == torch.int8:  # tensor-core integer sums: equal, kernel 3's maxima too
         assert torch.equal(s, s_ref) and torch.equal(g, g_ref)
+        assert torch.equal(streaming_groupmax(q, p, group), g_ref)
     tol = 1e-5 * q.norm(dim=1)[:, None] * p.float().norm(dim=1).max()
     assert bool(((s - s_ref).abs() <= tol).all())
     assert torch.equal(g, s.view(qn, n // group, group).amax(-1))
+
+
+@pytest.mark.parametrize("group", [8, 128])
+@pytest.mark.parametrize("qn,n", [(1, 384), (65, 4224), (512, 32768)])
+def test_int8_scores_exact_at_the_edge(cuda, qn, n, group):
+    """Every element at +-127 at D=1040, the largest D whose int8 sums stay
+    exact in f32 (1040 * 127^2 < 2^24); query 0 and passage 0 all +127, so
+    one score is the largest sum there is. Kernels 2 and 3 equal the plain
+    version (f32 sums of integers below 2^24: exact) and the integer
+    oracle."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q = 127.0 * (2.0 * torch.randint(0, 2, (qn, 1040), generator=gen, device="cuda") - 1.0)
+    p = (127 * (2 * torch.randint(0, 2, (n, 1040), generator=gen, device="cuda") - 1)).to(
+        torch.int8)
+    q[0], p[0] = 127.0, 127
+    s, g = fused_scores_groupmax(q, p, group)
+    s_ref, g_ref = fused_scores_groupmax_plain(q, p, group)
+    exact = (q.cpu().to(torch.int64) @ p.cpu().to(torch.int64).T).to(torch.float32)
+    assert s_ref[0, 0].item() == 1040 * 127 ** 2
+    assert torch.equal(s_ref.cpu(), exact)
+    assert torch.equal(s, s_ref) and torch.equal(g, g_ref)
+    assert torch.equal(streaming_groupmax(q, p, group), g_ref)
 
 
 def test_scores_groupmax_kernel_rejects_bad_shapes(cuda):
@@ -296,14 +325,64 @@ def test_scores_groupmax_kernel_rejects_bad_shapes(cuda):
                               torch.zeros(128, 1056, dtype=torch.int8, device="cuda"), 32)
 
 
-def score_path(p_dtype, qn, d):
-    """The path ``convdr_scores_groupmax_config`` reports for (passage
-    dtype code, Q, D): 0 the FMA tile, 1 small-Q, 2 int8."""
+def score_config(p_dtype, qn, d):
+    """``convdr_scores_groupmax_config`` for (passage dtype code, Q, D):
+    threads, shared bytes, query rows a block, blocks an SM, path (0 the
+    FMA tile, 1 small-Q, 2 int8), persistent blocks an SM."""
     fn = cuda_build.bind("scores_groupmax", "convdr_scores_groupmax_config",
                          [ctypes.c_int] * 3 + [ctypes.c_void_p])
     out = (ctypes.c_int * 6)()
     assert fn(p_dtype, qn, d, ctypes.addressof(out)) == 0
-    return out[4]
+    return list(out)
+
+
+def score_path(p_dtype, qn, d):
+    """The path ``convdr_scores_groupmax_config`` reports for (passage
+    dtype code, Q, D): 0 the FMA tile, 1 small-Q, 2 int8."""
+    return score_config(p_dtype, qn, d)[4]
+
+
+@pytest.mark.parametrize("qn", [1, 64, 65, 512])
+@pytest.mark.parametrize("d", [16, 768, 1040])
+def test_int8_score_config_reports_the_wgmma_kernel(cuda, qn, d):
+    """int8 passages take the wgmma kernel (path 2) at every Q and D: a
+    producer warp and two consumer warpgroups (288 threads), 128 query rows
+    a block, kernel 2's shared memory (a 3-stage ring of 48 KB, two 16 KB
+    staging halves a warpgroup, 1 KB of alignment, the barriers) within a
+    block's limit, one block an SM, a persistent grid of one block an SM."""
+    threads, smem, rows, per_sm, path, persistent = score_config(2, qn, d)
+    props = torch.cuda.get_device_properties(0)
+    assert (path, threads, rows, per_sm, persistent) == (2, 288, 128, 1, 1)
+    assert smem == 1024 + 3 * 49152 + 4 * 16384 + 2 * 8 * 3
+    assert smem <= getattr(props, "shared_memory_per_block_optin",
+                           props.shared_memory_per_multiprocessor - 1024)
+
+
+def test_int8_score_kernel_ptxas_shows_no_spills(cuda):
+    """ptxas's report of the int8 kernels (kernel 2 and pass A): registers
+    within the cap of one 288-thread block an SM (65536 / 384, 168 in
+    ptxas's multiples of 8), no spill stores or loads, and no serialized
+    wgmma pipeline (C7510, C7511, C7515, C7518: "Potential Performance
+    Loss")."""
+    cuda_build.build(["scores_groupmax"])
+    report = cuda_build.ptxas_report("scores_groupmax")
+    entries, entry = {}, None
+    for line in report:
+        if "Compiling entry function" in line:
+            entry = line if "scores_groupmax_s8" in line else None
+            if entry:
+                entries[entry] = []
+        elif entry:
+            entries[entry].append(line)
+    assert len(entries) == 2, report
+    for name, lines in entries.items():
+        text = "\n".join(lines)
+        assert "0 bytes spill stores, 0 bytes spill loads" in text, (name, text)
+        regs = [int(w) for line in lines if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:]) if nxt == "registers,"]
+        assert regs and regs[0] <= 168, (name, text)
+    assert not [line for line in report
+                if "Performance Loss" in line and "scores_groupmax_s8" in line], report
 
 
 def small_q_max(p_dtype, d=768):
@@ -333,7 +412,7 @@ def test_small_q_path_equals_tile_path(cuda, dtype, group, d, n):
         assert torch.equal(s, s_tile[:qn]) and torch.equal(g, g_tile[:qn]), qn
         assert torch.equal(streaming_groupmax(q[:qn], p, group), m_tile[:qn]), qn
     assert score_path(code, top + 1, d) == 0  # past Q*: the tile path
-    assert score_path(2, 1, d) == 2  # int8 keeps its tensor-core kernel
+    assert score_path(2, 1, d) == 2  # int8 takes its wgmma kernel at every Q
 
 
 @pytest.mark.parametrize("qn", [65, 1])

@@ -72,26 +72,58 @@ def test_plain_scores_groupmax_matches_pallas_interpret(group, qn, n, d):
     assert tfs.fused_scores_groupmax.launches == 0  # CPU: plain version
 
 
-@pytest.mark.parametrize("qn,n,d", [(1, 128, 8), (65, 384, 100), (129, 384, 768),
-                                    (3, 128, 1040)])
+# int8 (Q, N, D): the card kernel's tiles (128 queries in two warpgroups of
+# 64, 128- or 256-row passage tiles, 128 bytes of k a stage) at CPU sizes;
+# the PM127 shapes fill every element with +-127 at D=1040, the largest D
+# whose sums stay exact in f32 (1040 * 127^2 < 2^24)
+PM127_SHAPES = [(65, 384, 1040)]
+INT8_SHAPES = [(1, 128, 8), (65, 384, 100), (129, 384, 768), (3, 128, 1040),
+               (1, 4224, 16), (63, 128, 112), (64, 384, 1040), (257, 384, 112),
+               (512, 128, 1040), *PM127_SHAPES]
+
+
+@pytest.mark.parametrize("qn,n,d", INT8_SHAPES)
 def test_plain_int8_scores_match_jax_int8_search(qn, n, d):
     """int8 passages with int-valued queries: the plain scores are exact
     integers, equal to the JAX int8 ``flat_ip_topk``'s scores and to the
-    integer oracle (the card kernel is held to this plain version)."""
+    integer oracle; the plain kernels 2 and 3 equal the JAX package's
+    Pallas ``fused_scores_groupmax`` and ``streaming_groupmax`` (interpret
+    mode) at G = 8, 32, 128 (the card kernel is held to this plain
+    version)."""
     from convdr_torch.ops.quant import Int8Quantizer
+    from convdr_torch.ops.streaming_search import streaming_groupmax as port_streaming
+    from convdr_tpu.ops.pallas_search import streaming_groupmax as jax_streaming
 
-    q, p = problem(1, q=qn, n=n, d=d)
-    quant = Int8Quantizer.fit(p)
-    p_i8 = quant.quantize_passages(p)
-    q_int = quant.quantize_queries(q)[0]
-    scores, gmax = tfs.fused_scores_groupmax(t(q_int), t(p_i8), 32)
-    exact = q_int.astype(np.int64) @ p_i8.astype(np.int64).T
-    np.testing.assert_array_equal(scores.numpy(), exact.astype(np.float32))
-    np.testing.assert_array_equal(gmax.numpy(), scores.numpy().reshape(qn, -1, 32).max(-1))
+    if (qn, n, d) in PM127_SHAPES:
+        rng = np.random.RandomState(7)
+        q_int = 127.0 * rng.choice([-1.0, 1.0], (qn, d)).astype(np.float32)
+        p_i8 = (127 * rng.choice([-1, 1], (n, d))).astype(np.int8)
+        q_int[0], p_i8[0] = 127.0, 127  # the largest sum there is
+    else:
+        q, p = problem(1, q=qn, n=n, d=d)
+        quant = Int8Quantizer.fit(p)
+        p_i8 = quant.quantize_passages(p)
+        q_int = quant.quantize_queries(q)[0]
+    exact = (q_int.astype(np.int64) @ p_i8.astype(np.int64).T).astype(np.float32)
+    for group in (8, 32, 128):
+        scores, gmax = tfs.fused_scores_groupmax(t(q_int), t(p_i8), group)
+        np.testing.assert_array_equal(scores.numpy(), exact)
+        np.testing.assert_array_equal(gmax.numpy(), exact.reshape(qn, -1, group).max(-1))
+        js, jg = fused_scores_groupmax(jnp.asarray(q_int), jnp.asarray(p_i8), group=group,
+                                       tile_rows=128, interpret=True)
+        np.testing.assert_array_equal(scores.numpy(), np.asarray(js))
+        np.testing.assert_array_equal(gmax.numpy(), np.asarray(jg))
+        jm = jax_streaming(jnp.asarray(q_int), jnp.asarray(p_i8), group=group, tile_rows=128,
+                           interpret=True)
+        np.testing.assert_array_equal(port_streaming(t(q_int), t(p_i8), group).numpy(),
+                                      np.asarray(jm))
+    if (qn, n, d) in PM127_SHAPES:
+        assert exact[0, 0] == 1040 * 127 ** 2
     js, ji = jes.flat_ip_topk(jnp.asarray(q_int), jnp.asarray(p_i8), n, block_rows=n)
     np.testing.assert_array_equal(
         np.take_along_axis(scores.numpy(), np.asarray(ji).astype(np.int64), 1), np.asarray(js)
     )
+    assert tfs.fused_scores_groupmax.launches == 0  # CPU: plain version
 
 
 def test_scores_groupmax_rejects_bad_group():
