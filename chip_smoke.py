@@ -153,13 +153,15 @@ P. (after F) ``--matmul_precision`` over phase 3's rows and queries:
    device ms of a replay, of the encode and of the search; every replay
    equal bit for bit to the eager program. Kernel 1 at B=1 T=256 f32 and
    kernel 2 at Q=1 (f32, bf16, int8) against their plain versions, bounds
-   and library calls; at Q=1 f32 and bf16 take the small-Q path, held bit
-   for bit to the 128-row query tile's first row. The Q sweep of kernels 2
-   and 3 (``convdr_torch/scripts/score_sweep.py``: Q = 1..64, f32 and bf16,
-   one 524288-row block; each reading ``torch.equal`` to the first Q rows
-   of a Q=65 batch on the tile path, on the device beside its bound and
-   ``matmul`` + ``amax``; int8 passages at Q = 1..512 on the ``wgmma``
-   kernel, ``torch.equal`` to the plain version, beside the bound and
+   and library calls; at Q=1 f32 takes the small-Q path and bf16 the
+   three-part wgmma kernel's small-Q tiles, each held bit for bit to the
+   128-row query tile's first row. The Q sweep of kernels 2 and 3
+   (``convdr_torch/scripts/score_sweep.py``: Q = 1..64 f32 and 1..512 bf16,
+   one 524288-row block; each reading ``torch.equal`` to the first rows of a
+   Q=65 batch on the query tiles, on the device beside its bound (bf16: the
+   bytes and the three-part operations at the bf16 peak) and ``matmul`` +
+   ``amax``; int8 passages at Q = 1..512 on the ``wgmma`` kernel,
+   ``torch.equal`` to the plain version, beside the bound and
    ``_int_mm`` + ``.float()`` + ``amax``) with each Q's launch
    configuration. Kernel 1's
    f32 forward across its two paths (``convdr_torch/scripts/attention_sweep.py``:
@@ -583,7 +585,7 @@ def attention_bwd_configs():
     return configs
 
 
-SCORE_PATHS = ("FMA tile", "small-Q TMA", "int8 wgmma")
+SCORE_PATHS = ("f32 FMA tile", "f32 small-Q TMA", "int8 wgmma", "bf16 three-part wgmma")
 
 
 def score_kernel_configs():
@@ -861,8 +863,11 @@ def top_sets_agree(s_a, s_b, qnorm, pnorm_max, k=TOP_N):
 
 def kernel_bound(flops, nbytes, dtype=torch.float32):
     """The least time (ms) for ``flops`` operations at the peak of
-    ``dtype``'s units (f32: the CUDA cores; int8: the tensor cores) and
-    ``nbytes`` moved, and which of the two bounds it."""
+    ``dtype``'s units (f32: the CUDA cores; int8: the tensor cores; bf16
+    passages: the three-part product's three times ``flops`` at the bf16
+    tensor-core peak) and ``nbytes`` moved, and which of the two bounds it."""
+    if dtype == torch.bfloat16:
+        flops *= score_sweep.BF16_PARTS
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
@@ -886,8 +891,9 @@ def dtype_name(dtype):
 
 def check_and_time_search(q32, p32):
     """Kernel 2 vs plain at Q=512 N=524288 D=768 G=32. f32 and bf16: scores
-    within 1e-5*|q|*max|p|, top-100 sets equal up to near-ties; int8: equal
-    (integer-exact in both)."""
+    within 1e-5*|q|*max|p|, top-100 sets equal up to near-ties; bf16 also
+    within 2 D 2^-24 sum |q_k p_k| of the f64 product of the same operands;
+    int8: equal (integer-exact in both)."""
     entry = None
     for dtype in STORAGE:
         q, p = search_operands(q32, p32, dtype)
@@ -903,6 +909,12 @@ def check_and_time_search(q32, p32):
                                  f"{err.max().item()}")
         if not bool((err <= tol).all()):
             raise AssertionError(f"fused scores disagree ({dtype}): {err.max().item()}")
+        share = None
+        if dtype == torch.bfloat16:  # the three-part product against f64
+            share = score_sweep.worst_share(s, q, p)
+            if share > 2 * SEARCH_D * 2.0 ** -24:
+                raise AssertionError(f"bf16 scores beyond 2 D 2^-24 sum |q p| of the f64 "
+                                     f"product: {share}")
         if not torch.equal(g, s.view(SEARCH_Q, -1, GROUP).amax(-1)):
             raise AssertionError("group maxima are not the max of each group")
         exact_rows = top_sets_agree(s, s_ref, qnorm, pnorm_max)
@@ -911,7 +923,8 @@ def check_and_time_search(q32, p32):
             raise AssertionError("group-max selection != full top-k")
         log(f"  scores+groupmax {dtype_name(dtype)} Q={SEARCH_Q} N={SEARCH_N}: "
             f"max_abs_err {err.max().item():.3e} (tol 1e-5*|q|*max|p|"
-            f"{'; int8: equal' if dtype == torch.int8 else ''}), "
+            f"{'; int8: equal' if dtype == torch.int8 else ''}"
+            f"{'' if share is None else f'; against f64 {share:.3e} of sum |q p|'}), "
             f"top-{TOP_N} sets equal in {exact_rows}/{SEARCH_Q} rows, near-ties only otherwise")
         ms = cuda_ms(lambda: fused_scores_groupmax(q, p, GROUP))
         ms_q64 = cuda_ms(lambda: fused_scores_groupmax(q[:SMALL_Q], p, GROUP))
@@ -927,6 +940,7 @@ def check_and_time_search(q32, p32):
         result = {
             "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms, **lib,
             "bound_ms": bound_ms, "bound_by": bound_by, f"ms_Q{SMALL_Q}": ms_q64,
+            "f64_worst_share": share,
             f"library_ms_Q{SMALL_Q}": lib_q64["library_ms"], f"bound_ms_Q{SMALL_Q}": bound_q64,
             f"bound_by_Q{SMALL_Q}": bound_by_q64,
         }
@@ -1052,12 +1066,12 @@ def pass_b_bound(q, p, gsel, group):
     """Kernel 4's bound (ms, what bounds it) for these inputs: the rows of
     the groups ``gsel`` picks read once, the queries and ids read once,
     the [Q, kg, G] f32 scores written once; 2 * Q * kg * G * D operations
-    at the f32 peak (int8 passages: at the int8 tensor-core peak)."""
+    at the f32 peak (int8 passages: at the int8 tensor-core peak; bf16:
+    three times as many at the bf16 tensor-core peak)."""
     picked = int(torch.unique(gsel).numel())
     nbytes = (picked * group * p.shape[1] * p.element_size() + q.numel() * q.element_size()
               + gsel.numel() * gsel.element_size() + gsel.numel() * group * 4)
-    return kernel_bound(2.0 * gsel.numel() * group * p.shape[1], nbytes,
-                        torch.int8 if p.dtype == torch.int8 else torch.float32)
+    return kernel_bound(2.0 * gsel.numel() * group * p.shape[1], nbytes, p.dtype)
 
 
 def pass_b_library(q, p, gsel, group):
@@ -1203,7 +1217,8 @@ def time_streaming(q, p, worst, launches):
 def streaming_dtype_row(q, p, group, gsel):
     """Kernel 3 at Q=512 G=128 on bf16 or int8 passages: its time, its bound
     as kernel 2's rows count it (int8 queries and the int8 tensor-core peak
-    for int8 passages, f32 queries at the f32 peak otherwise), the library
+    for int8 passages; f32 queries, and bf16's three-part operations at the
+    bf16 tensor-core peak), the library
     call of the same function (:func:`library_scores`), its plain version's
     time, and kernel 4's plain version and library call at the same
     operands: the product of :func:`library_scores` then ``torch.gather``
@@ -1211,8 +1226,7 @@ def streaming_dtype_row(q, p, group, gsel):
     qn, n_groups = q.shape[0], p.shape[0] // group
     q_bytes = q.numel() * (1 if p.dtype == torch.int8 else 4)
     bound = kernel_bound(2.0 * qn * p.shape[0] * p.shape[1],
-                         q_bytes + p.numel() * p.element_size() + qn * n_groups * 4,
-                         torch.int8 if p.dtype == torch.int8 else torch.float32)
+                         q_bytes + p.numel() * p.element_size() + qn * n_groups * 4, p.dtype)
     gather, gather_name = pass_b_library(q, p, gsel, group)
     return {"ms": cuda_ms(lambda: streaming_groupmax(q, p, group)),
             "plain_ms": cuda_ms(lambda: streaming_groupmax_plain(q, p, group), iters=5),
@@ -1370,11 +1384,24 @@ def reference_check(work, processed, raw, emb_dir, trec):
     return qids, q_embs
 
 
-def run_matches_exact(run, qids, q, rows, row_pids):
+def bf16_score_tol(q, rows):
+    """The bf16 score kernels' stated error at its largest over ``rows``
+    for each query of ``q`` [Q, D]: 2 D 2^-24 sum_k |q_k p_k| (the f32
+    summation bound of the three-part bf16 product, doubled for a
+    truncating tensor-core accumulator) -> [Q]. Long one-signed sums, as
+    model embeddings give, reach ~1e-5 of |q| |p| where random ones stay
+    near 1e-6."""
+    return 2 * q.shape[1] * 2.0 ** -24 * (q.abs() @ rows.abs().T).amax(dim=1)
+
+
+def run_matches_exact(run, qids, q, rows, row_pids, bf16=False):
     """Holds each query's top-``TOP_N`` pids of a TREC run to an exact
     plain-PyTorch search (one f32 matmul over ``rows``, a stable sort):
     equal sets, or differences only in near-ties at the k-th score, within
-    1e-5*|q|*max|p|. Returns the count of queries whose sets are equal."""
+    1e-5*|q|*max|p| (with ``bf16``, rows searched in bf16 by the score
+    kernel: plus :func:`bf16_score_tol`). Returns the count of queries
+    whose sets are equal."""
+    extra = bf16_score_tol(q, rows) if bf16 else torch.zeros(len(q), device=q.device)
     scores = q @ rows.T
     top_s, top_i = stable_topk(scores, TOP_N)
     ref_pids = row_pids[top_i].cpu().numpy()
@@ -1386,7 +1413,7 @@ def run_matches_exact(run, qids, q, rows, row_pids):
         if got == want:
             exact += 1
             continue
-        tol = 1e-5 * q[r].norm().item() * pmax
+        tol = 1e-5 * q[r].norm().item() * pmax + extra[r].item()
         kth = top_s[r, -1].item()
         for pid in got ^ want:
             s = scores[r, int(torch.nonzero(row_pids == pid)[0])].item()
@@ -2345,20 +2372,29 @@ def data_plane_path(paths, qids, q_embs):
     offset2pid = torch.tensor(load_offset2pid(processed), device="cuda")
     q = torch.from_numpy(q_embs).cuda()
     exact = run_matches_exact(parse_trec_run(os.path.join(WORK, "run_dp.trec")), qids, q,
-                              emb, offset2pid[offs])
+                              emb, offset2pid[offs], bf16=True)
     log(f"  inference + search (bf16 storage, traced) in {t_infer:.2f} s; launches "
         f"{launches}; run vs exact plain search of the same bf16 rows: top-{TOP_N} sets "
         f"equal for {exact}/{len(qids)} queries, near-ties at the cut otherwise")
 
-    # the score kernel at this path's shape, against its plain version
+    # the score kernel at this path's shape (bf16 rows), against the f64
+    # product of the same operands within its stated bound, 2 D 2^-24
+    # sum_k |q_k p_k|; and against its plain version (reported)
     p = host_tensor(blk).cuda()
     p = torch.cat([p, p.new_zeros(-len(p) % ROW_TILE, SEARCH_D)])
     s, _g = fused_scores_groupmax(q, p, GROUP)
     s_ref, _g_ref = fused_scores_groupmax_plain(q, p, GROUP)
-    pnorm_max = p.float().norm(dim=1).max().item()
     err = (s - s_ref).abs()
-    if not bool((err <= 1e-5 * q.norm(dim=1)[:, None] * pnorm_max).all()):
-        raise AssertionError(f"scores at the data plane's shape: {err.max().item()}")
+    qd, pd = q.double(), p.double()
+    err64 = (s.double() - qd @ pd.T).abs()
+    bound = 2 * SEARCH_D * 2.0 ** -24 * (qd.abs() @ pd.abs().T)
+    if not bool((err64 <= bound).all()):
+        raise AssertionError(f"scores at the data plane's shape beyond 2 D 2^-24 sum |q p| "
+                             f"of the f64 product: {(err64 / bound).max().item()} x bound")
+    log(f"  kernel 2 at this shape: {(err64 / bound).max().item():.3f} of its f64 bound "
+        f"(worst {(err64 / (qd.abs() @ pd.abs().T)).max().item():.3e} of sum |q p|), "
+        f"{err.max().item():.3e} from the plain f32 matmul")
+    del qd, pd, err64, bound
     trace = trace_summary(trace_dir)
     share = trace["device_busy_share"]
     log(f"  search phase trace: span {trace['span_ms']:.1f} ms, "
@@ -3141,12 +3177,17 @@ def plain_flat_search(rows, storage, emb_dir):
     card), stored as the backend stores them (f32; bf16; SQ8 with the
     scales ``from_blocks`` takes: the sidecar's, else fit on block 0).
     -> q [1, D] f32 -> (scores [N] f32, tol): 1e-5*|q|*max|p| for float
-    rows; 0 for SQ8, whose query the host's ``quantize_queries`` folds and
-    whose integer products and sums are exact in f32."""
+    rows, plus :func:`bf16_score_tol` for bf16 rows (the three-part
+    product's stated error); 0 for SQ8, whose query the host's
+    ``quantize_queries`` folds and whose integer products and sums are
+    exact in f32."""
     if storage != "int8":
         stored = rows if storage == "float32" else rows.bfloat16().float()
         pmax = stored.norm(dim=1).max().item()
-        return lambda q: ((q @ stored.T)[0], 1e-5 * q.norm().item() * pmax)
+        if storage == "float32":
+            return lambda q: ((q @ stored.T)[0], 1e-5 * q.norm().item() * pmax)
+        return lambda q: ((q @ stored.T)[0], 1e-5 * q.norm().item() * pmax
+                          + bf16_score_tol(q, stored)[0].item())
     quant = Int8Quantizer.load_optional(emb_dir) or Int8Quantizer.fit(
         next(iter_embedding_blocks(emb_dir))[1])
     scales = torch.from_numpy(quant.scales).cuda()
@@ -3278,8 +3319,9 @@ def serving_kernel_times(tokenizer, histories):
     """Kernel 1 at the serving encode's shape (B=1, T=256, f32, the mask of
     a served history); kernel 2 at Q=1 over the flat search's full block
     (524288 rows) and its short last one (``SERVE_SHORT``) with f32, bf16
-    and int8 passages (f32 and bf16: the small-Q path, held bit for bit to
-    the first row of a Q=65 batch on the tile path); kernel 5 at Q=1 on each of those score blocks and
+    and int8 passages (f32: the small-Q path; bf16: the three-part wgmma
+    kernel's small-Q tiles; both held bit for bit to the first row of a
+    Q=65 batch on the query tiles); kernel 5 at Q=1 on each of those score blocks and
     the groups their maxima pick. Each against its plain version (attention
     within 1e-5; f32/bf16 scores within 1e-5*|q|*max|p|, int8 scores and
     every gather equal). Timed at the full block, host-paced and on the
@@ -3324,7 +3366,7 @@ def serving_kernel_times(tokenizer, histories):
         for n in (SERVE_SHORT, SEARCH_N):
             s, g = fused_scores_groupmax(qd, p[:n], GROUP)
             s_ref, g_ref = fused_scores_groupmax_plain(qd, p[:n], GROUP)
-            if dtype != torch.int8:  # the small-Q path against the query tile's
+            if dtype != torch.int8:  # the small-Q path (tiles) against the query tile's
                 s_t, g_t = fused_scores_groupmax(torch.cat([qd, q_rest]), p[:n], GROUP)
                 if not (torch.equal(s, s_t[:1]) and torch.equal(g, g_t[:1])):
                     raise AssertionError(f"kernel 2 at Q=1 N={n} ({dtype}) differs from the "
@@ -3346,8 +3388,7 @@ def serving_kernel_times(tokenizer, histories):
         call = lambda: fused_scores_groupmax(qd, p, GROUP)  # noqa: E731
         nbytes = (qd.numel() * (1 if dtype == torch.int8 else 4) + p.numel() * p.element_size()
                   + SEARCH_N * 4 + SEARCH_N // GROUP * 4)
-        bound_ms, bound_by = kernel_bound(2.0 * SEARCH_N * SEARCH_D, nbytes,
-                                          torch.int8 if dtype == torch.int8 else torch.float32)
+        bound_ms, bound_by = kernel_bound(2.0 * SEARCH_N * SEARCH_D, nbytes, dtype)
         row = {"shape": f"Q=1 N={SEARCH_N} D={SEARCH_D} G={GROUP} {dtype_name(dtype)}",
                "max_abs_err": diff, "ms": cuda_ms(call, iters=50),
                "device_ms": device_ms(call, iters=50),
@@ -3464,7 +3505,8 @@ def serving_path(paths):
                                  f"{b['launches']}")
     tokenizer = load_tokenizer_for(get_model_config("rdot_nll"), None)  # the served one
     attn, scores, gather = serving_kernel_times(tokenizer, histories)
-    log("kernels 2 and 3 across Q (small-Q path up to Q*, then the tile path; one 524288-row "
+    log("kernels 2 and 3 across Q (f32: small-Q path up to Q*, then the tile path; bf16: the "
+        "three-part wgmma kernel's small-Q tiles up to Q=64, then its query tiles; one 524288-row "
         "block, D=768, device ms):")
     q_sweep = score_sweep.sweep(log=log)
     log("kernel 1's f32 forward on its two paths (small grid up to the tile grid's "

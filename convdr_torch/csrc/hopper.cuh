@@ -113,6 +113,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The box of a rank-3 map at (c0, c1, c2), innermost first; as tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(shared_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(shared_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // The box of a rank-4 map at (c0, c1, c2, c3) from shared memory at src
 // (elements outside the tensor are not written), as one bulk group.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
@@ -279,6 +289,196 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x N) (+)= A (64 x 16, shared, K-major) * B (N x 16, shared, K-major)^T
+// with A's and B's descriptors desc_a + kOffA and desc_b + kOffB (16-byte
+// units). The offsets are added inside the asm, so that a caller issuing
+// many products over one tile keeps two descriptors live, not one pair of
+// registers a product.
+template <int kOffA, int kOffB>
+__device__ __forceinline__ void wgmma_ss_at_n8(float (&d)[4], uint64_t desc_a,
+                                               uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %6, 0;\n"
+      "add.s64 da, %4, %7;\nadd.s64 db, %5, %8;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kOffA), "n"(kOffB));
+}
+
+template <int kOffA, int kOffB>
+__device__ __forceinline__ void wgmma_ss_at_n16(float (&d)[8], uint64_t desc_a,
+                                               uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %10, 0;\n"
+      "add.s64 da, %8, %11;\nadd.s64 db, %9, %12;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kOffA), "n"(kOffB));
+}
+
+template <int kOffA, int kOffB>
+__device__ __forceinline__ void wgmma_ss_at_n32(float (&d)[16], uint64_t desc_a,
+                                               uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %18, 0;\n"
+      "add.s64 da, %16, %19;\nadd.s64 db, %17, %20;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kOffA), "n"(kOffB));
+}
+
+template <int kOffA, int kOffB>
+__device__ __forceinline__ void wgmma_ss_at_n64(float (&d)[32], uint64_t desc_a,
+                                               uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %34, 0;\n"
+      "add.s64 da, %32, %35;\nadd.s64 db, %33, %36;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kOffA), "n"(kOffB));
+}
+
+template <int kOffA, int kOffB>
+__device__ __forceinline__ void wgmma_ss_at_n128(float (&d)[64], uint64_t desc_a,
+                                               uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %66, 0;\n"
+      "add.s64 da, %64, %67;\nadd.s64 db, %65, %68;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kOffA), "n"(kOffB));
+}
+
+template <int kOffA, int kOffB>
+__device__ __forceinline__ void wgmma_ss_at_n256(float (&d)[128], uint64_t desc_a,
+                                               uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %130, 0;\n"
+      "add.s64 da, %128, %131;\nadd.s64 db, %129, %132;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kOffA), "n"(kOffB));
+}
+
+template <int N, int kOffA, int kOffB>
+__device__ __forceinline__ void wgmma_ss_at(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  if constexpr (N == 8)
+    wgmma_ss_at_n8<kOffA, kOffB>(d, desc_a, desc_b, accumulate);
+  else if constexpr (N == 16)
+    wgmma_ss_at_n16<kOffA, kOffB>(d, desc_a, desc_b, accumulate);
+  else if constexpr (N == 32)
+    wgmma_ss_at_n32<kOffA, kOffB>(d, desc_a, desc_b, accumulate);
+  else if constexpr (N == 64)
+    wgmma_ss_at_n64<kOffA, kOffB>(d, desc_a, desc_b, accumulate);
+  else if constexpr (N == 128)
+    wgmma_ss_at_n128<kOffA, kOffB>(d, desc_a, desc_b, accumulate);
+  else if constexpr (N == 256)
+    wgmma_ss_at_n256<kOffA, kOffB>(d, desc_a, desc_b, accumulate);
+}
+
+
+// The three-part bf16 product of f32 queries and bf16 passages, one stage
+// of 64 k (a 128-byte swizzled row): q = q1 + q2 + q3 exactly (three bf16
+// parts, ops/fused_search.py bf16_query_parts), so S = sum over k of
+// (q1 p + q2 p + q3 p), every product exact in f32. Part p's product reads
+// A at desc_a + kAOff + p kAStep and B at desc_b + p kBStep (16-byte
+// units): the queries' parts as A (kAStep the part tiles' distance, kBStep
+// 0) or as B (kAStep 0; kAOff picks a 64-row block of the passage tile).
+// k-steps kk = 0..3 (+2 kk in both descriptors: 32 bytes along the
+// swizzled rows) in order, and in each k-step parts 1, 2, 3 in turn into
+// one accumulator: the one order of every bf16 score in the port (kernels
+// 2, 3 and 4), so their outputs agree bit for bit (an output's bits depend
+// on its A row, B row and this order only, whichever operand the queries
+// are: the probe in scores_groupmax.cu). `first`: the stage is a score's
+// first (the very first product overwrites the accumulator).
+template <int N, int kAStep, int kBStep, int kAOff = 0>
+__device__ __forceinline__ void wgmma_bf16_parts_stage(float (&d)[N / 2], uint64_t desc_a,
+                                                       uint64_t desc_b, bool first) {
+  const int acc = first ? 0 : 1;  // the stage's first product overwrites
+  wgmma_ss_at<N, kAOff, 0>(d, desc_a, desc_b, acc);
+  wgmma_ss_at<N, kAOff + kAStep, kBStep>(d, desc_a, desc_b, 1);
+  wgmma_ss_at<N, kAOff + 2 * kAStep, 2 * kBStep>(d, desc_a, desc_b, 1);
+  wgmma_ss_at<N, kAOff + 2, 2>(d, desc_a, desc_b, 1);
+  wgmma_ss_at<N, kAOff + kAStep + 2, kBStep + 2>(d, desc_a, desc_b, 1);
+  wgmma_ss_at<N, kAOff + 2 * kAStep + 2, 2 * kBStep + 2>(d, desc_a, desc_b, 1);
+  wgmma_ss_at<N, kAOff + 4, 4>(d, desc_a, desc_b, 1);
+  wgmma_ss_at<N, kAOff + kAStep + 4, kBStep + 4>(d, desc_a, desc_b, 1);
+  wgmma_ss_at<N, kAOff + 2 * kAStep + 4, 2 * kBStep + 4>(d, desc_a, desc_b, 1);
+  wgmma_ss_at<N, kAOff + 6, 6>(d, desc_a, desc_b, 1);
+  wgmma_ss_at<N, kAOff + kAStep + 6, kBStep + 6>(d, desc_a, desc_b, 1);
+  wgmma_ss_at<N, kAOff + 2 * kAStep + 6, 2 * kBStep + 6>(d, desc_a, desc_b, 1);
 }
 
 // d (64 x 16) (+)= A (64 x 16, registers) * B (16 x 16, shared, MN-major)
@@ -470,6 +670,26 @@ inline bool encode_rows_map(CUtensorMap* map, const void* base, int elem_bytes, 
   const cuuint32_t unit[2] = {1u, 1u};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// The map of a contiguous [parts, rows, cols] bf16 tensor (a row pitch of
+// `cols` elements, a multiple of 8) whose box is `box_rows` rows of one
+// part and 64 columns (128 bytes), swizzled by 128 bytes; rows past `rows`
+// and columns past `cols` arrive as zeros. Returns false if the driver
+// refuses it.
+inline bool encode_parts_map(CUtensorMap* map, const void* base, int parts, int cols, int rows,
+                             int box_rows) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(parts)};
+  const cuuint64_t strides[2] = {2ull * cols, 2ull * cols * rows};  // bytes, dims 1..2
+  const cuuint32_t box[3] = {64u, static_cast<cuuint32_t>(box_rows), 1u};
+  const cuuint32_t unit[3] = {1u, 1u, 1u};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

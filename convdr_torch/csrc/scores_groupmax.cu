@@ -11,9 +11,57 @@
 // reach device memory and they are bit-identical to kernel 2's.
 //
 // Computes S = Q P^T ([Q, N] f32) and the maximum of every run of G
-// consecutive columns ([Q, N/G]). P is f32, bf16 or int8 [N, D]. Three paths:
+// consecutive columns ([Q, N/G]). P is f32, bf16 or int8 [N, D]. Three
+// dtype paths:
 //
-// f32 and bf16 passages: f32 FMAs on the CUDA cores. What bounds them on an
+// bf16 passages: the JAX kernel's dot runs on the MXU at
+// Precision.HIGHEST on f32 queries and f32-promoted bf16 tiles
+// (pallas_search.py:93-103, :352-359, :444): a split-precision product
+// of bf16 passes, three on f32 x bf16 (":46": half the passes of f32 x
+// f32), with the recall@100 set as its contract and ~1-ulp score
+// differences (:21-27). Its counterpart here: each f32 query splits
+// exactly into three bf16 parts, q = q1 + q2 + q3 (truncation: 8 bits of
+// significand a part cover f32's 24; ops/fused_search.py
+// bf16_query_parts makes them, [3, Q, D]); every q_part * p is exact in
+// f32, and S = sum over k of the three parts' products is three bf16
+// wgmma products with f32 accumulation, k-steps of 16 in order and in
+// each k-step parts 1, 2, 3 in turn into one accumulator
+// (hopper.cuh wgmma_bf16_parts_stage). Kernels 2, 3 and 4
+// (streaming_search.cu) all issue that order, and an output's bits depend
+// only on its A row, B row and the k order (the probe below, held by
+// tests/test_torch_cuda.py: not on the instruction's N, the row's place in
+// the 64-row tile, the column's place or the block), so scores, pass A's
+// maxima and pass B's candidates agree bit for bit at every Q and group
+// pruning stays exact. Against the f64 product of the same operands a
+// score is within 2 D 2^-24 sum |q_k p_k|. What bounds it on an H100: at
+// Q >= ~128 the three-part operations (3 x 2QND at the 989 TFLOP/s bf16
+// peak, 1.22 ms at Q=512, N=524288, D=768), below that the bytes (the
+// 0.8 GB block, 0.24 ms; kernel 2 adds the [Q, N] f32 scores). The design
+// is the int8 kernel's (below) with bf16 operands:
+//   * a persistent grid, one block an SM: a TMA producer warp and two
+//     consumer warpgroups. At Q > 64, tiles of 128 queries x 256 passages,
+//     a warpgroup its 64 query rows as A (m64n256: 128 f32 registers a
+//     thread). At Q <= 64 (the serving search is Q=1) the roles swap: the
+//     passages are A (a warpgroup two 64-row blocks of the 256-row tile)
+//     and the query parts B, N = Q rounded up to 8, 16, 32 or 64, so a
+//     few queries cost no tensor work for 64 (m64n8 at Q=1: 1/8 of the
+//     operations of a 64-query A); the probe shows the swap keeps the bits;
+//   * per stage, the three query parts' [rows x 128 bytes of k] boxes (3D
+//     map of [3, Q, D], rows past Q as zeros) and the passages' [256 x 128
+//     bytes] box (as stored: no copy or cast in device memory), 128-byte
+//     swizzled, into a ring of 2 stages of 80 KB (Q > 64) or 3-4 of 35-56
+//     KB under full / empty mbarriers that runs across tiles; all operands
+//     from shared memory (wgmma's A from registers would hold a stage's 12
+//     parts x 4 registers beside the 128 accumulators, past 288 threads'
+//     168);
+//   * the epilogue from the registers: at Q > 64 the group maxima and
+//     kernel 2's TMA store rounds as the int8 kernel's; at Q <= 64 the
+//     scores by st.global (8 consecutive rows of 4 queries a warp store),
+//     the maxima of G = 8, 16 by shuffles, of larger G through one
+//     shared-memory step across the warpgroup's warps; pass A compiles
+//     the store out.
+//
+// f32 passages: f32 FMAs on the CUDA cores. What bounds them on an
 // H100 is operations: 2*Q*N*D at the 67 TFLOP/s f32 peak (412 GFLOP, ~6.2 ms
 // at Q=512, N=524288, D=768) against ~0.8 ms for the bytes. TF32 or 3xTF32
 // tensor-core products are ruled out, and so is any split-K, tree or warp
@@ -33,26 +81,25 @@
 //   * a ring of 3 shared-memory stages of 32 k, filled by 16-byte
 //     cp.async.cg copies (rows past Q and k past D zero-filled by the
 //     src-size-0 form), so stages k+1 and k+2 load while stage k computes;
-//   * tiles stay k-contiguous as copied (cp.async cannot transpose); row
-//     pitches of 36 floats (f32) and 40 bf16 put the 4 query rows and 8
-//     passage rows a warp reads at once in distinct banks, and a thread's
-//     rows are strided (row = i * BM/8 + ty, col = j * 16 + tx) so they are
-//     neighbours across the warp. Per 4 k a thread issues 16 LDS.128 (8 for
-//     the query rows, 8 for the passage rows; LDS.64 + widening for bf16)
-//     for 256 FMAs, with no integer division in the loop;
+//   * tiles stay k-contiguous as copied (cp.async cannot transpose); a row
+//     pitch of 36 floats puts the 4 query rows and 8 passage rows a warp
+//     reads at once in distinct banks, and a thread's rows are strided
+//     (row = i * BM/8 + ty, col = j * 16 + tx) so they are neighbours
+//     across the warp. Per 4 k a thread issues 16 LDS.128 (8 for the query
+//     rows, 8 for the passage rows) for 256 FMAs, with no integer division
+//     in the loop;
 //   * the grid walks query tiles fastest, so the Q/BM blocks that share a
 //     passage tile run together and read it from device memory once.
 //
-// f32 and bf16 passages at Q <= 32 (kSmallQMax, Q*; the serving search is
-// Q=1): the tile above would compute 64 query rows for each live one, and
-// what bounds the work is bytes (the block, 0.48 ms f32 / 0.24 ms bf16 at
-// N=524288, D=768), so this path streams the block once at the lowest cost
-// an element, in the same chain order:
+// f32 passages at Q <= 32 (kSmallQMax, Q*; the serving search is Q=1): the
+// tile above would compute 64 query rows for each live one, and what
+// bounds the work is bytes (the block, 0.48 ms at N=524288, D=768), so
+// this path streams the block once at the lowest cost an element, in the
+// same chain order:
 //   * one consumer thread a passage row, holding one accumulator a query
 //     (Q rounded up to a power of two, 1..32, a template instance each); k
-//     is never split: each score is still the single chain above, bf16
-//     widened exactly by __bfloat1622float2 before its FMA;
-//   * [128 rows x 128 bytes of k] boxes (32 f32 / 64 bf16 k) come in by TMA
+//     is never split: each score is still the single chain above;
+//   * [128 rows x 128 bytes of k] boxes (32 k) come in by TMA
 //     (cp.async.bulk.tensor.2d, k past D zero-filled) into a ring of 3
 //     stages, issued by one producer thread and drained under full / empty
 //     mbarriers (csrc/hopper.cuh); the 128-byte swizzle puts a warp's 32
@@ -69,8 +116,8 @@
 //     its order is free).
 // Its queries must fit in shared memory beside the ring (D <= 1408 at
 // Q = 17..32, 2816 at Q = 9..16); larger D takes the tile path. Q* is the
-// largest Q at which this path beat the tile path on an H100 in both
-// dtypes (convdr_torch/scripts/score_sweep.py, which chip_smoke.py runs:
+// largest Q at which this path beat the tile path on an H100
+// (convdr_torch/scripts/score_sweep.py, which chip_smoke.py runs:
 // kernels 2 and 3 at Q = 1..64, bit for bit equal to the tile path).
 //
 // int8 passages (SQ8 storage, ops/quant.py): the wrapper turns the
@@ -106,7 +153,7 @@
 //     st.global from the registers (the warps stall on the stores) and one
 //     128-column round (its second round waits on the first's reads).
 //
-// Epilogue (the FMA tile path): the accumulator tile goes through shared memory
+// Epilogue (the f32 FMA tile path): the accumulator tile goes through shared memory
 // (pitch BN + 8 floats, conflict-free), then each warp takes whole rows:
 // 16-byte score stores, 512 contiguous bytes a row (compiled out for pass
 // A), and the max of each group of G columns by __shfl_xor_sync over the G/4
@@ -209,7 +256,7 @@ __device__ __forceinline__ void store_tile(const float* cs,
 }
 
 // ---------------------------------------------------------------------------
-// f32 / bf16 passages: f32 FMA on the CUDA cores
+// f32 passages: f32 FMA on the CUDA cores
 // ---------------------------------------------------------------------------
 constexpr int kTileK = 32;   // depth per stage
 constexpr int kAPitch = kTileK + 4;  // floats
@@ -221,16 +268,6 @@ struct FmaTile<float> {
   static constexpr int kPitch = kTileK + 4;  // 144 bytes
   __device__ __forceinline__ static float4 read4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
-  }
-};
-template <>
-struct FmaTile<__nv_bfloat16> {
-  static constexpr int kPitch = kTileK + 8;  // 80 bytes
-  __device__ __forceinline__ static float4 read4(const __nv_bfloat16* p) {
-    const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-    const float2 lo = __bfloat1622float2(p2[0]);  // exact widening
-    const float2 hi = __bfloat1622float2(p2[1]);
-    return make_float4(lo.x, lo.y, hi.x, hi.y);
   }
 };
 
@@ -337,7 +374,7 @@ scores_groupmax_fma(const float* __restrict__ q, const P* __restrict__ p,
 }
 
 // ---------------------------------------------------------------------------
-// f32 / bf16 passages at Q <= kSmallQMax: one thread a passage row
+// f32 passages at Q <= kSmallQMax: one thread a passage row
 // ---------------------------------------------------------------------------
 constexpr int kSmallQMax = 32;                 // Q*: the largest Q this path takes
 constexpr int kSqRows = 128;                   // passage rows a tile, one a consumer
@@ -382,22 +419,12 @@ __device__ __forceinline__ void sq_fma4(float (&acc)[kQ], const float4* q4, floa
   }
 }
 
-__device__ __forceinline__ float2 widen_bf16x2(uint32_t w) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));  // exact
-}
-
-// One 16-byte chunk of a passage row: 4 f32 or 8 bf16 k, in order.
+// One 16-byte chunk of a passage row: 4 f32 k, in order.
 template <typename P, int kQ>
 __device__ __forceinline__ void sq_chunk(float (&acc)[kQ], const float4* q4, uint4 raw) {
-  if constexpr (sizeof(P) == 4) {
-    sq_fma4<kQ>(acc, q4, __uint_as_float(raw.x), __uint_as_float(raw.y), __uint_as_float(raw.z),
-                __uint_as_float(raw.w));
-  } else {
-    const float2 k01 = widen_bf16x2(raw.x), k23 = widen_bf16x2(raw.y);
-    const float2 k45 = widen_bf16x2(raw.z), k67 = widen_bf16x2(raw.w);
-    sq_fma4<kQ>(acc, q4, k01.x, k01.y, k23.x, k23.y);
-    sq_fma4<kQ>(acc, q4 + kQ, k45.x, k45.y, k67.x, k67.y);
-  }
+  static_assert(sizeof(P) == 4, "f32 passages: bf16 takes the wgmma kernel");
+  sq_fma4<kQ>(acc, q4, __uint_as_float(raw.x), __uint_as_float(raw.y), __uint_as_float(raw.z),
+              __uint_as_float(raw.w));
 }
 
 // A persistent grid walks the 128-row passage tiles (tile blockIdx.x, then
@@ -749,57 +776,570 @@ scores_groupmax_s8(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 passages: the three-part bf16 wgmma product over a TMA ring
+// ---------------------------------------------------------------------------
+constexpr int kBfRows = 64;                    // rows of a wgmma's A: M
+constexpr int kBfBM = 2 * kBfRows;             // query rows a tile at Q > kBfSmallQMax
+constexpr int kBfBN = 256;                     // passage rows a tile
+constexpr int kBfKBytes = 128;                 // k a stage: one 128-byte swizzled row (64 bf16)
+constexpr int kBfK = kBfKBytes / 2;
+constexpr int kBfParts = 3;                    // q = q1 + q2 + q3, bf16 each
+constexpr int kBfConsumers = 256;              // two warpgroups
+constexpr int kBfThreads = kBfConsumers + 32;  // + the TMA producer warp
+constexpr int kBfMaxStages = 4;
+constexpr int kBfSmallQMax = 64;               // the largest Q of the small-Q tiles
+
+// Q > kBfSmallQMax: a tile is 128 queries x 256 passages, warpgroup w its
+// query rows 64w.. (the parts as A) against all 256 passages (B; m64n256).
+// A block's shared memory (from a 1024-byte aligned base): a stage holds
+// the three query parts' [128][128 bytes] boxes, then the passages'
+// [256][128 bytes], as TMA's 128-byte swizzle lays them; for kernel 2 two
+// staging halves a warpgroup (the int8 kernel's [64][kI8StoreCols] f32
+// rounds) for its TMA score stores; the full and empty barriers; 2 stages
+// of 80 KB.
+template <bool kStore>
+struct BfTile {
+  static constexpr int kPartBytes = kBfBM * kBfKBytes;
+  static constexpr int kABytes = kBfParts * kPartBytes;
+  static constexpr int kStageBytes = kABytes + kBfBN * kBfKBytes;
+  static constexpr int kHalfBytes = kBfRows * kI8StoreCols * 4;
+  static constexpr int kStagingBytes = kStore ? 2 * 2 * kHalfBytes : 0;
+  static constexpr int kFit =
+      (kMaxSmem - 1024 - kStagingBytes - 2 * 8 * kBfMaxStages) / kStageBytes;
+  static constexpr int kRing = kFit < kBfMaxStages ? kFit : kBfMaxStages;
+  static constexpr int kSmem = 1024 + kRing * kStageBytes + kStagingBytes + 2 * 8 * kRing;
+  static_assert(kRing >= 2, "a ring of two stages at least");
+  static_assert(kPartBytes % 1024 == 0 && kStageBytes % 1024 == 0, "1024-byte bases");
+};
+
+// Q <= kBfSmallQMax (the serving search is Q=1): the operands swap roles,
+// so that no tensor work is spent on 64 query rows for a few live ones:
+// the passages are A (warpgroup w: passage rows 128w.. of the 256-row
+// tile, two 64-row blocks) and the queries' parts B, kNq >= Q rows (8,
+// 16, 32 or 64; m64nkNq). The queries come as f32 and the consumers split
+// them, stage by stage (bf16_split2: the arithmetic of bf16_query_parts),
+// so that the search costs one launch. A stage holds the passages'
+// [256][128 bytes] box, then the three parts' [kNq][128 bytes], then the
+// queries' two f32 boxes [kNq][32 f32]; then the warps' 16-row maxima for
+// the group maxima of G >= 32 ([2 warpgroups][8 16-row chunks][kNq] f32),
+// and the full and empty barriers; up to 4 stages.
+template <int kNq>
+struct BfSmallTile {
+  static constexpr int kPBytes = kBfBN * kBfKBytes;
+  static constexpr int kPartBytes = kNq * kBfKBytes;
+  static constexpr int kQBoxBytes = kNq * kBfKBytes;  // [kNq][32 f32]
+  static constexpr int kStageBytes = kPBytes + kBfParts * kPartBytes + 2 * kQBoxBytes;
+  static constexpr int kRedBytes = 2 * 8 * kNq * 4;
+  static constexpr int kFit =
+      (kMaxSmem - 1024 - kRedBytes - 2 * 8 * kBfMaxStages) / kStageBytes;
+  static constexpr int kRing = kFit < kBfMaxStages ? kFit : kBfMaxStages;
+  static constexpr int kSmem = 1024 + kRing * kStageBytes + kRedBytes + 2 * 8 * kRing;
+  static_assert(kRing >= 3, "a ring of three stages at least");
+  static_assert(kPartBytes % 1024 == 0 && kStageBytes % 1024 == 0, "1024-byte bases");
+};
+
+// The group maxima of a warpgroup's 64 x kN tile from its accumulator
+// fragments (row 16w + g + 8r, column c0 + 8j + 2t + e), as
+// i8_group_max: a group is kGJ of a thread's 8-column chunks across the
+// quad's 4 lanes, lane t stores the groups k with k % 4 == t.
+template <int kN, int kGJ>
+__device__ __forceinline__ void bf_group_max(const float (&acc)[kN / 2], float* __restrict__ gmax,
+                                             int row_base, int nq, int c0, int n, int gshift,
+                                             int t) {
+  constexpr int kGroups = kN / 8 / kGJ;  // groups a row of the warpgroup's tile
+  const int groups_per_row = n >> gshift;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_base + 8 * r;
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      float m = fmaxf(acc[4 * k * kGJ + 2 * r], acc[4 * k * kGJ + 2 * r + 1]);
+#pragma unroll
+      for (int j = k * kGJ + 1; j < (k + 1) * kGJ; ++j)
+        m = fmaxf(m, fmaxf(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      if (row < nq) {
+        if ((k & 3) == t && c0 + 8 * kGJ * k < n)
+          gmax[static_cast<long long>(row) * groups_per_row + (c0 >> gshift) + k] = m;
+      }
+    }
+  }
+}
+
+// The int8 kernel's structure with bf16 operands, at Q > kBfSmallQMax: a
+// persistent grid walks the 128 x 256 tiles, query tiles fastest; thread
+// 256 (the producer warp's first lane) streams each tile's three
+// query-part boxes (a 3D map of [3, Q, D]; rows past Q and k past D as
+// zeros) and its passage box (as stored, [N, D]) by TMA into a ring that
+// runs across tiles; each consumer warpgroup issues, per stage,
+// wgmma_bf16_parts_stage (hopper.cuh: 4 k-steps x parts 1, 2, 3 of
+// m64n256k16, one commit group) and releases the stage before once this
+// one's group is issued and that one's has landed. Epilogue from the
+// registers as the int8 kernel's: the group maxima, then (kernel 2) the
+// scores through the staging halves and TMA stores. Registers: the m64n256
+// f32 accumulator is 128 a thread of the 168 that 288 threads leave.
+template <bool kStore>
+__global__ void __launch_bounds__(kBfThreads, 1)
+scores_groupmax_bf16(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap p_map,
+                     const __grid_constant__ CUtensorMap s_map, float* __restrict__ scores,
+                     float* __restrict__ gmax, int nq, int n, int d, int group) {
+  using Tl = BfTile<kStore>;
+  constexpr int kRing = Tl::kRing;
+  constexpr int kAcc = kBfBN / 2;  // f32 registers a thread: the 64 x 256 accumulator
+  extern __shared__ __align__(16) unsigned char bf_smem[];
+  unsigned char* smem = bf_smem + ((1024u - (shared_addr(bf_smem) & 1023u)) & 1023u);
+  // the staging halves lie just below the barriers (found from `full` in
+  // the epilogue: no pointer of its own live across the products)
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + kRing * Tl::kStageBytes + Tl::kStagingBytes);
+  uint64_t* empty = full + kRing;
+  const int tid = threadIdx.x;
+  const int q_tiles = (nq + kBfBM - 1) / kBfBM;
+  const int tiles = q_tiles * ((n + kBfBN - 1) / kBfBN);
+  const int nk = (d + kBfK - 1) / kBfK;
+
+  if (tid == kBfConsumers) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kBfConsumers / 32);  // each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kBfConsumers) {  // the producer
+    if (tid == kBfConsumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % q_tiles) * kBfBM;
+        const int n0 = (tile / q_tiles) * kBfBN;
+        for (int kc = 0; kc < nk; ++kc, ++it) {
+          const int s = it % kRing;
+          if (it >= kRing) mbar_wait(empty + s, (it / kRing - 1) & 1);
+          unsigned char* st = smem + s * Tl::kStageBytes;
+          mbar_arrive_expect_tx(full + s, Tl::kStageBytes);
+#pragma unroll
+          for (int part = 0; part < kBfParts; ++part)
+            tma_load_3d(st + part * Tl::kPartBytes, &q_map, full + s, kc * kBfK, m0, part);
+          tma_load_2d(st + Tl::kABytes, &p_map, full + s, kc * kBfK, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const int lane = tid % 32;
+  const uint32_t a_base = shared_addr(smem) + wg * kBfRows * kBfKBytes;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float acc[kAcc];
+    for (int kc = 0; kc < nk; ++kc, ++it) {
+      const int s = it % kRing;
+      mbar_wait(full + s, (it / kRing) & 1);
+      const uint32_t st = a_base + s * Tl::kStageBytes;
+      wgmma_fence();
+      wgmma_bf16_parts_stage<kBfBN, (Tl::kPartBytes >> 4), 0>(
+          acc, wgmma_desc(st, kBfKBytes),
+          wgmma_desc(st - wg * kBfRows * kBfKBytes + Tl::kABytes, kBfKBytes), kc == 0);
+      wgmma_commit();
+      if (kc > 0) {  // the previous stage's products have landed: release it
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(empty + (it - 1) % kRing);
+      }
+    }
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc);
+    if (lane == 0) mbar_arrive(empty + (it - 1) % kRing);
+    // the epilogue's values, from here on only (fewer registers live across
+    // the products)
+    const int n0 = (tile / q_tiles) * kBfBN;
+    const int row0 = (tile % q_tiles) * kBfBM + kBfRows * wg;  // this warpgroup's first row
+    if (row0 >= nq) continue;  // warpgroup-uniform: none of its rows is a query
+    const int wtid = tid % 128;
+    const int warp = wtid / 32;  // rows 16 warp + g, + 8 of the warpgroup's 64
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int gj = group >> 3;  // 8-column chunks a group: 1..16
+    const int gshift = __ffs(group) - 1;
+    const int row_base = row0 + 16 * warp + g;
+    switch (gj) {
+      case 1: bf_group_max<kBfBN, 1>(acc, gmax, row_base, nq, n0, n, gshift, t); break;
+      case 2: bf_group_max<kBfBN, 2>(acc, gmax, row_base, nq, n0, n, gshift, t); break;
+      case 4: bf_group_max<kBfBN, 4>(acc, gmax, row_base, nq, n0, n, gshift, t); break;
+      case 8: bf_group_max<kBfBN, 8>(acc, gmax, row_base, nq, n0, n, gshift, t); break;
+      default: bf_group_max<kBfBN, 16>(acc, gmax, row_base, nq, n0, n, gshift, t); break;
+    }
+
+    if constexpr (kStore) {
+      // the int8 kernel's rounds: kI8StoreCols columns into one of the two
+      // staging halves once the stores of the round before last have read
+      // it, then 2 TMA stores; rows past Q and columns past N not written.
+      // This thread's float2 at row 16 warp + g and 8-column chunk c of a
+      // [64][32] f32 box lies at sw + 32 * (c ^ g / 2)
+      unsigned char* my_staging = reinterpret_cast<unsigned char*>(full) - Tl::kStagingBytes +
+                                  wg * (Tl::kStagingBytes / 2);
+      const int sw = (16 * warp + g) * 128 + 16 * ((t / 2) ^ (g & 1)) + 8 * (t & 1);
+      const int gh = g >> 1;
+#pragma unroll
+      for (int c0 = 0; c0 < kBfBN; c0 += kI8StoreCols) {
+        if (n0 + c0 >= n) break;  // uniform
+        unsigned char* half = my_staging + ((c0 / kI8StoreCols) & 1) * Tl::kHalfBytes;
+        if (wtid == 0) tma_store_wait_read<1>();
+        named_barrier(1 + wg, 128);
+#pragma unroll
+        for (int jj = 0; jj < kI8StoreCols / 8; ++jj) {
+          const int j = c0 / 8 + jj;
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<float2*>(half + (jj / 4) * kI8BoxBytes + sw +
+                                       32 * ((jj % 4) ^ gh) + 1024 * r) =
+                make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+        }
+        fence_shared_to_async();
+        named_barrier(1 + wg, 128);
+        if (wtid == 0) {
+          const uint64_t policy = l2_evict_first_policy();
+#pragma unroll
+          for (int b = 0; b < kI8StoreCols / 32; ++b)
+            tma_store_2d(&s_map, half + b * kI8BoxBytes, n0 + c0 + 32 * b, row0, policy);
+          tma_store_commit();
+        }
+      }
+    }
+  }
+  if constexpr (kStore) {
+    if (tid % 128 == 0) tma_store_wait_read<0>();  // the staging outlives its reads
+  }
+}
+
+// The three bf16 parts of two f32 values a and b, each part's pair packed
+// as a bf16x2 word (a in the low half): the arithmetic of
+// ops/fused_search.py bf16_query_parts (cut to the top 16 bits, the exact
+// remainder cut again, what is left rounded to nearest even, which is
+// exact but under bf16's subnormals), so its parts bit for bit.
+__device__ __forceinline__ void bf16_split2(float a, float b, uint32_t (&w)[3]) {
+  const float a1 = __uint_as_float(__float_as_uint(a) & 0xffff0000u);
+  const float b1 = __uint_as_float(__float_as_uint(b) & 0xffff0000u);
+  const float ar = __fsub_rn(a, a1), br = __fsub_rn(b, b1);  // exact
+  const float a2 = __uint_as_float(__float_as_uint(ar) & 0xffff0000u);
+  const float b2 = __uint_as_float(__float_as_uint(br) & 0xffff0000u);
+  w[0] = (__float_as_uint(a1) >> 16) | (__float_as_uint(b1) & 0xffff0000u);
+  w[1] = (__float_as_uint(a2) >> 16) | (__float_as_uint(b2) & 0xffff0000u);
+  const __nv_bfloat162 p3 = __floats2bfloat162_rn(__fsub_rn(ar, a2), __fsub_rn(br, b2));
+  w[2] = *reinterpret_cast<const uint32_t*>(&p3);
+}
+
+// One 64-row passage block of a small-Q tile (accumulator fragments: row
+// 16w + g + 8r of the block, query column 8j + 2t + e), rows c0 + row in
+// the scores: kernel 2's scores (4 bytes a thread; a warp's store covers
+// 8 consecutive rows of 4 queries), and the group maxima of G = 8 and 16
+// directly (the max over the 8 lanes of a quad position, then over r);
+// for G >= 32 the warp's 16-row maxima go to red[chunk][kNq] for the
+// warpgroup to combine.
+template <int kNq, bool kStore>
+__device__ __forceinline__ void bf_small_block(const float (&acc)[kNq / 2],
+                                               float* __restrict__ scores,
+                                               float* __restrict__ gmax, float* red, int nq,
+                                               int n, int c0, int warp, int g, int t,
+                                               int group, int gshift) {
+  const int groups_per_row = n >> gshift;
+#pragma unroll
+  for (int j = 0; j < kNq / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q = 8 * j + 2 * t + e;
+      float m[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float v = acc[4 * j + 2 * r + e];
+        if constexpr (kStore) {
+          if (q < nq) scores[static_cast<long long>(q) * n + c0 + 16 * warp + 8 * r + g] = v;
+        }
+        m[r] = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 8));
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 16));
+      }
+      if (g == 0) {
+        if (group == 8) {
+          if (q < nq) {
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              gmax[static_cast<long long>(q) * groups_per_row + ((c0 + 16 * warp + 8 * r) >> 3)] =
+                  m[r];
+          }
+        } else if (group == 16) {
+          if (q < nq)
+            gmax[static_cast<long long>(q) * groups_per_row + ((c0 + 16 * warp) >> 4)] =
+                fmaxf(m[0], m[1]);
+        } else {
+          red[warp * kNq + q] = fmaxf(m[0], m[1]);
+        }
+      }
+    }
+  }
+}
+
+// bf16 passages at Q <= kBfSmallQMax: as scores_groupmax_bf16 with the
+// roles swapped (BfSmallTile): a persistent grid walks the 256-row passage
+// tiles; per stage each warpgroup issues, for each of its two 64-row
+// passage blocks, wgmma_bf16_parts_stage with the passages as A and the
+// query parts as B (m64nkNq: the same k order, parts 1, 2, 3 each k-step,
+// so the same bits as the Q > 64 tiles); the ring, its barriers and the
+// release of a stage are the int8 kernel's. Epilogue from the registers
+// (bf_small_block), then for G >= 32 the warpgroup combines its warps'
+// 16-row maxima (G / 16 of them a group) through shared memory.
+template <bool kStore, int kNq>
+__global__ void __launch_bounds__(kBfThreads, 1)
+scores_groupmax_bf16_small_q(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap p_map,
+                             const __grid_constant__ CUtensorMap s_map,
+                             float* __restrict__ scores, float* __restrict__ gmax, int nq, int n,
+                             int d, int group) {
+  using Tl = BfSmallTile<kNq>;
+  constexpr int kRing = Tl::kRing;
+  extern __shared__ __align__(16) unsigned char bf_smem[];
+  unsigned char* smem = bf_smem + ((1024u - (shared_addr(bf_smem) & 1023u)) & 1023u);
+  float* red = reinterpret_cast<float*>(smem + kRing * Tl::kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRing * Tl::kStageBytes + Tl::kRedBytes);
+  uint64_t* empty = full + kRing;
+  const int tid = threadIdx.x;
+  const int tiles = (n + kBfBN - 1) / kBfBN;
+  const int nk = (d + kBfK - 1) / kBfK;
+
+  if (tid == kBfConsumers) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kBfConsumers / 32);  // each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kBfConsumers) {  // the producer
+    if (tid == kBfConsumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        for (int kc = 0; kc < nk; ++kc, ++it) {
+          const int s = it % kRing;
+          if (it >= kRing) mbar_wait(empty + s, (it / kRing - 1) & 1);
+          unsigned char* st = smem + s * Tl::kStageBytes;
+          unsigned char* qf = st + Tl::kPBytes + kBfParts * Tl::kPartBytes;
+          mbar_arrive_expect_tx(full + s, Tl::kPBytes + 2 * Tl::kQBoxBytes);
+          tma_load_2d(st, &p_map, full + s, kc * kBfK, tile * kBfBN);
+          tma_load_2d(qf, &q_map, full + s, kc * kBfK, 0);
+          tma_load_2d(qf + Tl::kQBoxBytes, &q_map, full + s, kc * kBfK + 32, 0);
+        }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const int wtid = tid % 128;
+  const int warp = wtid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int gshift = __ffs(group) - 1;
+  const uint32_t base = shared_addr(smem);
+  float* my_red = red + wg * 8 * kNq;
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int c0 = tile * kBfBN + 128 * wg;  // this warpgroup's first passage row
+    float acc0[kNq / 2], acc1[kNq / 2];
+    for (int kc = 0; kc < nk; ++kc, ++it) {
+      const int s = it % kRing;
+      mbar_wait(full + s, (it / kRing) & 1);
+      // the queries' parts of this stage, half the 16-byte f32 chunks (4 k
+      // of a row) a warpgroup: chunk c4 of row r of the two swizzled boxes
+      // into 8 bytes of each part's swizzled row; then both warpgroups'
+      // parts before either's products
+      unsigned char* parts = smem + s * Tl::kStageBytes + Tl::kPBytes;
+      const unsigned char* qf = parts + kBfParts * Tl::kPartBytes;
+      for (int c = tid; c < kNq * 16; c += kBfConsumers) {
+        const int r = c >> 4;
+        const int c4 = c & 15;
+        const float4 v = *reinterpret_cast<const float4*>(
+            qf + (c4 >> 3) * Tl::kQBoxBytes + swizzled_chunk_offset(r, c4 & 7, kBfKBytes));
+        uint32_t lo[3], hi[3];
+        bf16_split2(v.x, v.y, lo);
+        bf16_split2(v.z, v.w, hi);
+        const int at = swizzled_chunk_offset(r, c4 >> 1, kBfKBytes) + 8 * (c4 & 1);
+#pragma unroll
+        for (int part = 0; part < kBfParts; ++part)
+          *reinterpret_cast<uint2*>(parts + part * Tl::kPartBytes + at) =
+              make_uint2(lo[part], hi[part]);
+      }
+      fence_shared_to_async();
+      named_barrier(3, kBfConsumers);  // 1 and 2 are the warpgroups' own
+      const uint32_t st = base + s * Tl::kStageBytes;
+      const uint64_t da = wgmma_desc(st + wg * 128 * kBfKBytes, kBfKBytes);
+      const uint64_t db = wgmma_desc(st + Tl::kPBytes, kBfKBytes);
+      wgmma_fence();
+      wgmma_bf16_parts_stage<kNq, 0, (Tl::kPartBytes >> 4), 0>(acc0, da, db, kc == 0);
+      wgmma_bf16_parts_stage<kNq, 0, (Tl::kPartBytes >> 4), (kBfRows * kBfKBytes >> 4)>(
+          acc1, da, db, kc == 0);
+      wgmma_commit();
+      if (kc > 0) {  // the previous stage's products have landed: release it
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(empty + (it - 1) % kRing);
+      }
+    }
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc0);
+    wgmma_fence_regs(acc1);
+    if (lane == 0) mbar_arrive(empty + (it - 1) % kRing);
+    if (c0 >= n) continue;  // warpgroup-uniform: the second half of a last tile of 128 rows
+
+    bf_small_block<kNq, kStore>(acc0, scores, gmax, my_red, nq, n, c0, warp, g, t, group,
+                                gshift);
+    bf_small_block<kNq, kStore>(acc1, scores, gmax, my_red + 4 * kNq, nq, n, c0 + kBfRows, warp,
+                                g, t, group, gshift);
+    if (group >= 32) {  // the warpgroup's G / 16 chunks a group
+      named_barrier(1 + wg, 128);
+      const int chunks = group >> 4;
+      const int groups = 128 >> gshift;
+      for (int i = wtid; i < groups * kNq; i += 128) {
+        const int k = i / kNq;
+        const int q = i - k * kNq;
+        float m = my_red[k * chunks * kNq + q];
+        for (int c = 1; c < chunks; ++c) m = fmaxf(m, my_red[(k * chunks + c) * kNq + q]);
+        if (q < nq) gmax[static_cast<long long>(q) * (n >> gshift) + (c0 >> gshift) + k] = m;
+      }
+      named_barrier(1 + wg, 128);  // red is free for the next tile
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the probe of the bf16 wgmma's bits
+// ---------------------------------------------------------------------------
+// One warpgroup a block, every block the same problem, stage by stage over
+// k (64 a stage, zeros past D): A holds rows a[part][i] (three parts of 64
+// rows, [3][64][D]) at tile row (i + a_shift) % 64, B rows b[part][r] (r <
+// kN, [3][256][D]) at tile row (r + b_shift) % kN, both written by the
+// threads in the layout TMA's 128-byte swizzle gives. swap 0: the
+// three-part product of the kernels above (wgmma_bf16_parts_stage: A's
+// parts, B's part 0); kSwap: A's part 0 (a 64-row tile of passages) times
+// B's three parts (query parts as B), each k-step's parts in the same
+// order. out[block][64][kN] holds the accumulator by tile row and column
+// (row 16w + g + 8r, column 8j + 2t + e), so that a test can read off
+// whether an output's bits depend on anything but its A row, its B row and
+// the k order (tests/test_torch_cuda.py).
+constexpr int kProbeAPart = 64 * kBfKBytes;
+constexpr int kProbeBPart = 256 * kBfKBytes;
+constexpr int kProbeSmem = 1024 + kBfParts * (kProbeAPart + kProbeBPart);
+
+template <int kN, bool kSwap>
+__global__ void __launch_bounds__(128, 1)
+wgmma_bf16_probe(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __restrict__ b,
+                 float* __restrict__ out, int d, int a_shift, int b_shift) {
+  extern __shared__ __align__(16) unsigned char pr_smem[];
+  unsigned char* smem = pr_smem + ((1024u - (shared_addr(pr_smem) & 1023u)) & 1023u);
+  unsigned char* as = smem;
+  unsigned char* bs = smem + kBfParts * kProbeAPart;
+  const int tid = threadIdx.x;
+  const int nk = (d + kBfK - 1) / kBfK;
+  float acc[kN / 2];
+  for (int kc = 0; kc < nk; ++kc) {
+    for (int c = tid; c < kBfParts * 64 * 8; c += 128) {  // 16-byte chunks of A
+      const int part = c / 512, i = (c / 8) % 64, ch = c % 8, k = kc * kBfK + 8 * ch;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (k < d) v = *reinterpret_cast<const uint4*>(a + (static_cast<long long>(part) * 64 + i) * d + k);
+      *reinterpret_cast<uint4*>(as + part * kProbeAPart +
+                                swizzled_chunk_offset((i + a_shift) % 64, ch, kBfKBytes)) = v;
+    }
+    for (int c = tid; c < kBfParts * kN * 8; c += 128) {  // 16-byte chunks of B
+      const int part = c / (8 * kN), r = (c / 8) % kN, ch = c % 8, k = kc * kBfK + 8 * ch;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (k < d) v = *reinterpret_cast<const uint4*>(b + (static_cast<long long>(part) * 256 + r) * d + k);
+      *reinterpret_cast<uint4*>(bs + part * kProbeBPart +
+                                swizzled_chunk_offset((r + b_shift) % kN, ch, kBfKBytes)) = v;
+    }
+    fence_shared_to_async();
+    __syncthreads();
+    const uint64_t da = wgmma_desc(shared_addr(as), kBfKBytes);
+    const uint64_t db = wgmma_desc(shared_addr(bs), kBfKBytes);
+    wgmma_fence();
+    if constexpr (!kSwap)
+      wgmma_bf16_parts_stage<kN, (kProbeAPart >> 4), 0>(acc, da, db, kc == 0);
+    else
+      wgmma_bf16_parts_stage<kN, 0, (kProbeBPart >> 4)>(acc, da, db, kc == 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc);
+    __syncthreads();  // the tiles are rewritten next stage
+  }
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  float* o = out + static_cast<long long>(blockIdx.x) * 64 * kN;
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        o[(16 * warp + g + 8 * r) * kN + 8 * j + 2 * t + e] = acc[4 * j + 2 * r + e];
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 struct Config {
   int threads, smem, rows;  // block threads, dynamic shared bytes, query rows a block
   const void* fn;
-  int path;                 // kPathTile, kPathSmallQ or kPathInt8
+  int path;                 // kPathTile, kPathSmallQ, kPathInt8 or kPathBf16
 };
-constexpr int kPathTile = 0, kPathSmallQ = 1, kPathInt8 = 2;
+constexpr int kPathTile = 0, kPathSmallQ = 1, kPathInt8 = 2, kPathBf16 = 3;
 
-template <typename P, bool kStore>
+template <bool kStore>
 const void* small_q_fn(int kq) {
   switch (kq) {
-    case 1: return (const void*)scores_groupmax_small_q<P, 1, kStore>;
-    case 2: return (const void*)scores_groupmax_small_q<P, 2, kStore>;
-    case 4: return (const void*)scores_groupmax_small_q<P, 4, kStore>;
-    case 8: return (const void*)scores_groupmax_small_q<P, 8, kStore>;
-    case 16: return (const void*)scores_groupmax_small_q<P, 16, kStore>;
-    default: return (const void*)scores_groupmax_small_q<P, kSmallQMax, kStore>;
+    case 1: return (const void*)scores_groupmax_small_q<float, 1, kStore>;
+    case 2: return (const void*)scores_groupmax_small_q<float, 2, kStore>;
+    case 4: return (const void*)scores_groupmax_small_q<float, 4, kStore>;
+    case 8: return (const void*)scores_groupmax_small_q<float, 8, kStore>;
+    case 16: return (const void*)scores_groupmax_small_q<float, 16, kStore>;
+    default: return (const void*)scores_groupmax_small_q<float, kSmallQMax, kStore>;
   }
 }
 
-// int8 passages take the wgmma kernel at every Q. f32 and bf16 passages
-// take the small-Q path at Q <= kSmallQMax when its queries fit in shared
-// memory beside the ring (D <= 1408 at Q = 17..32; the tile path takes
-// larger D).
+// int8 and bf16 passages take their wgmma kernels at every Q (bf16: the
+// small-Q tiles up to kBfSmallQMax, queries rounded up to 8, 16, 32 or
+// 64). f32 passages take the small-Q path
+// at Q <= kSmallQMax when its queries fit in shared memory beside the ring
+// (D <= 1408 at Q = 17..32; the tile path takes larger D).
 template <bool kStore>
 Config config(int p_dtype, int nq, int d) {
   if (p_dtype == 2) {
     return Config{kI8Threads, I8Tile<kStore>::kSmem, kI8BM,
                   (const void*)scores_groupmax_s8<kStore>, kPathInt8};
   }
+  if (p_dtype == 1) {
+    if (nq > kBfSmallQMax)
+      return Config{kBfThreads, BfTile<kStore>::kSmem, kBfBM,
+                    (const void*)scores_groupmax_bf16<kStore>, kPathBf16};
+    switch (nq <= 8 ? 8 : nq <= 16 ? 16 : nq <= 32 ? 32 : 64) {
+      case 8: return Config{kBfThreads, BfSmallTile<8>::kSmem, 8,
+                            (const void*)scores_groupmax_bf16_small_q<kStore, 8>, kPathBf16};
+      case 16: return Config{kBfThreads, BfSmallTile<16>::kSmem, 16,
+                             (const void*)scores_groupmax_bf16_small_q<kStore, 16>, kPathBf16};
+      case 32: return Config{kBfThreads, BfSmallTile<32>::kSmem, 32,
+                             (const void*)scores_groupmax_bf16_small_q<kStore, 32>, kPathBf16};
+      default: return Config{kBfThreads, BfSmallTile<64>::kSmem, 64,
+                             (const void*)scores_groupmax_bf16_small_q<kStore, 64>, kPathBf16};
+    }
+  }
   if (nq <= kSmallQMax) {
     const int kq = sq_bucket(nq);
-    const int box_k = p_dtype == 0 ? 32 : 64;
-    const int smem = sq_smem_bytes(kq, (d + box_k - 1) / box_k * box_k);
-    if (smem <= kMaxSmem)
-      return Config{kSqThreads, smem, kq,
-                    p_dtype == 0 ? small_q_fn<float, kStore>(kq)
-                                 : small_q_fn<__nv_bfloat16, kStore>(kq),
-                    kPathSmallQ};
+    const int smem = sq_smem_bytes(kq, (d + 31) / 32 * 32);
+    if (smem <= kMaxSmem) return Config{kSqThreads, smem, kq, small_q_fn<kStore>(kq), kPathSmallQ};
   }
-  const bool small = nq <= 64;
-  if (p_dtype == 0)
-    return small ? Config{128, fma_smem_bytes<float, 64>(), 64,
-                          (const void*)scores_groupmax_fma<float, 64, kStore>, kPathTile}
-                 : Config{256, fma_smem_bytes<float, 128>(), 128,
-                          (const void*)scores_groupmax_fma<float, 128, kStore>, kPathTile};
-  return small ? Config{128, fma_smem_bytes<__nv_bfloat16, 64>(), 64,
-                        (const void*)scores_groupmax_fma<__nv_bfloat16, 64, kStore>, kPathTile}
-               : Config{256, fma_smem_bytes<__nv_bfloat16, 128>(), 128,
-                        (const void*)scores_groupmax_fma<__nv_bfloat16, 128, kStore>, kPathTile};
+  return nq <= 64 ? Config{128, fma_smem_bytes<float, 64>(), 64,
+                           (const void*)scores_groupmax_fma<float, 64, kStore>, kPathTile}
+                  : Config{256, fma_smem_bytes<float, 128>(), 128,
+                           (const void*)scores_groupmax_fma<float, 128, kStore>, kPathTile};
 }
 
 // The blocks an SM a persistent grid launches: up to max_per_sm.
@@ -816,7 +1356,7 @@ cudaError_t blocks_per_sm(const Config& cfg, int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, cfg.fn, cfg.threads, cfg.smem);
 }
 
-// A persistent grid (the small-Q and int8 paths): persistent_per_sm
+// A persistent grid (the small-Q, int8 and bf16 paths): persistent_per_sm
 // blocks an SM, no more blocks than tiles.
 cudaError_t persistent_grid(const Config& cfg, long long tiles, int* grid) {
   int per_sm = 0, dev = 0, sms = 0;
@@ -832,11 +1372,9 @@ cudaError_t persistent_grid(const Config& cfg, long long tiles, int* grid) {
 }
 
 cudaError_t launch_small_q(const Config& cfg, const float* q, const void* p, float* scores,
-                           float* gmax, int nq, int n, int d, int group, int p_dtype,
-                           cudaStream_t s) {
+                           float* gmax, int nq, int n, int d, int group, cudaStream_t s) {
   alignas(64) CUtensorMap map;
-  if (!encode_rows_map(&map, p, p_dtype == 1 ? 2 : 4, d, n, kSqRows))
-    return cudaErrorInvalidValue;
+  if (!encode_rows_map(&map, p, 4, d, n, kSqRows)) return cudaErrorInvalidValue;
   int grid = 0;
   cudaError_t err = persistent_grid(cfg, n / kSqRows, &grid);
   if (err != cudaSuccess) return err;
@@ -869,6 +1407,33 @@ cudaError_t launch_s8(const Config& cfg, const void* q, const void* p, float* sc
   return cudaGetLastError();
 }
 
+// The bf16 kernels: maps of the queries (Q > kBfSmallQMax: their parts [3,
+// Q, D], boxes of one part's 128 rows x 128 bytes of k; else the f32 [Q,
+// D], boxes of kNq rows x 32 f32) and the passages [N, D] (boxes of kBfBN
+// rows) and, for kernel 2 at Q > kBfSmallQMax, of the f32 scores [Q, N]
+// (boxes of [64 rows][32 columns]).
+template <bool kStore>
+cudaError_t launch_bf16(const Config& cfg, const void* q, const void* p, float* scores,
+                        float* gmax, int nq, int n, int d, int group, cudaStream_t s) {
+  const bool small = nq <= kBfSmallQMax;
+  alignas(64) CUtensorMap maps[3] = {};
+  if (!(small ? encode_rows_map(&maps[0], q, 4, d, nq, cfg.rows)
+              : encode_parts_map(&maps[0], q, kBfParts, d, nq, cfg.rows)) ||
+      !encode_rows_map(&maps[1], p, 2, d, n, kBfBN) ||
+      (kStore && !small && !encode_rows_map(&maps[2], scores, 4, n, nq, kBfRows)))
+    return cudaErrorInvalidValue;
+  const long long tiles = static_cast<long long>(small ? 1 : (nq + kBfBM - 1) / kBfBM) *
+                          ((n + kBfBN - 1) / kBfBN);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  int grid = 0;
+  cudaError_t err = persistent_grid(cfg, tiles, &grid);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&maps[0], &maps[1], &maps[2], &scores, &gmax, &nq, &n, &d, &group};
+  err = cudaLaunchKernel(cfg.fn, dim3(grid), dim3(cfg.threads), args, cfg.smem, s);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 template <bool kStore>
 int launch(const void* q, const void* p, void* scores, void* gmax, int nq,
            int n, int d, int group, int p_dtype, void* stream) {
@@ -885,9 +1450,11 @@ int launch(const void* q, const void* p, void* scores, void* gmax, int nq,
   float* gf = static_cast<float*>(gmax);
   if (cfg.path == kPathInt8)
     return static_cast<int>(launch_s8<kStore>(cfg, q, p, sf, gf, nq, n, d, group, s));
+  if (cfg.path == kPathBf16)
+    return static_cast<int>(launch_bf16<kStore>(cfg, q, p, sf, gf, nq, n, d, group, s));
   const float* qf = static_cast<const float*>(q);
   if (cfg.path == kPathSmallQ)
-    return static_cast<int>(launch_small_q(cfg, qf, p, sf, gf, nq, n, d, group, p_dtype, s));
+    return static_cast<int>(launch_small_q(cfg, qf, p, sf, gf, nq, n, d, group, s));
   const long long blocks =
       static_cast<long long>((nq + cfg.rows - 1) / cfg.rows) * (n / kTileN);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
@@ -895,33 +1462,47 @@ int launch(const void* q, const void* p, void* scores, void* gmax, int nq,
       cfg.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(blocks));
-  if (p_dtype == 0) {
-    const float* pp = static_cast<const float*>(p);
-    if (cfg.rows == 64)
-      scores_groupmax_fma<float, 64, kStore><<<grid, cfg.threads, cfg.smem, s>>>(
-          qf, pp, sf, gf, nq, n, d, group);
-    else
-      scores_groupmax_fma<float, 128, kStore><<<grid, cfg.threads, cfg.smem, s>>>(
-          qf, pp, sf, gf, nq, n, d, group);
-  } else {
-    const __nv_bfloat16* pp = static_cast<const __nv_bfloat16*>(p);
-    if (cfg.rows == 64)
-      scores_groupmax_fma<__nv_bfloat16, 64, kStore><<<grid, cfg.threads, cfg.smem, s>>>(
-          qf, pp, sf, gf, nq, n, d, group);
-    else
-      scores_groupmax_fma<__nv_bfloat16, 128, kStore><<<grid, cfg.threads, cfg.smem, s>>>(
-          qf, pp, sf, gf, nq, n, d, group);
-  }
+  const float* pp = static_cast<const float*>(p);
+  if (cfg.rows == 64)
+    scores_groupmax_fma<float, 64, kStore><<<grid, cfg.threads, cfg.smem, s>>>(
+        qf, pp, sf, gf, nq, n, d, group);
+  else
+    scores_groupmax_fma<float, 128, kStore><<<grid, cfg.threads, cfg.smem, s>>>(
+        qf, pp, sf, gf, nq, n, d, group);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSwap>
+cudaError_t launch_probe(int n_inst, const void* a, const void* b, float* out, int blocks, int d,
+                         int a_shift, int b_shift, cudaStream_t s) {
+  const void* fn;
+  switch (n_inst) {
+    case 8: fn = (const void*)wgmma_bf16_probe<8, kSwap>; break;
+    case 16: fn = (const void*)wgmma_bf16_probe<16, kSwap>; break;
+    case 32: fn = (const void*)wgmma_bf16_probe<32, kSwap>; break;
+    case 64: fn = (const void*)wgmma_bf16_probe<64, kSwap>; break;
+    case 128: fn = (const void*)wgmma_bf16_probe<128, kSwap>; break;
+    case 256: fn = (const void*)wgmma_bf16_probe<256, kSwap>; break;
+    default: return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kProbeSmem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&a, &b, &out, &d, &a_shift, &b_shift};
+  err = cudaLaunchKernel(fn, dim3(blocks), dim3(128), args, kProbeSmem, s);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// q [Q, D] row-major: f32 for p_dtype 0 (float32) and 1 (bfloat16), int8
-// for p_dtype 2 (int8, the int-valued queries of quantize_queries). p [N, D]
-// row-major. D a multiple of 4 / 8 / 16 (16 bytes of P), both operands
-// 16-byte aligned. group in {8, 16, 32, 64, 128}; n % 128 == 0. Returns a
-// cudaError_t (0 = launched).
+// q: f32 [Q, D] row-major for p_dtype 0 (float32 passages) and for 1
+// (bfloat16) at Q <= 64 (the kernel splits them); the three bf16 parts [3,
+// Q, D] of the f32 queries (ops/fused_search.py bf16_query_parts) for 1 at
+// Q > 64; int8 [Q, D] for 2 (int8, the int-valued queries of
+// quantize_queries). p [N, D] row-major. D a multiple of 4 / 8 / 16 (16
+// bytes of P), both operands 16-byte aligned. group in {8, 16, 32, 64,
+// 128}; n % 128 == 0. Returns a cudaError_t (0 = launched).
 extern "C" int convdr_scores_groupmax(const void* q, const void* p,
                                       void* scores, void* gmax, int nq, int n,
                                       int d, int group, int p_dtype,
@@ -940,13 +1521,14 @@ extern "C" int convdr_streaming_groupmax(const void* q, const void* p,
 
 // The launch configuration chosen for (p_dtype, nq, d), d as the kernel
 // takes it (padded to 16 bytes of P): out[0] threads a block, out[1]
-// dynamic shared memory bytes, out[2] query rows a block (the small-Q
-// path: Q rounded up to a power of two), out[3] resident blocks an SM
+// dynamic shared memory bytes, out[2] query rows a block (the f32 small-Q
+// path: Q rounded up to a power of two; bf16 up to Q=64: Q rounded up to
+// 8, 16, 32 or 64), out[3] resident blocks an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the shared-memory
-// attribute is set), out[4] the path (0 the FMA tile, 1 the small-Q TMA
-// path, 2 the int8 wgmma kernel), out[5] the blocks an SM the persistent
-// grids of the small-Q and int8 paths launch (0 on the tile paths: one
-// block a tile).
+// attribute is set), out[4] the path (0 the f32 FMA tile, 1 the f32 small-Q
+// TMA path, 2 the int8 wgmma kernel, 3 the bf16 three-part wgmma kernel),
+// out[5] the blocks an SM the persistent grids of paths 1-3 launch (0 on
+// the tile path: one block a tile).
 // Returns a cudaError_t.
 extern "C" int convdr_scores_groupmax_config(int p_dtype, int nq, int d, int* out) {
   if (p_dtype < 0 || p_dtype > 2 || nq <= 0 || d <= 0)
@@ -961,4 +1543,20 @@ extern "C" int convdr_scores_groupmax_config(int p_dtype, int nq, int d, int* ou
   out[4] = cfg.path;
   out[5] = cfg.path == kPathTile ? 0 : persistent_per_sm(cfg, blocks);
   return static_cast<int>(err);
+}
+
+// The probe of the bf16 wgmma's bits (wgmma_bf16_probe): `blocks` blocks
+// of the same problem, a [3, 64, d] and b [3, 256, d] bf16 (d a multiple
+// of 8, 16-byte aligned), out [blocks, 64, n_inst] f32; n_inst (the
+// instruction's N) in {8, 16, 32, 64, 128, 256}; swap 0 the kernels'
+// three-part product, 1 the query parts as B. Returns a cudaError_t.
+extern "C" int convdr_wgmma_bf16_probe(const void* a, const void* b, void* out, int blocks,
+                                       int n_inst, int d, int a_shift, int b_shift, int swap,
+                                       void* stream) {
+  if (blocks <= 0 || d <= 0 || d % 8 != 0 || a_shift < 0 || b_shift < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  return static_cast<int>(swap ? launch_probe<true>(n_inst, a, b, o, blocks, d, a_shift, b_shift, s)
+                               : launch_probe<false>(n_inst, a, b, o, blocks, d, a_shift, b_shift, s));
 }

@@ -12,17 +12,22 @@
 // scatters the selected groups through a one-hot matmul; here only the
 // selected rows are scored.
 //
-// Exactness: with f32 and bf16 passages each score is one sequential
-// fmaf(q, p, acc) chain over k = 0..D-1 from 0, zero padding only after the
-// last k, which is the order of every f32 and bf16 output of kernel 2
-// (scores_groupmax.cu). With int8 passages the queries are the int-valued
-// ones of quantize_queries, taken as int8 as kernel 2 takes them, and the
-// sums are int32 dp4a sums: exact integers below 2^24 (D <= 1040), so equal
-// to kernel 2's tensor-core integer sums whatever their order. So each
-// candidate score is bit-identical to kernel 2's score of that (query, row),
-// and pass A's group maxima are exactly the maxima of these scores: group
-// pruning stays exact. Hence no split-K, no reordering of k and no
-// tensor-core path for f32 or bf16 here.
+// Exactness: with f32 passages each score is one sequential fmaf(q, p,
+// acc) chain over k = 0..D-1 from 0, zero padding only after the last k,
+// which is the order of every f32 output of kernel 2 (scores_groupmax.cu).
+// With bf16 passages the queries come as their three bf16 parts [3, Q, D]
+// (ops/fused_search.py bf16_query_parts) and each score is kernel 2's
+// three-part wgmma product: k-steps of 16 from k = 0 in stages of 64,
+// parts 1, 2, 3 in turn each k-step, into one f32 accumulator
+// (hopper.cuh wgmma_bf16_parts_stage), whose bits depend only on the
+// query's part rows, the passage row and that order (kernel 2's probe).
+// With int8 passages the queries are the int-valued ones of
+// quantize_queries, taken as int8 as kernel 2 takes them, and the sums
+// are int32 dp4a sums: exact integers below 2^24 (D <= 1040), so equal to
+// kernel 2's tensor-core integer sums whatever their order. So each
+// candidate score is bit-identical to kernel 2's score of that (query,
+// row), and pass A's group maxima are exactly the maxima of these scores:
+// group pruning stays exact. Hence no split-K and no reordering of k.
 //
 // What bounds it on an H100: bytes. The selected groups' rows are read once
 // (up to N * D * 4 bytes, 1.6 GB at N=524288, D=768 f32 when every group
@@ -47,10 +52,17 @@
 //     on a dependent load of the list (read every step, those loads made
 //     the arithmetic alone about a quarter slower in a first version).
 //   * A ring of 16-byte cp.async.cg copies: each stage holds the item's G
-//     passage rows x one k-chunk (64 f32, 64 bf16 or 128 int8 k, raw,
-//     widened in registers; 2, 3 and 2 stages) and its slots' query rows x
-//     the same k-chunk, gathered by slot (int8 queries as int8).
-//   * Register tiles: each of the 4 warps owns 4 slots and all G rows; a
+//     passage rows x one k-chunk (64 f32 or 128 int8 k; 2 stages each) and
+//     its slots' query rows x the same k-chunk, gathered by slot (int8
+//     queries as int8).
+//   * bf16 (extract_candidates_bf16): the same work list, item stream and
+//     3-stage ring, each stage the slots' three query-part rows (parts at
+//     tile rows 0, 16, 32: a product reads 64 rows from its part's first,
+//     rows past the item's slots are never stored) and the group's G rows
+//     x 64 k, 128-byte rows laid out as TMA's swizzle lays them; the
+//     block's warpgroup issues m64nGk16 over them (slots as M, the G rows
+//     as N) and warp 0 stores the item's rows 0..15.
+//   * f32 and int8 register tiles: each of the 4 warps owns 4 slots and all G rows; a
 //     lane owns 4 slots x G/32 rows (G >= 32), or 2 x 1 (G=16) or 1 x 1
 //     (G=8). A warp whose slots are all padding skips the arithmetic: an
 //     item of c slots costs FMAs for c rounded up to 4 and no bytes for the
@@ -68,6 +80,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -215,13 +229,13 @@ cudaError_t build_list_any(const void* gsel, int idx_bytes, const Workspace& w,
 // ---------------------------------------------------------------------------
 // the scoring kernel
 // ---------------------------------------------------------------------------
-// Per passage type: Q the query element type as the kernel takes it,
-// elements a 16-byte vector of P, k a stage, the shared row pitches (in
-// elements) of the passage and query tiles, and the ring's stages. Longer
-// row chunks a stage (256 bytes of an f32 row, 128 of a bf16 or int8 row)
-// read faster on the card than 128 or 64 bytes, even at 2 stages and 2
-// blocks an SM; pitches of 272 and 144 bytes put the 8 rows a quarter warp
-// reads on distinct banks.
+// Per passage type (f32, int8): Q the query element type as the kernel
+// takes it, elements a 16-byte vector of P, k a stage, the shared row
+// pitches (in elements) of the passage and query tiles, and the ring's
+// stages. Longer row chunks a stage (256 bytes of an f32 row, 128 of an
+// int8 row) read faster on the card than 128 or 64 bytes, even at 2 stages
+// and 2 blocks an SM; pitches of 272 and 144 bytes put the 8 rows a quarter
+// warp reads on distinct banks.
 template <typename P>
 struct Tile;
 template <>
@@ -230,39 +244,20 @@ struct Tile<float> {
   static constexpr int kVec = 4, kKC = 64, kPitch = 68, kQPitch = 68, kStages = 2;
 };
 template <>
-struct Tile<__nv_bfloat16> {
-  using Q = float;
-  static constexpr int kVec = 8, kKC = 64, kPitch = 72, kQPitch = 68, kStages = 3;
-};
-template <>
 struct Tile<signed char> {
   using Q = signed char;
   static constexpr int kVec = 16, kKC = 128, kPitch = 144, kQPitch = 144, kStages = 2;
 };
 
-// Elements 4j .. 4j+3 of a raw 16-byte vector of P, widened exactly.
+// Elements 0 .. 3 of a raw 16-byte vector of f32.
 __device__ __forceinline__ float4 widen(const uint4& v, int, float) {
   return make_float4(__uint_as_float(v.x), __uint_as_float(v.y),
                      __uint_as_float(v.z), __uint_as_float(v.w));
-}
-__device__ __forceinline__ float4 widen(const uint4& v, int j, __nv_bfloat16) {
-  const uint32_t a = j == 0 ? v.x : v.z;
-  const uint32_t b = j == 0 ? v.y : v.w;
-  return make_float4(__uint_as_float(a << 16), __uint_as_float(a & 0xffff0000u),
-                     __uint_as_float(b << 16), __uint_as_float(b & 0xffff0000u));
 }
 
 template <typename T>
 __device__ __forceinline__ T zero() {
   return T(0);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // 16-byte global -> shared copy; with pred false nothing is read and the
@@ -270,7 +265,7 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
+                   shared_addr(dst)),
                "l"(src), "r"(pred ? 16 : 0)
                : "memory");
 }
@@ -375,7 +370,7 @@ __device__ __forceinline__ void load_stage(
 }
 
 // One stage's arithmetic for a lane's kTS x kRT tile: f32 FMAs in k order
-// (f32, bf16), or dp4a int32 sums (int8).
+// (f32), or dp4a int32 sums (int8).
 template <typename P, int G, typename Acc>
 __device__ __forceinline__ void compute_stage(
     const unsigned char* st, int lr, int m0,
@@ -554,11 +549,233 @@ extract_candidates_kernel(const typename Tile<P>::Q* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the scoring kernel, bf16 passages: kernel 2's three-part wgmma product
+// ---------------------------------------------------------------------------
+constexpr int kBfStages = 3;
+constexpr int kBfK = 64;                      // k a stage: one 128-byte swizzled row
+constexpr int kBfRowBytes = 2 * kBfK;
+constexpr int kBfPartRows = kTM;              // part p's slot rows at tile rows 16p..16p+15
+constexpr int kBfARows = 2 * kBfPartRows + 64;  // part 3's product reads rows 32..95
+constexpr int kBfABytes = kBfARows * kBfRowBytes;
+
+// A stage: the three query-part rows ([kBfARows][128 bytes]), then the
+// group's G passage rows ([G][128 bytes]), from a 1024-byte aligned base
+// (+ 1024 to align it), then each stage's (first slot, slot count).
+template <int G>
+struct BfShape {
+  static constexpr int kStageBytes = kBfABytes + G * kBfRowBytes;
+  static constexpr int kSmem = 1024 + kBfStages * kStageBytes + kBfStages * 2 * 4;
+  static_assert(kBfABytes % 1024 == 0 && kStageBytes % 1024 == 0, "1024-byte bases");
+};
+
+// An item as the bf16 load stream holds it: its group, first sorted slot
+// and slot count, and the query row of the slot this thread copies
+// (slot tid / 8; -1 for a padding slot).
+struct BfItem {
+  int g, first, cnt;
+  long long qrow;
+};
+
+// One item's data for one k-chunk into ring stage `st` (k past D as
+// zeros), in the layout of TMA's 128-byte swizzle: query part p's slot m at
+// tile row 16p + m, passage row r at row r of the passage tile. The vector
+// path copies 16-byte chunks by cp.async (thread tid: slot tid / 8, chunk
+// tid % 8 of each part); the scalar path (D % 8, or operands not 16-byte
+// aligned) stores elements. Rows of padding slots are left as they are:
+// their sums are never stored.
+template <int G>
+__device__ __forceinline__ void load_stage_bf16(
+    unsigned char* st, const __nv_bfloat16* __restrict__ qp, long long part_elems,
+    const __nv_bfloat16* __restrict__ p, const int* __restrict__ slots, const BfItem& it,
+    int k0, int d, int kg, bool vec, int tid) {
+  unsigned char* ps = st + kBfABytes;
+  const __nv_bfloat16* prow = p + static_cast<long long>(it.g) * G * d;
+  if (vec) {
+    const int ch = tid % 8;
+    const int gk = k0 + 8 * ch;
+    if (it.qrow >= 0) {
+      const bool ok = gk < d;
+#pragma unroll
+      for (int part = 0; part < 3; ++part)
+        cp_async16(st + swizzled_chunk_offset(kBfPartRows * part + tid / 8, ch, kBfRowBytes),
+                   ok ? qp + part * part_elems + it.qrow * d + gk : qp, ok);
+    }
+    constexpr int kPer = (G * 8 + kThreads - 1) / kThreads;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = tid + i * kThreads;
+      if (G * 8 % kThreads == 0 || c < G * 8) {
+        const int r = c / 8;
+        const int pk = k0 + 8 * (c % 8);
+        const bool ok = pk < d;
+        cp_async16(ps + swizzled_chunk_offset(r, c % 8, kBfRowBytes),
+                   ok ? prow + static_cast<long long>(r) * d + pk : p, ok);
+      }
+    }
+  } else {
+    const __nv_bfloat16 z = __float2bfloat16(0.f);
+    for (int c = tid; c < 3 * kTM * kBfK; c += kThreads) {
+      const int part = c / (kTM * kBfK);
+      const int m = (c / kBfK) % kTM;
+      const int k = c % kBfK;
+      if (m < it.cnt) {
+        const long long row = slots[it.first + m] / kg;
+        const int gk = k0 + k;
+        *reinterpret_cast<__nv_bfloat16*>(
+            st + swizzled_chunk_offset(kBfPartRows * part + m, k / 8, kBfRowBytes) + 2 * (k % 8)) =
+            gk < d ? qp[part * part_elems + row * d + gk] : z;
+      }
+    }
+    for (int c = tid; c < G * kBfK; c += kThreads) {
+      const int r = c / kBfK;
+      const int k = c % kBfK;
+      const int gk = k0 + k;
+      *reinterpret_cast<__nv_bfloat16*>(ps + swizzled_chunk_offset(r, k / 8, kBfRowBytes) +
+                                        2 * (k % 8)) =
+          gk < d ? prow[static_cast<long long>(r) * d + gk] : z;
+    }
+  }
+}
+
+// The f32 / int8 kernel's item stream and ring (kBfStages stages, the load
+// stream kBfStages - 1 steps ahead), with each step's arithmetic one
+// wgmma_bf16_parts_stage<G> of the block's warpgroup: A the stage's query
+// parts (part p's descriptor at tile row 16p), B its G passage rows; the
+// accumulator's rows 0..15 are the item's slots. A stage is refilled only
+// after the products that read it have landed (wgmma_wait<1> after the
+// next stage's are issued, then a barrier); at the item's last k-chunk
+// warp 0 writes its slots' rows (row g and g + 8 of each lane, columns
+// 8j + 2t + e).
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+extract_candidates_bf16(const __nv_bfloat16* __restrict__ qp, const __nv_bfloat16* __restrict__ p,
+                        const int* __restrict__ slots, const int* __restrict__ items,
+                        const int* __restrict__ n_items_ptr, float* __restrict__ cand, int nq,
+                        int d, int kg, int vec) {
+  using S = BfShape<G>;
+  extern __shared__ __align__(16) unsigned char bf_smem[];
+  unsigned char* smem = bf_smem + ((1024u - (shared_addr(bf_smem) & 1023u)) & 1023u);
+  int* header = reinterpret_cast<int*>(smem + kBfStages * S::kStageBytes);
+  const long long part_elems = static_cast<long long>(nq) * d;
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int g8 = lane / 4;
+  const int t = lane % 4;
+
+  const int n_items = *n_items_ptr;
+  const int nk = (d + kBfK - 1) / kBfK;
+  const int bid = static_cast<int>(blockIdx.x);
+  const int grid = static_cast<int>(gridDim.x);
+  const int mine = n_items > bid ? (n_items - 1 - bid) / grid + 1 : 0;
+  const int steps = mine * nk;
+
+  auto head = [&](int j, BfItem& it) {
+    const int* e = items + 3 * (bid + j * grid);
+    it.g = e[0];
+    it.first = e[1];
+    it.cnt = e[2];
+  };
+  auto rows = [&](BfItem& it) {
+    const int m = tid / 8;
+    it.qrow = m < it.cnt ? slots[it.first + m] / kg : -1;
+  };
+  BfItem cur{}, nxt{};
+  int lj = 0, lkc = 0;  // the load stream's item and k-chunk
+  if (mine > 0) {
+    head(0, cur);
+    rows(cur);
+  }
+  if (mine > 1) head(1, nxt);
+  auto load_next = [&](int stage) {
+    load_stage_bf16<G>(smem + stage * S::kStageBytes, qp, part_elems, p, slots, cur,
+                       lkc * kBfK, d, kg, vec != 0, tid);
+    if (tid == 0) {
+      header[2 * stage] = cur.first;
+      header[2 * stage + 1] = cur.cnt;
+    }
+    if (++lkc == nk) {
+      lkc = 0;
+      if (++lj < mine) {
+        cur = nxt;
+        rows(cur);
+        if (lj + 1 < mine) head(lj + 1, nxt);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kBfStages - 1; ++s) {
+    if (s < steps) load_next(s);
+    cp_async_commit();
+  }
+
+  const uint32_t base = shared_addr(smem);
+  int step = 0;  // the arithmetic's step: (item, k-chunk) in order
+  for (int j = 0; j < mine; ++j) {
+    float acc[G / 2];
+    int out_slot[2] = {-1, -1};
+    for (int kc = 0; kc < nk; ++kc, ++step) {
+      cp_async_wait<kBfStages - 2>();
+      fence_shared_to_async();  // this thread's copies and stores, before the products read them
+      __syncthreads();          // stage `step` landed for every thread
+      const int stage = step % kBfStages;
+      if (kc == 0 && warp == 0) {  // the output slots, used after the item's last k-chunk
+        const int cnt = header[2 * stage + 1];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (g8 + 8 * r < cnt) out_slot[r] = slots[header[2 * stage] + g8 + 8 * r];
+      }
+      const uint32_t st = base + stage * S::kStageBytes;
+      wgmma_fence();
+      wgmma_bf16_parts_stage<G, (kBfPartRows * kBfRowBytes >> 4), 0>(
+          acc, wgmma_desc(st, kBfRowBytes), wgmma_desc(st + kBfABytes, kBfRowBytes), kc == 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous step's products have landed
+      __syncthreads();  // ... in every warp: its stage is free for step + 2
+      if (step + kBfStages - 1 < steps) load_next((step + kBfStages - 1) % kBfStages);
+      cp_async_commit();
+    }
+    wgmma_wait<0>();
+    wgmma_fence_regs(acc);
+    if (warp == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (out_slot[r] >= 0) {
+          float* out = cand + static_cast<long long>(out_slot[r]) * G + 2 * t;
+#pragma unroll
+          for (int c = 0; c < G / 8; ++c)
+            *reinterpret_cast<float2*>(out + 8 * c) =
+                make_float2(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
 struct Config {
   int smem;
   int blocks_per_sm;
   int sms;
 };
+
+// The kernel and dynamic shared memory of one instantiation.
+template <typename P, int G>
+const void* kernel_fn() {
+  if constexpr (std::is_same<P, __nv_bfloat16>::value)
+    return (const void*)extract_candidates_bf16<G>;
+  else
+    return (const void*)extract_candidates_kernel<P, G>;
+}
+template <typename P, int G>
+constexpr int kernel_smem() {
+  if constexpr (std::is_same<P, __nv_bfloat16>::value)
+    return BfShape<G>::kSmem;
+  else
+    return Shape<P, G>::kSmem;
+}
 
 // The launch configuration of one instantiation on the current device; the
 // shared-memory attribute is set and the occupancy read once a device.
@@ -570,9 +787,9 @@ cudaError_t config(Config* cfg) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  cfg->smem = Shape<P, G>::kSmem;
+  cfg->smem = kernel_smem<P, G>();
   if (per_sm[dev] == 0) {
-    auto fn = extract_candidates_kernel<P, G>;
+    const void* fn = kernel_fn<P, G>();
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                cfg->smem);
     if (err != cudaSuccess) return err;
@@ -595,25 +812,45 @@ struct Args {
   Workspace w;
   float* cand;
   int max_items;
+  int nq;
   int d;
   int kg;
   cudaStream_t s;
 };
 
+// The query element type a kernel takes, and the elements of a 16-byte
+// vector of the rows its vector path copies.
+template <typename P>
+struct Operands {
+  using Q = typename Tile<P>::Q;
+  static constexpr int kVec = Tile<P>::kVec;
+};
+template <>
+struct Operands<__nv_bfloat16> {
+  using Q = __nv_bfloat16;  // the query parts
+  static constexpr int kVec = 8;
+};
+
 template <typename P, int G>
 cudaError_t launch(const Args& a) {
-  using Q = typename Tile<P>::Q;
+  using Q = typename Operands<P>::Q;
+  constexpr int kVec = Operands<P>::kVec;
   Config cfg;
   cudaError_t err = config<P, G>(&cfg);
   if (err != cudaSuccess) return err;
-  const bool vec = a.d % Tile<P>::kVec == 0 &&
+  const bool vec = a.d % kVec == 0 &&
                    reinterpret_cast<uintptr_t>(a.q) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.p) % 16 == 0;
   const long long fit = static_cast<long long>(cfg.sms) * cfg.blocks_per_sm;
   const int blocks = static_cast<int>(a.max_items < fit ? a.max_items : fit);
-  extract_candidates_kernel<P, G><<<blocks, kThreads, cfg.smem, a.s>>>(
-      static_cast<const Q*>(a.q), static_cast<const P*>(a.p), a.w.slots, a.w.items,
-      a.w.n_items, a.cand, a.d, a.kg, vec ? 1 : 0);
+  if constexpr (std::is_same<P, __nv_bfloat16>::value)
+    extract_candidates_bf16<G><<<blocks, kThreads, cfg.smem, a.s>>>(
+        static_cast<const Q*>(a.q), static_cast<const P*>(a.p), a.w.slots, a.w.items,
+        a.w.n_items, a.cand, a.nq, a.d, a.kg, vec ? 1 : 0);
+  else
+    extract_candidates_kernel<P, G><<<blocks, kThreads, cfg.smem, a.s>>>(
+        static_cast<const Q*>(a.q), static_cast<const P*>(a.p), a.w.slots, a.w.items,
+        a.w.n_items, a.cand, a.d, a.kg, vec ? 1 : 0);
   return cudaGetLastError();
 }
 
@@ -664,8 +901,10 @@ extern "C" int convdr_candidate_work_list(const void* gsel, int idx_bytes, void*
                                          static_cast<cudaStream_t>(stream)));
 }
 
-// The work list, then the scores: q [nq, d], f32 for p_dtype 0 (float32)
-// and 1 (bfloat16), int8 for 2 (int8); p [n_groups * group, d]; gsel and
+// The work list, then the scores: q f32 [nq, d] for p_dtype 0 (float32),
+// the three bf16 parts [3, nq, d] of the f32 queries (ops/fused_search.py
+// bf16_query_parts) for 1 (bfloat16), int8 [nq, d] for 2 (int8);
+// p [n_groups * group, d]; gsel and
 // ws as above; cand f32 [nq, kg, group]. group in {8, 16, 32, 64, 128}.
 // Returns a cudaError_t (0 = launched).
 extern "C" int convdr_extract_candidates(const void* q, const void* p,
@@ -678,7 +917,7 @@ extern "C" int convdr_extract_candidates(const void* q, const void* p,
   if (p_dtype < 0 || p_dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
   const long long s_total = static_cast<long long>(nq) * kg;
   const Args a{q, p, carve(ws, n_groups, s_total, max_items),
-               static_cast<float*>(cand), max_items, d, kg,
+               static_cast<float*>(cand), max_items, nq, d, kg,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err = build_list_any(gsel, idx_bytes, a.w, static_cast<int>(s_total),
                                    n_groups, a.s);

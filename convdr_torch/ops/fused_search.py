@@ -14,10 +14,16 @@ search path (``exact_search._chunked_topk``). int8 passages (SQ8 storage,
 ``int8_topk_oracle``'s. On the card the kernel takes them as int8 and runs
 the product on Hopper's int8 tensor cores (``wgmma`` s8 x s8 -> s32 over a
 TMA-fed ring, a persistent grid; integer sums, so equal to the plain
-version whatever their order). f32 and bf16 passages at Q <= 32
-(the serving search is Q=1) take the kernel's small-Q path, one thread a
-passage row fed by TMA, whose scores and maxima equal the query-tile
-path's bit for bit (the same FMA chain a score).
+version whatever their order). bf16 passages take the queries as their
+three bf16 parts (:func:`bf16_query_parts`: q = q1 + q2 + q3 exactly) and
+the product runs on the bf16 tensor cores at every Q: three ``wgmma``
+products into one f32 accumulator, the counterpart of the JAX kernel's
+``Precision.HIGHEST`` on f32 x bf16 (a split-precision product of bf16
+MXU passes); the streaming passes issue the same arithmetic, so their
+outputs equal these bit for bit. f32 passages at Q <= 32 (the serving
+search is Q=1) take the kernel's small-Q path, one thread a passage row
+fed by TMA, whose scores and maxima equal the query-tile path's bit for
+bit (the same FMA chain a score).
 """
 
 from __future__ import annotations
@@ -40,6 +46,12 @@ _P_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 # elements of 16 bytes: the kernel copies rows in 16-byte chunks
 _CHUNK = {torch.float32: 4, torch.bfloat16: 8, torch.int8: 16}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# an f32's sign, exponent and 7 high significand bits: the bf16 it cuts to
+_BF16_HIGH_BITS = -65536  # 0xFFFF0000 as an int32
+# The largest Q whose bf16 kernel takes the f32 queries and splits them
+# itself (``kBfSmallQMax`` in ``csrc/scores_groupmax.cu``); above it the
+# wrapper passes :func:`bf16_query_parts`.
+BF16_SMALL_Q_MAX = 64
 
 
 def check_score_operands(
@@ -69,15 +81,34 @@ def check_score_operands(
         raise ValueError(f"{name} needs contiguous passages")
 
 
+def bf16_query_parts(queries: torch.Tensor) -> torch.Tensor:
+    """The three bf16 parts [3, Q, D] of f32 queries [Q, D]: q1 is q cut
+    to bf16 (its low 16 bits cleared), q2 the remainder cut likewise, q3
+    what is left, so that q1 + q2 + q3 == q exactly for every finite q
+    with |q| >= 2^-110 or q == 0 (8 bits of significand a part cover f32's
+    24; below that the last part's low bits fall under bf16's subnormals).
+    Each part times a bf16 passage is exact in f32: the bf16 kernels sum
+    the three products on the tensor cores. Cutting, not rounding, keeps
+    q1 finite at f32's largest values."""
+    q = queries.to(torch.float32).contiguous()
+    q1 = (q.view(torch.int32) & _BF16_HIGH_BITS).view(torch.float32)
+    rest = q - q1  # exact: the low 16 bits of q's significand
+    q2 = (rest.view(torch.int32) & _BF16_HIGH_BITS).view(torch.float32)
+    return torch.stack((q1, q2, rest - q2)).to(torch.bfloat16)
+
+
 def kernel_operands(
     queries: torch.Tensor, passages: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(q, p) as ``csrc/scores_groupmax.cu`` takes them: contiguous and
     16-byte aligned, D zero-padded to 16 bytes of the passage dtype (a
     copy of the passages only where D is not: zeros after the last k leave
-    every score's FMA chain as it was). q is f32, or int8 for int8
-    passages: the int-valued queries of ``quantize_queries``, exact in
-    [-127, 127] (other values are cut toward zero)."""
+    every score as it was). q is f32 for f32 passages, and for bf16
+    passages at Q <= :data:`BF16_SMALL_Q_MAX` (the kernel splits them);
+    the [3, Q, D] bf16 parts of :func:`bf16_query_parts` for bf16 passages
+    above it; for int8 passages int8, the int-valued queries of
+    ``quantize_queries``, exact in [-127, 127] (other values are cut
+    toward zero)."""
     d = passages.shape[1]
     if passages.dtype == torch.int8 and d > INT8_EXACT_MAX_DIM:
         raise ValueError(
@@ -88,9 +119,13 @@ def kernel_operands(
         passages = F.pad(passages, (0, pad))
     elif passages.data_ptr() % 16:
         passages = passages.clone()
-    q = F.pad(queries.to(torch.float32), (0, pad))
+    q = queries.to(torch.float32)
+    if pad:  # (a pad of 0 would copy: one more launch a search)
+        q = F.pad(q, (0, pad))
     if passages.dtype == torch.int8:
         q = q.to(torch.int8)
+    elif passages.dtype == torch.bfloat16 and q.shape[0] > BF16_SMALL_Q_MAX:
+        q = bf16_query_parts(q)
     q = q.contiguous()
     if q.data_ptr() % 16:
         q = q.clone()
@@ -120,15 +155,16 @@ def fused_scores_groupmax(
     CUDA tensors go through ``csrc/scores_groupmax.cu`` (passages f32,
     bf16 or int8, N a multiple of :data:`ROW_TILE`, ``group`` in
     :data:`GROUPS`; the kernel picks its path by Q, D and the passage
-    dtype, and any failed launch raises); CPU tensors through
-    :func:`fused_scores_groupmax_plain`. ``fused_scores_groupmax.launches``
-    counts kernel launches.
+    dtype, and any failed launch raises; bf16 scores are the three-part
+    tensor-core product, within 2 D 2^-24 sum |q_k p_k| of the exact one);
+    CPU tensors through :func:`fused_scores_groupmax_plain`.
+    ``fused_scores_groupmax.launches`` counts kernel launches.
     """
     if passages.device.type == "cpu":
         return fused_scores_groupmax_plain(queries, passages, group)
     check_score_operands("fused_scores_groupmax", queries, passages, group)
     q, p = kernel_operands(queries, passages)
-    qn, d = q.shape
+    qn, d = q.shape[-2:]  # bf16: the queries' parts [3, Q, D]
     n = p.shape[0]
     scores = torch.empty((qn, n), dtype=torch.float32, device=passages.device)
     gmax = torch.empty((qn, n // group), dtype=torch.float32, device=passages.device)

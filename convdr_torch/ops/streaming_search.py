@@ -6,16 +6,17 @@ The counterpart of the streaming half of ``convdr_tpu/ops/pallas_search.py``
   * :func:`streaming_groupmax`       -- pass A, the [Q, N/G] group maxima in
     one passage pass (the score kernel with its score store compiled out,
     ``convdr_streaming_groupmax`` in ``csrc/scores_groupmax.cu``; its
-    small-Q path too at Q <= 32 on f32 and bf16 passages);
+    small-Q path too at Q <= 32 on f32 passages);
   * :func:`extract_candidate_scores` -- pass B, the [Q, kg, G] scores of the
     selected groups only (``csrc/streaming_search.cu``);
   * :func:`streaming_flat_ip_topk`   -- group selection on the maxima, pass
     B, and the final stable top-k: the contract of
     :func:`~convdr_torch.ops.exact_search.flat_ip_topk`.
 
-Both passes compute each score as the score kernel does (f32 and bf16
-passages: one sequential f32 FMA chain over the dimension; int8: exact
-integer sums), so pass A's maxima are bit-identical to the score kernel's
+Both passes compute each score as the score kernel does (f32 passages:
+one sequential f32 FMA chain over the dimension; bf16: the three-part
+tensor-core product of the queries' bf16 parts, in one k order; int8:
+exact integer sums), so pass A's maxima are bit-identical to the score kernel's
 and pass B's scores to its scores: the group pruning is exact and the
 top-k equals :func:`flat_ip_topk`'s bit for bit on the card. On the card
 :func:`streaming_flat_ip_topk` issues no host sync. The TPU version's
@@ -38,6 +39,7 @@ from convdr_torch.ops.fused_search import (
     GROUPS,
     ROW_TILE,
     _P_DTYPE_CODES,
+    bf16_query_parts,
     check_score_operands,
     fused_scores_groupmax_plain,
     kernel_operands,
@@ -81,7 +83,7 @@ def streaming_groupmax(
         return streaming_groupmax_plain(queries, passages, group)
     check_score_operands("streaming_groupmax", queries, passages, group)
     q, p = kernel_operands(queries, passages)
-    qn, d = q.shape
+    qn, d = q.shape[-2:]  # bf16: the queries' parts [3, Q, D]
     n = p.shape[0]
     gmax = torch.empty((qn, n // group), dtype=torch.float32, device=passages.device)
     fn = cuda_build.bind("scores_groupmax", "convdr_streaming_groupmax", _GROUPMAX_ARGTYPES)
@@ -232,10 +234,13 @@ def extract_candidate_scores_unchecked(
     cand = torch.empty((qn, kg, group), dtype=torch.float32, device=passages.device)
     if cand.numel() == 0:
         return cand
-    # int8 passages take the int-valued queries as int8, as kernel 2 does
+    # int8 passages take the int-valued queries as int8, bf16 passages the
+    # queries' three bf16 parts, as kernel 2 does
     q = queries.to(torch.float32)
     if passages.dtype == torch.int8:
         q = q.to(torch.int8)
+    elif passages.dtype == torch.bfloat16:
+        q = bf16_query_parts(q)
     if not q.is_contiguous():
         q = q.contiguous()
     ids = gsel if gsel.is_contiguous() else gsel.contiguous()

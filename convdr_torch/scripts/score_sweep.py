@@ -1,16 +1,21 @@
 """Kernels 2 and 3 (``csrc/scores_groupmax.cu``) across the query count, on the card.
 
-Over one block of 524,288 seeded N(0, 1) rows of D=768, stored in f32 and
-in bf16, at Q = 1, 2, 4, 8, 16, 32 and 64: kernel 2
-(``fused_scores_groupmax``, G=32) and kernel 3 (``streaming_groupmax``,
-G=128) are called at Q and held bit for bit (``torch.equal``) to the first
-Q rows of a Q=65 batch, which takes the 128-row query tile whatever the
-small-Q limit; a mismatch raises. Each is timed on the device (the calls
-queued behind a spin kernel, so no host time is in it) beside its bound
-(the larger of the bytes over 3.35 TB/s and 2QND operations over the 67
-TFLOP/s f32 peak), one library call of the same function (``torch.matmul``
-with TF32 off on f32 operands, then ``amax``; the bf16 block cast to f32
-beforehand) and the Q=65 batch. Kernel 2 at Q=1 is also timed host-paced.
+Over one block of 524,288 seeded N(0, 1) rows of D=768, stored in f32 at Q
+= 1, 2, 4, 8, 16, 32 and 64 and in bf16 at Q = 1, 2, 4, 8, 16, 32, 64, 128,
+256 and 512: kernel 2 (``fused_scores_groupmax``, G=32) and kernel 3
+(``streaming_groupmax``, G=128) are called at Q and held bit for bit
+(``torch.equal``) to the first rows of a Q=65 batch (f32: the 128-row query
+tile, whatever the small-Q limit; bf16: the 128-query tiles of the
+three-part ``wgmma`` kernel, against its small-Q tiles up to Q=64 and its
+other tiles above); a mismatch raises. Each is timed on the device (the
+calls queued behind a spin kernel, so no host time is in it) beside its
+bound, one library call of the same function (``torch.matmul`` with TF32
+off on f32 operands, then ``amax``; the bf16 block cast to f32
+beforehand) and the Q=65 batch. The bound is the larger of the bytes over
+3.35 TB/s and the operations over the peak of the units that do them: f32
+2QND at the 67 TFLOP/s f32 peak; bf16 the three-part product's 3 x 2QND at
+the 989 TFLOP/s bf16 tensor-core peak (both printed). Kernel 2 at Q=1 is
+also timed host-paced.
 
 With int8 passages (the device SQ8 of the same rows, scales fitted on the
 first 65,536, and the int-valued queries of the same quantizer) at Q = 1,
@@ -24,7 +29,9 @@ bound (bytes, or 2QND at the 1979 TOP/s int8 peak) and one library call
 unpacked with ``git archive``), so two versions compare within one call on
 one card; ``--digests`` adds a digest of every output, and of kernels 2
 and 3 at Q=512 (f32, bf16) and with int8 passages at Q = 1, 64 and 512, so
-that the outputs of two checkouts compare bit for bit across processes:
+that the outputs of two checkouts compare bit for bit across processes,
+and the worst error of kernel 2's bf16 scores at Q=512 against the f64
+product of the same operands, as a share of sum |q_k p_k|:
 
     python -m convdr_torch.scripts.score_sweep --root parent --label parent --digests
     python -m convdr_torch.scripts.score_sweep --label change --digests
@@ -41,7 +48,9 @@ import torch
 
 N, D, GROUP, STREAM_GROUP = 524288, 768, 32, 128
 QS = (1, 2, 4, 8, 16, 32, 64)
+BF16_QS = QS + (128, 256, 512)
 TILE_Q = 65  # the smallest batch the 128-row query tile takes
+BF16_PARTS = 3  # the bf16 kernels' products: the queries' three bf16 parts
 INT8_QS = (1, 8, 32, 64, 128, 256, 512)
 INT8_MM_MIN_Q = 17  # torch._int_mm takes no fewer rows
 DIGEST_QS = (1, 64, 512)  # int8 passages, and Q=512 in f32 and bf16
@@ -80,19 +89,27 @@ def host_paced_ms(fn, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(qn, p, group, scores):
-    """The least time (ms) of one call at Q=qn over passages ``p``: each
-    input read once (int8 queries for int8 passages), each output written
-    once ([Q, N] scores if ``scores``, [Q, N/G] maxima), against 2QND
-    operations at the f32 peak (int8: the int8 tensor-core peak); and
-    which of the two bounds it."""
+def bound_parts(qn, p, group, scores):
+    """(bytes ms, operations ms) of one call at Q=qn over passages ``p``:
+    each input read once (f32 queries; int8 queries for int8 passages),
+    each output written once ([Q, N] scores if ``scores``, [Q, N/G]
+    maxima); the operations 2QND at the f32 peak (f32 passages), the
+    int8 tensor-core peak (int8), or three times that at the bf16
+    tensor-core peak (bf16: the three-part product)."""
     n, d = p.shape
     int8 = p.dtype == torch.int8
     nbytes = qn * d * (1 if int8 else 4) + p.numel() * p.element_size() + qn * (n // group) * 4
     if scores:
         nbytes += qn * n * 4
-    ops_ms = 2.0 * qn * n * d / PEAK_FLOPS[torch.int8 if int8 else torch.float32] * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops = 2.0 * qn * n * d * (BF16_PARTS if p.dtype == torch.bfloat16 else 1)
+    unit = p.dtype if p.dtype in (torch.int8, torch.bfloat16) else torch.float32
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[unit] * 1e3
+
+
+def bound_ms(qn, p, group, scores):
+    """The least time (ms) of one call (:func:`bound_parts`: the larger of
+    the two) and which of the two bounds it."""
+    bytes_ms, ops_ms = bound_parts(qn, p, group, scores)
     return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
 
 
@@ -104,65 +121,83 @@ def digest(*tensors):
     return h.hexdigest()
 
 
-def sweep(qs=QS, n=N, d=D, seed=0, digests=False, int8_qs=INT8_QS, log=print):
+def sweep(qs=QS, n=N, d=D, seed=0, digests=False, int8_qs=INT8_QS, bf16_qs=BF16_QS, log=print):
     """The readings above, as ``{dtype: {"Q<q>": row, "tile_Q65": ...},
     "int8": {"Q<q>": row}}``; with ``digests``, each row's ``digest`` and a
-    ``digests`` entry of the Q=512 and int8 outputs."""
-    from convdr_torch.ops.fused_search import fused_scores_groupmax
-    from convdr_torch.ops.streaming_search import streaming_groupmax
-
+    ``digests`` entry of the Q=512 and int8 outputs and the bf16 error."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q_all = torch.randn(TILE_Q, d, generator=gen, device="cuda")
     p32 = torch.randn(n, d, generator=gen, device="cuda")
-    out = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype)[6:]
-        p = p32.to(dtype)
-        pf = p.float()
-        s_tile, g_tile = fused_scores_groupmax(q_all, p, GROUP)
-        m_tile = streaming_groupmax(q_all, p, STREAM_GROUP)
-        rows = {"tile_Q65": {
-            "kernel2_ms": device_ms(lambda: fused_scores_groupmax(q_all, p, GROUP)),
-            "kernel3_ms": device_ms(lambda: streaming_groupmax(q_all, p, STREAM_GROUP))}}
-        for qn in qs:
-            q = q_all[:qn].contiguous()
-            s, g = fused_scores_groupmax(q, p, GROUP)
-            m = streaming_groupmax(q, p, STREAM_GROUP)
-            if not (torch.equal(s, s_tile[:qn]) and torch.equal(g, g_tile[:qn])
-                    and torch.equal(m, m_tile[:qn])):
-                raise AssertionError(f"{name} Q={qn}: kernels 2 / 3 differ from the first "
-                                     f"{qn} rows of the Q={TILE_Q} tile path")
-            k2 = lambda: fused_scores_groupmax(q, p, GROUP)  # noqa: E731
-            k3 = lambda: streaming_groupmax(q, p, STREAM_GROUP)  # noqa: E731
-            lib2 = lambda: torch.matmul(q, pf.T).view(qn, -1, GROUP).amax(-1)  # noqa: E731
-            lib3 = lambda: torch.matmul(q, pf.T).view(qn, -1, STREAM_GROUP).amax(-1)  # noqa: E731
-            b2, by2 = bound_ms(qn, p, GROUP, True)
-            b3, by3 = bound_ms(qn, p, STREAM_GROUP, False)
-            row = {"equal_to_tile_path": True,
-                   "kernel2_ms": device_ms(k2), "kernel2_bound_ms": b2,
-                   "kernel2_bound_by": by2, "kernel2_library_ms": device_ms(lib2),
-                   "kernel3_ms": device_ms(k3), "kernel3_bound_ms": b3,
-                   "kernel3_bound_by": by3, "kernel3_library_ms": device_ms(lib3)}
-            if qn == 1:
-                row["kernel2_host_paced_ms"] = host_paced_ms(k2)
-                row["kernel2_library_host_paced_ms"] = host_paced_ms(lib2)
-            if digests:
-                row["digest"] = digest(s, g, m)
-            rows[f"Q{qn}"] = row
-            log(f"  {name} Q={qn}: kernel 2 {row['kernel2_ms']:.4f} ms (bound {b2:.4f}, "
-                f"{by2}; library {row['kernel2_library_ms']:.4f}), kernel 3 "
-                f"{row['kernel3_ms']:.4f} ms (bound {b3:.4f}; library "
-                f"{row['kernel3_library_ms']:.4f}); equal to the Q={TILE_Q} tile path's rows")
-        log(f"  {name} Q={TILE_Q} (tile path): kernel 2 {rows['tile_Q65']['kernel2_ms']:.4f} ms, "
-            f"kernel 3 {rows['tile_Q65']['kernel3_ms']:.4f} ms")
-        out[name] = rows
-        del p, pf, s_tile, g_tile, m_tile
+    # bf16 from Q=65 up: more queries of the same generator after the first 65
+    q_more = torch.randn(max(bf16_qs) - TILE_Q, d, generator=gen, device="cuda")
+    out = {"float32": q_sweep(q_all, p32, qs, digests, log)}
+    out["bfloat16"] = q_sweep(torch.cat([q_all, q_more]), p32.to(torch.bfloat16), bf16_qs,
+                              digests, log)
     out["int8"] = int8_sweep(p32, seed, int8_qs, digests, log)
     if digests:
         out["digests"] = other_digests(p32, seed)
     del p32
     torch.cuda.empty_cache()
     return out
+
+
+def q_sweep(q_all, p, qs, digests, log):
+    """Kernels 2 and 3 on f32 or bf16 passages ``p`` at each Q of ``qs``
+    (the first Q rows of ``q_all``): equal to the first rows of the Q=65
+    batch (else raises), device ms beside the bound and ``matmul`` +
+    ``amax`` on the f32 cast."""
+    from convdr_torch.ops.fused_search import fused_scores_groupmax
+    from convdr_torch.ops.streaming_search import streaming_groupmax
+
+    name = str(p.dtype)[6:]
+    pf = p.float()
+    q_tile = q_all[:TILE_Q].contiguous()
+    s_tile, g_tile = fused_scores_groupmax(q_tile, p, GROUP)
+    m_tile = streaming_groupmax(q_tile, p, STREAM_GROUP)
+    rows = {"tile_Q65": {
+        "kernel2_ms": device_ms(lambda: fused_scores_groupmax(q_tile, p, GROUP)),
+        "kernel3_ms": device_ms(lambda: streaming_groupmax(q_tile, p, STREAM_GROUP))}}
+    for qn in qs:
+        q = q_all[:qn].contiguous()
+        s, g = fused_scores_groupmax(q, p, GROUP)
+        m = streaming_groupmax(q, p, STREAM_GROUP)
+        c = min(qn, TILE_Q)
+        if not (torch.equal(s[:c], s_tile[:c]) and torch.equal(g[:c], g_tile[:c])
+                and torch.equal(m[:c], m_tile[:c])):
+            raise AssertionError(f"{name} Q={qn}: kernels 2 / 3 differ from the first "
+                                 f"{c} rows of the Q={TILE_Q} batch")
+        k2 = lambda: fused_scores_groupmax(q, p, GROUP)  # noqa: E731
+        k3 = lambda: streaming_groupmax(q, p, STREAM_GROUP)  # noqa: E731
+        lib2 = lambda: torch.matmul(q, pf.T).view(qn, -1, GROUP).amax(-1)  # noqa: E731
+        lib3 = lambda: torch.matmul(q, pf.T).view(qn, -1, STREAM_GROUP).amax(-1)  # noqa: E731
+        b2, by2 = bound_ms(qn, p, GROUP, True)
+        b3, by3 = bound_ms(qn, p, STREAM_GROUP, False)
+        bytes2, ops2 = bound_parts(qn, p, GROUP, True)
+        bytes3, ops3 = bound_parts(qn, p, STREAM_GROUP, False)
+        row = {"equal_to_tile_batch": True,
+               "kernel2_ms": device_ms(k2), "kernel2_bound_ms": b2,
+               "kernel2_bound_by": by2, "kernel2_bytes_ms": bytes2, "kernel2_operations_ms": ops2,
+               "kernel2_library_ms": device_ms(lib2),
+               "kernel3_ms": device_ms(k3), "kernel3_bound_ms": b3,
+               "kernel3_bound_by": by3, "kernel3_bytes_ms": bytes3, "kernel3_operations_ms": ops3,
+               "kernel3_library_ms": device_ms(lib3)}
+        if qn == 1:
+            row["kernel2_host_paced_ms"] = host_paced_ms(k2)
+            row["kernel2_library_host_paced_ms"] = host_paced_ms(lib2)
+        if digests:
+            row["digest"] = digest(s, g, m)
+        rows[f"Q{qn}"] = row
+        log(f"  {name} Q={qn}: kernel 2 {row['kernel2_ms']:.4f} ms (bound {b2:.4f}, {by2}: "
+            f"bytes {bytes2:.4f}, operations {ops2:.4f}; library "
+            f"{row['kernel2_library_ms']:.4f}), kernel 3 {row['kernel3_ms']:.4f} ms (bound "
+            f"{b3:.4f}, {by3}; library {row['kernel3_library_ms']:.4f}); equal to the "
+            f"Q={TILE_Q} batch's rows")
+        del s, g, m
+    log(f"  {name} Q={TILE_Q}: kernel 2 {rows['tile_Q65']['kernel2_ms']:.4f} ms, "
+        f"kernel 3 {rows['tile_Q65']['kernel3_ms']:.4f} ms")
+    del pf, s_tile, g_tile, m_tile
+    torch.cuda.empty_cache()
+    return rows
 
 
 def int8_operands(p32, q32):
@@ -224,7 +259,10 @@ def int8_sweep(p32, seed, qs, digests, log):
 def other_digests(p32, seed):
     """Digests of kernels 2 and 3 at Q=512 (f32, bf16) and with int8
     passages (the device SQ8 of the rows, scales fitted on the first 65536,
-    and the int-valued queries of the same quantizer) at Q = 1, 64, 512."""
+    and the int-valued queries of the same quantizer) at Q = 1, 64, 512;
+    and ``bfloat16_worst_share``: the largest |s - s64| / sum_k |q_k p_k|
+    of kernel 2's bf16 scores at Q=512 against the f64 product of the same
+    f32 queries and bf16 passages."""
     from convdr_torch.ops.fused_search import fused_scores_groupmax
     from convdr_torch.ops.streaming_search import streaming_groupmax
 
@@ -238,8 +276,25 @@ def other_digests(p32, seed):
         for qn in qs:
             s, g = fused_scores_groupmax(q[:qn], p, GROUP)
             out[f"{name}_Q{qn}"] = digest(s, g, streaming_groupmax(q[:qn], p, STREAM_GROUP))
+            if name == "bfloat16":
+                out["bfloat16_worst_share"] = worst_share(s, q[:qn], p)
             del s, g
     return out
+
+
+def worst_share(s, q, p, chunk=64):
+    """max |s - q p^T| / (|q| |p|^T) over every score, the product in f64
+    (queries ``chunk`` at a time)."""
+    pd = p.double()
+    worst = 0.0
+    for lo in range(0, q.shape[0], chunk):
+        qd = q[lo:lo + chunk].double()
+        err = (s[lo:lo + chunk].double() - qd @ pd.T).abs() / (qd.abs() @ pd.abs().T)
+        worst = max(worst, err.max().item())
+        del qd, err
+    del pd
+    torch.cuda.empty_cache()
+    return worst
 
 
 def main(argv=None):

@@ -10,15 +10,19 @@ the card does not have; this file imports nothing of JAX.)
 Tolerances: attention f32 1e-5 absolute (same softmax, another summation
 order), bf16 one bf16 ulp (2^-7 relative; both versions round one f32
 result); scores 1e-5 * |q| * max|p| (f32 dot products of another order);
+bf16 scores within 2 D 2^-24 sum |q_k p_k| of the f64 product of the same
+operands (see ``bf16_score_bound``);
 the attention backward 1e-5 * max|ref| per gradient (f32 sums of up to T
 terms in another order, P recomputed from the forward's log-sum-exp); in
 bf16, within 2x the error of autograd through masked SDPA in bf16 (floor
 1e-3 of scale) from the f64 plain backward, and the bf16 forward's lse
 within 1e-5 relative of a torch.logsumexp.
-Equal, not close: the streaming passes against the score kernel (the same
-f32 FMA chain per score; int8: exact integer sums, on the tensor cores in
-the score kernel), the score kernel's small-Q path against its query-tile
-path (the first Q rows of a Q=65 batch: the same chain), the attention
+Equal, not close: the streaming passes against the score kernel (f32: the
+same FMA chain per score; bf16: the same three-part tensor-core product in
+one k order, whose bits the wgmma probe shows depend on nothing else;
+int8: exact integer sums, on the tensor cores in the score kernel), the
+score kernel's small-Q path against its query-tile path (the first Q rows
+of a Q=65 batch: the same chain, or the same product), the attention
 forward's small-grid path against its 64-row tile (out and lse of the same
 problem repeated to a batch that takes the tile; the same chains), int8
 scores against the plain version (exact integer
@@ -56,6 +60,7 @@ from convdr_torch.models.attention import (
 from convdr_torch.ops import cuda_build
 from convdr_torch.ops import exact_search as es
 from convdr_torch.ops.fused_search import (
+    bf16_query_parts,
     fused_flat_ip_topk,
     fused_scores_groupmax,
     fused_scores_groupmax_plain,
@@ -328,7 +333,7 @@ def test_scores_groupmax_kernel_rejects_bad_shapes(cuda):
 def score_config(p_dtype, qn, d):
     """``convdr_scores_groupmax_config`` for (passage dtype code, Q, D):
     threads, shared bytes, query rows a block, blocks an SM, path (0 the
-    FMA tile, 1 small-Q, 2 int8), persistent blocks an SM."""
+    f32 FMA tile, 1 f32 small-Q, 2 int8, 3 bf16), persistent blocks an SM."""
     fn = cuda_build.bind("scores_groupmax", "convdr_scores_groupmax_config",
                          [ctypes.c_int] * 3 + [ctypes.c_void_p])
     out = (ctypes.c_int * 6)()
@@ -338,7 +343,7 @@ def score_config(p_dtype, qn, d):
 
 def score_path(p_dtype, qn, d):
     """The path ``convdr_scores_groupmax_config`` reports for (passage
-    dtype code, Q, D): 0 the FMA tile, 1 small-Q, 2 int8."""
+    dtype code, Q, D): 0 the f32 FMA tile, 1 f32 small-Q, 2 int8, 3 bf16."""
     return score_config(p_dtype, qn, d)[4]
 
 
@@ -385,8 +390,145 @@ def test_int8_score_kernel_ptxas_shows_no_spills(cuda):
                 if "Performance Loss" in line and "scores_groupmax_s8" in line], report
 
 
+@pytest.mark.parametrize("qn", [1, 8, 9, 16, 17, 32, 33, 64, 65, 512])
+@pytest.mark.parametrize("d", [16, 768, 1040])
+def test_bf16_score_config_reports_the_wgmma_kernel(cuda, qn, d):
+    """bf16 passages take the three-part wgmma kernel (path 3) at every Q
+    and D: a producer warp and two consumer warpgroups (288 threads), one
+    block an SM, a persistent grid; 128 query rows a block past Q=64, and
+    Q rounded up to 8, 16, 32 or 64 up to it (the passages as A); the
+    shared memory within a block's limit."""
+    threads, smem, rows, per_sm, path, persistent = score_config(1, qn, d)
+    props = torch.cuda.get_device_properties(0)
+    want_rows = 128 if qn > 64 else next(b for b in (8, 16, 32, 64) if qn <= b)
+    assert (path, threads, rows, per_sm, persistent) == (3, 288, want_rows, 1, 1)
+    assert smem <= getattr(props, "shared_memory_per_block_optin",
+                           props.shared_memory_per_multiprocessor - 1024)
+
+
+def test_bf16_score_kernels_ptxas_show_no_spills(cuda):
+    """ptxas's report of the bf16 kernels (kernels 2 and 3 at both tile
+    kinds, kernel 4 at every G): registers within the cap of one 288-thread
+    block an SM (168) for kernels 2 and 3, no spill stores or loads, no
+    stack, and no serialized or waited-on wgmma pipeline (C7510, C7511,
+    C7514, C7515, C7517, C7518)."""
+    cuda_build.build(["scores_groupmax", "streaming_search"])
+    for name, marks, count in (("scores_groupmax", ("scores_groupmax_bf16",), 10),
+                               ("streaming_search", ("extract_candidates_bf16",), 5)):
+        report = cuda_build.ptxas_report(name)
+        entries, entry = {}, None
+        for line in report:
+            if "Compiling entry function" in line:
+                entry = line if any(m in line for m in marks) else None
+                if entry:
+                    entries[entry] = []
+            elif entry:
+                entries[entry].append(line)
+        assert len(entries) == count, report
+        for entry_name, lines in entries.items():
+            text = "\n".join(lines)
+            assert "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads" in text, (
+                entry_name, text)
+            regs = [int(w) for line in lines if "registers" in line
+                    for w, nxt in zip(line.split(), line.split()[1:]) if nxt == "registers,"]
+            assert regs and regs[0] <= 168, (entry_name, text)
+        assert not [line for line in report if any(m in line for m in marks)
+                    and any(f"(C75{c})" in line for c in ("10", "11", "14", "15", "17", "18"))], report
+
+
+def wgmma_probe(a, b, n_inst, blocks=1, a_shift=0, b_shift=0, swap=0):
+    """``convdr_wgmma_bf16_probe``: [blocks, 64, n_inst] f32 accumulators of
+    the three-part product of a [3, 64, D] (A's rows) and b [3, 256, D]
+    (B's rows), A row i at tile row (i + a_shift) % 64, B row r at (r +
+    b_shift) % n_inst; swap 1 takes a[0] as A and b's parts as B."""
+    fn = cuda_build.bind("scores_groupmax", "convdr_wgmma_bf16_probe",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    out = torch.empty((blocks, 64, n_inst), dtype=torch.float32, device=a.device)
+    rc = cuda_build.launch(fn, a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), blocks,
+                           n_inst, a.shape[-1], a_shift, b_shift, swap)
+    assert rc == 0, rc
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("d", [64, 768])
+def test_wgmma_bf16_bits_depend_only_on_rows_and_k_order(cuda, d):
+    """The property the bf16 kernels' bit-equalities rest on: an output of
+    the three-part bf16 wgmma product (k-steps in order, parts 1, 2, 3 in
+    each) depends on its A row, its B row and that order only. The same
+    operands give the same bits at every instruction N (8..256), with the
+    A row at any place in the 64-row tile, the B row at any place in the
+    N-row tile, in every block, and with the roles swapped (passages as A,
+    the query parts as B, as the small-Q tiles take them). Queries span
+    2^-12..2^12 in scale, so that the products' alignment in the sums
+    varies from row to row."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    scale = torch.exp2(torch.randint(-12, 12, (256, d), generator=gen, device="cuda").float())
+    q = torch.randn(256, d, generator=gen, device="cuda") * scale
+    parts = bf16_query_parts(q)  # [3, 256, d]
+    p = (torch.randn(256, d, generator=gen, device="cuda") * scale.flip(0)).bfloat16()
+    a = parts[:, :64].contiguous()
+    b = torch.zeros(3, 256, d, dtype=torch.bfloat16, device="cuda")
+    b[0] = p
+    ref = wgmma_probe(a, b, 256, blocks=4)
+    assert all(torch.equal(ref[0], ref[i]) for i in range(1, 4))
+    for n_inst in (8, 16, 32, 64, 128):
+        assert torch.equal(wgmma_probe(a, b, n_inst)[0], ref[0, :, :n_inst]), n_inst
+    rows = torch.arange(64, device="cuda")
+    for shift in (1, 8, 17, 63):
+        assert torch.equal(wgmma_probe(a, b, 256, a_shift=shift)[0][(rows + shift) % 64],
+                           ref[0]), shift
+    for n_inst, shift in ((256, 1), (256, 100), (64, 9), (8, 3)):
+        cols = (torch.arange(n_inst, device="cuda") + shift) % n_inst
+        got = wgmma_probe(a, b, n_inst, b_shift=shift)[0]
+        assert torch.equal(got[:, cols], ref[0, :, :n_inst]), (n_inst, shift)
+    a2 = torch.zeros(3, 64, d, dtype=torch.bfloat16, device="cuda")
+    a2[0] = p[:64]
+    b2 = torch.zeros(3, 256, d, dtype=torch.bfloat16, device="cuda")
+    b2[:, :64] = a
+    for n_inst in (8, 64):
+        got = wgmma_probe(a2, b2, n_inst, swap=1)[0]  # [passage, query]
+        assert torch.equal(got.T, ref[0, :n_inst, :64]), n_inst
+    exact = q[:64].double() @ p.double().T
+    assert bool(((ref[0] - exact).abs() <= bf16_score_bound(q[:64], p)).all())
+
+
+def bf16_score_bound(q, p):
+    """2 D 2^-24 sum_k |q_k p_k| for every (query, passage): the classical
+    bound of an f32 sum of D terms (D 2^-24 of the sum of magnitudes, the
+    terms exact: each bf16 part of q times a bf16 p is), doubled because a
+    tensor core may truncate where an FMA rounds to nearest (a truncated
+    sum loses up to one ulp a step, a rounded one half)."""
+    d = q.shape[1]
+    return 2 * d * 2.0 ** -24 * (q.double().abs() @ p.double().abs().T)
+
+
+@pytest.mark.parametrize("qn", [1, 17, 65, 512])
+@pytest.mark.parametrize("d", [8, 100, 768, 1040])
+def test_bf16_scores_within_the_f64_bound(cuda, qn, d):
+    """Kernels 2, 3 and 4 on bf16 passages against the f64 product of the
+    same f32 queries and bf16 passages: every score within
+    ``bf16_score_bound``; pass A's maxima and pass B's candidates (every
+    group) equal kernel 2's."""
+    n, group = 4224, 32
+    q, p = search_problem(qn, n, d, torch.bfloat16, seed=11)
+    s, g = fused_scores_groupmax(q, p, group)
+    m = streaming_groupmax(q, p, group)
+    gsel = torch.arange(n // group, device="cuda").expand(qn, -1).contiguous()
+    cand = extract_candidate_scores(q, p, gsel, group)
+    torch.cuda.synchronize()
+    exact = q.double() @ p.double().T
+    assert bool(((s.double() - exact).abs() <= bf16_score_bound(q, p)).all())
+    assert torch.equal(m, g) and torch.equal(cand.reshape(qn, n), s)
+
+
 def small_q_max(p_dtype, d=768):
-    """Q*: the largest Q the small-Q path takes at this D."""
+    """Q*: the largest Q the small-Q path takes at this D (f32: path 1;
+    bf16: path 3's small-Q tiles, the passages as A, which report the
+    queries rounded up to 8-64 as a block's rows, against the 128 of the
+    query tiles)."""
+    if p_dtype == 1:
+        return max(qn for qn in range(1, 129) if score_config(1, qn, d)[2] < 128)
     return max(qn for qn in range(1, 65) if score_path(p_dtype, qn, d) == 1)
 
 
@@ -395,23 +537,27 @@ def small_q_max(p_dtype, d=768):
 @pytest.mark.parametrize("d", [100, 768, 1040])
 @pytest.mark.parametrize("n", [384, 4224])
 def test_small_q_path_equals_tile_path(cuda, dtype, group, d, n):
-    """Kernels 2 and 3 at Q in {1, 2, 3, 8, Q*-1, Q*} (the small-Q path:
-    one thread a passage row, TMA ring) equal the first Q rows of a Q=65
-    batch (the 128-query tile) bit for bit: the direct proof that the new
-    path keeps each score's FMA chain order."""
+    """Kernels 2 and 3 at Q in {1, 2, 3, 8, Q*-1, Q*} (f32: the small-Q
+    path, one thread a passage row over a TMA ring; bf16: the small-Q
+    tiles, the passages as wgmma's A, at each query bucket's edges too)
+    equal the first Q rows of a Q=65 batch (the 128-query tile) bit for
+    bit: the direct proof that the small-Q path keeps each score's FMA
+    chain order (f32) or three-part product (bf16)."""
     code = 0 if dtype == torch.float32 else 1
+    small, tile = (1, 0) if code == 0 else (3, 3)  # the paths' codes
     top = small_q_max(code)
     q, p = search_problem(65, n, d, dtype, seed=5)
-    assert score_path(code, 65, d) == 0
+    assert score_path(code, 65, d) == tile
     s_tile, g_tile = fused_scores_groupmax(q, p, group)
     m_tile = streaming_groupmax(q, p, group)
-    for qn in sorted({1, 2, 3, 8, top - 1, top}):
-        assert score_path(code, qn, d) == 1
+    buckets = {9, 16, 17, 32, 33} if code == 1 else set()
+    for qn in sorted({1, 2, 3, 8, top - 1, top} | buckets):
+        assert score_path(code, qn, d) == small
         s, g = fused_scores_groupmax(q[:qn], p, group)
         torch.cuda.synchronize()
         assert torch.equal(s, s_tile[:qn]) and torch.equal(g, g_tile[:qn]), qn
         assert torch.equal(streaming_groupmax(q[:qn], p, group), m_tile[:qn]), qn
-    assert score_path(code, top + 1, d) == 0  # past Q*: the tile path
+    assert score_path(code, top + 1, d) == tile  # past Q*: the tile path
     assert score_path(2, 1, d) == 2  # int8 takes its wgmma kernel at every Q
 
 
@@ -439,7 +585,8 @@ def test_score_kernels_take_unaligned_operands(cuda, dtype, qn):
 def test_pass_b_over_every_group_equals_score_kernel(cuda, dtype, group, qn, n, d):
     """Pass B given every group of the block scores every (query, row):
     equal to kernel 2's whole score matrix, the direct proof that both keep
-    one FMA chain order (f32, bf16) or exact integer sums (int8)."""
+    one FMA chain order (f32), one three-part product order (bf16) or exact
+    integer sums (int8)."""
     q, p = search_problem(qn, n, d, dtype, seed=3)
     scores, gmax = fused_scores_groupmax(q, p, group)
     gsel = torch.arange(n // group, device="cuda").expand(qn, -1).contiguous()
