@@ -153,13 +153,13 @@ P. (after F) ``--matmul_precision`` over phase 3's rows and queries:
    device ms of a replay, of the encode and of the search; every replay
    equal bit for bit to the eager program. Kernel 1 at B=1 T=256 f32 and
    kernel 2 at Q=1 (f32, bf16, int8) against their plain versions, bounds
-   and library calls; at Q=1 f32 takes the small-Q path and bf16 the
-   three-part wgmma kernel's small-Q tiles, each held bit for bit to the
-   128-row query tile's first row. The Q sweep of kernels 2 and 3
-   (``convdr_torch/scripts/score_sweep.py``: Q = 1..64 f32 and 1..512 bf16,
+   and library calls; at Q=1 f32 and bf16 take the six- and three-part
+   wgmma kernels' small-Q tiles, each held bit for bit to the 128-row query
+   tile's first row. The Q sweep of kernels 2 and 3
+   (``convdr_torch/scripts/score_sweep.py``: Q = 1..512 f32 and bf16,
    one 524288-row block; each reading ``torch.equal`` to the first rows of a
-   Q=65 batch on the query tiles, on the device beside its bound (bf16: the
-   bytes and the three-part operations at the bf16 peak) and ``matmul`` +
+   Q=65 batch on the query tiles, on the device beside its bound (the
+   bytes and the six- or three-part operations at the bf16 peak) and ``matmul`` +
    ``amax``; int8 passages at Q = 1..512 on the ``wgmma`` kernel,
    ``torch.equal`` to the plain version, beside the bound and
    ``_int_mm`` + ``.float()`` + ``amax``) with each Q's launch
@@ -585,20 +585,20 @@ def attention_bwd_configs():
     return configs
 
 
-SCORE_PATHS = ("f32 FMA tile", "f32 small-Q TMA", "int8 wgmma", "bf16 three-part wgmma")
+SCORE_PATHS = {0: "f32 six-part wgmma", 2: "int8 wgmma", 3: "bf16 three-part wgmma"}
 
 
 def score_kernel_configs():
     """The score kernel's launch configuration per passage dtype and query
     count at D=768 (threads, dynamic shared memory, query rows a block,
-    resident blocks an SM, the path, the blocks an SM of the small-Q path's
-    persistent grid), as ``convdr_scores_groupmax_config`` reports it, at
-    Q=512, 64 and every Q of the small-Q sweep."""
+    resident blocks an SM, the path, the blocks an SM of the persistent
+    grid), as ``convdr_scores_groupmax_config`` reports it, at Q=512, 64
+    and every Q of the sweep."""
     fn = cuda_build.bind("scores_groupmax", "convdr_scores_groupmax_config",
                          [ctypes.c_int] * 3 + [ctypes.c_void_p])
     configs = {}
     for code, dtype in enumerate(STORAGE):
-        for qn in sorted({SEARCH_Q, SMALL_Q, *score_sweep.QS}):
+        for qn in sorted({SEARCH_Q, SMALL_Q, *score_sweep.QS, *score_sweep.BF16_QS}):
             out = (ctypes.c_int * 6)()
             rc = fn(code, qn, SEARCH_D, ctypes.addressof(out))
             if rc != 0:
@@ -862,12 +862,14 @@ def top_sets_agree(s_a, s_b, qnorm, pnorm_max, k=TOP_N):
 
 
 def kernel_bound(flops, nbytes, dtype=torch.float32):
-    """The least time (ms) for ``flops`` operations at the peak of
-    ``dtype``'s units (f32: the CUDA cores; int8: the tensor cores; bf16
-    passages: the three-part product's three times ``flops`` at the bf16
-    tensor-core peak) and ``nbytes`` moved, and which of the two bounds it."""
-    if dtype == torch.bfloat16:
-        flops *= score_sweep.BF16_PARTS
+    """The least time (ms) of a score kernel (kernels 2-5) for ``flops``
+    operations on ``dtype`` passages (int8: at the int8 tensor-core peak;
+    f32 and bf16: the six- and three-part products' six and three times
+    ``flops`` at the bf16 tensor-core peak) and ``nbytes`` moved, and which
+    of the two bounds it."""
+    if dtype in score_sweep.PRODUCT_PARTS:
+        flops *= score_sweep.PRODUCT_PARTS[dtype]
+        dtype = torch.bfloat16
     ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
@@ -891,9 +893,9 @@ def dtype_name(dtype):
 
 def check_and_time_search(q32, p32):
     """Kernel 2 vs plain at Q=512 N=524288 D=768 G=32. f32 and bf16: scores
-    within 1e-5*|q|*max|p|, top-100 sets equal up to near-ties; bf16 also
-    within 2 D 2^-24 sum |q_k p_k| of the f64 product of the same operands;
-    int8: equal (integer-exact in both)."""
+    within 1e-5*|q|*max|p|, top-100 sets equal up to near-ties, and within
+    2 D 2^-24 sum |q_k p_k| of the f64 product of the same operands (the
+    six- and three-part products); int8: equal (integer-exact in both)."""
     entry = None
     for dtype in STORAGE:
         q, p = search_operands(q32, p32, dtype)
@@ -910,11 +912,11 @@ def check_and_time_search(q32, p32):
         if not bool((err <= tol).all()):
             raise AssertionError(f"fused scores disagree ({dtype}): {err.max().item()}")
         share = None
-        if dtype == torch.bfloat16:  # the three-part product against f64
+        if dtype != torch.int8:  # the six- and three-part products against f64
             share = score_sweep.worst_share(s, q, p)
             if share > 2 * SEARCH_D * 2.0 ** -24:
-                raise AssertionError(f"bf16 scores beyond 2 D 2^-24 sum |q p| of the f64 "
-                                     f"product: {share}")
+                raise AssertionError(f"{dtype_name(dtype)} scores beyond 2 D 2^-24 sum |q p| "
+                                     f"of the f64 product: {share}")
         if not torch.equal(g, s.view(SEARCH_Q, -1, GROUP).amax(-1)):
             raise AssertionError("group maxima are not the max of each group")
         exact_rows = top_sets_agree(s, s_ref, qnorm, pnorm_max)
@@ -1377,11 +1379,32 @@ def reference_check(work, processed, raw, emb_dir, trec):
         args, args.model_path, args.eval_file, torch.float32, torch.device("cuda")
     )
     rows, offs = load_rows(emb_dir)
-    exact = run_matches_exact(parse_trec_run(trec), qids, torch.from_numpy(q_embs).cuda(),
-                              rows, offs + 1000)
+    q = torch.from_numpy(q_embs).cuda()
+    exact = run_matches_exact(parse_trec_run(trec), qids, q, rows, offs + 1000)
     log(f"  run vs exact plain search: top-{TOP_N} sets equal for {exact}/{len(qids)} "
         "queries, near-ties at the cut otherwise")
+    check_model_rows_f32(q, rows[:N_PASSAGES])
     return qids, q_embs
+
+
+def check_model_rows_f32(q, rows):
+    """Kernel 2 on the model-embedded f32 rows of the inference cell (block
+    0) with its encoded queries: long one-signed sums, the six-part
+    product's hardest case. Every score within 2 D 2^-24 sum |q_k p_k| of
+    the f64 product of the same operands and within 1e-5*|q|*max|p| of the
+    plain f32 matmul; prints the worst error as a share of sum |q p| and of
+    that tolerance."""
+    s, _g = fused_scores_groupmax(q, rows, GROUP)
+    s_ref, _g_ref = fused_scores_groupmax_plain(q, rows, GROUP)
+    tol = 1e-5 * q.norm(dim=1)[:, None] * rows.norm(dim=1).max()
+    tol_share = ((s - s_ref).abs() / tol).max().item()
+    share = score_sweep.worst_share(s, q, rows)
+    log(f"  kernel 2 (f32, six-part) on the {len(rows)} model-embedded rows: worst "
+        f"{share:.3e} of sum |q p| from the f64 product ({share / (2 * SEARCH_D * 2.0 ** -24):.3f}"
+        f" of its bound), {tol_share:.3f} of 1e-5*|q|*max|p| from the plain f32 matmul")
+    if share > 2 * SEARCH_D * 2.0 ** -24 or tol_share > 1.0:
+        raise AssertionError(f"f32 scores on the model-embedded rows: {share} of sum |q p|, "
+                             f"{tol_share} of the f32 tolerance")
 
 
 def bf16_score_tol(q, rows):
@@ -3319,9 +3342,9 @@ def serving_kernel_times(tokenizer, histories):
     """Kernel 1 at the serving encode's shape (B=1, T=256, f32, the mask of
     a served history); kernel 2 at Q=1 over the flat search's full block
     (524288 rows) and its short last one (``SERVE_SHORT``) with f32, bf16
-    and int8 passages (f32: the small-Q path; bf16: the three-part wgmma
-    kernel's small-Q tiles; both held bit for bit to the first row of a
-    Q=65 batch on the query tiles); kernel 5 at Q=1 on each of those score blocks and
+    and int8 passages (f32 and bf16: the six- and three-part wgmma
+    kernels' small-Q tiles, held bit for bit to the first row of a Q=65
+    batch on the query tiles); kernel 5 at Q=1 on each of those score blocks and
     the groups their maxima pick. Each against its plain version (attention
     within 1e-5; f32/bf16 scores within 1e-5*|q|*max|p|, int8 scores and
     every gather equal). Timed at the full block, host-paced and on the
@@ -3366,11 +3389,11 @@ def serving_kernel_times(tokenizer, histories):
         for n in (SERVE_SHORT, SEARCH_N):
             s, g = fused_scores_groupmax(qd, p[:n], GROUP)
             s_ref, g_ref = fused_scores_groupmax_plain(qd, p[:n], GROUP)
-            if dtype != torch.int8:  # the small-Q path (tiles) against the query tile's
+            if dtype != torch.int8:  # the small-Q tiles against the query tile's
                 s_t, g_t = fused_scores_groupmax(torch.cat([qd, q_rest]), p[:n], GROUP)
                 if not (torch.equal(s, s_t[:1]) and torch.equal(g, g_t[:1])):
                     raise AssertionError(f"kernel 2 at Q=1 N={n} ({dtype}) differs from the "
-                                         f"tile path's first row")
+                                         f"query tiles' first row")
                 del s_t, g_t
             diff = max(diff, (s - s_ref).abs().max().item())
             tol = 1e-5 * qd.norm().item() * p[:n].float().norm(dim=1).max().item()
@@ -3435,7 +3458,7 @@ def serve_driver_vs_batch(paths, storage):
     """``serve_online.main`` over the main path's 512 evaluation turns
     against ``run_convdr_inference --per_gpu_eval_batch_size 1`` over the
     same f32 blocks (the same encode shape, so the same embedding bits, and
-    one f32 FMA chain a score whatever the query tile): the two TREC runs
+    the same six-part product a score whatever the query tile): the two TREC runs
     rank for rank, and their metrics equal."""
     processed, raw, emb_dir = paths["processed"], paths["raw"], paths["emb_dir"]
     trec = os.path.join(WORK, f"serve_{storage}.trec")
@@ -3505,8 +3528,8 @@ def serving_path(paths):
                                  f"{b['launches']}")
     tokenizer = load_tokenizer_for(get_model_config("rdot_nll"), None)  # the served one
     attn, scores, gather = serving_kernel_times(tokenizer, histories)
-    log("kernels 2 and 3 across Q (f32: small-Q path up to Q*, then the tile path; bf16: the "
-        "three-part wgmma kernel's small-Q tiles up to Q=64, then its query tiles; one 524288-row "
+    log("kernels 2 and 3 across Q (f32 and bf16: the six- and three-part wgmma kernels' "
+        "small-Q tiles up to Q=64, then their query tiles; one 524288-row "
         "block, D=768, device ms):")
     q_sweep = score_sweep.sweep(log=log)
     log("kernel 1's f32 forward on its two paths (small grid up to the tile grid's "

@@ -19,6 +19,7 @@
 #include <cstdint>
 #include <cuda.h>
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 
 namespace {
 
@@ -481,6 +482,201 @@ __device__ __forceinline__ void wgmma_bf16_parts_stage(float (&d)[N / 2], uint64
   wgmma_ss_at<N, kAOff + 2 * kAStep + 6, 2 * kBStep + 6>(d, desc_a, desc_b, 1);
 }
 
+// The six-part bf16 product of f32 queries and f32 passages, one stage of
+// 32 k (a 64-byte swizzled row of bf16 parts): q = q1 + q2 + q3 and p =
+// p1 + p2 + p3 exactly (bf16_split2), and of the nine products q_i p_j,
+// each exact in f32, the six above 2^-20 of |q p|: (1,1), (1,2), (2,1),
+// (1,3), (2,2), (3,1), issued in that order each k-step (the counterpart
+// of the MXU's Precision.HIGHEST on f32 x f32). (1,1) goes into `big`
+// and the five small ones into `small`, so that the large running sum
+// takes one truncating tensor-core add a k-step and not six (one
+// accumulator broke the 1e-5 |q| max|p| f32 tolerance on long one-signed
+// sums on an H100); the caller adds the two, rounded to nearest, at the
+// end. The passages' parts are A (part j at desc_a + j kPStep, 16-byte
+// units) and the queries' parts B (part i at desc_b + i kQStep); k-steps
+// kk = 0, 1 at +2 kk in both. Kernels 2, 3 and 4 on f32 passages all
+// issue this order into these two sums (wgmma_f32_parts_rs_kstep with A
+// from registers), so their outputs agree bit for bit. `first`: the stage
+// is a score's first (the first product of each sum overwrites it).
+template <int N, int kQStep, int kPStep, int kK>
+__device__ __forceinline__ void wgmma_f32_parts_kstep(float (&big)[N / 2], float (&small)[N / 2],
+                                                      uint64_t desc_a, uint64_t desc_b, int acc) {
+  wgmma_ss_at<N, kK, kK>(big, desc_a, desc_b, acc);                                // (1,1)
+  wgmma_ss_at<N, kPStep + kK, kK>(small, desc_a, desc_b, acc);                     // (1,2)
+  wgmma_ss_at<N, kK, kQStep + kK>(small, desc_a, desc_b, 1);                       // (2,1)
+  wgmma_ss_at<N, 2 * kPStep + kK, kK>(small, desc_a, desc_b, 1);                   // (1,3)
+  wgmma_ss_at<N, kPStep + kK, kQStep + kK>(small, desc_a, desc_b, 1);              // (2,2)
+  wgmma_ss_at<N, kK, 2 * kQStep + kK>(small, desc_a, desc_b, 1);                   // (3,1)
+}
+
+template <int N, int kQStep, int kPStep>
+__device__ __forceinline__ void wgmma_f32_parts_stage(float (&big)[N / 2], float (&small)[N / 2],
+                                                      uint64_t desc_a, uint64_t desc_b,
+                                                      bool first) {
+  wgmma_f32_parts_kstep<N, kQStep, kPStep, 0>(big, small, desc_a, desc_b, first ? 0 : 1);
+  wgmma_f32_parts_kstep<N, kQStep, kPStep, 2>(big, small, desc_a, desc_b, 1);
+}
+
+// The three bf16 parts of two f32 values a and b, each part's pair packed
+// as a bf16x2 word (a in the low half): the arithmetic of
+// ops/fused_search.py bf16_query_parts (cut to the top 16 bits, the exact
+// remainder cut again, what is left rounded to nearest even, which is
+// exact but under bf16's subnormals), so its parts bit for bit.
+__device__ __forceinline__ void bf16_split2(float a, float b, uint32_t (&w)[3]) {
+  const float a1 = __uint_as_float(__float_as_uint(a) & 0xffff0000u);
+  const float b1 = __uint_as_float(__float_as_uint(b) & 0xffff0000u);
+  const float ar = __fsub_rn(a, a1), br = __fsub_rn(b, b1);  // exact
+  const float a2 = __uint_as_float(__float_as_uint(ar) & 0xffff0000u);
+  const float b2 = __uint_as_float(__float_as_uint(br) & 0xffff0000u);
+  w[0] = (__float_as_uint(a1) >> 16) | (__float_as_uint(b1) & 0xffff0000u);
+  w[1] = (__float_as_uint(a2) >> 16) | (__float_as_uint(b2) & 0xffff0000u);
+  const __nv_bfloat162 p3 = __floats2bfloat162_rn(__fsub_rn(ar, a2), __fsub_rn(br, b2));
+  w[2] = *reinterpret_cast<const uint32_t*>(&p3);
+}
+
+// Splits 16-byte chunk c (4 k) of row `box_row` of an f32 box of 128-byte
+// rows (32 f32, laid out by TMA's 128-byte swizzle) into row `row` of
+// three bf16 part tiles of 64-byte rows (the 64-byte swizzle's layout,
+// part j at parts + j kPartBytes): the passages' parts of a six-part stage.
+template <int kPartBytes>
+__device__ __forceinline__ void split_f32_chunk(const unsigned char* box, int box_row,
+                                                unsigned char* parts, int row, int c) {
+  const float4 v =
+      *reinterpret_cast<const float4*>(box + swizzled_chunk_offset(box_row, c, 128));
+  uint32_t lo[3], hi[3];
+  bf16_split2(v.x, v.y, lo);
+  bf16_split2(v.z, v.w, hi);
+  const int at = swizzled_chunk_offset(row, c >> 1, 64) + 8 * (c & 1);
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    *reinterpret_cast<uint2*>(parts + j * kPartBytes + at) = make_uint2(lo[j], hi[j]);
+}
+
+// d (64 x N) (+)= A (64 x 16, registers: the fragment above) * B (N x 16,
+// shared, K-major)^T, B's descriptor at desc_b + kOffB (16-byte units).
+// The registers of `a` are read after the issue: the caller keeps them
+// unchanged until the product has landed (wgmma_wait).
+template <int kOffB>
+__device__ __forceinline__ void wgmma_rs_kb_n8(float (&d)[4], const uint32_t (&a)[4],
+                                               uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %9, 0;\nadd.s64 db, %8, %10;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, db, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kOffB));
+}
+
+template <int kOffB>
+__device__ __forceinline__ void wgmma_rs_kb_n16(float (&d)[8], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %13, 0;\nadd.s64 db, %12, %14;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, db, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kOffB));
+}
+
+template <int kOffB>
+__device__ __forceinline__ void wgmma_rs_kb_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %21, 0;\nadd.s64 db, %20, %22;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, db, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kOffB));
+}
+
+template <int kOffB>
+__device__ __forceinline__ void wgmma_rs_kb_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %37, 0;\nadd.s64 db, %36, %38;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, db, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kOffB));
+}
+
+template <int N, int kOffB>
+__device__ __forceinline__ void wgmma_rs_kb_at(float (&d)[N / 2], const uint32_t (&a)[4],
+                                               uint64_t desc_b, int accumulate) {
+  if constexpr (N == 8)
+    wgmma_rs_kb_n8<kOffB>(d, a, desc_b, accumulate);
+  else if constexpr (N == 16)
+    wgmma_rs_kb_n16<kOffB>(d, a, desc_b, accumulate);
+  else if constexpr (N == 32)
+    wgmma_rs_kb_n32<kOffB>(d, a, desc_b, accumulate);
+  else if constexpr (N == 64)
+    wgmma_rs_kb_n64<kOffB>(d, a, desc_b, accumulate);
+}
+
+// One k-step of the six-part product with the passages' parts as A from
+// registers (pa[j]: part j's fragment) and the queries' parts as B
+// (K-major, part i at desc_b + i kQStep, the k-step at + kK): the
+// products, order and sums of wgmma_f32_parts_kstep.
+template <int N, int kQStep, int kK>
+__device__ __forceinline__ void wgmma_f32_parts_rs_kstep(float (&big)[N / 2],
+                                                         float (&small)[N / 2],
+                                                         const uint32_t (&pa)[3][4],
+                                                         uint64_t desc_b, int acc) {
+  wgmma_rs_kb_at<N, kK>(big, pa[0], desc_b, acc);                 // (1,1)
+  wgmma_rs_kb_at<N, kK>(small, pa[1], desc_b, acc);               // (1,2)
+  wgmma_rs_kb_at<N, kK + kQStep>(small, pa[0], desc_b, 1);        // (2,1)
+  wgmma_rs_kb_at<N, kK>(small, pa[2], desc_b, 1);                 // (1,3)
+  wgmma_rs_kb_at<N, kK + kQStep>(small, pa[1], desc_b, 1);        // (2,2)
+  wgmma_rs_kb_at<N, kK + 2 * kQStep>(small, pa[0], desc_b, 1);    // (3,1)
+}
+
+// This thread's f32 values of the register A fragment of k-step kk (16 k
+// at 16 kk) of rows r and r + 8 of an f32 box of 128-byte rows (32 f32,
+// TMA's 128-byte swizzle): v[i] holds fragment register i's pair (lane t
+// = lane % 4: rows r, r + 8, r, r + 8 at k 2t, 2t, 2t + 8, 2t + 8).
+__device__ __forceinline__ void load_f32_fragment(const unsigned char* box, int r, int kk, int t,
+                                                  float2 (&v)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    v[i] = *reinterpret_cast<const float2*>(
+        box + swizzled_chunk_offset(r + 8 * (i & 1), 4 * kk + 2 * (i >> 1) + (t >> 1), 128) +
+        8 * (t & 1));
+}
+
+// The three bf16 parts of a fragment's f32 values (bf16_split2): pa[j][i]
+// is part j of register i's pair.
+__device__ __forceinline__ void split_f32_fragment(const float2 (&v)[4], uint32_t (&pa)[3][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t w[3];
+    bf16_split2(v[i].x, v[i].y, w);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) pa[j][i] = w[j];
+  }
+}
+
+// Pins a fragment's registers (as wgmma_fence_regs): a register A read by
+// an in-flight product keeps its value until this point.
+__device__ __forceinline__ void pin_fragment(uint32_t (&pa)[3][4]) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(pa[j][i])::"memory");
+}
+
 // d (64 x 16) (+)= A (64 x 16, registers) * B (16 x 16, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
                                              uint64_t desc_b, int accumulate) {
@@ -676,20 +872,22 @@ inline bool encode_rows_map(CUtensorMap* map, const void* base, int elem_bytes, 
 
 // The map of a contiguous [parts, rows, cols] bf16 tensor (a row pitch of
 // `cols` elements, a multiple of 8) whose box is `box_rows` rows of one
-// part and 64 columns (128 bytes), swizzled by 128 bytes; rows past `rows`
-// and columns past `cols` arrive as zeros. Returns false if the driver
-// refuses it.
+// part and `box_cols` columns (64: 128 bytes, swizzled by 128 bytes; 32:
+// 64 bytes, swizzled by 64); rows past `rows` and columns past `cols`
+// arrive as zeros. Returns false if the driver refuses it.
 inline bool encode_parts_map(CUtensorMap* map, const void* base, int parts, int cols, int rows,
-                             int box_rows) {
+                             int box_rows, int box_cols = 64) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(parts)};
   const cuuint64_t strides[2] = {2ull * cols, 2ull * cols * rows};  // bytes, dims 1..2
-  const cuuint32_t box[3] = {64u, static_cast<cuuint32_t>(box_rows), 1u};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
+                             1u};
   const cuuint32_t unit[3] = {1u, 1u, 1u};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }

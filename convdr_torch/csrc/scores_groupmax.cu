@@ -12,7 +12,7 @@
 //
 // Computes S = Q P^T ([Q, N] f32) and the maximum of every run of G
 // consecutive columns ([Q, N/G]). P is f32, bf16 or int8 [N, D]. Three
-// dtype paths:
+// dtype paths, each on the tensor cores:
 //
 // bf16 passages: the JAX kernel's dot runs on the MXU at
 // Precision.HIGHEST on f32 queries and f32-promoted bf16 tiles
@@ -61,64 +61,62 @@
 //     shared-memory step across the warpgroup's warps; pass A compiles
 //     the store out.
 //
-// f32 passages: f32 FMAs on the CUDA cores. What bounds them on an
-// H100 is operations: 2*Q*N*D at the 67 TFLOP/s f32 peak (412 GFLOP, ~6.2 ms
-// at Q=512, N=524288, D=768) against ~0.8 ms for the bytes. TF32 or 3xTF32
-// tensor-core products are ruled out, and so is any split-K, tree or warp
-// reduction: every score is ONE sequential fmaf(q[k], p[k], acc) chain over
-// k = 0..D-1 from 0, zero padding only after the last k. That order is what
-// makes kernel 2's scores, pass A's maxima and pass B's candidate scores
-// (streaming_search.cu) bit-identical, on which exact group pruning rests.
-// The design keeps the FMA units fed within that order:
-//   * a 128x128 block tile (64x128 when Q <= 64), 256 (128) threads, each
-//     holding an 8x8 register tile that walks k in order for every output.
-//     The tile's 64 accumulators and the 64 operand registers of 4 k leave
-//     no room for loads in flight at the 128 registers that two blocks an
-//     SM allow (ptxas spills there), so the kernel takes up to 255
-//     registers and one block (8 warps) an SM, with the k loop of a stage
-//     unrolled: faster on the card than two blocks of 128 registers
-//     (chip_smoke.py prints ptxas's report and the launch configuration);
-//   * a ring of 3 shared-memory stages of 32 k, filled by 16-byte
-//     cp.async.cg copies (rows past Q and k past D zero-filled by the
-//     src-size-0 form), so stages k+1 and k+2 load while stage k computes;
-//   * tiles stay k-contiguous as copied (cp.async cannot transpose); a row
-//     pitch of 36 floats puts the 4 query rows and 8 passage rows a warp
-//     reads at once in distinct banks, and a thread's rows are strided
-//     (row = i * BM/8 + ty, col = j * 16 + tx) so they are neighbours
-//     across the warp. Per 4 k a thread issues 16 LDS.128 (8 for the query
-//     rows, 8 for the passage rows) for 256 FMAs, with no integer division
-//     in the loop;
-//   * the grid walks query tiles fastest, so the Q/BM blocks that share a
-//     passage tile run together and read it from device memory once.
-//
-// f32 passages at Q <= 32 (kSmallQMax, Q*; the serving search is Q=1): the
-// tile above would compute 64 query rows for each live one, and what
-// bounds the work is bytes (the block, 0.48 ms at N=524288, D=768), so
-// this path streams the block once at the lowest cost an element, in the
-// same chain order:
-//   * one consumer thread a passage row, holding one accumulator a query
-//     (Q rounded up to a power of two, 1..32, a template instance each); k
-//     is never split: each score is still the single chain above;
-//   * [128 rows x 128 bytes of k] boxes (32 k) come in by TMA
-//     (cp.async.bulk.tensor.2d, k past D zero-filled) into a ring of 3
-//     stages, issued by one producer thread and drained under full / empty
-//     mbarriers (csrc/hopper.cuh); the 128-byte swizzle puts a warp's 32
-//     rows of one 16-byte chunk on all banks (4 wavefronts an LDS.128);
-//   * the queries are copied to shared memory once a block as [k/4][Q]
-//     float4 and read as broadcasts: one LDS.128 feeds 4 FMAs a query;
-//   * a persistent grid (up to 2 blocks an SM) walks the 128-row tiles, the
-//     ring running across tiles, so the next tile's loads overlap this
-//     tile's FMAs and epilogue;
-//   * epilogue from the registers: scores 128 bytes a warp a query
-//     (compiled out for pass A); the max of G consecutive rows, i.e. G
-//     consecutive threads, by __shfl_xor_sync for G <= 32 and one
-//     shared-memory step across warps for G = 64, 128 (a max is exact, so
-//     its order is free).
-// Its queries must fit in shared memory beside the ring (D <= 1408 at
-// Q = 17..32, 2816 at Q = 9..16); larger D takes the tile path. Q* is the
-// largest Q at which this path beat the tile path on an H100
-// (convdr_torch/scripts/score_sweep.py, which chip_smoke.py runs:
-// kernels 2 and 3 at Q = 1..64, bit for bit equal to the tile path).
+// f32 passages: the JAX kernel's dot at Precision.HIGHEST on f32 x f32,
+// which the MXU computes as six bf16 passes (":46": f32 x bf16 "needs half
+// the MXU passes of f32 x f32"), with the same recall@100 contract. Its
+// counterpart here: each f32 operand splits exactly into three bf16 parts
+// (x = x1 + x2 + x3, bf16_query_parts' truncation; exact for |x| >= 2^-110
+// and for 0), and a score is the sum over k of the six products q_i p_j
+// with i + j <= 4: (1,1), (1,2), (2,1), (1,3), (2,2), (3,1), each exact in
+// f32, as six bf16 wgmma products a k-step in that order (hopper.cuh
+// wgmma_f32_parts_stage). The dropped (2,3), (3,2), (3,3) are below 2^-20
+// sum |q_k p_k| (|x2| < 2^-7 |x|, |x3| < 2^-14 |x|). (1,1) has a sum of
+// its own and the five small products share a second, added round to
+// nearest at the end: with one sum, six truncating tensor-core adds a
+// k-step broke the f32 tolerance of 1e-5 |q| max|p| on long one-signed
+// sums (near-parallel positive rows) on an H100; two sums hold it. A score
+// is within 2 D 2^-24 sum |q_k p_k| of the f64 product. Kernels 2, 3 and 4
+// (streaming_search.cu) issue the same products in the same order into
+// the same two sums at every Q, and an output's bits depend only on its A
+// row, B row and the k order (the probe below), so scores, pass A's
+// maxima and pass B's candidates agree bit for bit and group pruning stays
+// exact. The queries' parts come from the wrapper above Q=16 ([3, Q, D8])
+// and are split by the kernel up to it; the passages are split in the
+// kernel from the f32 boxes TMA brings (the block stays stored as it is,
+// and no parts reach device memory: a pre-pass would move 16 bytes an
+// element for 4). What bounds it on an H100: at Q >= ~64 the six-part
+// operations (6 x 2QND at the 989 TFLOP/s bf16 peak, 2.50 ms at Q=512,
+// N=524288, D=768), below that the bytes (the 1.6 GB block, 0.48 ms;
+// kernel 2 adds the [Q, N] f32 scores). The design keeps the bf16
+// kernel's persistent grid, TMA producer warp and two consumer
+// warpgroups, with the passages as wgmma's A at every Q, so that each
+// warpgroup's products depend on its own split alone (with the queries
+// as A both warpgroups need every passage row's parts as B, and the
+// barrier between the two halves of the split was slower on the card):
+//   * Q > 64: tiles of 128 queries x 128 passages, 32 k a stage (the
+//     query parts' [128][64 bytes] boxes by a 3D map of [3, Q, D8],
+//     64-byte swizzle, and the f32 passage box [128][128 bytes], 128-byte
+//     swizzle), a ring of 4 stages of 40 KB; warpgroup w splits its 64
+//     passage rows into one of two part buffers of its own (64-byte rows
+//     in the 64-byte swizzle's layout) and issues m64n128 with them as A
+//     and the stage's query parts as B (the two sums: 128 registers of
+//     the 168 that 288 threads leave);
+//   * Q <= 64 (the serving search is Q=1): tiles of 128 passages; each
+//     thread reads its A fragments' f32 values and splits them in
+//     registers (no passage part touches shared memory: as shared-memory A
+//     tiles, read six times a k-step, they made shared memory the limit on
+//     an H100); m64nN with N = Q rounded up to 8, 16, 32 or 64. Up to Q=16
+//     the queries' f32 box comes beside the passages' in each stage and
+//     each warpgroup splits it into one of two buffers of its own and
+//     releases the stage at once, so the ring (up to 6 stages) holds only
+//     loads in flight; from Q=17 the wrapper's query parts come by TMA
+//     (that split and its barriers cost more there than the wrapper's
+//     six tensor ops);
+//   * the epilogue from the registers after the two sums are added: the
+//     scores by st.global (8 consecutive rows of 4 queries a warp store;
+//     at Q > 64 this beat the bf16 kernel's TMA-store rounds on the card),
+//     the group maxima of G = 8, 16 by shuffles, of larger G through one
+//     shared-memory step across the warps; pass A compiles the store out.
 //
 // int8 passages (SQ8 storage, ops/quant.py): the wrapper turns the
 // int-valued f32 queries into int8 (exact in [-127, 127]), and the product
@@ -153,16 +151,10 @@
 //     st.global from the registers (the warps stall on the stores) and one
 //     128-column round (its second round waits on the first's reads).
 //
-// Epilogue (the f32 FMA tile path): the accumulator tile goes through shared memory
-// (pitch BN + 8 floats, conflict-free), then each warp takes whole rows:
-// 16-byte score stores, 512 contiguous bytes a row (compiled out for pass
-// A), and the max of each group of G columns by __shfl_xor_sync over the G/4
-// lanes that hold it.
-//
 // N must be a multiple of 128 (the callers pad rows). The wrapper passes D
 // padded with zero columns to a multiple of 16 bytes' worth of elements
 // (4 f32, 8 bf16, 16 int8) and 16-byte aligned operands; zeros after the
-// last k keep the chain order.
+// last k leave every score as it was.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -174,383 +166,8 @@
 
 namespace {
 
-constexpr int kTileN = 128;   // passage rows per block
-constexpr int kStages = 3;    // cp.async ring depth
-constexpr int kCPitch = kTileN + 8;  // epilogue tile pitch (floats)
-
-// ---------------------------------------------------------------------------
-// cp.async helpers
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; with pred false nothing is read and the
-// 16 bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const int bytes = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Copies a [rows, 16-byte chunks] tile of a row-major [nrows, d] operand
-// (row pitch `d` elements of `T`) into shared memory with row pitch `pitch`
-// elements; rows at or past `nrows` and chunks at or past the row's end are
-// zero-filled. kChunks is the tile's chunks a row.
-template <typename T, int kRows, int kChunks, int kPitch, int kThreads>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int nrows, int k0, int d,
-                                          int tid) {
-  constexpr int kPer = 16 / sizeof(T);  // elements a chunk
-  static_assert(kRows * kChunks % kThreads == 0, "whole chunks a thread");
-#pragma unroll
-  for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
-    const int c = tid + it * kThreads;
-    const int r = c / kChunks;  // powers of two: shifts
-    const int ch = c % kChunks;
-    const int gk = k0 + ch * kPer;
-    const bool ok = (row0 + r < nrows) && (gk < d);
-    const T* g = ok ? src + static_cast<long long>(row0 + r) * d + gk : src;
-    cp_async16(dst + r * kPitch + ch * kPer, g, ok);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// the epilogue: an f32 [BM, kTileN] tile in shared memory (pitch kCPitch)
-// ---------------------------------------------------------------------------
-template <int kBM, int kThreads, bool kStore>
-__device__ __forceinline__ void store_tile(const float* cs,
-                                           float* __restrict__ scores,
-                                           float* __restrict__ gmax, int m0,
-                                           int n0, int nq, int n, int group,
-                                           int tid) {
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int lanes = group / 4;  // lanes holding one group (2..32)
-  const int groups_per_row = n / group;
-  const int col = n0 + lane * 4;
-  for (int r = warp; r < kBM; r += kThreads / 32) {
-    const int row = m0 + r;
-    if (row >= nq) break;  // warp-uniform: later rows are past Q too
-    const float4 v = *reinterpret_cast<const float4*>(cs + r * kCPitch + lane * 4);
-    if constexpr (kStore)
-      *reinterpret_cast<float4*>(scores + static_cast<long long>(row) * n + col) = v;
-    float mx = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
-    for (int off = 1; off < lanes; off <<= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    if (lane % lanes == 0)
-      gmax[static_cast<long long>(row) * groups_per_row + col / group] = mx;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// f32 passages: f32 FMA on the CUDA cores
-// ---------------------------------------------------------------------------
-constexpr int kTileK = 32;   // depth per stage
-constexpr int kAPitch = kTileK + 4;  // floats
-
-template <typename P>
-struct FmaTile;
-template <>
-struct FmaTile<float> {
-  static constexpr int kPitch = kTileK + 4;  // 144 bytes
-  __device__ __forceinline__ static float4 read4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-};
-
-template <int kBM>
-struct FmaShape {
-  static constexpr int kThreads = kBM * 2;  // (BM/8) x (kTileN/8) threads
-  static constexpr int kRowGroups = kBM / 8;
-};
-
-template <typename P, int kBM>
-constexpr int fma_smem_bytes() {
-  constexpr int stage =
-      kBM * kAPitch * 4 + kTileN * FmaTile<P>::kPitch * static_cast<int>(sizeof(P));
-  constexpr int ring = kStages * stage;
-  constexpr int c = kBM * kCPitch * 4;
-  return ring > c ? ring : c;
-}
-
-// kStore: write the score tile (kernel 2) or only the group maxima (pass A
-// of the streaming search; `scores` is then unused and may be null).
-template <typename P, int kBM, bool kStore>
-__global__ void __launch_bounds__(FmaShape<kBM>::kThreads, 1)
-scores_groupmax_fma(const float* __restrict__ q, const P* __restrict__ p,
-                    float* __restrict__ scores, float* __restrict__ gmax,
-                    int nq, int n, int d, int group) {
-  constexpr int kThreads = FmaShape<kBM>::kThreads;
-  constexpr int kRG = FmaShape<kBM>::kRowGroups;
-  constexpr int kBPitch = FmaTile<P>::kPitch;
-  constexpr int kAStage = kBM * kAPitch;       // floats
-  constexpr int kBStage = kTileN * kBPitch;    // elements of P
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* as = reinterpret_cast<float*>(smem);
-  P* bs = reinterpret_cast<P*>(smem + kStages * kAStage * 4);
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  // a warp is 4 row groups x 8 column groups; warps tile 2 column halves
-  const int tx = (warp % 2) * 8 + lane % 8;    // 0..15
-  const int ty = (warp / 2) * 4 + lane / 8;    // 0..kRG-1
-  const int q_tiles = (nq + kBM - 1) / kBM;
-  const int m0 = (blockIdx.x % q_tiles) * kBM;
-  const int n0 = (blockIdx.x / q_tiles) * kTileN;
-  const int nk = (d + kTileK - 1) / kTileK;
-
-  auto load_stage = [&](int kt) {
-    const int slot = kt % kStages;
-    load_tile<float, kBM, kTileK / 4, kAPitch, kThreads>(
-        as + slot * kAStage, q, m0, nq, kt * kTileK, d, tid);
-    load_tile<P, kTileN, static_cast<int>(kTileK * sizeof(P) / 16), kBPitch, kThreads>(
-        bs + slot * kBStage, p + static_cast<long long>(n0) * d, 0, kTileN,
-        kt * kTileK, d, tid);
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_stage(s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage kt landed; stage kt-1's slot is free
-    if (kt + kStages - 1 < nk) load_stage(kt + kStages - 1);
-    cp_async_commit();
-    const float* a_s = as + (kt % kStages) * kAStage + ty * kAPitch;
-    const P* b_s = bs + (kt % kStages) * kBStage + tx * kBPitch;
-#pragma unroll
-    for (int kq = 0; kq < kTileK; kq += 4) {
-      float4 b[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        b[j] = FmaTile<P>::read4(b_s + j * 16 * kBPitch + kq);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(a_s + i * kRG * kAPitch + kq);
-        // k, k+1, k+2, k+3 in order for every output: the chain order
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: reuse it for the epilogue tile
-
-  float* cs = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) cs[(i * kRG + ty) * kCPitch + j * 16 + tx] = acc[i][j];
-  __syncthreads();
-  store_tile<kBM, kThreads, kStore>(cs, scores, gmax, m0, n0, nq, n, group, tid);
-}
-
-// ---------------------------------------------------------------------------
-// f32 passages at Q <= kSmallQMax: one thread a passage row
-// ---------------------------------------------------------------------------
-constexpr int kSmallQMax = 32;                 // Q*: the largest Q this path takes
-constexpr int kSqRows = 128;                   // passage rows a tile, one a consumer
-constexpr int kSqConsumers = kSqRows;          // 4 warps
-constexpr int kSqWarps = kSqConsumers / 32;
-constexpr int kSqThreads = kSqConsumers + 32;  // + the TMA producer warp
-constexpr int kSqStages = 3;                   // mbarrier ring depth
-constexpr int kSqStageBytes = kSqRows * 128;   // 128 bytes of k a row: 16 KB
-constexpr int kSqMaxBlocksPerSm = 2;           // the persistent grid
-constexpr int kMaxSmem = 227 * 1024;           // a block's dynamic shared memory
-constexpr int kUnrollFmas = 1024;              // FMAs a thread in the unrolled stage body
-
-// Queries a block computes for Q: Q rounded up to a power of two.
-inline int sq_bucket(int nq) {
-  int b = 1;
-  while (b < nq) b <<= 1;
-  return b;
-}
-
-// Shared memory from a 1024-byte aligned base (the 128-byte swizzle's
-// atom): the ring's stages, the queries as [dk / 4][kQ] float4 (dk = D
-// rounded up to a stage's k; zero past Q and past D), the cross-warp
-// group maxima [kSqWarps][kQ], the full and empty barriers; + 1024 bytes
-// to align the base.
-inline int sq_smem_bytes(int kq, int dk) {
-  return 1024 + kSqStages * kSqStageBytes + kq * dk * 4 + kSqWarps * kq * 4 +
-         2 * kSqStages * 8;
-}
-
-// 4 consecutive k of a passage row into every query's chain, k in order;
-// q4[j] holds query j's 4 values at these k.
-template <int kQ>
-__device__ __forceinline__ void sq_fma4(float (&acc)[kQ], const float4* q4, float p0, float p1,
-                                        float p2, float p3) {
-#pragma unroll
-  for (int j = 0; j < kQ; ++j) {
-    const float4 a = q4[j];
-    acc[j] = fmaf(a.x, p0, acc[j]);
-    acc[j] = fmaf(a.y, p1, acc[j]);
-    acc[j] = fmaf(a.z, p2, acc[j]);
-    acc[j] = fmaf(a.w, p3, acc[j]);
-  }
-}
-
-// One 16-byte chunk of a passage row: 4 f32 k, in order.
-template <typename P, int kQ>
-__device__ __forceinline__ void sq_chunk(float (&acc)[kQ], const float4* q4, uint4 raw) {
-  static_assert(sizeof(P) == 4, "f32 passages: bf16 takes the wgmma kernel");
-  sq_fma4<kQ>(acc, q4, __uint_as_float(raw.x), __uint_as_float(raw.y), __uint_as_float(raw.z),
-              __uint_as_float(raw.w));
-}
-
-// A persistent grid walks the 128-row passage tiles (tile blockIdx.x, then
-// + gridDim.x). Thread 128 (the producer warp's first lane) streams each
-// tile's [128 rows x 128 bytes of k] boxes by TMA into a ring of kSqStages
-// stages, across tiles, so the next tile's loads overlap this one's FMAs
-// and epilogue; consumer thread t owns row t of every tile and holds kQ
-// accumulators. A stage lands on its full barrier and is released by all
-// 128 consumers on its empty barrier.
-template <typename P, int kQ, bool kStore>
-__global__ void __launch_bounds__(kSqThreads, 1)
-scores_groupmax_small_q(const __grid_constant__ CUtensorMap p_map, const float* __restrict__ q,
-                        float* __restrict__ scores, float* __restrict__ gmax, int nq, int n,
-                        int d, int group) {
-  constexpr int kBoxK = 128 / static_cast<int>(sizeof(P));  // k of a stage: 32 or 64
-  constexpr int kChunk4 = 4 / static_cast<int>(sizeof(P));   // float4 of q a chunk: 1 or 2
-  constexpr int kChunkFmas = kQ * 4 * kChunk4;               // FMAs of a chunk a thread
-  constexpr int kUnroll = kChunkFmas * 8 <= kUnrollFmas ? 8 : kUnrollFmas / kChunkFmas;
-  extern __shared__ __align__(16) unsigned char sq_smem[];
-  unsigned char* smem = sq_smem + ((1024u - (shared_addr(sq_smem) & 1023u)) & 1023u);
-  const int nk = (d + kBoxK - 1) / kBoxK;
-  const int dk4 = nk * (kBoxK / 4);  // float4 of k a query
-  float4* qs = reinterpret_cast<float4*>(smem + kSqStages * kSqStageBytes);
-  float* red = reinterpret_cast<float*>(qs + dk4 * kQ);
-  uint64_t* full = reinterpret_cast<uint64_t*>(red + kSqWarps * kQ);
-  uint64_t* empty = full + kSqStages;
-  const int tid = threadIdx.x;
-  const int tiles = n / kSqRows;
-
-  if (tid == kSqConsumers) {
-    for (int s = 0; s < kSqStages; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, kSqConsumers);
-    }
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (tid >= kSqConsumers) {  // the producer
-    if (tid == kSqConsumers) {
-      int it = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
-        for (int kc = 0; kc < nk; ++kc, ++it) {
-          const int s = it % kSqStages;
-          if (it >= kSqStages) mbar_wait(empty + s, (it / kSqStages - 1) & 1);
-          mbar_arrive_expect_tx(full + s, kSqStageBytes);
-          tma_load_2d(smem + s * kSqStageBytes, &p_map, full + s, kc * kBoxK, tile * kSqRows);
-        }
-    }
-    return;
-  }
-
-  // the queries, once a block, while the first stages load
-  for (int i = tid; i < kQ * dk4; i += kSqConsumers) {
-    const int j = i / dk4;
-    const int k4 = i - j * dk4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (j < nq && 4 * k4 < d)
-      v = *reinterpret_cast<const float4*>(q + static_cast<long long>(j) * d + 4 * k4);
-    qs[k4 * kQ + j] = v;
-  }
-  named_barrier(1, kSqConsumers);
-
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int gshift = __ffs(group) - 1;
-  const int groups_per_row = n >> gshift;
-  int it = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    float acc[kQ];
-#pragma unroll
-    for (int j = 0; j < kQ; ++j) acc[j] = 0.f;
-    for (int kc = 0; kc < nk; ++kc, ++it) {
-      const int s = it % kSqStages;
-      mbar_wait(full + s, (it / kSqStages) & 1);
-      const unsigned char* rows = smem + s * kSqStageBytes;
-      const float4* q4 = qs + kc * (kBoxK / 4) * kQ;
-      // the row's 8 chunks in k order; the swizzle spreads the warp's 32
-      // rows of one chunk over all banks (4 wavefronts an LDS.128). The
-      // unrolled body stays within kUnrollFmas FMAs a thread: at 2048 (bf16,
-      // Q=32) the stage ran at half the rate of f32's 1024
-#pragma unroll 1
-      for (int c0 = 0; c0 < 8; c0 += kUnroll) {
-#pragma unroll
-        for (int c = c0; c < c0 + kUnroll; ++c) {
-          const uint4 raw =
-              *reinterpret_cast<const uint4*>(rows + swizzled_chunk_offset(tid, c, 128));
-          sq_chunk<P, kQ>(acc, q4 + c * kChunk4 * kQ, raw);
-        }
-      }
-      mbar_arrive(empty + s);
-    }
-
-    // scores: 128 bytes a warp a query; maxima: G consecutive threads
-    const int row = tile * kSqRows + tid;
-#pragma unroll
-    for (int j = 0; j < kQ; ++j) {
-      if (j < nq) {
-        if constexpr (kStore) scores[static_cast<long long>(j) * n + row] = acc[j];
-        float mx = acc[j];
-        for (int off = 1; off < group && off < 32; off <<= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        if (group <= 32) {
-          if ((lane & (group - 1)) == 0)
-            gmax[static_cast<long long>(j) * groups_per_row + (row >> gshift)] = mx;
-        } else if (lane == 0) {
-          red[warp * kQ + j] = mx;
-        }
-      }
-    }
-    if (group > 32) {  // G = 64, 128: the warps' maxima through shared memory
-      named_barrier(1, kSqConsumers);
-      const int warps_a_group = group / 32;
-      const int groups_a_tile = kSqRows / group;
-      if (tid < nq * groups_a_tile) {
-        const int j = tid / groups_a_tile;
-        const int g = tid - j * groups_a_tile;
-        float mx = red[g * warps_a_group * kQ + j];
-        for (int w = 1; w < warps_a_group; ++w)
-          mx = fmaxf(mx, red[(g * warps_a_group + w) * kQ + j]);
-        gmax[static_cast<long long>(j) * groups_per_row + tile * groups_a_tile + g] = mx;
-      }
-      named_barrier(1, kSqConsumers);  // red is free for the next tile
-    }
-  }
-}
+constexpr int kRowTile = 128;         // N is a multiple of it (the callers pad rows)
+constexpr int kMaxSmem = 227 * 1024;  // a block's dynamic shared memory
 
 // ---------------------------------------------------------------------------
 // int8 passages: wgmma s8 x s8 -> s32 over a TMA ring
@@ -1015,23 +632,6 @@ scores_groupmax_bf16(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// The three bf16 parts of two f32 values a and b, each part's pair packed
-// as a bf16x2 word (a in the low half): the arithmetic of
-// ops/fused_search.py bf16_query_parts (cut to the top 16 bits, the exact
-// remainder cut again, what is left rounded to nearest even, which is
-// exact but under bf16's subnormals), so its parts bit for bit.
-__device__ __forceinline__ void bf16_split2(float a, float b, uint32_t (&w)[3]) {
-  const float a1 = __uint_as_float(__float_as_uint(a) & 0xffff0000u);
-  const float b1 = __uint_as_float(__float_as_uint(b) & 0xffff0000u);
-  const float ar = __fsub_rn(a, a1), br = __fsub_rn(b, b1);  // exact
-  const float a2 = __uint_as_float(__float_as_uint(ar) & 0xffff0000u);
-  const float b2 = __uint_as_float(__float_as_uint(br) & 0xffff0000u);
-  w[0] = (__float_as_uint(a1) >> 16) | (__float_as_uint(b1) & 0xffff0000u);
-  w[1] = (__float_as_uint(a2) >> 16) | (__float_as_uint(b2) & 0xffff0000u);
-  const __nv_bfloat162 p3 = __floats2bfloat162_rn(__fsub_rn(ar, a2), __fsub_rn(br, b2));
-  w[2] = *reinterpret_cast<const uint32_t*>(&p3);
-}
-
 // One 64-row passage block of a small-Q tile (accumulator fragments: row
 // 16w + g + 8r of the block, query column 8j + 2t + e), rows c0 + row in
 // the scores: kernel 2's scores (4 bytes a thread; a warp's store covers
@@ -1214,6 +814,355 @@ scores_groupmax_bf16_small_q(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
+// f32 passages: the six-part bf16 wgmma product over a TMA ring
+// ---------------------------------------------------------------------------
+constexpr int kF32Rows = 64;                 // rows of a wgmma's A: M
+constexpr int kF32BM = 2 * kF32Rows;         // query rows a tile at Q > kF32SmallQMax
+constexpr int kF32BN = 128;                  // passage rows a tile
+constexpr int kF32K = 32;                    // k a stage: a 128-byte f32 row, a 64-byte part row
+constexpr int kF32BoxRow = 4 * kF32K;        // bytes of an f32 box row (the 128-byte swizzle)
+constexpr int kF32PartRow = 2 * kF32K;       // bytes of a bf16 part row (the 64-byte swizzle)
+constexpr int kF32MaxStages = 6;
+constexpr int kF32SmallQMax = 64;            // the largest Q of the small-Q tiles
+constexpr int kF32SplitQMax = 16;            // the largest Q whose queries the kernel splits
+
+// Q <= kF32SmallQMax (the serving search is Q=1): the passages are A
+// (warpgroup w: passage rows 64w.. of the 128-row tile), from registers,
+// and the queries' parts B, kNq >= Q rows (8, 16, 32 or 64; m64nkNq). A
+// stage holds what TMA brings: the passages' f32 [128][128 bytes] box,
+// then at Q <= kF32SplitQMax the queries' f32 [kNq][128 bytes], above it
+// their three parts [kNq][64 bytes] (a 3D map of the wrapper's [3, Q,
+// D8]). Each thread reads its A fragments' f32 values from the box and
+// splits them in registers, so no passage part touches shared memory (its
+// parts as shared-memory A tiles, read six times a k-step, made shared
+// memory the limit on an H100). Up to kF32SplitQMax each warpgroup splits
+// the queries into one of two buffers of its own, in turn ([kNq][64
+// bytes] a part, at least 1 KB), and releases the stage at once, so the
+// ring holds only loads in flight; above it that split and its barriers
+// cost more on an H100 than the wrapper's six tensor ops, and a stage is
+// released once its products have landed. Then the warps' 16-row maxima for the group maxima of G >= 32
+// ([8 16-row chunks of the tile][kNq] f32), and the barriers.
+template <int kNq>
+struct F32SmallTile {
+  static constexpr bool kSplitQ = kNq <= kF32SplitQMax;
+  static constexpr int kPBox = kF32BN * kF32BoxRow;
+  static constexpr int kQPart = kNq * kF32PartRow < 1024 ? 1024 : kNq * kF32PartRow;
+  static constexpr int kStageBytes = kPBox + (kSplitQ ? kNq * kF32BoxRow : 3 * kQPart);
+  static constexpr int kQBufBytes = 3 * kQPart;
+  static constexpr int kPartsBytes = kSplitQ ? 2 * 2 * kQBufBytes : 0;
+  static constexpr int kRedBytes = 8 * kNq * 4;
+  static constexpr int kFit =
+      (kMaxSmem - 1024 - kPartsBytes - kRedBytes - 2 * 8 * kF32MaxStages) / kStageBytes;
+  static constexpr int kRing = kFit < kF32MaxStages ? kFit : kF32MaxStages;
+  static constexpr int kSmem =
+      1024 + kRing * kStageBytes + kPartsBytes + kRedBytes + 2 * 8 * kRing;
+  static_assert(kRing >= 4, "a ring of four stages at least");
+  static_assert(kStageBytes % 1024 == 0 && kQBufBytes % 1024 == 0, "1024-byte bases");
+};
+
+// The group maxima of G >= 32 of a 128-row passage tile whose first row is
+// row0, from the warps' 16-row maxima red[chunk][kNq] (chunk 4 wg + warp,
+// as bf_small_block leaves them): G / 16 chunks a group, combined by the
+// two consumer warpgroups (named barrier 3) for queries q < nq of gmax.
+template <int kNq>
+__device__ __forceinline__ void combine_chunk_maxima(const float* red, float* __restrict__ gmax,
+                                                     int nq, int n, int row0, int group,
+                                                     int gshift, int tid) {
+  named_barrier(3, kBfConsumers);
+  const int chunks = group >> 4;
+  const int groups = kF32BN >> gshift;
+  for (int i = tid; i < groups * kNq; i += kBfConsumers) {
+    const int k = i / kNq;
+    const int q = i - k * kNq;
+    float m = red[k * chunks * kNq + q];
+    for (int c = 1; c < chunks; ++c) m = fmaxf(m, red[(k * chunks + c) * kNq + q]);
+    if (q < nq) gmax[static_cast<long long>(q) * (n >> gshift) + (row0 >> gshift) + k] = m;
+  }
+  named_barrier(3, kBfConsumers);  // red is free for the next tile
+}
+
+// f32 passages at Q <= kF32SmallQMax (F32SmallTile): a persistent grid
+// walks the 128-row passage tiles, the producer streams each tile's f32
+// passage box and the queries' box (or parts) by TMA. Each stage, each
+// thread reads its A values (rows 16 warp + g, + 8 of its warpgroup's 64,
+// both k-steps); up to kF32SplitQMax the warpgroup (once its warps are
+// past the products that read its next query buffer) splits the kNq query
+// rows into it (bf16_split2: the arithmetic of bf16_query_parts, so the
+// wrapper's parts above it) and releases the stage; then each k-step, the
+// thread splits its values into
+// the three parts' fragments and the warpgroup issues
+// wgmma_f32_parts_rs_kstep (m64nkNq, the passage parts as A from
+// registers and the query parts as B: the products of the Q > 64 tiles in
+// the same order into the same two sums, so the same bits). The two
+// k-steps' fragments alternate in f0 and f1, each kept (pin_fragment)
+// until its products have landed, so the next k-step's split overlaps
+// them. Epilogue from the registers: the sums added, then bf_small_block
+// (kernel 2's scores by st.global, the group maxima of G = 8, 16 by
+// shuffles), and for G >= 32 the block combines the warps' 16-row maxima
+// (G / 16 of them a group) through shared memory.
+template <bool kStore, int kNq>
+__global__ void __launch_bounds__(kBfThreads, 1)
+scores_groupmax_f32_small_q(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap p_map,
+                            const __grid_constant__ CUtensorMap s_map,
+                            float* __restrict__ scores, float* __restrict__ gmax, int nq, int n,
+                            int d, int group) {
+  using Tl = F32SmallTile<kNq>;
+  constexpr int kRing = Tl::kRing;
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  unsigned char* smem = f32_smem + ((1024u - (shared_addr(f32_smem) & 1023u)) & 1023u);
+  unsigned char* qparts = smem + kRing * Tl::kStageBytes;
+  float* red = reinterpret_cast<float*>(qparts + Tl::kPartsBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(qparts + Tl::kPartsBytes + Tl::kRedBytes);
+  uint64_t* empty = full + kRing;
+  const int tid = threadIdx.x;
+  const int tiles = n / kF32BN;
+  const int nk = (d + kF32K - 1) / kF32K;
+
+  if (tid == kBfConsumers) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kBfConsumers / 32);  // each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kBfConsumers) {  // the producer
+    if (tid == kBfConsumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        for (int kc = 0; kc < nk; ++kc, ++it) {
+          const int s = it % kRing;
+          if (it >= kRing) mbar_wait(empty + s, (it / kRing - 1) & 1);
+          unsigned char* st = smem + s * Tl::kStageBytes;
+          mbar_arrive_expect_tx(full + s, Tl::kStageBytes);
+          tma_load_2d(st, &p_map, full + s, kc * kF32K, tile * kF32BN);
+          if constexpr (Tl::kSplitQ) {
+            tma_load_2d(st + Tl::kPBox, &q_map, full + s, kc * kF32K, 0);
+          } else {
+#pragma unroll
+            for (int part = 0; part < 3; ++part)
+              tma_load_3d(st + Tl::kPBox + part * Tl::kQPart, &q_map, full + s, kc * kF32K, 0,
+                          part);
+          }
+        }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const int wtid = tid % 128;
+  const int warp = wtid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int gshift = __ffs(group) - 1;
+  const int arow = kF32Rows * wg + 16 * warp + g;  // this thread's A rows: arow, arow + 8
+  unsigned char* my_q = qparts + wg * 2 * Tl::kQBufBytes;  // (kSplitQ: its query buffers)
+  uint32_t f0[3][4], f1[3][4];  // the two k-steps' A fragments, three parts each
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float big[kNq / 2], small[kNq / 2];
+    for (int kc = 0; kc < nk; ++kc, ++it) {
+      const int s = it % kRing;
+      mbar_wait(full + s, (it / kRing) & 1);
+      const unsigned char* st = smem + s * Tl::kStageBytes;
+      float2 v0[4], v1[4];
+      load_f32_fragment(st, arow, 0, t, v0);
+      load_f32_fragment(st, arow, 1, t, v1);
+      uint64_t db;  // the stage's query parts
+      if constexpr (Tl::kSplitQ) {
+        // every warp of the warpgroup is past the products of stage it - 2,
+        // which read query buffer it & 1
+        named_barrier(1 + wg, 128);
+        unsigned char* qb = my_q + (it & 1) * Tl::kQBufBytes;
+        for (int i = wtid; i < kNq * 8; i += 128)
+          split_f32_chunk<Tl::kQPart>(st + Tl::kPBox, i >> 3, qb, i >> 3, i & 7);
+        fence_shared_to_async();
+        named_barrier(1 + wg, 128);
+        if (lane == 0) mbar_arrive(empty + s);  // the stage is read: the producer may refill it
+        db = wgmma_desc(shared_addr(qb), kF32PartRow);
+      } else {
+        db = wgmma_desc(shared_addr(st + Tl::kPBox), kF32PartRow);
+      }
+      split_f32_fragment(v0, f0);
+      wgmma_fence();
+      wgmma_f32_parts_rs_kstep<kNq, (Tl::kQPart >> 4), 0>(big, small, f0, db, kc == 0 ? 0 : 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the products of the k-step before, which read f1, have landed
+      if constexpr (!Tl::kSplitQ) {  // ... so all of stage it - 1's: release it
+        if (it > 0 && lane == 0) mbar_arrive(empty + (it - 1) % kRing);
+      }
+      pin_fragment(f1);
+      split_f32_fragment(v1, f1);
+      wgmma_fence();
+      wgmma_f32_parts_rs_kstep<kNq, (Tl::kQPart >> 4), 2>(big, small, f1, db, 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // f0's products have landed
+      pin_fragment(f0);
+    }
+    wgmma_wait<0>();
+    wgmma_fence_regs(big);
+    wgmma_fence_regs(small);
+#pragma unroll
+    for (int i = 0; i < kNq / 2; ++i) big[i] = __fadd_rn(big[i], small[i]);
+    const int c0 = tile * kF32BN + kF32Rows * wg;  // this warpgroup's first passage row
+    bf_small_block<kNq, kStore>(big, scores, gmax, red + wg * 4 * kNq, nq, n, c0, warp, g, t,
+                                group, gshift);
+    if (group >= 32)  // G / 16 of the tile's 8 16-row chunks a group
+      combine_chunk_maxima<kNq>(red, gmax, nq, n, tile * kF32BN, group, gshift, tid);
+  }
+}
+
+// f32 passages at Q > kF32SmallQMax: a persistent grid walks the tiles of
+// 128 queries x 128 passages, query tiles fastest (the blocks that share a
+// passage tile run together and it comes from device memory once). Thread
+// 256 (the producer warp's first lane) streams each stage's three
+// query-part boxes [128][64 bytes] (a 3D map of [3, Q, D8]) and the f32
+// passage box [128][128 bytes] by TMA into a ring of 4 stages of 40 KB
+// that runs across tiles. The passages are A, as in the small-Q tiles:
+// warpgroup w splits its 64 passage rows of each stage into one of two
+// part buffers of its own, in turn ([64][64 bytes] a part), behind its own
+// named barriers, and issues wgmma_f32_parts_stage with them as A and the
+// stage's 128 query rows' parts as B (m64n128: the two sums are 128 f32
+// registers a thread of the 168 that 288 threads leave). So each
+// warpgroup's products wait on its own split alone: with the queries as A
+// (the bf16 kernel's tile) both warpgroups need both halves of the split
+// passages as B, and the barrier between them made both kernels slower on
+// an H100. The same products in the same order into the
+// same two sums as the small-Q tiles and pass B, so the same bits. A stage
+// (its query parts are B) is released once the next stage's products are
+// issued and its own have landed. Epilogue as the small-Q tiles' for the
+// tile's queries m0..: the sums added, bf_small_block (kernel 2's scores
+// by st.global, which on the card beat the bf16 kernel's TMA-store rounds
+// here, and the group maxima of G = 8, 16), combine_chunk_maxima for G >=
+// 32; pass A compiles the store out.
+struct F32Tile {
+  static constexpr int kNq = kF32BM;  // B's rows: the tile's queries
+  static constexpr int kQPart = kNq * kF32PartRow;
+  static constexpr int kPBoxAt = 3 * kQPart;
+  static constexpr int kStageBytes = kPBoxAt + kF32BN * kF32BoxRow;
+  static constexpr int kPPart = kF32Rows * kF32PartRow;
+  static constexpr int kBufBytes = 3 * kPPart;
+  static constexpr int kPartsBytes = 2 * 2 * kBufBytes;
+  static constexpr int kRedBytes = 8 * kNq * 4;
+  static constexpr int kFit =
+      (kMaxSmem - 1024 - kPartsBytes - kRedBytes - 2 * 8 * kF32MaxStages) / kStageBytes;
+  static constexpr int kRing = kFit < kF32MaxStages ? kFit : kF32MaxStages;
+  static constexpr int kSmem =
+      1024 + kRing * kStageBytes + kPartsBytes + kRedBytes + 2 * 8 * kRing;
+  static_assert(kRing >= 3, "a ring of three stages at least");
+  static_assert(kQPart % 1024 == 0 && kStageBytes % 1024 == 0 && kBufBytes % 1024 == 0,
+                "1024-byte bases");
+};
+
+template <bool kStore>
+__global__ void __launch_bounds__(kBfThreads, 1)
+scores_groupmax_f32(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap p_map,
+                    const __grid_constant__ CUtensorMap s_map, float* __restrict__ scores,
+                    float* __restrict__ gmax, int nq, int n, int d, int group) {
+  using Tl = F32Tile;
+  constexpr int kNq = Tl::kNq;
+  constexpr int kRing = Tl::kRing;
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  unsigned char* smem = f32_smem + ((1024u - (shared_addr(f32_smem) & 1023u)) & 1023u);
+  unsigned char* parts = smem + kRing * Tl::kStageBytes;
+  float* red = reinterpret_cast<float*>(parts + Tl::kPartsBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(parts + Tl::kPartsBytes + Tl::kRedBytes);
+  uint64_t* empty = full + kRing;
+  const int tid = threadIdx.x;
+  const int q_tiles = (nq + kF32BM - 1) / kF32BM;
+  const int tiles = q_tiles * (n / kF32BN);
+  const int nk = (d + kF32K - 1) / kF32K;
+
+  if (tid == kBfConsumers) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kBfConsumers / 32);  // each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= kBfConsumers) {  // the producer
+    if (tid == kBfConsumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % q_tiles) * kF32BM;
+        const int n0 = (tile / q_tiles) * kF32BN;
+        for (int kc = 0; kc < nk; ++kc, ++it) {
+          const int s = it % kRing;
+          if (it >= kRing) mbar_wait(empty + s, (it / kRing - 1) & 1);
+          unsigned char* st = smem + s * Tl::kStageBytes;
+          mbar_arrive_expect_tx(full + s, Tl::kStageBytes);
+#pragma unroll
+          for (int part = 0; part < 3; ++part)
+            tma_load_3d(st + part * Tl::kQPart, &q_map, full + s, kc * kF32K, m0, part);
+          tma_load_2d(st + Tl::kPBoxAt, &p_map, full + s, kc * kF32K, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128;
+  const int wtid = tid % 128;
+  const int lane = tid % 32;
+  // (the part buffers' and stages' addresses are recomputed each stage: a
+  // register fewer across the products kept kernel 2 from spilling)
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float big[kNq / 2], small[kNq / 2];
+    for (int kc = 0; kc < nk; ++kc, ++it) {
+      const int s = it % kRing;
+      const int b = it & 1;
+      mbar_wait(full + s, (it / kRing) & 1);
+      // every warp of the warpgroup is past the products of stage it - 2,
+      // which read buffer b
+      named_barrier(1 + wg, 128);
+      unsigned char* buf = parts + (2 * wg + b) * Tl::kBufBytes;
+      const unsigned char* box = smem + s * Tl::kStageBytes + Tl::kPBoxAt;
+#pragma unroll 1
+      for (int i = wtid; i < kF32Rows * 8; i += 128)
+        split_f32_chunk<Tl::kPPart>(box, kF32Rows * wg + (i >> 3), buf, i >> 3, i & 7);
+      fence_shared_to_async();
+      named_barrier(1 + wg, 128);
+      wgmma_fence();
+      wgmma_f32_parts_stage<kNq, (Tl::kQPart >> 4), (Tl::kPPart >> 4)>(
+          big, small, wgmma_desc(shared_addr(parts) + (2 * wg + b) * Tl::kBufBytes, kF32PartRow),
+          wgmma_desc(shared_addr(smem) + s * Tl::kStageBytes, kF32PartRow), kc == 0);
+      wgmma_commit();
+      if (kc > 0) {  // the previous stage's products have landed: release it
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(empty + (it - 1) % kRing);
+      }
+    }
+    wgmma_wait<0>();
+    wgmma_fence_regs(big);
+    wgmma_fence_regs(small);
+    if (lane == 0) mbar_arrive(empty + (it - 1) % kRing);
+#pragma unroll
+    for (int i = 0; i < kNq / 2; ++i) big[i] = __fadd_rn(big[i], small[i]);
+    // the epilogue's values, from here on only (fewer registers live across
+    // the products)
+    const int warp = wtid / 32;
+    const int g = lane / 4;
+    const int t = lane % 4;
+    const int gshift = __ffs(group) - 1;
+    const int m0 = (tile % q_tiles) * kF32BM;
+    const int n0 = (tile / q_tiles) * kF32BN;
+    float* tile_gmax = gmax + static_cast<long long>(m0) * (n >> gshift);
+    float* tile_scores = kStore ? scores + static_cast<long long>(m0) * n : scores;
+    bf_small_block<kNq, kStore>(big, tile_scores, tile_gmax, red + wg * 4 * kNq, nq - m0, n,
+                                n0 + kF32Rows * wg, warp, g, t, group, gshift);
+    if (group >= 32)  // G / 16 of the tile's 8 16-row chunks a group
+      combine_chunk_maxima<kNq>(red, tile_gmax, nq - m0, n, n0, group, gshift, tid);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the probe of the bf16 wgmma's bits
 // ---------------------------------------------------------------------------
 // One warpgroup a block, every block the same problem, stage by stage over
@@ -1289,29 +1238,19 @@ wgmma_bf16_probe(const __nv_bfloat16* __restrict__ a, const __nv_bfloat16* __res
 struct Config {
   int threads, smem, rows;  // block threads, dynamic shared bytes, query rows a block
   const void* fn;
-  int path;                 // kPathTile, kPathSmallQ, kPathInt8 or kPathBf16
+  int path;                 // kPathF32, kPathInt8 or kPathBf16
 };
-constexpr int kPathTile = 0, kPathSmallQ = 1, kPathInt8 = 2, kPathBf16 = 3;
+constexpr int kPathF32 = 0, kPathInt8 = 2, kPathBf16 = 3;
 
-template <bool kStore>
-const void* small_q_fn(int kq) {
-  switch (kq) {
-    case 1: return (const void*)scores_groupmax_small_q<float, 1, kStore>;
-    case 2: return (const void*)scores_groupmax_small_q<float, 2, kStore>;
-    case 4: return (const void*)scores_groupmax_small_q<float, 4, kStore>;
-    case 8: return (const void*)scores_groupmax_small_q<float, 8, kStore>;
-    case 16: return (const void*)scores_groupmax_small_q<float, 16, kStore>;
-    default: return (const void*)scores_groupmax_small_q<float, kSmallQMax, kStore>;
-  }
-}
+// The small-Q tiles' query bucket: Q rounded up to 8, 16, 32 or 64.
+inline int small_q_bucket(int nq) { return nq <= 8 ? 8 : nq <= 16 ? 16 : nq <= 32 ? 32 : 64; }
 
-// int8 and bf16 passages take their wgmma kernels at every Q (bf16: the
-// small-Q tiles up to kBfSmallQMax, queries rounded up to 8, 16, 32 or
-// 64). f32 passages take the small-Q path
-// at Q <= kSmallQMax when its queries fit in shared memory beside the ring
-// (D <= 1408 at Q = 17..32; the tile path takes larger D).
+// Every passage dtype takes its wgmma kernel at every Q: int8 one kernel;
+// bf16 and f32 the small-Q tiles up to 64 queries (kBfSmallQMax,
+// kF32SmallQMax; queries rounded up to 8, 16, 32 or 64), the query tiles
+// above.
 template <bool kStore>
-Config config(int p_dtype, int nq, int d) {
+Config config(int p_dtype, int nq) {
   if (p_dtype == 2) {
     return Config{kI8Threads, I8Tile<kStore>::kSmem, kI8BM,
                   (const void*)scores_groupmax_s8<kStore>, kPathInt8};
@@ -1320,7 +1259,7 @@ Config config(int p_dtype, int nq, int d) {
     if (nq > kBfSmallQMax)
       return Config{kBfThreads, BfTile<kStore>::kSmem, kBfBM,
                     (const void*)scores_groupmax_bf16<kStore>, kPathBf16};
-    switch (nq <= 8 ? 8 : nq <= 16 ? 16 : nq <= 32 ? 32 : 64) {
+    switch (small_q_bucket(nq)) {
       case 8: return Config{kBfThreads, BfSmallTile<8>::kSmem, 8,
                             (const void*)scores_groupmax_bf16_small_q<kStore, 8>, kPathBf16};
       case 16: return Config{kBfThreads, BfSmallTile<16>::kSmem, 16,
@@ -1331,21 +1270,19 @@ Config config(int p_dtype, int nq, int d) {
                              (const void*)scores_groupmax_bf16_small_q<kStore, 64>, kPathBf16};
     }
   }
-  if (nq <= kSmallQMax) {
-    const int kq = sq_bucket(nq);
-    const int smem = sq_smem_bytes(kq, (d + 31) / 32 * 32);
-    if (smem <= kMaxSmem) return Config{kSqThreads, smem, kq, small_q_fn<kStore>(kq), kPathSmallQ};
+  if (nq > kF32SmallQMax)
+    return Config{kBfThreads, F32Tile::kSmem, kF32BM, (const void*)scores_groupmax_f32<kStore>,
+                  kPathF32};
+  switch (small_q_bucket(nq)) {
+    case 8: return Config{kBfThreads, F32SmallTile<8>::kSmem, 8,
+                          (const void*)scores_groupmax_f32_small_q<kStore, 8>, kPathF32};
+    case 16: return Config{kBfThreads, F32SmallTile<16>::kSmem, 16,
+                           (const void*)scores_groupmax_f32_small_q<kStore, 16>, kPathF32};
+    case 32: return Config{kBfThreads, F32SmallTile<32>::kSmem, 32,
+                           (const void*)scores_groupmax_f32_small_q<kStore, 32>, kPathF32};
+    default: return Config{kBfThreads, F32SmallTile<64>::kSmem, 64,
+                           (const void*)scores_groupmax_f32_small_q<kStore, 64>, kPathF32};
   }
-  return nq <= 64 ? Config{128, fma_smem_bytes<float, 64>(), 64,
-                           (const void*)scores_groupmax_fma<float, 64, kStore>, kPathTile}
-                  : Config{256, fma_smem_bytes<float, 128>(), 128,
-                           (const void*)scores_groupmax_fma<float, 128, kStore>, kPathTile};
-}
-
-// The blocks an SM a persistent grid launches: up to max_per_sm.
-int persistent_per_sm(const Config& cfg, int blocks_per_sm) {
-  const int cap = cfg.path == kPathSmallQ ? kSqMaxBlocksPerSm : kI8MaxBlocksPerSm;
-  return blocks_per_sm < cap ? blocks_per_sm : cap;
 }
 
 // Resident blocks an SM of cfg (after its shared-memory attribute is set).
@@ -1356,8 +1293,7 @@ cudaError_t blocks_per_sm(const Config& cfg, int* blocks) {
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, cfg.fn, cfg.threads, cfg.smem);
 }
 
-// A persistent grid (the small-Q, int8 and bf16 paths): persistent_per_sm
-// blocks an SM, no more blocks than tiles.
+// A persistent grid: one block an SM, no more blocks than tiles.
 cudaError_t persistent_grid(const Config& cfg, long long tiles, int* grid) {
   int per_sm = 0, dev = 0, sms = 0;
   cudaError_t err = blocks_per_sm(cfg, &per_sm);
@@ -1366,22 +1302,8 @@ cudaError_t persistent_grid(const Config& cfg, long long tiles, int* grid) {
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const long long most = static_cast<long long>(sms) * persistent_per_sm(cfg, per_sm);
-  *grid = static_cast<int>(tiles < most ? tiles : most);
+  *grid = static_cast<int>(tiles < sms ? tiles : sms);
   return cudaSuccess;
-}
-
-cudaError_t launch_small_q(const Config& cfg, const float* q, const void* p, float* scores,
-                           float* gmax, int nq, int n, int d, int group, cudaStream_t s) {
-  alignas(64) CUtensorMap map;
-  if (!encode_rows_map(&map, p, 4, d, n, kSqRows)) return cudaErrorInvalidValue;
-  int grid = 0;
-  cudaError_t err = persistent_grid(cfg, n / kSqRows, &grid);
-  if (err != cudaSuccess) return err;
-  void* args[] = {&map, &q, &scores, &gmax, &nq, &n, &d, &group};
-  err = cudaLaunchKernel(cfg.fn, dim3(grid), dim3(cfg.threads), args, cfg.smem, s);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 // The int8 kernel: maps of the int8 queries [Q, D] and passages [N, D]
@@ -1407,23 +1329,30 @@ cudaError_t launch_s8(const Config& cfg, const void* q, const void* p, float* sc
   return cudaGetLastError();
 }
 
-// The bf16 kernels: maps of the queries (Q > kBfSmallQMax: their parts [3,
-// Q, D], boxes of one part's 128 rows x 128 bytes of k; else the f32 [Q,
-// D], boxes of kNq rows x 32 f32) and the passages [N, D] (boxes of kBfBN
-// rows) and, for kernel 2 at Q > kBfSmallQMax, of the f32 scores [Q, N]
-// (boxes of [64 rows][32 columns]).
+// The bf16 and f32 kernels: maps of the queries (above the small-Q limit
+// of bf16 and kF32SplitQMax of f32: their parts [3, Q, D] (bf16 passages;
+// boxes of one part's 128 rows x 64 columns) or [3, Q, D8], D8 = D rounded
+// up to 8 (f32 passages; 128 or kNq rows x 32 columns); else the f32 [Q,
+// D], boxes of kNq rows x 32 f32) and the
+// passages [N, D] (boxes of kBfBN or kF32BN rows) and, for bf16 kernel 2
+// above the small-Q limit, of the f32 scores [Q, N] (boxes of [64
+// rows][32 columns]).
 template <bool kStore>
-cudaError_t launch_bf16(const Config& cfg, const void* q, const void* p, float* scores,
-                        float* gmax, int nq, int n, int d, int group, cudaStream_t s) {
-  const bool small = nq <= kBfSmallQMax;
+cudaError_t launch_parts(const Config& cfg, const void* q, const void* p, float* scores,
+                         float* gmax, int nq, int n, int d, int group, bool f32, cudaStream_t s) {
+  const bool small = nq <= (f32 ? kF32SmallQMax : kBfSmallQMax);
+  const int bm = f32 ? kF32BM : kBfBM, bn = f32 ? kF32BN : kBfBN;
   alignas(64) CUtensorMap maps[3] = {};
-  if (!(small ? encode_rows_map(&maps[0], q, 4, d, nq, cfg.rows)
-              : encode_parts_map(&maps[0], q, kBfParts, d, nq, cfg.rows)) ||
-      !encode_rows_map(&maps[1], p, 2, d, n, kBfBN) ||
-      (kStore && !small && !encode_rows_map(&maps[2], scores, 4, n, nq, kBfRows)))
+  const bool f32_parts = f32 && nq > kF32SplitQMax;  // [3, Q, D8] from the wrapper
+  const bool q_ok = f32_parts ? encode_parts_map(&maps[0], q, 3, (d + 7) / 8 * 8, nq,
+                                                 small ? cfg.rows : bm, kF32K)
+                    : small   ? encode_rows_map(&maps[0], q, 4, d, nq, cfg.rows)
+                              : encode_parts_map(&maps[0], q, kBfParts, d, nq, bm);
+  if (!q_ok || !encode_rows_map(&maps[1], p, f32 ? 4 : 2, d, n, bn) ||
+      (kStore && !small && !f32 && !encode_rows_map(&maps[2], scores, 4, n, nq, kBfRows)))
     return cudaErrorInvalidValue;
-  const long long tiles = static_cast<long long>(small ? 1 : (nq + kBfBM - 1) / kBfBM) *
-                          ((n + kBfBN - 1) / kBfBN);
+  const long long tiles =
+      static_cast<long long>(small ? 1 : (nq + bm - 1) / bm) * ((n + bn - 1) / bn);
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   int grid = 0;
   cudaError_t err = persistent_grid(cfg, tiles, &grid);
@@ -1437,39 +1366,21 @@ cudaError_t launch_bf16(const Config& cfg, const void* q, const void* p, float* 
 template <bool kStore>
 int launch(const void* q, const void* p, void* scores, void* gmax, int nq,
            int n, int d, int group, int p_dtype, void* stream) {
-  if (nq <= 0 || n <= 0 || d <= 0 || n % kTileN != 0)
+  if (nq <= 0 || n <= 0 || d <= 0 || n % kRowTile != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (group != 8 && group != 16 && group != 32 && group != 64 && group != 128)
     return static_cast<int>(cudaErrorInvalidValue);
   if (p_dtype < 0 || p_dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
   const int vec = p_dtype == 0 ? 4 : p_dtype == 1 ? 8 : 16;
   if (d % vec != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Config cfg = config<kStore>(p_dtype, nq, d);
+  const Config cfg = config<kStore>(p_dtype, nq);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* sf = static_cast<float*>(scores);
   float* gf = static_cast<float*>(gmax);
   if (cfg.path == kPathInt8)
     return static_cast<int>(launch_s8<kStore>(cfg, q, p, sf, gf, nq, n, d, group, s));
-  if (cfg.path == kPathBf16)
-    return static_cast<int>(launch_bf16<kStore>(cfg, q, p, sf, gf, nq, n, d, group, s));
-  const float* qf = static_cast<const float*>(q);
-  if (cfg.path == kPathSmallQ)
-    return static_cast<int>(launch_small_q(cfg, qf, p, sf, gf, nq, n, d, group, s));
-  const long long blocks =
-      static_cast<long long>((nq + cfg.rows - 1) / cfg.rows) * (n / kTileN);
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      cfg.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(blocks));
-  const float* pp = static_cast<const float*>(p);
-  if (cfg.rows == 64)
-    scores_groupmax_fma<float, 64, kStore><<<grid, cfg.threads, cfg.smem, s>>>(
-        qf, pp, sf, gf, nq, n, d, group);
-  else
-    scores_groupmax_fma<float, 128, kStore><<<grid, cfg.threads, cfg.smem, s>>>(
-        qf, pp, sf, gf, nq, n, d, group);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_parts<kStore>(cfg, q, p, sf, gf, nq, n, d, group, cfg.path == kPathF32, s));
 }
 
 template <bool kSwap>
@@ -1496,13 +1407,15 @@ cudaError_t launch_probe(int n_inst, const void* a, const void* b, float* out, i
 
 }  // namespace
 
-// q: f32 [Q, D] row-major for p_dtype 0 (float32 passages) and for 1
-// (bfloat16) at Q <= 64 (the kernel splits them); the three bf16 parts [3,
-// Q, D] of the f32 queries (ops/fused_search.py bf16_query_parts) for 1 at
-// Q > 64; int8 [Q, D] for 2 (int8, the int-valued queries of
-// quantize_queries). p [N, D] row-major. D a multiple of 4 / 8 / 16 (16
-// bytes of P), both operands 16-byte aligned. group in {8, 16, 32, 64,
-// 128}; n % 128 == 0. Returns a cudaError_t (0 = launched).
+// q: for p_dtype 0 (float32 passages) at Q <= 16 and 1 (bfloat16) at Q <=
+// 64 f32 [Q, D] row-major (the kernel splits them); above it the three
+// bf16 parts of the f32 queries (ops/fused_search.py bf16_query_parts):
+// [3, Q, D] for 1, [3, Q, D8] for 0 (D8: D rounded up to 8, zeros after
+// D); int8 [Q, D] for
+// 2 (int8, the int-valued queries of quantize_queries). p [N, D]
+// row-major. D a multiple of 4 / 8 / 16 (16 bytes of P), both operands
+// 16-byte aligned. group in {8, 16, 32, 64, 128}; n % 128 == 0. Returns a
+// cudaError_t (0 = launched).
 extern "C" int convdr_scores_groupmax(const void* q, const void* p,
                                       void* scores, void* gmax, int nq, int n,
                                       int d, int group, int p_dtype,
@@ -1520,20 +1433,19 @@ extern "C" int convdr_streaming_groupmax(const void* q, const void* p,
 }
 
 // The launch configuration chosen for (p_dtype, nq, d), d as the kernel
-// takes it (padded to 16 bytes of P): out[0] threads a block, out[1]
-// dynamic shared memory bytes, out[2] query rows a block (the f32 small-Q
-// path: Q rounded up to a power of two; bf16 up to Q=64: Q rounded up to
-// 8, 16, 32 or 64), out[3] resident blocks an SM
+// takes it (padded to 16 bytes of P; every path takes any such d): out[0]
+// threads a block, out[1] dynamic shared memory bytes, out[2] query rows a
+// block (up to Q=64 on the f32 and bf16 paths: Q rounded up to 8, 16, 32
+// or 64; else 128), out[3] resident blocks an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the shared-memory
-// attribute is set), out[4] the path (0 the f32 FMA tile, 1 the f32 small-Q
-// TMA path, 2 the int8 wgmma kernel, 3 the bf16 three-part wgmma kernel),
-// out[5] the blocks an SM the persistent grids of paths 1-3 launch (0 on
-// the tile path: one block a tile).
+// attribute is set), out[4] the path (0 the f32 six-part wgmma kernel, 2
+// the int8 wgmma kernel, 3 the bf16 three-part wgmma kernel), out[5] the
+// blocks an SM the persistent grid launches.
 // Returns a cudaError_t.
 extern "C" int convdr_scores_groupmax_config(int p_dtype, int nq, int d, int* out) {
   if (p_dtype < 0 || p_dtype > 2 || nq <= 0 || d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Config cfg = config<true>(p_dtype, nq, d);
+  const Config cfg = config<true>(p_dtype, nq);
   int blocks = 0;
   const cudaError_t err = blocks_per_sm(cfg, &blocks);
   out[0] = cfg.threads;
@@ -1541,7 +1453,7 @@ extern "C" int convdr_scores_groupmax_config(int p_dtype, int nq, int d, int* ou
   out[2] = cfg.rows;
   out[3] = blocks;
   out[4] = cfg.path;
-  out[5] = cfg.path == kPathTile ? 0 : persistent_per_sm(cfg, blocks);
+  out[5] = blocks < 1 ? blocks : 1;
   return static_cast<int>(err);
 }
 

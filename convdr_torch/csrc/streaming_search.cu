@@ -12,28 +12,32 @@
 // scatters the selected groups through a one-hot matmul; here only the
 // selected rows are scored.
 //
-// Exactness: with f32 passages each score is one sequential fmaf(q, p,
-// acc) chain over k = 0..D-1 from 0, zero padding only after the last k,
-// which is the order of every f32 output of kernel 2 (scores_groupmax.cu).
-// With bf16 passages the queries come as their three bf16 parts [3, Q, D]
-// (ops/fused_search.py bf16_query_parts) and each score is kernel 2's
-// three-part wgmma product: k-steps of 16 from k = 0 in stages of 64,
-// parts 1, 2, 3 in turn each k-step, into one f32 accumulator
-// (hopper.cuh wgmma_bf16_parts_stage), whose bits depend only on the
-// query's part rows, the passage row and that order (kernel 2's probe).
-// With int8 passages the queries are the int-valued ones of
-// quantize_queries, taken as int8 as kernel 2 takes them, and the sums
-// are int32 dp4a sums: exact integers below 2^24 (D <= 1040), so equal to
-// kernel 2's tensor-core integer sums whatever their order. So each
-// candidate score is bit-identical to kernel 2's score of that (query,
-// row), and pass A's group maxima are exactly the maxima of these scores:
-// group pruning stays exact. Hence no split-K and no reordering of k.
+// Exactness: with f32 passages each score is kernel 2's six-part wgmma
+// product (scores_groupmax.cu): the queries and the passages split into
+// three bf16 parts each in the kernel, as kernel 2 splits them (the
+// arithmetic of ops/fused_search.py bf16_query_parts), and
+// per k-step of 16 (from k = 0, zeros after D) the products (1,1) into one
+// f32 sum and (1,2), (2,1), (1,3), (2,2), (3,1) into a second
+// (hopper.cuh wgmma_f32_parts_stage), the two added round to nearest at
+// the end. With bf16 passages the queries come as their three bf16 parts
+// and each score is kernel 2's three-part wgmma product: k-steps of 16
+// from k = 0 in stages of 64, parts 1, 2, 3 in turn each k-step, into one
+// f32 accumulator (hopper.cuh wgmma_bf16_parts_stage). Either way an
+// output's bits depend only on its rows and that order (kernel 2's probe),
+// not on which operand is A. With int8 passages the queries are the
+// int-valued ones of quantize_queries, taken as int8 as kernel 2 takes
+// them, and the sums are int32 dp4a sums: exact integers below 2^24 (D <=
+// 1040), so equal to kernel 2's tensor-core integer sums whatever their
+// order. So each candidate score is bit-identical to kernel 2's score of
+// that (query, row), and pass A's group maxima are exactly the maxima of
+// these scores: group pruning stays exact. Hence no split-K and no
+// reordering of k.
 //
 // What bounds it on an H100: bytes. The selected groups' rows are read once
 // (up to N * D * 4 bytes, 1.6 GB at N=524288, D=768 f32 when every group
 // is picked: ~0.48 ms at 3.35 TB/s) and the [Q, kg, G] scores written once,
-// against 2 * Q * kg * G * D operations (10.2 GFLOP at Q=512, kg=101,
-// G=128: ~0.15 ms at 67 TFLOP/s f32): about 3 FMAs a byte. The design:
+// against 6 * 2 * Q * kg * G * D six-part operations (61 GFLOP at Q=512,
+// kg=101, G=128: ~0.06 ms at the 989 TFLOP/s bf16 peak). The design:
 //   * A work list built on the device by a counting sort, with no host
 //     sync: slots counted by group (atomics), one block scans the counts
 //     into each group's first sorted slot and cuts each group into items
@@ -51,10 +55,20 @@
 //     and the next item's descriptor is read an item ahead: no step waits
 //     on a dependent load of the list (read every step, those loads made
 //     the arithmetic alone about a quarter slower in a first version).
-//   * A ring of 16-byte cp.async.cg copies: each stage holds the item's G
-//     passage rows x one k-chunk (64 f32 or 128 int8 k; 2 stages each) and
-//     its slots' query rows x the same k-chunk, gathered by slot (int8
-//     queries as int8).
+//   * A ring of 16-byte cp.async.cg copies (f32: the passage rows by
+//     TMA): each stage holds the item's G passage rows x one k-chunk and
+//     its slots' query rows (or query-part rows) x the same k-chunk,
+//     gathered by slot.
+//   * f32 (extract_candidates_f32): a 3-stage ring on full barriers of
+//     the slots' f32 query rows (cp.async) and the group's G f32 rows x 32
+//     k (one TMA box); each thread reads its A values from the rows and
+//     the block splits the query rows into a buffer of their parts, which
+//     frees the stage for the next load at once; the
+//     warpgroup issues m64n16k16 with the passage parts as A from
+//     registers (a 64-row block at a time, split in each thread) and the
+//     slots as N, so no tensor work is spent on padding slots (the slots
+//     as M would compute 64 rows for 16) and no passage part goes through
+//     shared memory.
 //   * bf16 (extract_candidates_bf16): the same work list, item stream and
 //     3-stage ring, each stage the slots' three query-part rows (parts at
 //     tile rows 0, 16, 32: a product reads 64 rows from its part's first,
@@ -62,18 +76,19 @@
 //     x 64 k, 128-byte rows laid out as TMA's swizzle lays them; the
 //     block's warpgroup issues m64nGk16 over them (slots as M, the G rows
 //     as N) and warp 0 stores the item's rows 0..15.
-//   * f32 and int8 register tiles: each of the 4 warps owns 4 slots and all G rows; a
-//     lane owns 4 slots x G/32 rows (G >= 32), or 2 x 1 (G=16) or 1 x 1
-//     (G=8). A warp whose slots are all padding skips the arithmetic: an
-//     item of c slots costs FMAs for c rounded up to 4 and no bytes for the
-//     rest (the Q=64 case has ~1.6 slots a picked group). At G=128 f32 a
-//     lane reads 4 passage and 4 query 16-byte vectors from shared memory
-//     per 64 FMAs; a quarter warp reads 8 consecutive rows, on distinct
-//     banks, and query vectors are warp broadcasts. int8 takes 4 k a dp4a.
-// Rows whose pitch is not a multiple of 16 bytes (D % 4 f32, D % 8 bf16,
-// D % 16 int8), or operands that are not 16-byte aligned, take a scalar
-// loader into the same ring (element loads, synchronous); the arithmetic
-// is the same.
+//   * int8 register tiles (2 stages of 128 k): each of the 4 warps owns 4
+//     slots and all G rows; a lane owns 4 slots x G/32 rows (G >= 32), or 2
+//     x 1 (G=16) or 1 x 1 (G=8). A warp whose slots are all padding skips
+//     the arithmetic: an item of c slots costs dp4a for c rounded up to 4
+//     and no bytes for the rest. A lane reads 16-byte vectors of passage
+//     and query rows from shared memory (pitches of 144 bytes put a
+//     quarter warp's 8 rows on distinct banks; query vectors are warp
+//     broadcasts), 4 k a dp4a.
+// bf16 and int8 rows whose pitch is not a multiple of 16 bytes (D % 8,
+// D % 16), or operands that are not 16-byte aligned, take a scalar loader
+// into the same ring (element loads, synchronous); the arithmetic is the
+// same. f32 takes 16-byte rows and bases alone (TMA): the wrapper pads D
+// to 4 and copies an unaligned operand.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -229,31 +244,19 @@ cudaError_t build_list_any(const void* gsel, int idx_bytes, const Workspace& w,
 // ---------------------------------------------------------------------------
 // the scoring kernel
 // ---------------------------------------------------------------------------
-// Per passage type (f32, int8): Q the query element type as the kernel
-// takes it, elements a 16-byte vector of P, k a stage, the shared row
-// pitches (in elements) of the passage and query tiles, and the ring's
-// stages. Longer row chunks a stage (256 bytes of an f32 row, 128 of an
-// int8 row) read faster on the card than 128 or 64 bytes, even at 2 stages
-// and 2 blocks an SM; pitches of 272 and 144 bytes put the 8 rows a quarter
-// warp reads on distinct banks.
+// The int8 register tiles: Q the query element type as the kernel takes
+// it, elements a 16-byte vector of P, k a stage, the shared row pitches
+// (in elements) of the passage and query tiles, and the ring's stages.
+// 128 bytes of a row a stage read faster on the card than 64, even at 2
+// stages and 2 blocks an SM; a pitch of 144 bytes puts the 8 rows a
+// quarter warp reads on distinct banks.
 template <typename P>
 struct Tile;
-template <>
-struct Tile<float> {
-  using Q = float;
-  static constexpr int kVec = 4, kKC = 64, kPitch = 68, kQPitch = 68, kStages = 2;
-};
 template <>
 struct Tile<signed char> {
   using Q = signed char;
   static constexpr int kVec = 16, kKC = 128, kPitch = 144, kQPitch = 144, kStages = 2;
 };
-
-// Elements 0 .. 3 of a raw 16-byte vector of f32.
-__device__ __forceinline__ float4 widen(const uint4& v, int, float) {
-  return make_float4(__uint_as_float(v.x), __uint_as_float(v.y),
-                     __uint_as_float(v.z), __uint_as_float(v.w));
-}
 
 template <typename T>
 __device__ __forceinline__ T zero() {
@@ -369,12 +372,10 @@ __device__ __forceinline__ void load_stage(
   }
 }
 
-// One stage's arithmetic for a lane's kTS x kRT tile: f32 FMAs in k order
-// (f32), or dp4a int32 sums (int8).
-template <typename P, int G, typename Acc>
-__device__ __forceinline__ void compute_stage(
-    const unsigned char* st, int lr, int m0,
-    Acc (&acc)[Shape<P, G>::kTS][Shape<P, G>::kRT]) {
+// One stage's arithmetic for a lane's kTS x kRT tile: dp4a int32 sums.
+template <typename P, int G>
+__device__ __forceinline__ void compute_stage(const unsigned char* st, int lr, int m0,
+                                              int (&acc)[Shape<P, G>::kTS][Shape<P, G>::kRT]) {
   using S = Shape<P, G>;
   using T = Tile<P>;
   using Q = typename T::Q;
@@ -386,50 +387,20 @@ __device__ __forceinline__ void compute_stage(
 #pragma unroll
     for (int r = 0; r < S::kRT; ++r)
       praw[r] = *reinterpret_cast<const uint4*>(ps + (lr + S::kLR * r) * T::kPitch + kv);
-    if constexpr (std::is_same<P, signed char>::value) {
-      uint4 qraw[S::kTS];
+    uint4 qraw[S::kTS];
 #pragma unroll
-      for (int s = 0; s < S::kTS; ++s)
-        qraw[s] = *reinterpret_cast<const uint4*>(qs + (m0 + s) * T::kQPitch + kv);
+    for (int s = 0; s < S::kTS; ++s)
+      qraw[s] = *reinterpret_cast<const uint4*>(qs + (m0 + s) * T::kQPitch + kv);
 #pragma unroll
-      for (int s = 0; s < S::kTS; ++s)
+    for (int s = 0; s < S::kTS; ++s)
 #pragma unroll
-        for (int r = 0; r < S::kRT; ++r) {
-          int a = acc[s][r];
-          a = __dp4a(static_cast<int>(qraw[s].x), static_cast<int>(praw[r].x), a);
-          a = __dp4a(static_cast<int>(qraw[s].y), static_cast<int>(praw[r].y), a);
-          a = __dp4a(static_cast<int>(qraw[s].z), static_cast<int>(praw[r].z), a);
-          acc[s][r] = __dp4a(static_cast<int>(qraw[s].w), static_cast<int>(praw[r].w), a);
-        }
-    } else {
-#pragma unroll
-      for (int j = 0; j < T::kVec / 4; ++j) {
-        float4 qv[S::kTS];
-        float4 pv[S::kRT];
-#pragma unroll
-        for (int s = 0; s < S::kTS; ++s)
-          qv[s] = *reinterpret_cast<const float4*>(qs + (m0 + s) * T::kQPitch + kv + 4 * j);
-#pragma unroll
-        for (int r = 0; r < S::kRT; ++r) pv[r] = widen(praw[r], j, P());
-        // k = kv + 4j, +1, +2, +3 in order for every output
-#pragma unroll
-        for (int s = 0; s < S::kTS; ++s)
-#pragma unroll
-          for (int r = 0; r < S::kRT; ++r) acc[s][r] = fmaf(qv[s].x, pv[r].x, acc[s][r]);
-#pragma unroll
-        for (int s = 0; s < S::kTS; ++s)
-#pragma unroll
-          for (int r = 0; r < S::kRT; ++r) acc[s][r] = fmaf(qv[s].y, pv[r].y, acc[s][r]);
-#pragma unroll
-        for (int s = 0; s < S::kTS; ++s)
-#pragma unroll
-          for (int r = 0; r < S::kRT; ++r) acc[s][r] = fmaf(qv[s].z, pv[r].z, acc[s][r]);
-#pragma unroll
-        for (int s = 0; s < S::kTS; ++s)
-#pragma unroll
-          for (int r = 0; r < S::kRT; ++r) acc[s][r] = fmaf(qv[s].w, pv[r].w, acc[s][r]);
+      for (int r = 0; r < S::kRT; ++r) {
+        int a = acc[s][r];
+        a = __dp4a(static_cast<int>(qraw[s].x), static_cast<int>(praw[r].x), a);
+        a = __dp4a(static_cast<int>(qraw[s].y), static_cast<int>(praw[r].y), a);
+        a = __dp4a(static_cast<int>(qraw[s].z), static_cast<int>(praw[r].z), a);
+        acc[s][r] = __dp4a(static_cast<int>(qraw[s].w), static_cast<int>(praw[r].w), a);
       }
-    }
   }
 }
 
@@ -443,8 +414,6 @@ extract_candidates_kernel(const typename Tile<P>::Q* __restrict__ q,
                           float* __restrict__ cand, int d, int kg, int vec) {
   using T = Tile<P>;
   using S = Shape<P, G>;
-  using Acc = typename std::conditional<std::is_same<P, signed char>::value, int,
-                                        float>::type;
   constexpr int kStages = T::kStages;
   extern __shared__ __align__(16) unsigned char smem[];
   int* header = reinterpret_cast<int*>(smem + kStages * S::kStageBytes);
@@ -511,7 +480,7 @@ extract_candidates_kernel(const typename Tile<P>::Q* __restrict__ q,
     cp_async_commit();
   }
 
-  Acc acc[S::kTS][S::kRT];
+  int acc[S::kTS][S::kRT];
   int out_slot[S::kTS];
   int kc = 0;  // the arithmetic's k-chunk
   for (int t = 0; t < steps; ++t) {
@@ -526,13 +495,13 @@ extract_candidates_kernel(const typename Tile<P>::Q* __restrict__ q,
 #pragma unroll
       for (int s = 0; s < S::kTS; ++s) {
 #pragma unroll
-        for (int r = 0; r < S::kRT; ++r) acc[s][r] = Acc(0);
+        for (int r = 0; r < S::kRT; ++r) acc[s][r] = 0;
         // the output slots, read now and used after the item's last k-chunk
         out_slot[s] = m0 + s < cnt ? slots[header[2 * stage] + m0 + s] : -1;
       }
     }
     if (warp_m0 < cnt) {  // warp-uniform: skip a warp of padding slots
-      compute_stage<P, G, Acc>(smem + stage * S::kStageBytes, lr, m0, acc);
+      compute_stage<P, G>(smem + stage * S::kStageBytes, lr, m0, acc);
       if (kc == nk - 1) {
 #pragma unroll
         for (int s = 0; s < S::kTS; ++s) {
@@ -638,7 +607,7 @@ __device__ __forceinline__ void load_stage_bf16(
   }
 }
 
-// The f32 / int8 kernel's item stream and ring (kBfStages stages, the load
+// The int8 kernel's item stream and ring (kBfStages stages, the load
 // stream kBfStages - 1 steps ahead), with each step's arithmetic one
 // wgmma_bf16_parts_stage<G> of the block's warpgroup: A the stage's query
 // parts (part p's descriptor at tile row 16p), B its G passage rows; the
@@ -755,6 +724,248 @@ extract_candidates_bf16(const __nv_bfloat16* __restrict__ qp, const __nv_bfloat1
   }
 }
 
+// ---------------------------------------------------------------------------
+// the scoring kernel, f32 passages: kernel 2's six-part wgmma product
+// ---------------------------------------------------------------------------
+constexpr int kF32Stages = 3;
+constexpr int kF32K = 32;                     // k a stage: a 128-byte f32 row, a 64-byte part row
+constexpr int kF32PartRow = 2 * kF32K;
+constexpr int kF32BoxRow = 4 * kF32K;
+constexpr int kF32QPart = kTM * kF32PartRow;  // one query part's 16 slot rows
+constexpr int kF32QRows = kTM * kF32BoxRow;   // the slots' f32 query rows of a stage
+
+// A stage: the slots' f32 query rows ([16][128 bytes]), then the group's
+// G f32 rows ([G][128 bytes], one TMA box), in the layout of TMA's
+// 128-byte swizzle, from a 1024-byte aligned base. Then the query
+// buffer: the three bf16 parts of a stage's query rows (part i's slot m at
+// row m of [16][64 bytes], the 64-byte swizzle's layout, the parts 1 KB
+// apart), split from the stage, which is then free; then each stage's
+// full barrier and (first slot, slot count).
+template <int G>
+struct F32Shape {
+  static constexpr int kBlocks = G > 64 ? G / 64 : 1;  // 64-row A blocks
+  static constexpr int kStageBytes = kF32QRows + G * kF32BoxRow;
+  static constexpr int kBufBytes = 3 * kF32QPart;
+  static constexpr int kSmem =
+      1024 + kF32Stages * kStageBytes + kBufBytes + kF32Stages * (8 + 2 * 4);
+  static_assert(kStageBytes % 1024 == 0, "1024-byte bases");
+};
+
+// One item's data for one k-chunk into ring stage `st` (k past D as
+// zeros), completing on the stage's full barrier: the group's G f32 rows
+// by one TMA box (thread 0), and the f32 query rows of its slots by
+// cp.async (thread tid: 16-byte chunk tid % 8 of slot tid / 8; a padding
+// slot's row is left as it is, its sums never stored), each thread's
+// arrival counted once its copies have landed.
+template <int G>
+__device__ __forceinline__ void load_stage_f32(unsigned char* st, uint64_t* full,
+                                               const CUtensorMap* p_map,
+                                               const float* __restrict__ q, const BfItem& it,
+                                               int k0, int d, int tid) {
+  if (tid == 0) {
+    mbar_arrive_expect_tx(full, G * kF32BoxRow);
+    tma_load_2d(st + kF32QRows, p_map, full, k0, it.g * G);
+  }
+  if (it.qrow >= 0) {
+    const int ch = tid % 8;
+    const int gk = k0 + 4 * ch;
+    const bool ok = gk < d;
+    cp_async16(st + swizzled_chunk_offset(tid / 8, ch, kF32BoxRow), ok ? q + it.qrow * d + gk : q,
+               ok);
+  }
+  mbar_arrive_cp_async(full);
+}
+
+// This thread's A values of k-step kk for 64-row block `blk` (rows 64 blk
+// + 16 warp + g, + 8) of a stage's G f32 rows (load_f32_fragment); rows
+// past G (G < 64) read as zeros, their sums never stored.
+template <int G>
+__device__ __forceinline__ void load_rows_fragment(const unsigned char* rows, int blk, int warp,
+                                                   int g, int t, int kk, float2 (&v)[4]) {
+  const int r = 64 * blk + 16 * warp + g;
+  if constexpr (G >= 64) {
+    load_f32_fragment(rows, r, kk, t, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = r + 8 * (i & 1);
+      v[i] = row < G ? *reinterpret_cast<const float2*>(
+                           rows + swizzled_chunk_offset(row, 4 * kk + 2 * (i >> 1) + (t >> 1), 128) +
+                           8 * (t & 1))
+                     : make_float2(0.f, 0.f);
+    }
+  }
+}
+
+// The bf16 kernel's item stream (kF32Stages stages, the load stream
+// kF32Stages - 1 steps ahead), its stages loaded by TMA and cp.async onto
+// full barriers (the group's rows as one [G][32 f32] box: what bounds pass
+// B is bytes, and per-thread 16-byte copies of them kept the kernel at
+// its FMA predecessor's rate). Each step every thread reads its A
+// values (the passage rows 16 warp + g, + 8 of each 64-row block, both
+// k-steps) and the block splits the stage's query rows into the query
+// buffer (split_f32_chunk), which frees the stage: it is refilled
+// at the next step's start, without waiting for any product. Then each
+// k-step the thread splits its values into the three parts' fragments
+// (split_f32_fragment; both the arithmetic of bf16_query_parts) and the
+// warpgroup issues wgmma_f32_parts_rs_kstep for each block (m64n16, the
+// passage parts as A from registers, the slots' query parts as B;
+// G=128: two independent chains): kernel 2's products, order and two
+// sums, with the roles its small-Q tiles give them, so the same bits. The
+// k-steps' fragments are f0 and f1, each kept (pin_fragment) until the
+// step's products have landed; the next step's loads and split then run
+// while the other two blocks of the SM compute. At the item's last k-chunk
+// every thread adds its two sums (round to nearest) and writes its rows
+// of its slots 8j + 2t + e.
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+extract_candidates_f32(const __grid_constant__ CUtensorMap p_map, const float* __restrict__ q,
+                       const int* __restrict__ slots, const int* __restrict__ items,
+                       const int* __restrict__ n_items_ptr, float* __restrict__ cand, int d,
+                       int kg) {
+  using S = F32Shape<G>;
+  constexpr int kB = S::kBlocks;
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  unsigned char* smem = f32_smem + ((1024u - (shared_addr(f32_smem) & 1023u)) & 1023u);
+  unsigned char* qbuf = smem + kF32Stages * S::kStageBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(qbuf + S::kBufBytes);
+  int* header = reinterpret_cast<int*>(full + kF32Stages);
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int g8 = lane / 4;
+  const int t = lane % 4;
+
+  if (tid == 0) {
+    for (int s = 0; s < kF32Stages; ++s) mbar_init(full + s, 1 + kThreads);  // TMA + each thread
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int n_items = *n_items_ptr;
+  const int nk = (d + kF32K - 1) / kF32K;
+  const int bid = static_cast<int>(blockIdx.x);
+  const int grid = static_cast<int>(gridDim.x);
+  const int mine = n_items > bid ? (n_items - 1 - bid) / grid + 1 : 0;
+  const int steps = mine * nk;
+
+  auto head = [&](int j, BfItem& it) {
+    const int* e = items + 3 * (bid + j * grid);
+    it.g = e[0];
+    it.first = e[1];
+    it.cnt = e[2];
+  };
+  auto rows = [&](BfItem& it) {  // the slot whose query chunk this thread copies
+    const int m = tid / 8;
+    it.qrow = m < it.cnt ? slots[it.first + m] / kg : -1;
+  };
+  BfItem cur{}, nxt{};
+  int lj = 0, lkc = 0;  // the load stream's item and k-chunk
+  if (mine > 0) {
+    head(0, cur);
+    rows(cur);
+  }
+  if (mine > 1) head(1, nxt);
+  auto load_next = [&](int stage) {
+    load_stage_f32<G>(smem + stage * S::kStageBytes, full + stage, &p_map, q, cur, lkc * kF32K, d,
+                      tid);
+    if (tid == 0) {
+      header[2 * stage] = cur.first;
+      header[2 * stage + 1] = cur.cnt;
+    }
+    if (++lkc == nk) {
+      lkc = 0;
+      if (++lj < mine) {
+        cur = nxt;
+        rows(cur);
+        if (lj + 1 < mine) head(lj + 1, nxt);
+      }
+    }
+  };
+
+  for (int s = 0; s < kF32Stages - 1 && s < steps; ++s) load_next(s);
+
+  const uint64_t db = wgmma_desc(shared_addr(qbuf), kF32PartRow);
+  uint32_t f0[kB][3][4], f1[kB][3][4];  // the two k-steps' A fragments
+  int step = 0;  // the arithmetic's step: (item, k-chunk) in order
+  for (int j = 0; j < mine; ++j) {
+    float big[kB][kTM / 2], small[kB][kTM / 2];
+    int out_slot[4] = {-1, -1, -1, -1};  // slots 8 (i / 2) + 2t + i % 2
+    for (int kc = 0; kc < nk; ++kc, ++step) {
+      const int stage = step % kF32Stages;
+      mbar_wait(full + stage, (step / kF32Stages) & 1);  // stage `step` landed
+      // every thread is done with the reads of step - 1 (its stage is free)
+      // and past the wait for its products (the query buffer is)
+      __syncthreads();
+      if (step + kF32Stages - 1 < steps) load_next((step + kF32Stages - 1) % kF32Stages);
+      if (kc == 0) {  // the output slots, used after the item's last k-chunk
+        const int cnt = header[2 * stage + 1];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int m = 8 * (i / 2) + 2 * t + i % 2;
+          if (m < cnt) out_slot[i] = slots[header[2 * stage] + m];
+        }
+      }
+      const unsigned char* st = smem + stage * S::kStageBytes;
+      float2 v[kB][2][4];
+#pragma unroll
+      for (int b = 0; b < kB; ++b)
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          load_rows_fragment<G>(st + kF32QRows, b, warp, g8, t, kk, v[b][kk]);
+      split_f32_chunk<kF32QPart>(st, tid / 8, qbuf, tid / 8, tid % 8);  // 16 rows x 8 chunks
+      fence_shared_to_async();  // the query parts, before the products read them
+      __syncthreads();
+#pragma unroll
+      for (int b = 0; b < kB; ++b) split_f32_fragment(v[b][0], f0[b]);
+      wgmma_fence();
+#pragma unroll
+      for (int b = 0; b < kB; ++b)
+        wgmma_f32_parts_rs_kstep<kTM, (kF32QPart >> 4), 0>(big[b], small[b], f0[b], db,
+                                                           kc == 0 ? 0 : 1);
+      wgmma_commit();
+#pragma unroll
+      for (int b = 0; b < kB; ++b) split_f32_fragment(v[b][1], f1[b]);
+      wgmma_fence();
+#pragma unroll
+      for (int b = 0; b < kB; ++b)
+        wgmma_f32_parts_rs_kstep<kTM, (kF32QPart >> 4), 2>(big[b], small[b], f1[b], db, 1);
+      wgmma_commit();
+      // the step's products have landed (a wait for the first k-step's alone
+      // let ptxas inject one at the next step's barrier wait, C7517); the
+      // fragments they read are kept until here
+      wgmma_wait<0>();
+#pragma unroll
+      for (int b = 0; b < kB; ++b) {
+        pin_fragment(f0[b]);
+        pin_fragment(f1[b]);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      wgmma_fence_regs(big[b]);
+      wgmma_fence_regs(small[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < kB; ++b)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 64 * b + 16 * warp + g8 + 8 * r;
+        if (row < G) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int at = 4 * (i / 2) + 2 * r + i % 2;
+            if (out_slot[i] >= 0)
+              cand[static_cast<long long>(out_slot[i]) * G + row] =
+                  __fadd_rn(big[b][at], small[b][at]);
+          }
+        }
+      }
+  }
+}
+
 struct Config {
   int smem;
   int blocks_per_sm;
@@ -766,6 +977,8 @@ template <typename P, int G>
 const void* kernel_fn() {
   if constexpr (std::is_same<P, __nv_bfloat16>::value)
     return (const void*)extract_candidates_bf16<G>;
+  else if constexpr (std::is_same<P, float>::value)
+    return (const void*)extract_candidates_f32<G>;
   else
     return (const void*)extract_candidates_kernel<P, G>;
 }
@@ -773,6 +986,8 @@ template <typename P, int G>
 constexpr int kernel_smem() {
   if constexpr (std::is_same<P, __nv_bfloat16>::value)
     return BfShape<G>::kSmem;
+  else if constexpr (std::is_same<P, float>::value)
+    return F32Shape<G>::kSmem;
   else
     return Shape<P, G>::kSmem;
 }
@@ -792,6 +1007,9 @@ cudaError_t config(Config* cfg) {
     const void* fn = kernel_fn<P, G>();
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                cfg->smem);
+    if (err == cudaSuccess && std::is_same<P, float>::value)  // as many blocks as fit
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
@@ -815,6 +1033,7 @@ struct Args {
   int nq;
   int d;
   int kg;
+  int n_rows;  // of the passages
   cudaStream_t s;
 };
 
@@ -829,6 +1048,11 @@ template <>
 struct Operands<__nv_bfloat16> {
   using Q = __nv_bfloat16;  // the query parts
   static constexpr int kVec = 8;
+};
+template <>
+struct Operands<float> {
+  using Q = float;  // the kernel splits the queries
+  static constexpr int kVec = 4;
 };
 
 template <typename P, int G>
@@ -847,7 +1071,14 @@ cudaError_t launch(const Args& a) {
     extract_candidates_bf16<G><<<blocks, kThreads, cfg.smem, a.s>>>(
         static_cast<const Q*>(a.q), static_cast<const P*>(a.p), a.w.slots, a.w.items,
         a.w.n_items, a.cand, a.nq, a.d, a.kg, vec ? 1 : 0);
-  else
+  else if constexpr (std::is_same<P, float>::value) {
+    // the passages' [G][32 f32] boxes by TMA: 16-byte rows and base
+    alignas(64) CUtensorMap p_map;
+    if (!vec || !encode_rows_map(&p_map, a.p, 4, a.d, a.n_rows, G)) return cudaErrorInvalidValue;
+    extract_candidates_f32<G><<<blocks, kThreads, cfg.smem, a.s>>>(
+        p_map, static_cast<const Q*>(a.q), a.w.slots, a.w.items, a.w.n_items, a.cand, a.d,
+        a.kg);
+  } else
     extract_candidates_kernel<P, G><<<blocks, kThreads, cfg.smem, a.s>>>(
         static_cast<const Q*>(a.q), static_cast<const P*>(a.p), a.w.slots, a.w.items,
         a.w.n_items, a.cand, a.d, a.kg, vec ? 1 : 0);
@@ -901,7 +1132,8 @@ extern "C" int convdr_candidate_work_list(const void* gsel, int idx_bytes, void*
                                          static_cast<cudaStream_t>(stream)));
 }
 
-// The work list, then the scores: q f32 [nq, d] for p_dtype 0 (float32),
+// The work list, then the scores: q f32 [nq, d] for p_dtype 0 (float32;
+// the kernel splits them; d % 4 == 0 and both operands 16-byte aligned),
 // the three bf16 parts [3, nq, d] of the f32 queries (ops/fused_search.py
 // bf16_query_parts) for 1 (bfloat16), int8 [nq, d] for 2 (int8);
 // p [n_groups * group, d]; gsel and
@@ -917,7 +1149,7 @@ extern "C" int convdr_extract_candidates(const void* q, const void* p,
   if (p_dtype < 0 || p_dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
   const long long s_total = static_cast<long long>(nq) * kg;
   const Args a{q, p, carve(ws, n_groups, s_total, max_items),
-               static_cast<float*>(cand), max_items, nq, d, kg,
+               static_cast<float*>(cand), max_items, nq, d, kg, n_groups * group,
                static_cast<cudaStream_t>(stream)};
   cudaError_t err = build_list_any(gsel, idx_bytes, a.w, static_cast<int>(s_total),
                                    n_groups, a.s);

@@ -19,11 +19,15 @@ three bf16 parts (:func:`bf16_query_parts`: q = q1 + q2 + q3 exactly) and
 the product runs on the bf16 tensor cores at every Q: three ``wgmma``
 products into one f32 accumulator, the counterpart of the JAX kernel's
 ``Precision.HIGHEST`` on f32 x bf16 (a split-precision product of bf16
-MXU passes); the streaming passes issue the same arithmetic, so their
-outputs equal these bit for bit. f32 passages at Q <= 32 (the serving
-search is Q=1) take the kernel's small-Q path, one thread a passage row
-fed by TMA, whose scores and maxima equal the query-tile path's bit for
-bit (the same FMA chain a score).
+MXU passes). f32 passages split too, in the kernel, from the f32 rows as
+stored (:func:`bf16_query_parts`' arithmetic), and a score is the six
+bf16 ``wgmma`` products of parts whose sum is above 2^-20 of |q p| (the
+MXU's HIGHEST on f32 x f32: six passes), the largest in one f32 sum and
+the five small ones in another, added at the end; within 2 D 2^-24 sum
+|q_k p_k| of the exact product and 1e-5 |q| max|p| of the plain f32 one.
+The streaming passes issue the same arithmetic as this kernel, so their
+outputs equal these bit for bit, and so do its small-Q tiles (up to 64
+queries; the serving search is Q=1).
 """
 
 from __future__ import annotations
@@ -48,10 +52,12 @@ _CHUNK = {torch.float32: 4, torch.bfloat16: 8, torch.int8: 16}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # an f32's sign, exponent and 7 high significand bits: the bf16 it cuts to
 _BF16_HIGH_BITS = -65536  # 0xFFFF0000 as an int32
-# The largest Q whose bf16 kernel takes the f32 queries and splits them
-# itself (``kBfSmallQMax`` in ``csrc/scores_groupmax.cu``); above it the
-# wrapper passes :func:`bf16_query_parts`.
+# The largest Q whose bf16 and f32 kernels take the f32 queries and split
+# them themselves (``kBfSmallQMax``, ``kF32SplitQMax`` in
+# ``csrc/scores_groupmax.cu``); above it the wrapper passes
+# :func:`bf16_query_parts`.
 BF16_SMALL_Q_MAX = 64
+F32_SPLIT_Q_MAX = 16
 
 
 def check_score_operands(
@@ -103,12 +109,13 @@ def kernel_operands(
     """(q, p) as ``csrc/scores_groupmax.cu`` takes them: contiguous and
     16-byte aligned, D zero-padded to 16 bytes of the passage dtype (a
     copy of the passages only where D is not: zeros after the last k leave
-    every score as it was). q is f32 for f32 passages, and for bf16
-    passages at Q <= :data:`BF16_SMALL_Q_MAX` (the kernel splits them);
-    the [3, Q, D] bf16 parts of :func:`bf16_query_parts` for bf16 passages
-    above it; for int8 passages int8, the int-valued queries of
-    ``quantize_queries``, exact in [-127, 127] (other values are cut
-    toward zero)."""
+    every score as it was). q is f32 for f32 and bf16 passages at Q <=
+    :data:`F32_SPLIT_Q_MAX` / :data:`BF16_SMALL_Q_MAX` (the kernel splits
+    them); above it the [3, Q, D] bf16 parts of :func:`bf16_query_parts`,
+    with f32 passages of the queries zero-padded to a multiple of 8 (the
+    parts' rows in 16-byte chunks); for int8 passages int8, the
+    int-valued queries of ``quantize_queries``, exact in [-127, 127] (other
+    values are cut toward zero)."""
     d = passages.shape[1]
     if passages.dtype == torch.int8 and d > INT8_EXACT_MAX_DIM:
         raise ValueError(
@@ -126,6 +133,8 @@ def kernel_operands(
         q = q.to(torch.int8)
     elif passages.dtype == torch.bfloat16 and q.shape[0] > BF16_SMALL_Q_MAX:
         q = bf16_query_parts(q)
+    elif passages.dtype == torch.float32 and q.shape[0] > F32_SPLIT_Q_MAX:
+        q = bf16_query_parts(F.pad(q, (0, (-q.shape[1]) % 8)))
     q = q.contiguous()
     if q.data_ptr() % 16:
         q = q.clone()
@@ -154,9 +163,10 @@ def fused_scores_groupmax(
 
     CUDA tensors go through ``csrc/scores_groupmax.cu`` (passages f32,
     bf16 or int8, N a multiple of :data:`ROW_TILE`, ``group`` in
-    :data:`GROUPS`; the kernel picks its path by Q, D and the passage
-    dtype, and any failed launch raises; bf16 scores are the three-part
-    tensor-core product, within 2 D 2^-24 sum |q_k p_k| of the exact one);
+    :data:`GROUPS`; the kernel picks its path by Q and the passage dtype,
+    and any failed launch raises; f32 and bf16 scores are the six-
+    and three-part tensor-core products, within 2 D 2^-24 sum |q_k p_k| of
+    the exact one);
     CPU tensors through :func:`fused_scores_groupmax_plain`.
     ``fused_scores_groupmax.launches`` counts kernel launches.
     """
@@ -164,8 +174,8 @@ def fused_scores_groupmax(
         return fused_scores_groupmax_plain(queries, passages, group)
     check_score_operands("fused_scores_groupmax", queries, passages, group)
     q, p = kernel_operands(queries, passages)
-    qn, d = q.shape[-2:]  # bf16: the queries' parts [3, Q, D]
-    n = p.shape[0]
+    qn = q.shape[-2]  # above the small-Q limit: the queries' parts [3, Q, D]
+    n, d = p.shape
     scores = torch.empty((qn, n), dtype=torch.float32, device=passages.device)
     gmax = torch.empty((qn, n // group), dtype=torch.float32, device=passages.device)
     fn = cuda_build.bind("scores_groupmax", "convdr_scores_groupmax", _ARGTYPES)

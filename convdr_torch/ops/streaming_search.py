@@ -5,8 +5,7 @@ The counterpart of the streaming half of ``convdr_tpu/ops/pallas_search.py``
 
   * :func:`streaming_groupmax`       -- pass A, the [Q, N/G] group maxima in
     one passage pass (the score kernel with its score store compiled out,
-    ``convdr_streaming_groupmax`` in ``csrc/scores_groupmax.cu``; its
-    small-Q path too at Q <= 32 on f32 passages);
+    ``convdr_streaming_groupmax`` in ``csrc/scores_groupmax.cu``);
   * :func:`extract_candidate_scores` -- pass B, the [Q, kg, G] scores of the
     selected groups only (``csrc/streaming_search.cu``);
   * :func:`streaming_flat_ip_topk`   -- group selection on the maxima, pass
@@ -14,9 +13,10 @@ The counterpart of the streaming half of ``convdr_tpu/ops/pallas_search.py``
     :func:`~convdr_torch.ops.exact_search.flat_ip_topk`.
 
 Both passes compute each score as the score kernel does (f32 passages:
-one sequential f32 FMA chain over the dimension; bf16: the three-part
-tensor-core product of the queries' bf16 parts, in one k order; int8:
-exact integer sums), so pass A's maxima are bit-identical to the score kernel's
+the six-part tensor-core product of the queries' and the passages' bf16
+parts into two sums, in one k order; bf16: the three-part product of the
+queries' bf16 parts, in one k order; int8: exact integer sums), so pass
+A's maxima are bit-identical to the score kernel's
 and pass B's scores to its scores: the group pruning is exact and the
 top-k equals :func:`flat_ip_topk`'s bit for bit on the card. On the card
 :func:`streaming_flat_ip_topk` issues no host sync. The TPU version's
@@ -83,8 +83,8 @@ def streaming_groupmax(
         return streaming_groupmax_plain(queries, passages, group)
     check_score_operands("streaming_groupmax", queries, passages, group)
     q, p = kernel_operands(queries, passages)
-    qn, d = q.shape[-2:]  # bf16: the queries' parts [3, Q, D]
-    n = p.shape[0]
+    qn = q.shape[-2]  # above the small-Q limit: the queries' parts [3, Q, D]
+    n, d = p.shape
     gmax = torch.empty((qn, n // group), dtype=torch.float32, device=passages.device)
     fn = cuda_build.bind("scores_groupmax", "convdr_streaming_groupmax", _GROUPMAX_ARGTYPES)
     rc = cuda_build.launch(
@@ -133,6 +133,17 @@ def extract_candidate_scores_plain(
             cand, queries[lo : lo + step, None, :, None].float()
         )[..., 0]
     return out
+
+
+def _f32_rows(x: torch.Tensor) -> torch.Tensor:
+    """Contiguous f32 rows of a multiple of 16 bytes from a 16-byte aligned
+    base, as the f32 pass B loads them: D zero-padded to 4 (zeros after the
+    last k leave every score as it was), an unaligned tensor copied."""
+    pad = (-x.shape[1]) % 4
+    if pad:
+        x = F.pad(x, (0, pad))
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def _work_list_size(n_groups: int, n_slots: int) -> Tuple[int, int]:
@@ -235,12 +246,18 @@ def extract_candidate_scores_unchecked(
     if cand.numel() == 0:
         return cand
     # int8 passages take the int-valued queries as int8, bf16 passages the
-    # queries' three bf16 parts, as kernel 2 does
+    # queries' three bf16 parts, as kernel 2 does; f32 passages the f32
+    # queries, which the kernel splits, both in 16-byte rows and bases (the
+    # kernel loads the passage rows by TMA): D zero-padded to 4, an
+    # unaligned operand copied
     q = queries.to(torch.float32)
     if passages.dtype == torch.int8:
         q = q.to(torch.int8)
     elif passages.dtype == torch.bfloat16:
         q = bf16_query_parts(q)
+    else:
+        q, passages = _f32_rows(q), _f32_rows(passages)
+        d = passages.shape[1]
     if not q.is_contiguous():
         q = q.contiguous()
     ids = gsel if gsel.is_contiguous() else gsel.contiguous()

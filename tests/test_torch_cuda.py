@@ -10,19 +10,21 @@ the card does not have; this file imports nothing of JAX.)
 Tolerances: attention f32 1e-5 absolute (same softmax, another summation
 order), bf16 one bf16 ulp (2^-7 relative; both versions round one f32
 result); scores 1e-5 * |q| * max|p| (f32 dot products of another order);
-bf16 scores within 2 D 2^-24 sum |q_k p_k| of the f64 product of the same
-operands (see ``bf16_score_bound``);
+f32 and bf16 scores within 2 D 2^-24 sum |q_k p_k| of the f64 product of
+the same operands (the six- and three-part tensor-core products; see
+``bf16_score_bound``);
 the attention backward 1e-5 * max|ref| per gradient (f32 sums of up to T
 terms in another order, P recomputed from the forward's log-sum-exp); in
 bf16, within 2x the error of autograd through masked SDPA in bf16 (floor
 1e-3 of scale) from the f64 plain backward, and the bf16 forward's lse
 within 1e-5 relative of a torch.logsumexp.
 Equal, not close: the streaming passes against the score kernel (f32: the
-same FMA chain per score; bf16: the same three-part tensor-core product in
-one k order, whose bits the wgmma probe shows depend on nothing else;
-int8: exact integer sums, on the tensor cores in the score kernel), the
-score kernel's small-Q path against its query-tile path (the first Q rows
-of a Q=65 batch: the same chain, or the same product), the attention
+same six-part tensor-core product into the same two sums in one k order;
+bf16: the same three-part product in one k order, whose bits the wgmma
+probe shows depend on nothing else; int8: exact integer sums, on the
+tensor cores in the score kernel), the score kernel's small-Q tiles
+against its query tiles (the first Q rows of a Q=65 batch: the same
+product), the attention
 forward's small-grid path against its 64-row tile (out and lse of the same
 problem repeated to a batch that takes the tile; the same chains), int8
 scores against the plain version (exact integer
@@ -264,7 +266,7 @@ def test_flash_fwd_bf16_is_deterministic(cuda, b, t, h, d, mask_kind):
 
 # (Q, N, D) cutting the kernel's tiles: 64- and 128-query blocks, 128-row
 # tiles, D padded to 16 bytes of the passages; D=1040 is int8's exact limit;
-# the small-Q path's query buckets (2, 16) and the first Q past it (17 < Q*:
+# the small-Q tiles' query buckets (2, 16) and the first Q past one (17:
 # the 32-query bucket, 15 rows empty); the int8 kernel's tiles (128 queries,
 # two warpgroups of 64, x 128 or 256 rows, 128 bytes of k a stage): Q = 1,
 # 63-65, 257 and 512 against N = 128 and 384 (fewer tiles than the
@@ -333,7 +335,7 @@ def test_scores_groupmax_kernel_rejects_bad_shapes(cuda):
 def score_config(p_dtype, qn, d):
     """``convdr_scores_groupmax_config`` for (passage dtype code, Q, D):
     threads, shared bytes, query rows a block, blocks an SM, path (0 the
-    f32 FMA tile, 1 f32 small-Q, 2 int8, 3 bf16), persistent blocks an SM."""
+    f32 six-part kernel, 2 int8, 3 bf16), persistent blocks an SM."""
     fn = cuda_build.bind("scores_groupmax", "convdr_scores_groupmax_config",
                          [ctypes.c_int] * 3 + [ctypes.c_void_p])
     out = (ctypes.c_int * 6)()
@@ -343,7 +345,7 @@ def score_config(p_dtype, qn, d):
 
 def score_path(p_dtype, qn, d):
     """The path ``convdr_scores_groupmax_config`` reports for (passage
-    dtype code, Q, D): 0 the f32 FMA tile, 1 f32 small-Q, 2 int8, 3 bf16."""
+    dtype code, Q, D): 0 the f32 six-part kernel, 2 int8, 3 bf16."""
     return score_config(p_dtype, qn, d)[4]
 
 
@@ -406,15 +408,33 @@ def test_bf16_score_config_reports_the_wgmma_kernel(cuda, qn, d):
                            props.shared_memory_per_multiprocessor - 1024)
 
 
-def test_bf16_score_kernels_ptxas_show_no_spills(cuda):
-    """ptxas's report of the bf16 kernels (kernels 2 and 3 at both tile
-    kinds, kernel 4 at every G): registers within the cap of one 288-thread
-    block an SM (168) for kernels 2 and 3, no spill stores or loads, no
-    stack, and no serialized or waited-on wgmma pipeline (C7510, C7511,
-    C7514, C7515, C7517, C7518)."""
-    cuda_build.build(["scores_groupmax", "streaming_search"])
-    for name, marks, count in (("scores_groupmax", ("scores_groupmax_bf16",), 10),
-                               ("streaming_search", ("extract_candidates_bf16",), 5)):
+@pytest.mark.parametrize("qn", [1, 8, 9, 16, 17, 32, 33, 64, 65, 512])
+@pytest.mark.parametrize("d", [16, 768, 1040])
+def test_f32_score_config_reports_the_wgmma_kernel(cuda, qn, d):
+    """f32 passages take the six-part wgmma kernel (path 0) at every Q and
+    D: a producer warp and two consumer warpgroups (288 threads), one block
+    an SM, a persistent grid; 128 query rows a block past Q=64, and Q
+    rounded up to 8, 16, 32 or 64 up to it; the shared memory within a
+    block's limit (at Q > 64: a 4-stage ring of 40 KB, two 12 KB part
+    buffers a warpgroup, the warps' maxima of 128 queries, the barriers)."""
+    threads, smem, rows, per_sm, path, persistent = score_config(0, qn, d)
+    props = torch.cuda.get_device_properties(0)
+    want_rows = 128 if qn > 64 else next(b for b in (8, 16, 32, 64) if qn <= b)
+    assert (path, threads, rows, per_sm, persistent) == (0, 288, want_rows, 1, 1)
+    if qn > 64:
+        assert smem == 1024 + 4 * 40960 + 4 * 12288 + 8 * 128 * 4 + 2 * 8 * 4
+    assert smem <= getattr(props, "shared_memory_per_block_optin",
+                           props.shared_memory_per_multiprocessor - 1024)
+
+
+def assert_ptxas_clean(sources):
+    """ptxas's report of the kernels whose entries name a mark, per source
+    (name, marks, entries expected): registers within the cap of one
+    288-thread block an SM (168), no spill stores or loads, no stack, and
+    no serialized or waited-on wgmma pipeline (C7510, C7511, C7514, C7515,
+    C7517, C7518)."""
+    cuda_build.build([name for name, _marks, _count in sources])
+    for name, marks, count in sources:
         report = cuda_build.ptxas_report(name)
         entries, entry = {}, None
         for line in report:
@@ -434,6 +454,20 @@ def test_bf16_score_kernels_ptxas_show_no_spills(cuda):
             assert regs and regs[0] <= 168, (entry_name, text)
         assert not [line for line in report if any(m in line for m in marks)
                     and any(f"(C75{c})" in line for c in ("10", "11", "14", "15", "17", "18"))], report
+
+
+def test_bf16_score_kernels_ptxas_show_no_spills(cuda):
+    """:func:`assert_ptxas_clean` for the bf16 kernels (kernels 2 and 3 at
+    both tile kinds, kernel 4 at every G)."""
+    assert_ptxas_clean((("scores_groupmax", ("scores_groupmax_bf16",), 10),
+                        ("streaming_search", ("extract_candidates_bf16",), 5)))
+
+
+def test_f32_score_kernels_ptxas_show_no_spills(cuda):
+    """:func:`assert_ptxas_clean` for the f32 six-part kernels (kernels 2
+    and 3 at both tile kinds and every query bucket, kernel 4 at every G)."""
+    assert_ptxas_clean((("scores_groupmax", ("scores_groupmax_f32",), 10),
+                        ("streaming_search", ("extract_candidates_f32",), 5)))
 
 
 def wgmma_probe(a, b, n_inst, blocks=1, a_shift=0, b_shift=0, swap=0):
@@ -505,6 +539,51 @@ def bf16_score_bound(q, p):
 
 @pytest.mark.parametrize("qn", [1, 17, 65, 512])
 @pytest.mark.parametrize("d", [8, 100, 768, 1040])
+def test_f32_scores_within_the_f64_bound(cuda, qn, d):
+    """Kernels 2, 3 and 4 on f32 passages against the f64 product of the
+    same f32 operands: every score within ``bf16_score_bound`` (the
+    six-part product drops terms below 2^-20 sum |q_k p_k|, far inside
+    it) and within 1e-5 |q| max|p| of the plain f32 product; pass A's
+    maxima and pass B's candidates (every group) equal kernel 2's."""
+    n, group = 4224, 32
+    q, p = search_problem(qn, n, d, torch.float32, seed=11)
+    s, g = fused_scores_groupmax(q, p, group)
+    m = streaming_groupmax(q, p, group)
+    gsel = torch.arange(n // group, device="cuda").expand(qn, -1).contiguous()
+    cand = extract_candidate_scores(q, p, gsel, group)
+    torch.cuda.synchronize()
+    exact = q.double() @ p.double().T
+    assert bool(((s.double() - exact).abs() <= bf16_score_bound(q, p)).all())
+    tol = 1e-5 * q.norm(dim=1)[:, None] * p.norm(dim=1).max()
+    assert bool(((s - fused_scores_groupmax_plain(q, p, group)[0]).abs() <= tol).all())
+    assert torch.equal(m, g) and torch.equal(cand.reshape(qn, n), s)
+
+
+@pytest.mark.parametrize("qn", [1, 64, 65, 512])
+@pytest.mark.parametrize("d", [768, 1040])
+def test_f32_scores_on_near_parallel_rows_within_the_f32_tolerance(cuda, qn, d):
+    """Near-parallel positive rows, 1 + 0.01 N(0, 1): long one-signed sums,
+    where every add of a truncating tensor-core sum loses toward zero. The
+    six-part scores stay within the unchanged 1e-5 |q| max|p| of the plain
+    f32 product (one sum for all six products broke it) and within
+    ``bf16_score_bound`` of f64; kernels 3 and 4 equal kernel 2."""
+    n, group = 4224, 128
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q = 1 + 0.01 * torch.randn(qn, d, generator=gen, device="cuda")
+    p = 1 + 0.01 * torch.randn(n, d, generator=gen, device="cuda")
+    s, g = fused_scores_groupmax(q, p, group)
+    gsel = torch.arange(n // group, device="cuda").expand(qn, -1).contiguous()
+    cand = extract_candidate_scores(q, p, gsel, group)
+    torch.cuda.synchronize()
+    tol = 1e-5 * q.norm(dim=1)[:, None] * p.norm(dim=1).max()
+    assert bool(((s - fused_scores_groupmax_plain(q, p, group)[0]).abs() <= tol).all())
+    assert bool(((s.double() - q.double() @ p.double().T).abs() <= bf16_score_bound(q, p)).all())
+    assert torch.equal(streaming_groupmax(q, p, group), g)
+    assert torch.equal(cand.reshape(qn, n), s)
+
+
+@pytest.mark.parametrize("qn", [1, 17, 65, 512])
+@pytest.mark.parametrize("d", [8, 100, 768, 1040])
 def test_bf16_scores_within_the_f64_bound(cuda, qn, d):
     """Kernels 2, 3 and 4 on bf16 passages against the f64 product of the
     same f32 queries and bf16 passages: every score within
@@ -523,13 +602,10 @@ def test_bf16_scores_within_the_f64_bound(cuda, qn, d):
 
 
 def small_q_max(p_dtype, d=768):
-    """Q*: the largest Q the small-Q path takes at this D (f32: path 1;
-    bf16: path 3's small-Q tiles, the passages as A, which report the
-    queries rounded up to 8-64 as a block's rows, against the 128 of the
-    query tiles)."""
-    if p_dtype == 1:
-        return max(qn for qn in range(1, 129) if score_config(1, qn, d)[2] < 128)
-    return max(qn for qn in range(1, 65) if score_path(p_dtype, qn, d) == 1)
+    """Q*: the largest Q the small-Q tiles take at this D (f32 and bf16:
+    the passages as A, which report the queries rounded up to 8-64 as a
+    block's rows, against the 128 of the query tiles)."""
+    return max(qn for qn in range(1, 129) if score_config(p_dtype, qn, d)[2] < 128)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -537,27 +613,25 @@ def small_q_max(p_dtype, d=768):
 @pytest.mark.parametrize("d", [100, 768, 1040])
 @pytest.mark.parametrize("n", [384, 4224])
 def test_small_q_path_equals_tile_path(cuda, dtype, group, d, n):
-    """Kernels 2 and 3 at Q in {1, 2, 3, 8, Q*-1, Q*} (f32: the small-Q
-    path, one thread a passage row over a TMA ring; bf16: the small-Q
-    tiles, the passages as wgmma's A, at each query bucket's edges too)
-    equal the first Q rows of a Q=65 batch (the 128-query tile) bit for
-    bit: the direct proof that the small-Q path keeps each score's FMA
-    chain order (f32) or three-part product (bf16)."""
+    """Kernels 2 and 3 at Q in {1, 2, 3, 8, Q*-1, Q*} and at each query
+    bucket's edges (the small-Q tiles: the passages as wgmma's A) equal the
+    first Q rows of a Q=65 batch (the 128-query tiles) bit for bit: the
+    direct proof that the small-Q tiles keep each score's six-part (f32)
+    or three-part (bf16) product."""
     code = 0 if dtype == torch.float32 else 1
-    small, tile = (1, 0) if code == 0 else (3, 3)  # the paths' codes
+    path = 0 if code == 0 else 3  # the kernels' path code: both tile kinds
     top = small_q_max(code)
     q, p = search_problem(65, n, d, dtype, seed=5)
-    assert score_path(code, 65, d) == tile
+    assert score_config(code, 65, d)[2] == 128 and score_path(code, 65, d) == path
     s_tile, g_tile = fused_scores_groupmax(q, p, group)
     m_tile = streaming_groupmax(q, p, group)
-    buckets = {9, 16, 17, 32, 33} if code == 1 else set()
-    for qn in sorted({1, 2, 3, 8, top - 1, top} | buckets):
-        assert score_path(code, qn, d) == small
+    for qn in sorted({1, 2, 3, 8, 9, 16, 17, 32, 33, top - 1, top}):
+        assert score_config(code, qn, d)[2] < 128 and score_path(code, qn, d) == path
         s, g = fused_scores_groupmax(q[:qn], p, group)
         torch.cuda.synchronize()
         assert torch.equal(s, s_tile[:qn]) and torch.equal(g, g_tile[:qn]), qn
         assert torch.equal(streaming_groupmax(q[:qn], p, group), m_tile[:qn]), qn
-    assert score_path(code, top + 1, d) == tile  # past Q*: the tile path
+    assert score_config(code, top + 1, d)[2] == 128  # past Q*: the query tiles
     assert score_path(2, 1, d) == 2  # int8 takes its wgmma kernel at every Q
 
 
@@ -581,12 +655,14 @@ def test_score_kernels_take_unaligned_operands(cuda, dtype, qn):
 @pytest.mark.parametrize("group", [32, 128])
 @pytest.mark.parametrize("qn,n,d", [(1, 128, 8), (65, 4224, 100), (129, 384, 768),
                                     (1, 4224, 768), (2, 384, 100), (3, 384, 1040),
-                                    (8, 4224, 100), (31, 384, 768), (32, 128, 1040)])
+                                    (8, 4224, 100), (31, 384, 768), (32, 128, 1040),
+                                    (5, 384, 98), (70, 384, 98)])
 def test_pass_b_over_every_group_equals_score_kernel(cuda, dtype, group, qn, n, d):
     """Pass B given every group of the block scores every (query, row):
     equal to kernel 2's whole score matrix, the direct proof that both keep
-    one FMA chain order (f32), one three-part product order (bf16) or exact
-    integer sums (int8)."""
+    one six-part product order (f32), one three-part product order (bf16)
+    or exact integer sums (int8); at D=98 both wrappers pad the rows (f32
+    to 4, bf16 to 8 for kernel 2)."""
     q, p = search_problem(qn, n, d, dtype, seed=3)
     scores, gmax = fused_scores_groupmax(q, p, group)
     gsel = torch.arange(n // group, device="cuda").expand(qn, -1).contiguous()
