@@ -164,11 +164,14 @@ P. (after F) ``--matmul_precision`` over phase 3's rows and queries:
    ``torch.equal`` to the plain version, beside the bound and
    ``_int_mm`` + ``.float()`` + ``amax``) with each Q's launch
    configuration. Kernel 1's
-   f32 forward across its two paths (``convdr_torch/scripts/attention_sweep.py``:
-   B = 1..8 and 40 x T = 64..512 at H=12, served and right-padded masks;
-   the small-grid path's out and lse ``torch.equal`` to the 64-row tile's
-   on the same problem repeated to a tile-path batch, on the device beside
-   the bound, masked SDPA and the repeated batch). Then
+   f32 forward (six bf16 ``wgmma`` products of exact bf16 parts) across
+   its two paths (``convdr_torch/scripts/attention_sweep.py``: B = 1..8
+   and 40 x T = 64..512 at H=12, served and right-padded masks; the
+   small-grid path's out and lse ``torch.equal`` to the 128-row blocks' on
+   the same problem repeated to a batch that takes them, on the device
+   beside the bound (the six-part operations at the bf16 peak, and the
+   CUDA cores' 4HD a pair beside it), masked SDPA and the repeated batch).
+   Then
    ``serve_online.main`` over the 512 evaluation
    turns against ``run_convdr_inference --per_gpu_eval_batch_size 1``
    (flat f32 and int8): the runs rank for rank. The serving launches are
@@ -337,6 +340,7 @@ from convdr_torch.scripts.attention_sweep import (
     make_histories,
 )
 from convdr_torch.scripts.attention_sweep import bound_ms as attention_bound_ms
+from convdr_torch.scripts.attention_sweep import cuda_core_bound_ms
 from convdr_torch.scripts.score_sweep import HBM_BYTES_PER_S, PEAK_FLOPS
 from convdr_torch.scripts.multi_gpu_check import make_train_file
 from convdr_torch import native_io
@@ -682,6 +686,8 @@ def time_attention_shape(batch, t, dtype, gen, plain=True, device=False):
     result = {"ms": cuda_ms(kernel), "library_ms": cuda_ms(library),
               "bound_ms": bound_ms, "bound_by": bound_by,
               "config": flash_attention_fwd_config(batch, t, HEADS, HEAD_DIM, dtype)}
+    if dtype == torch.float32:  # the floor of a design on the CUDA cores, beside the bound
+        result["cuda_core_bound_ms"] = cuda_core_bound_ms(q, mask)
     if plain:
         result["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, mask), iters=5)
     if device:
@@ -708,8 +714,10 @@ def time_attention(gen, worst):
         per_rung[f"B{b2}xT{t2}"] = {
             "max_abs_err": worst[(dtype, b2, t2)],
             **time_attention_shape(b2, t2, dtype, gen, plain=False, device=True)}
-    log("  flash_attention_fwd ms (kernel / SDPA / bound): " + "; ".join(
+    log("  flash_attention_fwd ms (kernel / SDPA / bound; f32: the CUDA cores' 4HD a pair "
+        "beside it): " + "; ".join(
         f"{name} {r['ms']:.4f} / {r['library_ms']:.4f} / {r['bound_ms']:.4f}"
+        + (f" ({r['cuda_core_bound_ms']:.4f})" if "cuda_core_bound_ms" in r else "")
         + (f" (device {r['device_ms']:.4f} / {r['library_device_ms']:.4f})"
            if "device_ms" in r else "")
         for name, r in [*((f"bf16 {k}", v) for k, v in per_rung.items()),
@@ -3372,11 +3380,13 @@ def serving_kernel_times(tokenizer, histories):
             "library_ms": cuda_ms(library, iters=50),
             "library_device_ms": device_ms(library, iters=50),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "cuda_core_bound_ms": cuda_core_bound_ms(q, mask),
             "config": flash_attention_fwd_config(1, SERVE_T, HEADS, HEAD_DIM, torch.float32)}
     log(f"  kernel 1 at {attn['shape']} ({attn['valid_tokens']} valid tokens): max_abs_err "
         f"{attn['max_abs_err']:.3e}; {attn['ms']:.4f} ms host-paced, {attn['device_ms']:.4f} "
         f"on the device; plain {attn['plain_ms']:.4f}; SDPA {attn['library_ms']:.4f} / "
-        f"{attn['library_device_ms']:.4f}; bound {bound_ms:.4f} ({bound_by}); "
+        f"{attn['library_device_ms']:.4f}; bound {bound_ms:.4f} ({bound_by}; CUDA cores "
+        f"{attn['cuda_core_bound_ms']:.4f}); "
         f"{attn['config']}")
     q32 = torch.randn(1, SEARCH_D, generator=gen, device="cuda")
     p32 = torch.randn(SEARCH_N, SEARCH_D, generator=gen, device="cuda")
@@ -3532,8 +3542,8 @@ def serving_path(paths):
         "small-Q tiles up to Q=64, then their query tiles; one 524288-row "
         "block, D=768, device ms):")
     q_sweep = score_sweep.sweep(log=log)
-    log("kernel 1's f32 forward on its two paths (small grid up to the tile grid's "
-        "kSmallGridBlocks, then the 64-row tile; H=12 D=64, device ms):")
+    log("kernel 1's f32 forward on its two paths (64-row blocks up to kSmallGridBlocks "
+        "blocks of 128 rows, then 128-row blocks; H=12 D=64, device ms):")
     attn_sweep = attention_sweep.sweep(histories, log=log)
     drivers = {st: serve_driver_vs_batch(paths, st) for st in ("float32", "int8")}
     return {"backends": backends, "kernel1_B1": attn, "kernel2_Q1": scores, "kernel5_Q1": gather,

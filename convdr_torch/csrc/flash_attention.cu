@@ -16,20 +16,20 @@
 // 4*B*T*H*D elements) against 3.35 TB/s, the function's 4*B*H*D*pairs
 // operations being below the tensor-core roofline (the kernel's own
 // products are twice those, see below); in f32, which may not use TF32,
-// the same operations on the CUDA cores (67 TFLOP/s). Only in-segment pairs
-// count: a key tile whose segment range holds no query of the block is
-// neither loaded nor multiplied.
+// the kernel's six-part bf16 products, 24*B*H*D*pairs operations at the
+// tensor cores' 989 TFLOP/s (0.41 of the function's 4*B*H*D*pairs on the
+// CUDA cores at 67 TFLOP/s, the floor of any design without the tensor
+// cores). Only in-segment pairs count: a key tile whose segment range
+// holds no query of the block is neither loaded nor multiplied.
 //
-// Every kernel here shares the block's prologue, the tile plan. Each block
-// scans its row's segment ids once: the [min, max] segment range of every
-// key tile, kept only if some live query of the block has a segment in
-// it. The kept tiles' indices go, in order, to shared memory after the
-// fixed buffers (one int a tile), so the main loop walks only tiles it
-// needs. In the f32 64-row tile, K/V tiles and the tile's segment ids
-// arrive by cp.async (16-byte .cg copies, 4-byte .ca for the ids; K/V rows
-// past T zero-filled, the ids of keys past T set to a segment no query
-// has), issued a tile ahead; the bf16 kernel and the f32 small grid take
-// K/V by TMA.
+// Both kernels share the block's prologue, the tile plan. Each block scans
+// its row's segment ids once: the [min, max] segment range of every key
+// tile, kept only if some live query of the block has a segment in it. The
+// kept tiles' indices go, in order, to shared memory after the fixed
+// buffers (one int a tile), so the main loop walks only tiles it needs.
+// K/V tiles arrive by TMA (a 4-D map over [B, T, H, D]; rows past T as
+// zeros), the tile's key ids by cp.async beside them (keys past T are
+// masked by position).
 //
 // * bf16 (the corpus encoder): wgmma, for Hopper. A block is one
 //   warpgroup that owns 64 queries. Its thread 0 issues Q once by TMA (a
@@ -79,58 +79,60 @@
 //   the loop spill, 0.37-0.41; issuing the next tile's S before this
 //   tile's P V, the same; a persistent grid, 0.232, though faster at T <=
 //   128; 3- and 4-stage rings, the same as 2.)
-// * f32 (the query encoder, training): two register-tiled products on the
-//   CUDA cores, full f32, no TF32, on one of two paths chosen by the grid.
+// * f32 (the query encoder, the student, the teacher's documents): the
+//   tensor cores, as six bf16 wgmma products of exact bf16 parts (the
+//   counterpart of the MXU's Precision.HIGHEST on f32 x f32; no TF32).
 //   For training it also writes each row's log-sum-exp of the scaled
 //   scores, lse [B, H, T] f32, which the backward (flash_attention_bwd.cu)
-//   uses to recompute P; inference passes a null lse (both dtypes).
-//   What fixes a row's bits, on both paths: the 32-key tile; the 8 lanes
-//   of one warp that hold the row, lane tx the keys 8j + tx; the order of
-//   each lane's fmaf chains (S over d = 0..D-1, O over the tile's keys in
-//   order, O's columns tx*kVec + 8*kVec*ch); the xor-1/2/4 shuffle sums;
-//   fast_exp2 and the base_max rule; and the rounding that both kernels
-//   write out with intrinsics rather than leave to the compiler's
-//   contraction: l * alpha + p as one fmaf at a tile's first key, then
-//   adds, and lse as __fmul_rn(m, ln2) and logf(l) rounded apart. Not the
-//   rows a thread or a block holds: a tile that a block plans, or a warp
-//   would walk, none of whose keys is in a row's segment leaves that row's
-//   m, l and o as they were (alpha = ex2(0) = 1, p = ex2(-inf) = 0,
-//   o + 0 * v = o, the sign of an exact zero aside), and a smaller block's
-//   plan is a subset of the 64-row block's. So the two paths give the same out and lse bit for
-//   bit, and the card tests hold them to that (torch.equal).
-//   - The 64-row tile (grids of more than kSmallGridBlocks blocks). A
-//     block of 128 threads owns 64 queries and walks 32-key tiles: thread
-//     (ty, tx) holds 4 query rows (ty + 16i) x 4 keys (8j + tx) of S and
-//     the same 4 rows x D/8 columns of O, so a row's softmax statistics
-//     stay in the 8 lanes of one warp (shuffle reductions) and the
-//     rescale is local. S reads Q and K k-contiguous as copied (row pitch
-//     D+4 floats: the 8 key rows a phase reads hit distinct banks, the Q
-//     rows are broadcasts). P goes to shared memory (row pitch 40), read
-//     back only by its own warp; O += P V reads P as broadcasts and V rows
-//     as contiguous 16-byte chunks. K and V have one buffer each,
-//     staggered: V of this tile loads while S computes, K of the next
-//     while P V computes (two barriers a tile, 44 KB, three blocks an SM).
-//     Of the shapes timed on the card (64 or 32 keys, 32-128 queries, 4 or
-//     8 rows a thread, a 2-stage ring) this one was the fastest at both
-//     B=4 T=256 and B=40 T=512.
-//   - The small grid (the serving encode's B=1 T=256: 48 tile blocks for
-//     132 SMs; the teacher's targets, B=4 T=64). What is scarce there is
-//     blocks in flight and copy latency. Blocks of 32 rows, 2 rows a
-//     thread: 4 consumer warps and one producer warp. The producer's lane
-//     0 issues each planned tile's K and V by TMA (a 4-D map over [B, T,
-//     H, D]; two 32-float boxes a row under the 128-byte swizzle, so the 8
-//     key rows a phase reads still hit distinct banks) into a 3-stage ring
-//     under full / empty mbarriers, and its lanes copy the tile's key ids
-//     beside them; each consumer warp releases a stage on its own, so the
-//     loop has no block barrier, and a warp skips a tile none of whose
-//     keys is in its rows' segment range. Q stays in registers. What
-//     bounds it is shared-memory reads: the 4 row groups of a warp read the
-//     same K and V, so an LDS.128 gives 128 useful bytes in 4 wavefronts,
-//     and 2 rows a thread halve them per row. (On the card, PERF.md: 16-row
-//     blocks, which fill all 132 SMs at the serving encode, ran 10% slower
-//     there than 32-row ones; a cp.async ring of the same depth lost to
-//     TMA at both the serving encode's and the teacher's shapes; 8-row
-//     blocks and 1 row a thread were slower.)
+//   uses to recompute P; inference passes a null lse (both dtypes), and
+//   out's arithmetic does not change with it.
+//   - The parts: q, k, v each split exactly into three bf16 parts by
+//     truncation (bf16_split2: ops/fused_search.py bf16_query_parts' parts
+//     bit for bit), Q once a block from device memory, K and V from the
+//     f32 tiles TMA brings (two boxes of 32 floats a row at D = 64, each
+//     under the 128-byte swizzle), by every thread of the block, into part
+//     tiles in the bf16 kernel's layout; no part goes to device memory.
+//     S = Q K^T is six products a k-step of K's part i and Q's part j,
+//     (1,1), (1,2), (2,1), (1,3), (2,2), (3,1) in that order (hopper.cuh's
+//     wgmma_f32_parts_kstep with Q as its A; the dropped three are below
+//     2^-20 of each product), both operands in shared
+//     memory; (1,1) goes into one f32 sum and the five small ones into
+//     another, added rounded to nearest (one sum for all six put lse 2.4e-5
+//     from f64 on near-parallel rows, B=40 T=512, on the card: a long
+//     one-signed sum takes a truncating tensor-core add a product). P, in
+//     f32 as the softmax makes it, splits into three parts in registers,
+//     the A operand of O += P V against V's parts as an MN-major B: six
+//     products a 16-key k-step, (V_i, P_j) in the same order, (1,1) into
+//     one sum of the tile's own and the five small ones into another; each
+//     thread adds the two, rounded to nearest, into O in IEEE f32 (o alpha
+//     + tile, one fmaf). Measured on the card (scripts/attention_sweep.py
+//     --parts accuracy, on scratch trees of this source): O summed in the
+//     tensor cores across all tiles was 2.9e-4 from f64 at T = 30000 on
+//     near-parallel rows, 7.4e-5 with a (1,1) sum of its own; one sum a
+//     tile held 1e-5, but its truncation (2.4e-6 of out on near-parallel
+//     rows, one-signed) moved the f32 train step's query gradients 1.8e-4
+//     of scale from f64, past the plain step's 1.5e-5 (chip_smoke.py's
+//     check_train_step; the backward reads this out). The softmax is
+//     the bf16 kernel's on S's fragments: the log2 domain, fast_exp2, the
+//     base_max and -inf rules, the xor-1/2 row reductions; l alpha + p as
+//     one fmaf at a row's first key of a tile, then adds key by key; lse
+//     as __fmul_rn(m, ln2) and logf(l) rounded apart.
+//   - The block: kWG warpgroups of 64 query rows (one wgmma M each) and
+//     64-key tiles; warp 0 issues each planned tile's K and V boxes by TMA
+//     onto two mbarriers and copies its key ids beside K's. A tile: S
+//     from the parts, the softmax in S's registers, P split; a barrier;
+//     P V; while P V computes, every thread splits the next tile's K and V
+//     (V's parts double-buffered: this tile's P V reads the other set);
+//     then O. No split between S's issue and its wait: ptxas 12.9 fails
+//     (segfault) on that kernel. Two warpgroups (128 rows, 256 threads,
+//     one block an SM) share each tile's split and take grids of more than
+//     kSmallGridBlocks such blocks; below, one warpgroup of 64 rows doubles
+//     the blocks (the serving encode's B=1 T=256: 48). A row's bits depend
+//     on its q row, its keys and the k order only (the wgmma probe of
+//     scores_groupmax.cu), and a tile a block plans none of whose keys is
+//     in a row's segment leaves that row's m, l and o as they were (alpha
+//     = 1, p = 0): so both block shapes give the same out and lse bit for
+//     bit, and the card tests hold them to that (torch.equal).
 //
 // All keep the online softmax in the log2 domain (scores scaled by
 // log2(e)/sqrt(d) in the exponent's FFMA, ex2.approx) with f32 running max
@@ -480,572 +482,385 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
-// f32: register-tiled FMA on the CUDA cores
+// f32: six-part bf16 wgmma over a TMA ring
 // ---------------------------------------------------------------------------
-// A block: BQ queries, BK keys a tile, RM query rows a thread; shared
-// memory holds Q, one K tile (+ its key ids), one V tile and P.
-constexpr int kFmaBQ = 64;
-constexpr int kFmaBK = 32;
-constexpr int kFmaRM = 4;
+constexpr int kF32Keys = 64;  // keys a tile: the N of S
+constexpr int kF32Rows = 64;  // query rows a warpgroup: one wgmma M
+// The f32 blocks: one warpgroup of 64 query rows while the grid of 128-row
+// blocks is at most this many (it fills under half the card's 132 SMs),
+// two warpgroups of 64 above, which share each tile's split.
+constexpr int kSmallGridBlocks = 64;
 
-template <int D>
-struct FmaTile {
-  static constexpr int kThreads = kFmaBQ / kFmaRM * 8;  // row groups x 8 lanes
-  static constexpr int kRG = kFmaBQ / kFmaRM;  // row groups: rows ty + i*kRG
-  static constexpr int kKJ = kFmaBK / 8;       // keys a thread: j*8 + tx
-  static constexpr int kQPitch = D + 4;        // floats a Q or K row
-  static constexpr int kPPitch = kFmaBK + 8;   // floats a P row
-  static constexpr int kVec = D >= 32 ? 4 : 2;  // O columns a chunk
-  static constexpr int kOC = D / 8;             // O columns a thread
-  static constexpr int kQFloats = kFmaBQ * kQPitch;
-  static constexpr int kKFloats = kFmaBK * kQPitch + kFmaBK;  // + key ids
-  static constexpr int kVFloats = kFmaBK * D;
-  static constexpr int kFixedBytes =
-      4 * (kQFloats + kKFloats + kVFloats + kFmaBQ * kPPitch);
-};
-
-template <int kVec>
-__device__ __forceinline__ void load_vec(float* dst, const float* src);
-template <>
-__device__ __forceinline__ void load_vec<4>(float* dst, const float* src) {
-  const float4 x = *reinterpret_cast<const float4*>(src);
-  dst[0] = x.x;
-  dst[1] = x.y;
-  dst[2] = x.z;
-  dst[3] = x.w;
-}
-template <>
-__device__ __forceinline__ void load_vec<2>(float* dst, const float* src) {
-  const float2 x = *reinterpret_cast<const float2*>(src);
-  dst[0] = x.x;
-  dst[1] = x.y;
-}
-
-// Copies rows [r0, r0 + kRows) of one head of a [B, T, H, D] f32 operand
-// (rows past T zero-filled) into shared memory at row pitch kPitch.
-template <int D, int kRows, int kPitch, int kThreads>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src,
-                                          long long base, long long tok,
-                                          int r0, int seq, int tid) {
-  constexpr int kRowChunks = D / 4;  // 16-byte chunks a row
-  static_assert(kRows * kRowChunks % kThreads == 0, "whole chunks a thread");
-#pragma unroll
-  for (int it = 0; it < kRows * kRowChunks / kThreads; ++it) {
-    const int c = tid + it * kThreads;
-    const int r = c / kRowChunks;
-    const int col = (c % kRowChunks) * 4;
-    const bool ok = r0 + r < seq;
-    cp_async16(dst + r * kPitch + col, src + (ok ? base + (r0 + r) * tok + col : 0), ok);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(FmaTile<D>::kThreads)
-flash_fwd_fma_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
-                     const void* __restrict__ v_, const int* __restrict__ seg,
-                     void* __restrict__ out_, float* __restrict__ lse,
-                     int seq, int heads, float scale) {
-  using Tile = FmaTile<D>;
-  constexpr int BQ = kFmaBQ;
-  constexpr int BK = kFmaBK;
-  constexpr int RM = kFmaRM;
-  constexpr int kThreads = Tile::kThreads;
-  constexpr int kRG = Tile::kRG;
-  constexpr int kKJ = Tile::kKJ;
-  constexpr int kQPitch = Tile::kQPitch;
-  constexpr int kPPitch = Tile::kPPitch;
-  constexpr int kVec = Tile::kVec;
-  constexpr int kOC = Tile::kOC;
-  constexpr int kChunks = kOC / kVec;
-  const float* q = static_cast<const float*>(q_);
-  const float* k = static_cast<const float*>(k_);
-  const float* v = static_cast<const float*>(v_);
-  float* out = static_cast<float*>(out_);
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  float* ks = qs + Tile::kQFloats;    // K rows (pitch kQPitch), then key ids
-  int* sk = reinterpret_cast<int*>(ks + BK * kQPitch);
-  float* vs = ks + Tile::kKFloats;
-  float* ps = vs + Tile::kVFloats;
-  int* plan = reinterpret_cast<int*>(smem + Tile::kFixedBytes);
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int tx = lane % 8;
-  const int ty = (tid / 32) * 4 + lane / 8;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long tok = static_cast<long long>(heads) * D;
-  const long long base = static_cast<long long>(b) * seq * tok +
-                         static_cast<long long>(h) * D;
-  const int* segb = seg + static_cast<long long>(b) * seq;
-  const int q0 = blockIdx.x * BQ;
-
-  // Q once, in its own copy group, in flight while the plan is made
-  copy_rows<D, BQ, kQPitch, kThreads>(qs, q, base, tok, q0, seq, tid);
-  cp_async_commit();
-
-  auto load_k = [&](int tile) {
-    copy_rows<D, BK, kQPitch, kThreads>(ks, k, base, tok, tile * BK, seq, tid);
-    for (int c = tid; c < BK; c += kThreads) {
-      if (tile * BK + c < seq)
-        cp_async4(sk + c, segb + tile * BK + c);
-      else
-        sk[c] = kNoSegment;
-    }
-  };
-  auto load_v = [&](int tile) {
-    copy_rows<D, BK, D, kThreads>(vs, v, base, tok, tile * BK, seq, tid);
-  };
-
-  int segq[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = q0 + ty + i * kRG;
-    segq[i] = row < seq ? segb[row] : 0;  // a row past T writes nothing
-  }
-
-  const int n = plan_tiles<BQ, BK, kThreads>(segb, seq, q0, plan);
-  if (n > 0) load_k(plan[0]);
-  cp_async_commit();
-
-  float o[RM][kOC];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int c = 0; c < kOC; ++c) o[i][c] = 0.f;
-  float m[RM], l[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = -CUDART_INF_F;  // running max, log2 domain
-    l[i] = 0.f;            // this thread's share of the running sum
-  }
-  const float scale_log2 = scale * kLog2e;
-  const float* q_row = qs + ty * kQPitch;   // row i at + i * kRG * kQPitch
-  float* p_row = ps + ty * kPPitch;         // row i at + i * kRG * kPPitch
-
-  // K and V have one buffer each, staggered: V of tile idx loads while S
-  // computes, K of tile idx + 1 while P V computes
-  for (int idx = 0; idx < n; ++idx) {
-    cp_async_wait_all();
-    __syncthreads();  // K of tile idx (and Q) landed; V's buffer is free
-    load_v(plan[idx]);
-    cp_async_commit();
-
-    // S = Q K^T over d, 4 at a time: RM Q rows and kKJ K rows a step
-    float s[RM][kKJ];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < kKJ; ++j) s[i][j] = 0.f;
-    const float* k_row = ks + tx * kQPitch;  // key j at + j * 8 * kQPitch
-#pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      float4 a[RM];
-      float4 bk[kKJ];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-        a[i] = *reinterpret_cast<const float4*>(q_row + i * kRG * kQPitch + d);
-#pragma unroll
-      for (int j = 0; j < kKJ; ++j)
-        bk[j] = *reinterpret_cast<const float4*>(k_row + j * 8 * kQPitch + d);
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < kKJ; ++j) {
-          s[i][j] = fmaf(a[i].x, bk[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, bk[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, bk[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, bk[j].w, s[i][j]);
-        }
-    }
-
-    // mask, online softmax; P to shared memory (rows of this warp only)
-    int segk[kKJ];
-#pragma unroll
-    for (int j = 0; j < kKJ; ++j) segk[j] = sk[j * 8 + tx];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      float tile_max = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < kKJ; ++j) {
-        s[i][j] = segk[j] == segq[i] ? s[i][j] : -CUDART_INF_F;  // raw: scale > 0
-        tile_max = fmaxf(tile_max, s[i][j]);
-      }
-      // the 8 lanes of a row group hold the row between them
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 4));
-      const float m_new = fmaxf(m[i], tile_max * scale_log2);
-      // no allowed key yet: keep everything at 0 instead of exp(-inf + inf)
-      const float base_max = m_new == -CUDART_INF_F ? 0.f : m_new;
-      const float alpha = fast_exp2(m[i] - base_max);
-#pragma unroll
-      for (int c = 0; c < kOC; ++c) o[i][c] *= alpha;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kKJ; ++j) {
-        const float p = fast_exp2(fmaf(s[i][j], scale_log2, -base_max));  // 0 if masked
-        // l * alpha + p in one FFMA, then + p (both f32 paths, see the header)
-        l[i] = j == 0 ? fmaf(l[i], alpha, p) : l[i] + p;
-        p_row[i * kRG * kPPitch + j * 8 + tx] = p;
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();  // V landed; every warp is done with K (and wrote its P)
-    if (idx + 1 < n) load_k(plan[idx + 1]);
-    cp_async_commit();
-
-    // O += P V over the tile's keys, 4 at a time
-    const float* v_col = vs + tx * kVec;  // chunk ch at + ch * 8 * kVec
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 p4[RM];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-        p4[i] = *reinterpret_cast<const float4*>(p_row + i * kRG * kPPitch + kk);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float vv[kOC];
-#pragma unroll
-        for (int ch = 0; ch < kChunks; ++ch)
-          load_vec<kVec>(vv + ch * kVec, v_col + (kk + e) * D + ch * 8 * kVec);
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          const float p = e == 0 ? p4[i].x : e == 1 ? p4[i].y : e == 2 ? p4[i].z : p4[i].w;
-#pragma unroll
-          for (int c = 0; c < kOC; ++c) o[i][c] = fmaf(p, vv[c], o[i][c]);
-        }
-      }
-    }
-  }
-  cp_async_wait_all();
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
-    const int row = q0 + ty + i * kRG;
-    if (row >= seq) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    float* op = out + base + row * tok + tx * kVec;
-#pragma unroll
-    for (int ch = 0; ch < kChunks; ++ch) {
-      float* dst = op + ch * 8 * kVec;
-      if constexpr (kVec == 4) {
-        *reinterpret_cast<float4*>(dst) =
-            make_float4(o[i][4 * ch] * inv, o[i][4 * ch + 1] * inv,
-                        o[i][4 * ch + 2] * inv, o[i][4 * ch + 3] * inv);
-      } else {
-        *reinterpret_cast<float2*>(dst) =
-            make_float2(o[i][2 * ch] * inv, o[i][2 * ch + 1] * inv);
-      }
-    }
-    // a live row always sees its own key, so l > 0 and lse is finite;
-    // m * ln2 and logf(l) rounded apart (both f32 paths)
-    if (lse != nullptr && tx == 0)
-      lse[(static_cast<long long>(b) * heads + h) * seq + row] =
-          __fadd_rn(__fmul_rn(m[i], kLn2), logf(l[i]));
-  }
-}
-
-
-// ---------------------------------------------------------------------------
-// f32, small grids: few-row blocks over a K/V ring
-// ---------------------------------------------------------------------------
-// The tile path's grid, ceil(T / 64) * H * B, at or below which f32 takes
-// this path: where it stopped winning on the card (scripts/attention_sweep.py;
-// at 192 it lost or tied at all but one of the shapes timed).
-constexpr int kSmallGridBlocks = 96;
-constexpr int kSgRows = 32;          // query rows a block
-constexpr int kSgRowsAThread = 2;
-constexpr int kSgStages = 3;         // K/V ring depth
-
-template <int D>
-struct SgTile {
-  static_assert(kFmaBK == 32, "a producer lane a key id");
-  static constexpr int kRG = kSgRows / kSgRowsAThread;  // row groups: rows ty + i*kRG
-  static constexpr int kConsumers = kRG * 8;            // row groups x 8 lanes
-  static_assert(kConsumers % 32 == 0, "whole consumer warps");
-  static constexpr int kThreads = kConsumers + 32;      // + the producer warp
-  static_assert(kSgRowsAThread * D <= 128, "a thread's Q rows in registers");
-  static constexpr int kBoxF = D < 32 ? D : 32;  // floats a TMA box row: 64 or 128 bytes
-  static constexpr int kBox = kFmaBK * kBoxF;      // floats a TMA box
-  // A stage holds the tile's K rows, then its V rows: D / kBoxF boxes of
-  // [32 rows x kBoxF] each, swizzled.
-  static constexpr int kKFloats = kFmaBK * D;
-  static constexpr int kStageFloats = 2 * kKFloats;
-  static constexpr int kPPitch = kFmaBK + 8;
-  // 1024 bytes to align the ring (the swizzle's period), the ring, the key
-  // ids of each stage, P, the full and empty barriers; then the plan
-  static constexpr int kFixedBytes =
-      1024 + 4 * (kSgStages * (kStageFloats + kFmaBK) + kSgRows * kPPitch) + 16 * kSgStages;
-  static int smem_bytes(int seq) { return kFixedBytes + plan_bytes(seq, kFmaBK); }
-
-  // The float offset of (row r, column c) of a K or V tile in a stage (c
-  // a multiple of 2; 4 for K); `kv` 0 for K, 1 for V.
-  __device__ __forceinline__ static int at(int kv, int r, int c) {
-    const int w = c % kBoxF;
-    const int xr = kBoxF == 32 ? (r & 7) : ((r >> 1) & 3);  // the 16-byte chunk's xor
-    return kv * kKFloats + c / kBoxF * kBox + r * kBoxF + 4 * ((w >> 2) ^ xr) + (w & 3);
+// Shared memory of a block (from a 1024-byte aligned base): each
+// warpgroup's three Q part tiles, K's three part tiles, two sets of V's
+// (the tile's and the next's; all [64][D] bf16 in the swizzle of the row's
+// width, as the bf16 kernel's tiles), the f32 K and V tiles as TMA writes
+// them (D / kBoxF boxes of 64 rows, each swizzled by its width), two
+// tiles' key ids, the barriers, the tile plan.
+template <int D, int kWG>
+struct F32FwdTile {
+  static constexpr int kThreads = 128 * kWG;  // kWG warpgroups of 64 query rows
+  static constexpr int kRows = kF32Rows * kWG;
+  static constexpr int kRowBytes = 2 * D;             // a row of a bf16 part tile
+  static constexpr int kPart = kF32Keys * kRowBytes;  // a part tile
+  static constexpr int kBoxF = D < 32 ? D : 32;       // floats a TMA box row: 64 or 128 bytes
+  static constexpr int kBox = kF32Keys * kBoxF * 4;   // bytes a box
+  static constexpr int kF32Tile = kF32Keys * D * 4;   // an f32 K or V tile
+  static constexpr int kKOff = kWG * 3 * kPart;
+  static constexpr int kVOff = kKOff + 3 * kPart;     // + (idx & 1) 3 kPart
+  static constexpr int kKf = kVOff + 6 * kPart;
+  static constexpr int kVf = kKf + kF32Tile;
+  static constexpr int kIdsOff = kVf + kF32Tile;
+  static constexpr int kBarOff = kIdsOff + 2 * kF32Keys * 4;
+  static constexpr int kPlanOff = kBarOff + 2 * 8;
+  static constexpr int kAcc = D / 2;  // O's f32 registers a thread
+  static_assert(kPart % 1024 == 0 && kBox % 1024 == 0, "tiles on 1024-byte bases");
+  static int smem_bytes(int seq) { return 1024 + kPlanOff + plan_bytes(seq, kF32Keys); }
+  // The byte offset of floats d..d+3 (d a multiple of 4) of row r of an f32 tile
+  __device__ static int f32_at(int r, int d) {
+    return d / kBoxF * kBox + swizzled_chunk_offset(r, d % kBoxF / 4, kBoxF * 4);
   }
 };
 
-// Kernel 1's f32 forward for small grids: each row's arithmetic is the
-// tile kernel's (see the header), in blocks of kSgRows rows, kSgRowsAThread
-// a thread. The last warp produces: lane 0 issues the K and V boxes of
-// each planned tile by TMA into a ring of kSgStages stages, every lane
-// copies one of the tile's key ids by cp.async (keys past T are masked by
-// position), and the stage lands on its full barrier (lane 0's arrival
-// with the boxes' bytes, one cp.async arrival a lane); each consumer warp
-// releases a stage on its empty barrier when done with it. No block
-// barrier in the loop: a warp's P goes through shared memory under
-// __syncwarp only.
-template <int D>
-__global__ void __launch_bounds__(SgTile<D>::kThreads)
-flash_fwd_small_kernel(const __grid_constant__ CUtensorMap k_map,
-                       const __grid_constant__ CUtensorMap v_map, const float* __restrict__ q,
-                       const int* __restrict__ seg, float* __restrict__ out,
-                       float* __restrict__ lse, int seq, int heads, float scale) {
-  using Tile = SgTile<D>;
-  constexpr int BQ = kSgRows;
-  constexpr int RM = kSgRowsAThread;
-  constexpr int BK = kFmaBK;
-  constexpr int kRG = Tile::kRG;
-  constexpr int kKJ = BK / 8;  // keys a thread: j*8 + tx
-  constexpr int kPPitch = Tile::kPPitch;
-  constexpr int kVec = D >= 32 ? 4 : 2;  // O columns a chunk
-  constexpr int kOC = D / 8;             // O columns a thread
-  constexpr int kChunks = kOC / kVec;
-  constexpr int kConsumers = Tile::kConsumers;
-  extern __shared__ __align__(16) unsigned char sg_smem[];
-  unsigned char* smem = sg_smem + ((1024u - (shared_addr(sg_smem) & 1023u)) & 1023u);
-  float* ring = reinterpret_cast<float*>(smem);
-  int* ids = reinterpret_cast<int*>(ring + kSgStages * Tile::kStageFloats);
-  float* ps = reinterpret_cast<float*>(ids + kSgStages * BK);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ps + BQ * kPPitch);
-  uint64_t* empty = full + kSgStages;
-  int* plan = reinterpret_cast<int*>(empty + kSgStages);
+// The three bf16 parts (bf16_split2) of floats 8c..8c+7 of a row, x then y,
+// as 16-byte chunk c of row r of three part tiles (part j at parts + j
+// kPart) in the swizzle of the row's width.
+template <int kRowBytes, int kPart>
+__device__ __forceinline__ void store_parts(unsigned char* parts, int r, int c, float4 x,
+                                            float4 y) {
+  uint32_t w[4][3];
+  bf16_split2(x.x, x.y, w[0]);
+  bf16_split2(x.z, x.w, w[1]);
+  bf16_split2(y.x, y.y, w[2]);
+  bf16_split2(y.z, y.w, w[3]);
+  const int at = swizzled_chunk_offset(r, c, kRowBytes);
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    *reinterpret_cast<uint4*>(parts + j * kPart + at) =
+        make_uint4(w[0][j], w[1][j], w[2][j], w[3][j]);
+}
+
+// Splits an f32 K or V tile into its three part tiles, the block's threads
+// sharing its 64 x D/8 chunks.
+template <int D, int kWG>
+__device__ __forceinline__ void split_tile(const unsigned char* f32, unsigned char* parts,
+                                           int tid) {
+  using Tl = F32FwdTile<D, kWG>;
+  constexpr int kChunks = D / 8;  // 16-byte chunks a part row
+  constexpr int kTotal = kF32Keys * kChunks;
+#pragma unroll
+  for (int it = 0; it < (kTotal + Tl::kThreads - 1) / Tl::kThreads; ++it) {
+    const int i = tid + it * Tl::kThreads;
+    if (kTotal % Tl::kThreads != 0 && i >= kTotal) break;
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    store_parts<Tl::kRowBytes, Tl::kPart>(
+        parts, r, c, *reinterpret_cast<const float4*>(f32 + Tl::f32_at(r, 8 * c)),
+        *reinterpret_cast<const float4*>(f32 + Tl::f32_at(r, 8 * c + 4)));
+  }
+}
+
+// S of 64 queries and a 64-key tile from the parts: D / 16 k-steps of
+// wgmma_f32_parts_kstep, Q's part tiles as its A (at q_desc + (j - 1) kP)
+// and K's as its B (k_desc + (i - 1) kP); one commit group. (1,1) goes
+// into big and the five small products into small, so that the large
+// running sum takes one truncating tensor-core add a k-step (one sum for
+// all six put lse 2.4e-5 from f64 on near-parallel rows).
+template <int D, int kP>
+__device__ __forceinline__ void issue_s_f32(float (&big)[32], float (&small)[32],
+                                            uint64_t q_desc, uint64_t k_desc) {
+  wgmma_fence();
+  wgmma_f32_parts_kstep<64, kP, kP, 0>(big, small, q_desc, k_desc, 0);
+  if constexpr (D >= 32) wgmma_f32_parts_kstep<64, kP, kP, 2>(big, small, q_desc, k_desc, 1);
+  if constexpr (D >= 64) {
+    wgmma_f32_parts_kstep<64, kP, kP, 4>(big, small, q_desc, k_desc, 1);
+    wgmma_f32_parts_kstep<64, kP, kP, 6>(big, small, q_desc, k_desc, 1);
+  }
+  wgmma_commit();
+}
+
+// A tile's O = P V from the parts: 4 k-steps of 16 keys, each the six
+// products of V's part i (an MN-major B at v_desc + (i - 1) kP + the
+// k-step's 16 rows) and P's part j (registers: pa[kk][j - 1]) in S's order,
+// (1,1), (1,2), (2,1), (1,3), (2,2), (3,1); (1,1) into big and the five
+// small ones into small, as S's, the first product of each overwriting it.
+// One commit group.
+template <int D, int kP>
+__device__ __forceinline__ void issue_pv_f32(float (&big)[D / 2], float (&small)[D / 2],
+                                             const uint32_t (&pa)[4][3][4], uint64_t v_desc) {
+  constexpr uint32_t kStep = 16 * 2 * D >> 4;  // 16 rows down, in descriptor units
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t vd = v_desc + kk * kStep;
+    const int acc = kk == 0 ? 0 : 1;
+    wgmma_rs<D>(big, pa[kk][0], vd, acc);                // (1,1)
+    wgmma_rs<D>(small, pa[kk][1], vd, acc);              // (1,2)
+    wgmma_rs<D>(small, pa[kk][0], vd + kP, 1);           // (2,1)
+    wgmma_rs<D>(small, pa[kk][2], vd, 1);                // (1,3)
+    wgmma_rs<D>(small, pa[kk][1], vd + kP, 1);           // (2,2)
+    wgmma_rs<D>(small, pa[kk][0], vd + 2 * kP, 1);       // (3,1)
+  }
+  wgmma_commit();
+}
+
+// kWG warpgroups each own 64 query rows; warp 0 issues the copies. See the
+// header for the design. One block an SM at D = 64 (its shared memory),
+// so registers up to 255 a thread.
+template <int D, int kWG>
+__global__ void __launch_bounds__(F32FwdTile<D, kWG>::kThreads, 1)
+flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map, const float* __restrict__ q,
+                     const int* __restrict__ seg, float* __restrict__ out,
+                     float* __restrict__ lse, int seq, int heads, float scale) {
+  using Tl = F32FwdTile<D, kWG>;
+  constexpr int kAcc = Tl::kAcc;
+  constexpr int kP = Tl::kPart >> 4;  // a part tile, in descriptor units
+  constexpr int kChunks = D / 8;      // 16-byte chunks a part row
+  extern __shared__ __align__(16) unsigned char ff_smem[];
+  unsigned char* smem = ff_smem + ((1024u - (shared_addr(ff_smem) & 1023u)) & 1023u);
+  int* ids = reinterpret_cast<int*>(smem + Tl::kIdsOff);
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(smem + Tl::kBarOff);
+  uint64_t* v_full = k_full + 1;
+  int* plan = reinterpret_cast<int*>(smem + Tl::kPlanOff);
 
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const long long tok = static_cast<long long>(heads) * D;
-  const long long base = static_cast<long long>(b) * seq * tok +
-                         static_cast<long long>(h) * D;
   const int* segb = seg + static_cast<long long>(b) * seq;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * Tl::kRows;
+  const long long tok = static_cast<long long>(heads) * D;  // floats a token
+  const long long head0 = static_cast<long long>(b) * seq * tok + static_cast<long long>(h) * D;
 
   if (tid == 0) {
-    for (int s = 0; s < kSgStages; ++s) {
-      mbar_init(full + s, 33);
-      mbar_init(empty + s, kConsumers / 32);
-    }
+    mbar_init(k_full, 1 + 32);  // the TMA's bytes, then each lane's key ids
+    mbar_init(v_full, 1);
     mbar_fence_init();
   }
-  const int n = plan_tiles<BQ, BK, Tile::kThreads>(segb, seq, q0, plan);  // barriers seen
+  // every thread (its barriers also publish the mbarriers' initialisation)
+  const int n = plan_tiles<Tl::kRows, kF32Keys, Tl::kThreads>(segb, seq, q0, plan);
 
-  if (tid >= kConsumers) {  // the producer warp
-    for (int idx = 0; idx < n; ++idx) {
-      const int st = idx % kSgStages;
-      if (idx >= kSgStages) mbar_wait(empty + st, (idx / kSgStages - 1) & 1);
-      const int k0 = plan[idx] * BK;
-      if (lane == 0) {
-        mbar_arrive_expect_tx(full + st, Tile::kStageFloats * 4);
-        float* kt = ring + st * Tile::kStageFloats;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  // Planned tile idx into the f32 tiles, by warp 0: lane 0 issues the K and
+  // V boxes by TMA (K's onto k_full, V's onto v_full), each lane copies two
+  // of the tile's key ids by cp.async into the id buffer of idx's parity,
+  // arriving on k_full when they have landed (keys past T are masked by
+  // position).
+  auto load_tile = [&](int idx) {
+    const int k0 = plan[idx] * kF32Keys;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(k_full, Tl::kF32Tile);
+      mbar_arrive_expect_tx(v_full, Tl::kF32Tile);
 #pragma unroll
-        for (int c = 0; c < D / Tile::kBoxF; ++c) {
-          tma_load_4d(kt + c * Tile::kBox, &k_map, full + st, c * Tile::kBoxF, h, k0, b);
-          tma_load_4d(kt + Tile::kKFloats + c * Tile::kBox, &v_map, full + st,
-                      c * Tile::kBoxF, h, k0, b);
-        }
+      for (int c = 0; c < D / Tl::kBoxF; ++c) {
+        tma_load_4d(smem + Tl::kKf + c * Tl::kBox, &k_map, k_full, c * Tl::kBoxF, h, k0, b);
+        tma_load_4d(smem + Tl::kVf + c * Tl::kBox, &v_map, v_full, c * Tl::kBoxF, h, k0, b);
       }
-      if (k0 + lane < seq) cp_async4(ids + st * BK + lane, segb + k0 + lane);
-      mbar_arrive_cp_async(full + st);
     }
-    return;
+    int* sk = ids + (idx & 1) * kF32Keys;
+    if (k0 + lane < seq) cp_async4(sk + lane, segb + k0 + lane);
+    if (k0 + lane + 32 < seq) cp_async4(sk + lane + 32, segb + k0 + lane + 32);
+    mbar_arrive_cp_async(k_full);
+  };
+  // Tile idx's K and V parts, once its f32 tiles have landed: K's into the
+  // one K set, V's into the set of idx's parity.
+  auto split_kv = [&](int idx) {
+    mbar_wait(k_full, idx & 1);
+    split_tile<D, kWG>(smem + Tl::kKf, smem + Tl::kKOff, tid);
+    mbar_wait(v_full, idx & 1);
+    split_tile<D, kWG>(smem + Tl::kVf, smem + Tl::kVOff + (idx & 1) * 3 * Tl::kPart, tid);
+    fence_shared_to_async();  // before the products read them
+  };
+  if (warp == 0 && n > 0) load_tile(0);
+
+  // Q's parts, while the first tile loads: warpgroup w's 64 rows in its own
+  // three part tiles (rows past T as zeros)
+#pragma unroll 1
+  for (int i = tid; i < Tl::kRows * kChunks; i += Tl::kThreads) {
+    const int row = i / kChunks;
+    const int c = i % kChunks;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 y = x;
+    if (q0 + row < seq) {
+      const float4* src = reinterpret_cast<const float4*>(q + head0 + (q0 + row) * tok + 8 * c);
+      x = src[0];
+      y = src[1];
+    }
+    store_parts<Tl::kRowBytes, Tl::kPart>(smem + row / kF32Rows * 3 * Tl::kPart,
+                                          row % kF32Rows, c, x, y);
   }
 
-  const int tx = lane % 8;
-  const int ty = (tid / 32) * 4 + lane / 8;
-  // the thread's Q rows in registers (the 8 lanes of a row read the same
-  // addresses), and the range of the warp's live row segments
-  int segq[RM];
-  float4 qr[RM][D / 4];
+  // warp w of warpgroup wg owns rows 64wg + 16w + g and 64wg + 16w + g + 8
+  const int wg = warp / 4;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  int rows[2];
+  bool live[2];
+  int segq[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rows[r] = q0 + 16 * warp + g + 8 * r;
+    live[r] = rows[r] < seq;  // a row past T writes nothing
+    segq[r] = live[r] ? segb[rows[r]] : 0;
+  }
+  // the range of the block's live row segments, which each warp reads
+  // whole, so that every decision made from it is the same in every warp
   int wlo = INT_MAX;
   int whi = INT_MIN;
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int row = q0 + ty + i * kRG;
-    const bool live = row < seq;  // a row past T writes nothing
-    segq[i] = live ? segb[row] : 0;
-    if (live) {
-      wlo = min(wlo, segq[i]);
-      whi = max(whi, segq[i]);
+  for (int c = lane; c < Tl::kRows; c += 32)
+    if (q0 + c < seq) {
+      wlo = min(wlo, segb[q0 + c]);
+      whi = max(whi, segb[q0 + c]);
     }
-    const float4* src = reinterpret_cast<const float4*>(q + base + (live ? row : 0) * tok);
-#pragma unroll
-    for (int c = 0; c < D / 4; ++c) qr[i][c] = live ? src[c] : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     wlo = min(wlo, __shfl_xor_sync(0xffffffffu, wlo, off));
     whi = max(whi, __shfl_xor_sync(0xffffffffu, whi, off));
   }
-  float o[RM][kOC];
+
+  fence_shared_to_async();  // Q's parts
+  if (n > 0) split_kv(0);
+
+  const uint32_t base = shared_addr(smem);
+  const uint64_t q_desc = wgmma_desc(base + wg * 3 * Tl::kPart, Tl::kRowBytes);
+  const uint64_t k_desc = wgmma_desc(base + Tl::kKOff, Tl::kRowBytes);
+  float o[kAcc];  // O, the accumulator fragments of [64][D], in IEEE f32 sums
 #pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int c = 0; c < kOC; ++c) o[i][c] = 0.f;
-  float m[RM], l[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    m[i] = -CUDART_INF_F;  // running max, log2 domain
-    l[i] = 0.f;            // this thread's share of the running sum
-  }
+  for (int i = 0; i < kAcc; ++i) o[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max, log2 domain
+  float l[2] = {0.f, 0.f};  // this thread's share of the running sum
   const float scale_log2 = scale * kLog2e;
-  float* p_row = ps + ty * kPPitch;  // row i at + i * kRG * kPPitch
 
+  // A tile: S from the parts, the softmax in S's registers, P split, P V,
+  // and the next tile's K and V parts while P V computes.
   for (int idx = 0; idx < n; ++idx) {
-    const int st = idx % kSgStages;
-    mbar_wait(full + st, (idx / kSgStages) & 1);
-    const float* kv = ring + st * Tile::kStageFloats;
-    const int k0 = plan[idx] * BK;
-    // A warp none of whose live rows' segment range holds a key's segment
-    // skips the tile: for each of its rows the tile would change nothing.
-    const int segl = k0 + lane < seq ? ids[st * BK + lane] : kNoSegment;
-    if (!__any_sync(0xffffffffu, segl >= wlo && segl <= whi)) {
-      if (lane == 0) mbar_arrive(empty + st);
-      continue;
-    }
+    // this tile's parts are written and every warp is past the last tile's
+    // P V: warp 0 loads the next tile into the f32 tiles
+    named_barrier(1, Tl::kThreads);
+    if (warp == 0 && idx + 1 < n) load_tile(idx + 1);
+    const int lim = seq - plan[idx] * kF32Keys;  // keys at or past lim are past T
+    const int* sk = ids + (idx & 1) * kF32Keys;
+    const int sa = lane < lim ? sk[lane] : kNoSegment;
+    const int sb = lane + 32 < lim ? sk[lane + 32] : kNoSegment;
+    // a tile whose live rows and keys all share one segment needs no mask
+    const bool unmasked = wlo == whi && __all_sync(0xffffffffu, sa == wlo && sb == wlo);
 
-    // S = Q K^T over d, 4 at a time: RM Q rows and kKJ K rows a step
-    float s[RM][kKJ];
+    float s[32];  // S = Q K^T, then P in place
+    float s2[32];
+    issue_s_f32<D, kP>(s, s2, q_desc, k_desc);
+    wgmma_wait<0>();
+    wgmma_fence_regs(s);
+    wgmma_fence_regs(s2);
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int i = 0; i < 32; ++i) s[i] = __fadd_rn(s[i], s2[i]);
+
+    float tile_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    if (unmasked) {
 #pragma unroll
-      for (int j = 0; j < kKJ; ++j) s[i][j] = 0.f;
+      for (int i = 0; i < 32; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
+    } else {
 #pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      float4 a[RM];
-      float4 bk[kKJ];
+      for (int j = 0; j < 8; ++j) {
+        const int key = 8 * j + 2 * t;
+        int2 sg = *reinterpret_cast<const int2*>(sk + key);
+        if (key >= lim) sg.x = kNoSegment;
+        if (key + 1 >= lim) sg.y = kNoSegment;
 #pragma unroll
-      for (int i = 0; i < RM; ++i)
-        a[i] = qr[i][d / 4];
-#pragma unroll
-      for (int j = 0; j < kKJ; ++j)
-        bk[j] = *reinterpret_cast<const float4*>(kv + Tile::at(0, j * 8 + tx, d));
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < kKJ; ++j) {
-          s[i][j] = fmaf(a[i].x, bk[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, bk[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, bk[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, bk[j].w, s[i][j]);
+        for (int i = 4 * j; i < 4 * j + 4; ++i) {
+          const int r = (i >> 1) & 1;
+          const bool allowed = ((i & 1) ? sg.y : sg.x) == segq[r];
+          s[i] = allowed ? s[i] : -CUDART_INF_F;  // raw: scale > 0
+          tile_max[r] = fmaxf(tile_max[r], s[i]);
         }
-    }
-
-    // mask, online softmax; P to shared memory (rows of this warp only)
-    int segk[kKJ];
-#pragma unroll
-    for (int j = 0; j < kKJ; ++j)
-      segk[j] = k0 + j * 8 + tx < seq ? ids[st * BK + j * 8 + tx] : kNoSegment;
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      float tile_max = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < kKJ; ++j) {
-        s[i][j] = segk[j] == segq[i] ? s[i][j] : -CUDART_INF_F;  // raw: scale > 0
-        tile_max = fmaxf(tile_max, s[i][j]);
       }
-      // the 8 lanes of a row group hold the row between them
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-      tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 4));
-      const float m_new = fmaxf(m[i], tile_max * scale_log2);
+    }
+    float base_max[2];
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the four lanes of a quad hold one row between them
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+      const float m_new = fmaxf(m[r], tile_max[r] * scale_log2);
       // no allowed key yet: keep everything at 0 instead of exp(-inf + inf)
-      const float base_max = m_new == -CUDART_INF_F ? 0.f : m_new;
-      const float alpha = fast_exp2(m[i] - base_max);
-#pragma unroll
-      for (int c = 0; c < kOC; ++c) o[i][c] *= alpha;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kKJ; ++j) {
-        const float p = fast_exp2(fmaf(s[i][j], scale_log2, -base_max));  // 0 if masked
-        // l * alpha + p in one FFMA, then + p, as in the tile kernel
-        l[i] = j == 0 ? fmaf(l[i], alpha, p) : l[i] + p;
-        p_row[i * kRG * kPPitch + j * 8 + tx] = p;
-      }
+      base_max[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      alpha[r] = fast_exp2(m[r] - base_max[r]);
+      m[r] = m_new;
     }
-    __syncwarp();  // the warp's P written
 
-    // O += P V over the tile's keys, 4 at a time
+    // P, and the A fragments of its parts: k-step kk is keys 16kk..16kk+15,
+    // register q the pair s[8kk + 2q], s[8kk + 2q + 1] (row q & 1); the
+    // running sum takes l alpha + p as one fmaf at the row's first key of
+    // the tile, then adds, key by key
+    uint32_t pa[4][3][4];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 4) {
-      float4 p4[RM];
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int i = 0; i < RM; ++i)
-        p4[i] = *reinterpret_cast<const float4*>(p_row + i * kRG * kPPitch + kk);
+      for (int q = 0; q < 4; ++q) {
+        const int i = 8 * kk + 2 * q;
+        const int r = q & 1;
+        const float x = fast_exp2(fmaf(s[i], scale_log2, -base_max[r]));  // 0 if masked
+        const float y = fast_exp2(fmaf(s[i + 1], scale_log2, -base_max[r]));
+        l[r] = kk == 0 && q < 2 ? fmaf(l[r], alpha[r], x) : l[r] + x;
+        l[r] += y;
+        uint32_t w[3];
+        bf16_split2(x, y, w);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float vv[kOC];
-#pragma unroll
-        for (int ch = 0; ch < kChunks; ++ch)
-          load_vec<kVec>(vv + ch * kVec, kv + Tile::at(1, kk + e, tx * kVec + ch * 8 * kVec));
-#pragma unroll
-        for (int i = 0; i < RM; ++i) {
-          const float p = e == 0 ? p4[i].x : e == 1 ? p4[i].y : e == 2 ? p4[i].z : p4[i].w;
-#pragma unroll
-          for (int c = 0; c < kOC; ++c) o[i][c] = fmaf(p, vv[c], o[i][c]);
-        }
+        for (int part = 0; part < 3; ++part) pa[kk][part][q] = w[part];
       }
-    }
-    __syncwarp();  // the warp is done with the stage and with P
-    if (lane == 0) mbar_arrive(empty + st);
+
+    // every warp's S has landed: K's parts may be overwritten
+    named_barrier(1, Tl::kThreads);
+    float ot[kAcc];  // this tile's P V: the (1,1) products, the rest
+    float ot2[kAcc];
+    issue_pv_f32<D, kP>(ot, ot2, pa,
+                        wgmma_desc(base + Tl::kVOff + (idx & 1) * 3 * Tl::kPart, Tl::kRowBytes));
+    if (idx + 1 < n) split_kv(idx + 1);  // while P V computes
+    wgmma_wait<0>();
+    // the registers P V read stay unchanged until it has landed
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pin_fragment(pa[kk]);
+    wgmma_fence_regs(ot);
+    wgmma_fence_regs(ot2);
+    // the tile's sums added, then into O, in IEEE f32
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i)
+      o[i] = fmaf(o[i], alpha[(i >> 1) & 1], __fadd_rn(ot[i], ot2[i]));
   }
 
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
-    const int row = q0 + ty + i * kRG;
-    if (row >= seq) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    float* op = out + base + row * tok + tx * kVec;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (!live[r]) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    float* dst = out + head0 + rows[r] * tok + 2 * t;
 #pragma unroll
-    for (int ch = 0; ch < kChunks; ++ch) {
-      float* dst = op + ch * 8 * kVec;
-      if constexpr (kVec == 4) {
-        *reinterpret_cast<float4*>(dst) =
-            make_float4(o[i][4 * ch] * inv, o[i][4 * ch + 1] * inv,
-                        o[i][4 * ch + 2] * inv, o[i][4 * ch + 3] * inv);
-      } else {
-        *reinterpret_cast<float2*>(dst) =
-            make_float2(o[i][2 * ch] * inv, o[i][2 * ch + 1] * inv);
-      }
-    }
-    // m * ln2 and logf(l) rounded apart, as in the tile kernel
-    if (lse != nullptr && tx == 0)
-      lse[(static_cast<long long>(b) * heads + h) * seq + row] =
-          __fadd_rn(__fmul_rn(m[i], kLn2), logf(l[i]));
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    // the running max and sum that made this row's out (a live row sees
+    // its own key, so l > 0 and lse is finite), m * ln2 and logf(l)
+    // rounded apart
+    if (lse != nullptr && t == 0)
+      lse[(static_cast<long long>(b) * heads + h) * seq + rows[r]] =
+          __fadd_rn(__fmul_rn(m[r], kLn2), logf(l[r]));
   }
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-// path: the bf16 wgmma kernel, the f32 64-row tile, the f32 small grid
+// path: the bf16 wgmma kernel, the f32 kernel with 128-row blocks, with 64-row blocks
 constexpr int kPathWgmma = 0;
-constexpr int kPathTile = 1;
-constexpr int kPathSmall = 2;
+constexpr int kPathF32 = 1;
+constexpr int kPathF32Small = 2;
 
 struct Config {
   const void* fn;
-  int threads, smem, rows, keys, path;  // block threads, dynamic bytes, BQ, BK, path
+  int threads, smem, rows, keys, path;  // block threads, dynamic bytes, query rows, keys a tile, path
 };
 
 template <int D>
@@ -1054,26 +869,23 @@ Config wgmma_config(int seq) {
                 WgFwdTile<D>::smem_bytes(seq), kWgRows, kWgKeys, kPathWgmma};
 }
 
-template <int D>
-Config fma_config(int seq) {
-  return Config{reinterpret_cast<const void*>(flash_fwd_fma_kernel<D>), FmaTile<D>::kThreads,
-                FmaTile<D>::kFixedBytes + plan_bytes(seq, kFmaBK), kFmaBQ, kFmaBK, kPathTile};
+template <int D, int kWG>
+Config f32_config(int seq) {
+  using Tl = F32FwdTile<D, kWG>;
+  return Config{reinterpret_cast<const void*>(flash_fwd_f32_kernel<D, kWG>), Tl::kThreads,
+                Tl::smem_bytes(seq), Tl::kRows, kF32Keys, kWG == 2 ? kPathF32 : kPathF32Small};
 }
 
-template <int D>
-Config small_config(int seq) {
-  return Config{reinterpret_cast<const void*>(flash_fwd_small_kernel<D>), SgTile<D>::kThreads,
-                SgTile<D>::smem_bytes(seq), kSgRows, kFmaBK, kPathSmall};
-}
-
-// The kernel for a problem. bf16: the wgmma kernel. f32: the small-grid
-// path while the tile path's grid is at most kSmallGridBlocks blocks.
+// The kernel for a problem. bf16: the wgmma kernel. f32: 64-row blocks
+// while the grid of 128-row blocks is at most kSmallGridBlocks, else 128-row
+// blocks; each row's arithmetic is the same in both.
 template <int D>
 Config choose(int batch, int seq, int heads, int dtype) {
   if (dtype == 1) return wgmma_config<D>(seq);
   const long long rows = static_cast<long long>(heads) * batch;
-  if ((seq + kFmaBQ - 1) / kFmaBQ * rows > kSmallGridBlocks) return fma_config<D>(seq);
-  return small_config<D>(seq);
+  if ((seq + 2 * kF32Rows - 1) / (2 * kF32Rows) * rows > kSmallGridBlocks)
+    return f32_config<D, 2>(seq);
+  return f32_config<D, 1>(seq);
 }
 
 Config config_for(int batch, int seq, int heads, int head_dim, int dtype) {
@@ -1086,8 +898,8 @@ Config config_for(int batch, int seq, int heads, int head_dim, int dtype) {
 }
 
 // Launches above 48 KB of dynamic shared memory (the plan grows with T,
-// bf16 adds its flush copy past T = 512, the small-grid ring is ~56 KB at
-// D = 64) need the limit raised first.
+// bf16 adds its flush copy past T = 512, the f32 kernel holds 130-154 KB
+// at D = 64) need the limit raised first.
 cudaError_t allow_smem(const Config& cfg) {
   if (cfg.smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(cfg.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.smem);
@@ -1100,19 +912,16 @@ bool valid_args(int batch, int seq, int heads, int head_dim, int dtype) {
 }
 
 // Launches cfg's kernel on a problem: the bf16 path with its Q, K, V and
-// out tensor maps and the small-grid path with its K and V maps (encoded
-// here, passed by value), the tile path with pointers. A map the driver
-// refuses is an error, as a refused launch is.
+// out tensor maps, the f32 paths with their K and V maps (encoded here,
+// passed by value) and pointers to Q and out. A map the driver refuses is
+// an error, as a refused launch is.
 cudaError_t launch_config(const Config& cfg, const void* q, const void* k, const void* v,
                           const int* seg, void* out, float* lse, int batch, int seq, int heads,
                           int head_dim, float scale, cudaStream_t stream) {
   cudaError_t err = allow_smem(cfg);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + cfg.rows - 1) / cfg.rows, heads, batch);
-  if (cfg.path == kPathTile) {
-    void* args[] = {&q, &k, &v, &seg, &out, &lse, &seq, &heads, &scale};
-    err = cudaLaunchKernel(cfg.fn, grid, dim3(cfg.threads), args, cfg.smem, stream);
-  } else if (cfg.path == kPathWgmma) {
+  if (cfg.path == kPathWgmma) {
     alignas(64) CUtensorMap maps[4] = {};
     const void* bases[4] = {q, k, v, out};
     for (int i = 0; i < 4; ++i)
@@ -1122,8 +931,8 @@ cudaError_t launch_config(const Config& cfg, const void* q, const void* k, const
     err = cudaLaunchKernel(cfg.fn, grid, dim3(cfg.threads), args, cfg.smem, stream);
   } else {
     alignas(64) CUtensorMap maps[2] = {};
-    if (!(encode_bthd_map(&maps[0], k, batch, seq, heads, head_dim, kFmaBK, true) &&
-          encode_bthd_map(&maps[1], v, batch, seq, heads, head_dim, kFmaBK, true)))
+    if (!(encode_bthd_map(&maps[0], k, batch, seq, heads, head_dim, kF32Keys, true) &&
+          encode_bthd_map(&maps[1], v, batch, seq, heads, head_dim, kF32Keys, true)))
       return cudaErrorInvalidValue;
     void* args[] = {&maps[0], &maps[1], &q, &seg, &out, &lse, &seq, &heads, &scale};
     err = cudaLaunchKernel(cfg.fn, grid, dim3(cfg.threads), args, cfg.smem, stream);
@@ -1133,6 +942,7 @@ cudaError_t launch_config(const Config& cfg, const void* q, const void* k, const
 }
 
 }  // namespace
+
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim 16, 32 or 64. lse: null, or
 // [B, H, T] f32 for the backward. Returns a cudaError_t (0 = launched).

@@ -139,7 +139,7 @@ _BWD_ARGTYPES = [_PTR] * 11 + [_INT] * 4 + [_FLOAT, _INT, _PTR]
 _DELTA_ARGTYPES = [_PTR] * 3 + [_INT] * 4 + [_PTR]
 
 
-FWD_PATHS = ("bf16 wgmma", "f32 tile", "f32 small grid")
+FWD_PATHS = ("bf16 wgmma", "f32 six-part wgmma", "f32 six-part wgmma small grid")
 
 
 def flash_attention_fwd_config(batch, seq, heads, head_dim, dtype):
@@ -147,8 +147,9 @@ def flash_attention_fwd_config(batch, seq, heads, head_dim, dtype):
     query ``convdr_flash_attention_fwd_config`` reports it: threads a
     block, dynamic shared memory bytes, query rows a block, resident blocks
     an SM, keys a tile and the path (one of ``FWD_PATHS``: f32 takes the
-    small-grid path while the 64-row tile's grid, ceil(T / 64) * H * B, is
-    at most the kernel source's ``kSmallGridBlocks``; needs the card)."""
+    small-grid path, blocks of 64 query rows, while the grid of 128-row
+    blocks, ceil(T / 128) * H * B, is at most the kernel source's
+    ``kSmallGridBlocks``, and 128-row blocks above; needs the card)."""
     fn = cuda_build.bind("flash_attention", "convdr_flash_attention_fwd_config",
                          [_INT] * 5 + [_PTR])
     out = (ctypes.c_int * 6)()
@@ -180,9 +181,11 @@ def flash_attention_fwd(q, k, v, attention_mask, with_lse: bool):
     """Launch the forward kernel on CUDA tensors; -> (out, lse [B, H, T] f32
     or None). ``with_lse`` also writes each row's log-sum-exp of the scaled
     scores, which the backward needs; ``out`` is the same either way. f32
-    takes one of two kernels by the grid's size (the 64-row tile, or
-    32-row blocks over a TMA ring for small grids such as the serving
-    encode's B=1); both give the same out and lse bit for bit."""
+    runs on the tensor cores as six bf16 ``wgmma`` products of the
+    operands' exact bf16 parts, in blocks of 128 query rows (two
+    warpgroups sharing each key tile's split) or, for small grids such as
+    the serving encode's B=1, of 64; a row's out and lse are the same bit
+    for bit in either."""
     b, t, h, d = _check("flash_attention", (q, k, v), attention_mask,
                         tuple(_DTYPE_CODES))
     seg = attention_mask.to(torch.int32).contiguous()

@@ -1,21 +1,37 @@
 """Kernel 1's forward (``csrc/flash_attention.cu``) on the card: the f32
-forward on its two paths, and the bf16 forward at the corpus encoder's
-shapes.
+forward on its two paths, its accuracy, and the bf16 forward at the corpus
+encoder's shapes.
 
-The f32 forward takes the small-grid path (32-row blocks over a TMA ring)
-while the 64-row tile's grid, ceil(T / 64) * H * B, is at most the
-source's ``kSmallGridBlocks``, and the 64-row tile above. At H=12 D=64,
-B = 1, 2, 4, 8 and 40 (the teacher's documents) x T = 64, 128, 256, 512,
-with the masks of served histories (``history_to_inputs``, right-padded)
-and random right-padded masks, the public entry's out and lse are held bit
-for bit (``torch.equal``) to batch elements [0, B) of the same problem
-repeated to a batch that takes the tile path; a mismatch raises. Each
-shape is timed on the device (the calls queued behind a spin kernel, so
-no host time is in it) through the entry, beside its bound (bytes over
-3.35 TB/s against the in-segment pairs' 4HD operations over the 67
-TFLOP/s f32 peak), masked SDPA and the repeated batch on the tile path
-(and the plain version at the serving encode's and the teacher's
-targets' shapes).
+The f32 forward (six bf16 ``wgmma`` products of the operands' exact bf16
+parts) takes 64-row blocks (the small-grid path) while the grid of 128-row
+blocks, ceil(T / 128) * H * B, is at most the source's
+``kSmallGridBlocks``, and 128-row blocks above. At H=12 D=64, B = 1, 2, 4,
+8 and 40 (the teacher's documents) x T = 64, 128, 256, 512, with the masks
+of served histories (``history_to_inputs``, right-padded) and random
+right-padded masks, the public entry's out and lse are held bit for bit
+(``torch.equal``) to batch elements [0, B) of the same problem repeated to
+a batch that takes the 128-row path; a mismatch raises. Each shape is
+timed on the device (the calls queued behind a spin kernel, so no host
+time is in it) through the entry, beside its bound (bytes over 3.35 TB/s
+against the kernel's six-part operations, 24HD a pair in segment, over
+the 989 TFLOP/s bf16 peak; ``f32_parts_operations``) and, beside that, the
+4HD a pair of a design on the CUDA cores over their 67 TFLOP/s f32 peak,
+masked SDPA and the repeated batch on the 128-row path (and the plain
+version at the serving encode's and the teacher's targets' shapes).
+
+``--parts entry`` times the f32 entry alone at ``ENTRY_SHAPES`` with the
+path each takes, for trees whose block-shape switch is moved.
+
+``--parts encoder_f32`` times one full-width 12-layer f32 ``rdot_nll``
+encode at each of the main paths' f32 shapes (``F32_ENCODES``: the serving
+encode, the query encoder and student, the teacher's targets and
+documents) on the device.
+
+``--parts accuracy`` reports the f32 forward's worst distance, out and lse,
+from the f64 plain version and from the f32 plain version (the card tests'
+1e-5 yardstick) on N(0, 1) inputs and on near-parallel positive rows (1 +
+0.01 N(0, 1): long one-signed sums) at B=40 T=512 and B=4 T=256, and on
+one row of T=30000 (``ACCURACY_CASES``).
 
 The bf16 part (``--parts bf16``) times the bf16 forward on the device at
 the corpus rungs (``ATTN_SHAPES``), at the bf16 student's B=4 T=256 with
@@ -39,6 +55,7 @@ checkouts compare bit for bit across processes:
 
     python -m convdr_torch.scripts.attention_sweep --root parent --label parent --digests
     python -m convdr_torch.scripts.attention_sweep --label change --digests
+    python -m convdr_torch.scripts.attention_sweep --parts accuracy
 
     python -m convdr_torch.scripts.attention_sweep --parts bf16 --root parent \
         --label parent --save_bf16 /tmp/bf16_parent
@@ -118,13 +135,34 @@ def bf16_ulps(a, b, min_abs=0.0):
     return int(steps.max()) if steps.numel() else 0
 
 
+def f32_parts_operations(mask, heads, head_dim):
+    """The tensor-core operations of the f32 kernel on this data: S is six
+    bf16 products of 2D a pair and head, P V six more, so 24HD a pair, six
+    times the function's 4HD (the planned tiles' masked pairs not
+    counted)."""
+    return 24.0 * heads * head_dim * in_segment_pairs(mask)
+
+
+def cuda_core_bound_ms(q, mask):
+    """The function's 4HD operations a pair in segment over the CUDA cores'
+    67 TFLOP/s f32 peak (ms): the floor of any f32 design without the
+    tensor cores, printed beside the f32 bound."""
+    _b, _t, h, d = q.shape
+    return 4.0 * h * d * in_segment_pairs(mask) / PEAK_FLOPS[torch.float32] * 1e3
+
+
 def bound_ms(q, mask, lse=False):
     """The least time (ms) of one forward: the bytes of q, k, v, out and
     the mask once each (and the f32 lse with ``lse``) against the
-    operations this data needs (a query attends to the L valid or the T-L
-    pad keys of its row, 4HD each); and which of the two bounds it."""
+    operations the kernel does on this data (a query attends to the L valid
+    or the T-L pad keys of its row; f32: the six-part products' 24HD a pair
+    at the bf16 peak, ``f32_parts_operations``; bf16: the function's 4HD at
+    the bf16 peak); and which of the two bounds it."""
     b, t, h, d = q.shape
-    ops_ms = 4.0 * h * d * in_segment_pairs(mask) / PEAK_FLOPS[q.dtype] * 1e3
+    if q.dtype == torch.float32:
+        ops_ms = f32_parts_operations(mask, h, d) / PEAK_FLOPS[torch.bfloat16] * 1e3
+    else:
+        ops_ms = 4.0 * h * d * in_segment_pairs(mask) / PEAK_FLOPS[q.dtype] * 1e3
     nbytes = 4 * q.numel() * q.element_size() + mask.numel() * 4 + (b * h * t * 4 if lse else 0)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
@@ -156,6 +194,12 @@ def problem(batch, t, dtype, gen, mask):
     return q, k, v, mask
 
 
+# the f32 forward's path for large grids: the 128-row blocks ("f32 tile"
+# in trees from before the six-part kernel, whose large-grid path was the
+# FMA tile)
+LARGE_GRID_PATHS = ("f32 six-part wgmma", "f32 tile")
+
+
 def fwd_path(batch, t, h=HEADS, d=HEAD_DIM):
     from convdr_torch.models.attention import flash_attention_fwd_config
 
@@ -165,16 +209,16 @@ def fwd_path(batch, t, h=HEADS, d=HEAD_DIM):
 
 def tile_repeats(batch, t, h=HEADS, d=HEAD_DIM):
     """The smallest count of copies of a B=batch problem that takes the f32
-    forward's 64-row tile path."""
+    forward's large-grid path."""
     r = 1
-    while fwd_path(batch * r, t, h, d) != "f32 tile":
+    while fwd_path(batch * r, t, h, d) not in LARGE_GRID_PATHS:
         r *= 2
     return r
 
 
 def sweep(histories=None, seed=0, log=print):
     """The readings above as ``{"B<b>xT<t>_<mask>": row}``; raises if an
-    output of the small-grid path differs from the tile path's."""
+    output of the small-grid path differs from the large-grid path's."""
     from convdr_torch.models.attention import flash_attention_fwd, flash_attention_plain
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -189,7 +233,7 @@ def sweep(histories=None, seed=0, log=print):
             o_t, lse_t = flash_attention_fwd(*tiled, with_lse=True)
             if not (torch.equal(o, o_t[:b]) and torch.equal(lse, lse_t[:b])):
                 raise AssertionError(f"B={b} T={t} {kind}: the f32 forward differs from the "
-                                     f"tile path's first {b} batch elements")
+                                     f"large-grid path's first {b} batch elements")
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             allowed = mask[:, None, :, None] == mask[:, None, None, :]
             bnd, by = bound_ms(q, mask)
@@ -200,16 +244,102 @@ def sweep(histories=None, seed=0, log=print):
                    "tile_batch_ms": device_ms(lambda: flash_attention_fwd(*tiled, False)),
                    "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(
                        qt, kt, vt, attn_mask=allowed)),
-                   "bound_ms": bnd, "bound_by": by}
+                   "bound_ms": bnd, "bound_by": by,
+                   "cuda_core_bound_ms": cuda_core_bound_ms(q, mask)}
             if (b, t) in PLAIN_SHAPES:
                 row["plain_ms"] = device_ms(lambda: flash_attention_plain(q, k, v, mask), iters=5)
             out[f"B{b}xT{t}_{kind}"] = row
             log(f"  f32 B={b} T={t} {kind} ({row['valid_tokens']} valid; tile grid "
                 f"{row['tile_grid']}): {row['path']} {row['ms']:.4f} ms; "
-                f"x{r} on the tile path {row['tile_batch_ms']:.4f}, "
+                f"x{r} on the large-grid path {row['tile_batch_ms']:.4f}, "
                 + (f"plain {row['plain_ms']:.4f}, " if "plain_ms" in row else "")
-                + f"SDPA {row['sdpa_ms']:.4f}; bound {bnd:.4f} ({by}); equal to the tile path")
+                + f"SDPA {row['sdpa_ms']:.4f}; bound {bnd:.4f} ({by}; CUDA cores "
+                f"{row['cuda_core_bound_ms']:.4f}); equal to the large-grid path")
     return out
+
+
+# the shapes of ``--parts entry``: the main path's f32 forwards and the
+# grids on either side of the block-shape switch (``kSmallGridBlocks``)
+ENTRY_SHAPES = [(40, 512), (64, 512), (8, 512), (4, 256), (8, 256), (2, 256), (1, 256),
+                (4, 64), (8, 128), (1, 512)]
+
+
+def entry_times(seed=11, log=print):
+    """Device ms of the public f32 entry (no lse) at ``ENTRY_SHAPES``, H=12
+    D=64, right-padded random lengths, with the path and the blocks an SM
+    the shape takes: ``{"B<b>xT<t>": row}``. Unlike ``sweep`` it holds no
+    output to another path, so it also times trees whose block-shape
+    switch is moved."""
+    from convdr_torch.models.attention import flash_attention_fwd, flash_attention_fwd_config
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {}
+    for b, t in ENTRY_SHAPES:
+        q, k, v, mask = problem(b, t, torch.float32, gen, right_mask(b, t, gen))
+        cfg = flash_attention_fwd_config(b, t, HEADS, HEAD_DIM, torch.float32)
+        rows[f"B{b}xT{t}"] = {"ms": device_ms(lambda: flash_attention_fwd(q, k, v, mask, False)),
+                              "path": cfg.get("path", "f32 tile"),
+                              "blocks_per_sm": cfg["blocks_per_sm"]}
+        log(f"  f32 entry B={b} T={t}: {rows[f'B{b}xT{t}']}")
+    return rows
+
+
+# (inputs, B, T, H, D, mask): N(0, 1) q, k, v or near-parallel positive
+# rows, 1 + 0.01 N(0, 1) (long one-signed sums), at the teacher's documents'
+# and the student's shapes, and one long row
+ACCURACY_CASES = [("normal", 40, 512, 12, 64, "right"), ("normal", 4, 256, 12, 64, "right"),
+                  ("near_parallel", 40, 512, 12, 64, "right"),
+                  ("near_parallel", 4, 256, 12, 64, "right"),
+                  ("normal", 1, 30000, 1, 16, "middle"),
+                  ("near_parallel", 1, 30000, 1, 16, "middle")]
+
+
+def kind_mask(batch, t, gen, kind):
+    """[batch, t] int32 masks of random valid lengths in [1, t]: the valid
+    tokens first ("right") or in a run between pads ("middle")."""
+    lens = torch.randint(1, t + 1, (batch,), generator=gen, device="cuda")
+    pos = torch.arange(t, device="cuda")[None, :]
+    if kind == "right":
+        return (pos < lens[:, None]).int()
+    start = torch.randint(0, t, (batch,), generator=gen, device="cuda") % (t - lens + 1)
+    return ((pos >= start[:, None]) & (pos < (start + lens)[:, None])).int()
+
+
+def masked_lse(q, k, mask):
+    """The log-sum-exp [B, H, T] of the scaled scores a query may see, in
+    q's dtype."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    allowed = mask[:, None, :, None] == mask[:, None, None, :]
+    return torch.logsumexp(scores.masked_fill(~allowed, float("-inf")), dim=-1)
+
+
+def accuracy(seed=4, log=print):
+    """The f32 forward's worst absolute distance, out and lse, from the f64
+    plain version and from the f32 plain version, at ``ACCURACY_CASES``:
+    ``{"<inputs>_B<b>xT<t>": row}``."""
+    from convdr_torch.models.attention import flash_attention_fwd, flash_attention_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {}
+    for inputs, b, t, h, d, kind in ACCURACY_CASES:
+        mask = kind_mask(b, t, gen, kind)
+        q, k, v = (torch.randn((b, t, h, d), generator=gen, device="cuda") for _ in range(3))
+        if inputs == "near_parallel":
+            q, k, v = (1.0 + 0.01 * x for x in (q, k, v))
+        out, lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
+        row = {"out_vs_f32_plain": (out - flash_attention_plain(q, k, v, mask)).abs().max().item(),
+               "lse_vs_f32": (lse - masked_lse(q, k, mask)).abs().max().item()}
+        q64, k64, v64 = (x.double() for x in (q, k, v))
+        row["out_vs_f64"] = (out - flash_attention_plain(q64, k64, v64, mask)).abs().max().item()
+        row["lse_vs_f64"] = (lse - masked_lse(q64, k64, mask)).abs().max().item()
+        del q64, k64, v64
+        torch.cuda.empty_cache()
+        name = f"{inputs}_B{b}xT{t}"
+        rows[name] = row
+        log(f"  f32 accuracy {name} (H={h} D={d}, {kind}): out {row['out_vs_f64']:.3e} from "
+            f"f64, {row['out_vs_f32_plain']:.3e} from the f32 plain version; lse "
+            f"{row['lse_vs_f64']:.3e} / {row['lse_vs_f32']:.3e}")
+    return rows
 
 
 def bf16_sweep(seed=2, save=None, against=None, log=print):
@@ -284,6 +414,41 @@ def encoder_sweep(seed=3, log=print):
     return rows
 
 
+# the f32 encodes of the main paths (rdot_nll, 12 layers): the serving
+# encode (a served history), the query encoder and student at batch 4, and
+# a train step's teacher encodes of its targets and documents
+F32_ENCODES = [("serving", 1, SERVE_T, "query_emb"), ("query", 4, 256, "query_emb"),
+               ("targets", 4, 64, "query_emb"), ("docs", 40, 512, "body_emb")]
+
+
+def f32_encoder_sweep(histories=None, seed=3, log=print):
+    """One full-width rdot_nll f32 encode (random weights from ``seed``, 12
+    layers) at each of ``F32_ENCODES`` on the device, with the attention
+    launches of one call: ``{name: {"ms": .., "attention_launches": ..}}``."""
+    from convdr_torch.core.loading import load_model_and_params
+    from convdr_torch.models.attention import flash_attention
+
+    _config, _tok, model = load_model_and_params("rdot_nll", None, device=torch.device("cuda"),
+                                                 dtype=torch.float32, seed=seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {}
+    with torch.inference_mode():
+        for name, b, t, method in F32_ENCODES:
+            ids = torch.randint(3, model.config.arch.vocab_size, (b, t), generator=gen,
+                                device="cuda")
+            mask = served_mask(b, t, histories) if name == "serving" else right_mask(b, t, gen)
+            encode = getattr(model, method)
+            before = flash_attention.launches
+            encode(ids, mask)
+            torch.cuda.synchronize()
+            launches = flash_attention.launches - before
+            rows[name] = {"shape": f"B={b} T={t} {method}", "attention_launches": launches,
+                          "ms": device_ms(lambda: encode(ids, mask), iters=5)}
+            log(f"  f32 encoder {name} B={b} T={t} {method}: {rows[name]['ms']:.3f} ms, "
+                f"{launches} attention launches")
+    return rows
+
+
 def digests(histories=None, seed=1):
     """Digests of the f32 out and lse (and out without lse), and of the f32
     backward's dQ, dK, dV from that lse, at ``F32_SHAPES`` (right-padded
@@ -318,7 +483,10 @@ def main(argv=None):
     parser.add_argument("--digests", action="store_true",
                         help="also digest the forward's outputs at chip_smoke's shapes")
     parser.add_argument("--parts", default="f32,bf16",
-                        help="comma-separated: f32 (both f32 paths), bf16 (kernel and encoder)")
+                        help="comma-separated: f32 (both f32 paths), entry (the f32 entry "
+                             "alone), accuracy (the f32 "
+                             "forward against f64), encoder_f32 (12-layer f32 encodes), "
+                             "bf16 (kernel and encoder)")
     parser.add_argument("--save_bf16", default="", help="directory to keep the bf16 outputs in")
     parser.add_argument("--against_bf16", default="",
                         help="directory of another run's bf16 outputs to count ulps against")
@@ -339,6 +507,12 @@ def main(argv=None):
     result = {"label": args.label, "card": torch.cuda.get_device_name(0)}
     if "f32" in parts:
         result["sweep"] = sweep(log=log)
+    if "entry" in parts:
+        result["entry"] = entry_times(log=log)
+    if "accuracy" in parts:
+        result["accuracy"] = accuracy(log=log)
+    if "encoder_f32" in parts:
+        result["encoder_f32"] = f32_encoder_sweep(log=log)
     if "bf16" in parts:
         result["bf16"] = bf16_sweep(save=args.save_bf16, against=args.against_bf16, log=log)
         result["encoder"] = encoder_sweep(log=log)
