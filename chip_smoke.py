@@ -341,6 +341,7 @@ from convdr_torch.scripts.attention_sweep import (
 )
 from convdr_torch.scripts.attention_sweep import bound_ms as attention_bound_ms
 from convdr_torch.scripts.attention_sweep import cuda_core_bound_ms
+from convdr_torch.scripts import attention_bwd_bench
 from convdr_torch.scripts.score_sweep import HBM_BYTES_PER_S, PEAK_FLOPS
 from convdr_torch.scripts.multi_gpu_check import make_train_file
 from convdr_torch import native_io
@@ -687,7 +688,8 @@ def time_attention_shape(batch, t, dtype, gen, plain=True, device=False):
               "bound_ms": bound_ms, "bound_by": bound_by,
               "config": flash_attention_fwd_config(batch, t, HEADS, HEAD_DIM, dtype)}
     if dtype == torch.float32:  # the floor of a design on the CUDA cores, beside the bound
-        result["cuda_core_bound_ms"] = cuda_core_bound_ms(q, mask)
+        log(f"  flash_attention_fwd B={batch} T={t} f32: bound {bound_ms:.4f} ms ({bound_by}), "
+            f"the CUDA cores' 4HD a pair {cuda_core_bound_ms(q, mask):.4f}")
     if plain:
         result["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, mask), iters=5)
     if device:
@@ -714,10 +716,8 @@ def time_attention(gen, worst):
         per_rung[f"B{b2}xT{t2}"] = {
             "max_abs_err": worst[(dtype, b2, t2)],
             **time_attention_shape(b2, t2, dtype, gen, plain=False, device=True)}
-    log("  flash_attention_fwd ms (kernel / SDPA / bound; f32: the CUDA cores' 4HD a pair "
-        "beside it): " + "; ".join(
+    log("  flash_attention_fwd ms (kernel / SDPA / bound): " + "; ".join(
         f"{name} {r['ms']:.4f} / {r['library_ms']:.4f} / {r['bound_ms']:.4f}"
-        + (f" ({r['cuda_core_bound_ms']:.4f})" if "cuda_core_bound_ms" in r else "")
         + (f" (device {r['device_ms']:.4f} / {r['library_device_ms']:.4f})"
            if "device_ms" in r else "")
         for name, r in [*((f"bf16 {k}", v) for k, v in per_rung.items()),
@@ -740,20 +740,6 @@ def time_attention(gen, worst):
 # ---------------------------------------------------------------------------
 # kernel A's backward
 # ---------------------------------------------------------------------------
-def attention_bwd_bound_ms(q, mask):
-    """About 10 * D operations per allowed pair (S and dP recomputed, dQ, dK
-    and dV accumulated) at the peak of q's dtype (f32: the CUDA cores; bf16:
-    the tensor cores) vs the bytes of q, k, v, o, dO, the f32 lse and the
-    mask read and dQ, dK, dV written once each."""
-    b, t, h, d = q.shape
-    lens = mask.sum(1).double()
-    pairs = float((lens ** 2 + (t - lens) ** 2).sum())
-    ops_ms = 10.0 * h * d * pairs / PEAK_FLOPS[q.dtype] * 1e3
-    nbytes = 8 * q.numel() * q.element_size() + b * h * t * 4 + mask.numel() * 4
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms else "bytes")
-
-
 def bwd_problem(batch, t, gen, mask_kind="right"):
     q, k, v, mask = attention_inputs(batch, t, torch.float32, gen, mask_kind)
     do = torch.randn(q.shape, generator=gen, device="cuda")
@@ -808,7 +794,7 @@ def time_attention_bwd(gen, worst):
     allowed = (mask[:, None, :, None] == mask[:, None, None, :])
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed)
     dot = do.transpose(1, 2)
-    bound_ms, bound_by = attention_bwd_bound_ms(q, mask)
+    bound_ms, bound_by = attention_bwd_bench.bound_ms(q, mask)
     kernel = lambda: flash_attention_bwd(q, k, v, out, do, mask, lse)  # noqa: E731
     library = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
     ms = cuda_ms(kernel, iters=50)
@@ -824,10 +810,16 @@ def time_attention_bwd(gen, worst):
         q2, k2, v2, m2 = attention_inputs(b2, t2, torch.float32, gen)
         per_layer[name] = cuda_ms(lambda: flash_attention(q2, k2, v2, m2))
     plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, do, mask), iters=5)
+    # beside the bound: the design's seven six-part products at the bf16
+    # peak, and the CUDA cores' floor (the function's 10HD a pair at 67 TF/s)
+    design_ms = (attention_bwd_bench.design_operations(mask, HEADS, HEAD_DIM)
+                 / PEAK_FLOPS[torch.bfloat16] * 1e3)
+    fma_ms = attention_bwd_bench.cuda_core_bound_ms(q, mask)
     log(f"  flash_attention_bwd B={TRAIN_B} T={TRAIN_T} f32 ms: kernel {ms:.4f} host-paced, "
         f"{timing['device_ms']:.4f} on the device; SDPA backward {timing['library_ms']:.4f} / "
         f"{timing['library_device_ms']:.4f}; plain {plain_ms:.4f}; bound {bound_ms:.4f} "
-        f"({bound_by})")
+        f"({bound_by}; the design's seven products {design_ms:.4f}, the CUDA cores' 10HD "
+        f"{fma_ms:.4f})")
     return {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -2039,7 +2031,7 @@ def time_bf16_attention(gen, fwd_worst, bwd_worst):
         dot = do.transpose(1, 2)
         kernel = lambda: flash_attention_bwd(q, k, v, out, do, mask, lse)  # noqa: E731
         library = lambda: torch.autograd.grad(lib_out, leaves, dot, retain_graph=True)  # noqa: E731
-        bound_ms, bound_by = attention_bwd_bound_ms(q, mask)
+        bound_ms, bound_by = attention_bwd_bench.bound_ms(q, mask)
         shapes[f"B{batch}xT{t}"] = {
             "ms": cuda_ms(kernel, iters=50), "device_ms": device_ms(kernel, iters=50),
             "plain_ms": cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, out, do, mask), iters=3),
@@ -3380,13 +3372,12 @@ def serving_kernel_times(tokenizer, histories):
             "library_ms": cuda_ms(library, iters=50),
             "library_device_ms": device_ms(library, iters=50),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "cuda_core_bound_ms": cuda_core_bound_ms(q, mask),
             "config": flash_attention_fwd_config(1, SERVE_T, HEADS, HEAD_DIM, torch.float32)}
     log(f"  kernel 1 at {attn['shape']} ({attn['valid_tokens']} valid tokens): max_abs_err "
         f"{attn['max_abs_err']:.3e}; {attn['ms']:.4f} ms host-paced, {attn['device_ms']:.4f} "
         f"on the device; plain {attn['plain_ms']:.4f}; SDPA {attn['library_ms']:.4f} / "
         f"{attn['library_device_ms']:.4f}; bound {bound_ms:.4f} ({bound_by}; CUDA cores "
-        f"{attn['cuda_core_bound_ms']:.4f}); "
+        f"{cuda_core_bound_ms(q, mask):.4f}); "
         f"{attn['config']}")
     q32 = torch.randn(1, SEARCH_D, generator=gen, device="cuda")
     p32 = torch.randn(SEARCH_N, SEARCH_D, generator=gen, device="cuda")

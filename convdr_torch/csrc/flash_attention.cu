@@ -522,24 +522,6 @@ struct F32FwdTile {
   }
 };
 
-// The three bf16 parts (bf16_split2) of floats 8c..8c+7 of a row, x then y,
-// as 16-byte chunk c of row r of three part tiles (part j at parts + j
-// kPart) in the swizzle of the row's width.
-template <int kRowBytes, int kPart>
-__device__ __forceinline__ void store_parts(unsigned char* parts, int r, int c, float4 x,
-                                            float4 y) {
-  uint32_t w[4][3];
-  bf16_split2(x.x, x.y, w[0]);
-  bf16_split2(x.z, x.w, w[1]);
-  bf16_split2(y.x, y.y, w[2]);
-  bf16_split2(y.z, y.w, w[3]);
-  const int at = swizzled_chunk_offset(r, c, kRowBytes);
-#pragma unroll
-  for (int j = 0; j < 3; ++j)
-    *reinterpret_cast<uint4*>(parts + j * kPart + at) =
-        make_uint4(w[0][j], w[1][j], w[2][j], w[3][j]);
-}
-
 // Splits an f32 K or V tile into its three part tiles, the block's threads
 // sharing its 64 x D/8 chunks.
 template <int D, int kWG>

@@ -534,6 +534,24 @@ __device__ __forceinline__ void bf16_split2(float a, float b, uint32_t (&w)[3]) 
   w[2] = *reinterpret_cast<const uint32_t*>(&p3);
 }
 
+// The three bf16 parts (bf16_split2) of floats 8c..8c+7 of a row, x then y,
+// as 16-byte chunk c of row r of three part tiles (part j at parts + j
+// kPart) in the swizzle of the row's width.
+template <int kRowBytes, int kPart>
+__device__ __forceinline__ void store_parts(unsigned char* parts, int r, int c, float4 x,
+                                            float4 y) {
+  uint32_t w[4][3];
+  bf16_split2(x.x, x.y, w[0]);
+  bf16_split2(x.z, x.w, w[1]);
+  bf16_split2(y.x, y.y, w[2]);
+  bf16_split2(y.z, y.w, w[3]);
+  const int at = swizzled_chunk_offset(r, c, kRowBytes);
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    *reinterpret_cast<uint4*>(parts + j * kPart + at) =
+        make_uint4(w[0][j], w[1][j], w[2][j], w[3][j]);
+}
+
 // Splits 16-byte chunk c (4 k) of row `box_row` of an f32 box of 128-byte
 // rows (32 f32, laid out by TMA's 128-byte swizzle) into row `row` of
 // three bf16 part tiles of 64-byte rows (the 64-byte swizzle's layout,
@@ -553,55 +571,56 @@ __device__ __forceinline__ void split_f32_chunk(const unsigned char* box, int bo
 }
 
 // d (64 x N) (+)= A (64 x 16, registers: the fragment above) * B (N x 16,
-// shared, K-major)^T, B's descriptor at desc_b + kOffB (16-byte units).
-// The registers of `a` are read after the issue: the caller keeps them
-// unchanged until the product has landed (wgmma_wait).
-template <int kOffB>
+// shared, K-major)^T, B's descriptor at desc_b + kOffB (16-byte units);
+// with kTransB, B (16 x N, shared, MN-major: rows are k, 16 rows a
+// k-step). The registers of `a` are read after the issue: the caller keeps
+// them unchanged until the product has landed (wgmma_wait).
+template <int kOffB, int kTransB = 0>
 __device__ __forceinline__ void wgmma_rs_kb_n8(float (&d)[4], const uint32_t (&a)[4],
                                                uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %9, 0;\nadd.s64 db, %8, %10;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, db, p, 1, 1, 0;\n}\n"
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, db, p, 1, 1, %11;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kOffB));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kOffB), "n"(kTransB));
 }
 
-template <int kOffB>
+template <int kOffB, int kTransB = 0>
 __device__ __forceinline__ void wgmma_rs_kb_n16(float (&d)[8], const uint32_t (&a)[4],
                                                 uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %13, 0;\nadd.s64 db, %12, %14;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, db, p, 1, 1, 0;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, db, p, 1, 1, %15;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kOffB));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kOffB), "n"(kTransB));
 }
 
-template <int kOffB>
+template <int kOffB, int kTransB = 0>
 __device__ __forceinline__ void wgmma_rs_kb_n32(float (&d)[16], const uint32_t (&a)[4],
                                                 uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %21, 0;\nadd.s64 db, %20, %22;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, db, p, 1, 1, 0;\n}\n"
+      "{%16, %17, %18, %19}, db, p, 1, 1, %23;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kOffB));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kOffB), "n"(kTransB));
 }
 
-template <int kOffB>
+template <int kOffB, int kTransB = 0>
 __device__ __forceinline__ void wgmma_rs_kb_n64(float (&d)[32], const uint32_t (&a)[4],
                                                 uint64_t desc_b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\n.reg .b64 db;\nsetp.ne.b32 p, %37, 0;\nadd.s64 db, %36, %38;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, db, p, 1, 1, 0;\n}\n"
+      "{%32, %33, %34, %35}, db, p, 1, 1, %39;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -610,20 +629,20 @@ __device__ __forceinline__ void wgmma_rs_kb_n64(float (&d)[32], const uint32_t (
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kOffB));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate), "n"(kOffB), "n"(kTransB));
 }
 
-template <int N, int kOffB>
+template <int N, int kOffB, int kTransB = 0>
 __device__ __forceinline__ void wgmma_rs_kb_at(float (&d)[N / 2], const uint32_t (&a)[4],
                                                uint64_t desc_b, int accumulate) {
   if constexpr (N == 8)
-    wgmma_rs_kb_n8<kOffB>(d, a, desc_b, accumulate);
+    wgmma_rs_kb_n8<kOffB, kTransB>(d, a, desc_b, accumulate);
   else if constexpr (N == 16)
-    wgmma_rs_kb_n16<kOffB>(d, a, desc_b, accumulate);
+    wgmma_rs_kb_n16<kOffB, kTransB>(d, a, desc_b, accumulate);
   else if constexpr (N == 32)
-    wgmma_rs_kb_n32<kOffB>(d, a, desc_b, accumulate);
+    wgmma_rs_kb_n32<kOffB, kTransB>(d, a, desc_b, accumulate);
   else if constexpr (N == 64)
-    wgmma_rs_kb_n64<kOffB>(d, a, desc_b, accumulate);
+    wgmma_rs_kb_n64<kOffB, kTransB>(d, a, desc_b, accumulate);
 }
 
 // One k-step of the six-part product with the passages' parts as A from

@@ -12,8 +12,8 @@ tensors (any T, head_dim 16/32/64, f32 or bf16) and takes the plain version
 for CPU tensors. When autograd needs its gradient (training, f32 or bf16),
 it goes through :class:`FlashAttentionFn`: the forward also writes each
 row's f32 log-sum-exp, and the backward launches
-``csrc/flash_attention_bwd.cu`` (f32, or bf16 on the tensor cores with the
-Pallas backward's roundings) for CUDA tensors and
+``csrc/flash_attention_bwd.cu`` (on the tensor cores: f32 as six-part bf16
+products, bf16 with the Pallas backward's roundings) for CUDA tensors and
 :func:`flash_attention_bwd_plain` for CPU tensors. There is no other
 fallback: a CUDA input the kernels do not take raises. This device test is
 the whole of the JAX package's ``multi_head_attention`` dispatch here: the
@@ -136,7 +136,7 @@ def _check(name, tensors, attention_mask, dtypes):
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGTYPES = [_PTR] * 6 + [_INT] * 4 + [_FLOAT, _INT, _PTR]
 _BWD_ARGTYPES = [_PTR] * 11 + [_INT] * 4 + [_FLOAT, _INT, _PTR]
-_DELTA_ARGTYPES = [_PTR] * 3 + [_INT] * 4 + [_PTR]
+_DELTA_ARGTYPES = [_PTR] * 3 + [_INT] * 5 + [_PTR]
 
 
 FWD_PATHS = ("bf16 wgmma", "f32 six-part wgmma", "f32 six-part wgmma small grid")
@@ -167,7 +167,8 @@ def flash_attention_bwd_config(batch, seq, heads, head_dim, dtype=torch.float32)
     bf16), as the C query ``convdr_flash_attention_bwd_config`` reports it:
     threads a block, dynamic shared memory bytes, rows a block (keys or
     queries), resident blocks an SM and rows a streamed tile (needs the
-    card)."""
+    card). f32: one warpgroup of 128 threads, 64 rows, 32-row tiles, two
+    blocks an SM; bf16: a warpgroup and a producer warp, three an SM."""
     fn = cuda_build.bind("flash_attention_bwd", "convdr_flash_attention_bwd_config",
                          [_INT] * 5 + [_PTR])
     out = (ctypes.c_int * 5)()
@@ -210,12 +211,18 @@ def flash_attention_bwd(q, k, v, o, do, attention_mask, lse):
     per-row log-sum-exp.
 
     CUDA tensors go through the kernels of ``csrc/flash_attention_bwd.cu``
-    (f32: one launch computes all three gradients and rowsum(dO * O); bf16,
-    with bf16 gradients: a pre-pass writes rowsum(dO * O) into a [B, H, T]
-    f32 scratch made here, then one launch computes the three gradients);
-    CPU tensors through :func:`flash_attention_bwd_plain` (which needs no
-    ``lse``). ``flash_attention_bwd.launches`` counts calls that launched
-    on the card, one per call.
+    in one C call: a pre-pass writes D = rowsum(dO * O) in f32 into a
+    [B, H, T] scratch made here, then one launch computes the three
+    gradients on the tensor cores, recomputing P from ``lse``. f32 runs six
+    bf16 ``wgmma`` products of the operands' exact bf16 parts for each of
+    S, dP, dV, dK and dQ (S in the forward's products and order, so bit for
+    bit the scores the forward's lse was taken over; each tile's share of a
+    gradient added into an IEEE f32 sum); its bound is those products'
+    60HD operations a pair in segment at the bf16 peak. bf16, with bf16
+    gradients, rounds P and dS to bf16 where the Pallas backward does.
+    CPU tensors go through :func:`flash_attention_bwd_plain` (which needs
+    no ``lse``). ``flash_attention_bwd.launches`` counts calls that
+    launched on the card, one per call.
     """
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, attention_mask)
@@ -226,13 +233,12 @@ def flash_attention_bwd(q, k, v, o, do, attention_mask, lse):
     seg = attention_mask.to(torch.int32).contiguous()
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = (torch.empty((b, h, t), device=q.device, dtype=torch.float32)
-             if q.dtype == torch.bfloat16 else None)
+    delta = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
     fn = cuda_build.bind("flash_attention_bwd", "convdr_flash_attention_bwd", _BWD_ARGTYPES)
     rc = cuda_build.launch(
         fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), seg.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        None if delta is None else delta.data_ptr(), b, t, h, d, 1.0 / d ** 0.5,
+        delta.data_ptr(), b, t, h, d, 1.0 / d ** 0.5,
         _DTYPE_CODES[q.dtype],
     )
     if rc != 0:
@@ -245,15 +251,15 @@ flash_attention_bwd.launches = 0
 
 
 def flash_attention_bwd_delta(o, do):
-    """The bf16 backward's pre-pass alone on CUDA tensors: rowsum(o * do) in
-    f32 of bf16 [B, T, H, D] ``o`` and ``do``, as [B, H, T] (the D that
+    """The backward's pre-pass alone on CUDA tensors: rowsum(o * do) in f32
+    of f32 or bf16 [B, T, H, D] ``o`` and ``do``, as [B, H, T] (the D that
     :func:`flash_attention_bwd` computes once a call)."""
-    b, t, h, d = _check("flash_attention_bwd_delta", (o, do), None, (torch.bfloat16,))
+    b, t, h, d = _check("flash_attention_bwd_delta", (o, do), None, tuple(_DTYPE_CODES))
     delta = torch.empty((b, h, t), device=o.device, dtype=torch.float32)
     fn = cuda_build.bind("flash_attention_bwd", "convdr_flash_attention_bwd_delta",
                          _DELTA_ARGTYPES)
     rc = cuda_build.launch(fn, o.device, o.data_ptr(), do.data_ptr(), delta.data_ptr(),
-                           b, t, h, d)
+                           b, t, h, d, _DTYPE_CODES[o.dtype])
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd_delta launch failed: CUDA error {rc}")
     return delta

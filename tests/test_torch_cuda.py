@@ -14,7 +14,9 @@ f32 and bf16 scores within 2 D 2^-24 sum |q_k p_k| of the f64 product of
 the same operands (the six- and three-part tensor-core products; see
 ``bf16_score_bound``);
 the attention backward 1e-5 * max|ref| per gradient (f32 sums of up to T
-terms in another order, P recomputed from the forward's log-sum-exp); in
+terms in another order, P recomputed from the forward's log-sum-exp), and
+on near-parallel rows 1e-5 of the f64 sum of each gradient's terms'
+magnitudes (``term_magnitudes``); in
 bf16, within 2x the error of autograd through masked SDPA in bf16 (floor
 1e-3 of scale) from the f64 plain backward, and the bf16 forward's lse
 within 1e-5 relative of a torch.logsumexp.
@@ -27,7 +29,8 @@ against its query tiles (the first Q rows of a Q=65 batch: the same
 product), the f32 attention forward's small-grid path (64-row blocks)
 against its 128-row blocks (out and lse of the same problem repeated to a
 batch that takes the 128-row blocks; the same six-part products in one
-order), two f32 or bf16 forward calls on the same inputs, int8
+order), two f32 or bf16 forward calls on the same inputs, the bf16 backward's
+gradients against digests of the tree before the f32 backward's redesign, int8
 scores against the plain version (exact integer
 arithmetic), the gathers against ``torch.gather`` (copies), and two
 backward calls on the same inputs (no atomics). The ANN layer (PyTorch
@@ -60,6 +63,7 @@ from convdr_torch.models.attention import (
     flash_attention_fwd_config,
     flash_attention_plain,
 )
+from convdr_torch.models import attention as attention_module
 from convdr_torch.ops import cuda_build
 from convdr_torch.ops import exact_search as es
 from convdr_torch.ops.fused_search import (
@@ -86,7 +90,9 @@ from convdr_torch.ops.streaming_search import (
     streaming_groupmax_plain,
 )
 from convdr_torch.retrieval.searcher import BlockedSearcher
+from convdr_torch.scripts import attention_bwd_bench
 from convdr_torch.scripts.attention_sweep import tile_repeats
+from convdr_torch.scripts.score_sweep import digest
 
 pytestmark = pytest.mark.cuda
 
@@ -838,10 +844,64 @@ def test_flash_bwd_is_deterministic(cuda, b, t, h, d, mask_kind):
         assert torch.equal(a, b_)
 
 
-def test_flash_bwd_config_fits_three_blocks_an_sm(cuda):
-    cfg = flash_attention_bwd_config(4, 256, 12, 64)
+@pytest.mark.parametrize("b,t", [(4, 256), (8, 512)])
+def test_flash_bwd_f32_config(cuda, b, t):
+    """The f32 backward: one warpgroup of 128 threads (its thread 0 issues
+    the copies), 64 rows a block, 32-row streamed tiles, two blocks an SM
+    (each at most half the SM's shared memory; registers up to 255)."""
+    cfg = flash_attention_bwd_config(b, t, 12, 64)
+    props = torch.cuda.get_device_properties(0)
     assert (cfg["threads"], cfg["block_rows"], cfg["tile_rows"]) == (128, 64, 32)
-    assert cfg["blocks_per_sm"] == 3 and cfg["smem_bytes"] <= 227 * 1024 // 3
+    assert cfg["blocks_per_sm"] == 2
+    assert 2 * cfg["smem_bytes"] <= props.shared_memory_per_multiprocessor
+
+
+def test_flash_bwd_f32_ptxas_shows_no_spills(cuda):
+    """:func:`assert_ptxas_clean` for the f32 backward (the six-part kernel
+    at D 16, 32, 64), whose launch bounds ask for two 128-thread blocks an
+    SM, so up to 255 registers a thread."""
+    assert_ptxas_clean((("flash_attention_bwd", ("flash_bwd_f32",), 3),), max_registers=255)
+
+
+@pytest.mark.parametrize("case", attention_bwd_bench.NEAR_PARALLEL_CASES)
+def test_flash_bwd_f32_near_parallel_rows_against_f64(cuda, case):
+    """Near-parallel positive rows (1 + 0.01 N(0, 1)) at T=8192 (a plan of
+    257 tiles, the longest sums) and the student's shape, against the plain
+    backward in f64 (``attention_bwd_bench.near_parallel_errors``): each
+    gradient within 1e-5 of the f64 sum of the magnitudes of the terms that
+    enter it, element by element, and dV within 1e-5 of max|dV|. Not dQ
+    and dK of their max: on these rows they are small beside the terms
+    they sum, and the f32 roundings of D = rowsum(dO O) and of dP - D,
+    which any f32 backward has, make most of dQ's error (0.30 of max|dQ|
+    at T=8192, the f32 plain backward 0.05). The three bf16 parts' last
+    three products left out give dV 4e-5-6e-5 of max|dV| (the kernel
+    1.3e-6); one part gives dV 2e-5 of its terms."""
+    errors = attention_bwd_bench.near_parallel_errors(attention_module, case)
+    assert errors["finite"]
+    for name, ratio in zip(("dq", "dk", "dv"), errors["ratio"]):
+        assert ratio <= 1e-5, (name, ratio)
+    assert errors["of_scale"][2] <= 1e-5, errors["of_scale"]
+
+
+# The bf16 backward's gradients on the seeded problems of
+# attention_bwd_bench.digest_problem: digests of the tree before the f32
+# backward's redesign, on the card, which the redesign keeps
+BF16_BWD_DIGESTS = {
+    (4, 256, 12, 64, "random"): "91f258aff5e172f320353ff7917bc29a",
+    (3, 77, 2, 32, "left"): "2b6292e905837f924940792173c0b5fc",
+    (2, 65, 2, 16, "middle"): "dd09d2cb6618016e754310d0f646867b",
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_BWD_DIGESTS))
+def test_flash_bwd_bf16_gradients_unchanged(cuda, case):
+    """The bf16 backward's dQ, dK, dV bit for bit as before the f32
+    backward's redesign (the digest of their bytes)."""
+    q, k, v, mask, do = attention_bwd_bench.digest_problem(*case, torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v, mask, with_lse=True)
+    grads = flash_attention_bwd(q, k, v, out, do, mask, lse)
+    torch.cuda.synchronize()
+    assert digest(*grads) == BF16_BWD_DIGESTS[case]
 
 
 def test_flash_bwd_bf16_launches_once_with_finite_grads(cuda):
@@ -937,6 +997,22 @@ def test_flash_bwd_bf16_config(cuda):
     blocks = 2 * (256 // cfg["block_rows"]) * 12 * 4
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert cfg["blocks_per_sm"] >= 3 and blocks <= cfg["blocks_per_sm"] * sms
+
+
+@pytest.mark.parametrize("b,t,h,d", [(4, 256, 12, 64), (3, 65, 2, 32), (2, 40, 3, 16)])
+def test_flash_bwd_f32_delta_prepass(cuda, b, t, h, d):
+    """The f32 pre-pass's D = rowsum(o * dO) [B, H, T] against the f64 sum,
+    within 1e-6 of the row's sum of |o * dO| (eight f32 fmaf a lane, then
+    a shuffle tree)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    o, do = (torch.randn((b, t, h, d), generator=gen, device="cuda") for _ in range(2))
+    got = flash_attention_bwd_delta(o, do)
+    torch.cuda.synchronize()
+    prod = o.double() * do.double()
+    want = prod.sum(-1).transpose(1, 2)
+    bound = 1e-6 * prod.abs().sum(-1).transpose(1, 2)
+    assert got.shape == (b, h, t) and got.dtype == torch.float32
+    assert bool(((got.double() - want).abs() <= bound).all())
 
 
 @pytest.mark.parametrize("b,t,h,d", [(4, 256, 12, 64), (3, 65, 2, 32), (2, 40, 3, 16)])
