@@ -25,9 +25,10 @@ index proposes ``N * top_n`` candidates (IVF: its rowids; PQ: the ADC
 scan's row positions) and the refine store re-ranks them against the rows
 of ``--ann_data_dir`` (:mod:`convdr_torch.retrieval.refine`).
 
-The search is timed as the "search" phase (logged), and ``--profile_dir``
-writes a ``torch.profiler`` Chrome trace of it (host and CUDA activity)
-into that directory; without the flag no profiler runs.
+The search is timed as the "search" phase (logged, to the end of its
+device work), and ``--profile_dir`` writes a ``torch.profiler`` Chrome
+trace of it (host and CUDA activity, the phase's ``convdr.phase.search``
+span inside) into that directory; without the flag no profiler runs.
 
 Under ``torchrun`` (``WORLD_SIZE`` in the environment) the ranks form an
 ``("index",)`` mesh, unless ``--no_mesh``: the query encode is data
@@ -243,7 +244,7 @@ def search_pq(args, query_embs, device, mesh=None):
         "PQ search: ntotal=%d m=%d nbits=%d rescore_factor=%d",
         index.ntotal, index.codec.m, index.codec.nbits, args.rescore_factor,
     )
-    with PhaseTimer("search"), profile_trace(args.profile_dir):
+    with profile_trace(args.profile_dir), PhaseTimer("search", device=device):
         if args.rescore_factor > 0:
             _s, pos = index.adc_topk(query_embs, args.rescore_factor * args.top_n, mesh=mesh)
             return index.rescore(args.ann_data_dir, query_embs, pos, args.top_n)
@@ -260,7 +261,7 @@ def search_ivf(args, query_embs, device, mesh=None):
         "IVF search: nlist=%d cap=%d ntotal=%d nprobe=%d rescore_factor=%d",
         index.nlist, index.cap, index.ntotal, args.nprobe, args.rescore_factor,
     )
-    with PhaseTimer("search"), profile_trace(args.profile_dir):
+    with profile_trace(args.profile_dir), PhaseTimer("search", device=device):
         if args.rescore_factor <= 0:
             return index.search(query_embs, args.top_n, nprobe=args.nprobe, mesh=mesh)
         if index.storage_dtype in ("int8", "bfloat16"):
@@ -336,7 +337,7 @@ def infer(args, mesh, device):
             device=device,
             mesh=mesh,
         )
-        with PhaseTimer("search"), profile_trace(args.profile_dir):
+        with profile_trace(args.profile_dir), PhaseTimer("search", device=device):
             scores, offsets = searcher.search_blocks(
                 args.ann_data_dir, query_embs, args.top_n
             )

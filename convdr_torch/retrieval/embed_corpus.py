@@ -21,6 +21,11 @@ nearest, ties to even, as ``ml_dtypes`` and the JAX package round);
 the scales are fitted on the first non-empty block and saved beside the
 blocks as ``int8_scales.npy``, and every block is quantized with them.
 ``block_format="native"`` writes ``.cnb`` files instead of pickles.
+
+While a ``torch.profiler`` runs, a call is the span ``convdr.embed.pass``;
+each batch ``convdr.embed.batch`` (upload, encode, read-back, slicing), its
+read-back ``convdr.embed.readback``, and each block's concatenation, cast
+and write ``convdr.embed.write_block``.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from convdr_torch.data.token_cache import TokenCache
 from convdr_torch.ops.quant import Int8Quantizer
 from convdr_torch.parallel.mesh import barrier, is_main_rank, sharded_apply
 from convdr_torch.retrieval.blocks import bf16_dtype, write_embedding_block
+from convdr_torch.utils.observability import span
 
 logger = logging.getLogger(__name__)
 
@@ -183,81 +189,87 @@ def generate_embeddings(
         ids_t = torch.from_numpy(np.ascontiguousarray(ids)).to(device)
         lens_t = torch.from_numpy(np.ascontiguousarray(lens)).to(device)
         if mesh is None:
-            return encode_rows(ids_t, lens_t).cpu().numpy()
-        return sharded_apply(mesh, data_axis, encode_rows, ids_t, lens_t).cpu().numpy()
-
-    writer = is_main_rank(mesh)
-
-    total_rows = 0
-    emb_dim = 0  # learned from the first encoded batch; used for empty shards
-    for block_id in range(num_blocks):
-        embs_out = []
-        ids_out = []
-
-        def run_batch(ids, lens, offsets):
-            out = encode(ids, lens)
-            valid = offsets >= 0
-            # multi-chunk [B, C, E] -> C rows per record. Under length
-            # buckets only chunks covering real tokens are emitted.
-            if out.ndim == 3:
-                chunk_len = ids.shape[1] // out.shape[1]
-                for chunk in range(out.shape[1]):
-                    keep = valid
-                    if length_buckets is not None:
-                        keep = valid & (lens > chunk * chunk_len)
-                    embs_out.append(out[keep, chunk, :])
-                    ids_out.append(offsets[keep])
-            else:
-                embs_out.append(out[valid])
-                ids_out.append(offsets[valid])
-
-        batches = cache.iter_batches(
-            batch_size, shard_index=block_id, num_shards=num_blocks
-        )
-        if length_buckets is None:
-            for ids, lens, offsets in batches:
-                run_batch(ids, lens, offsets)
+            out = encode_rows(ids_t, lens_t)
         else:
-            buf = _BucketBuffer(length_buckets, batch_size)
-            for ids, lens, offsets in batches:
-                valid = offsets >= 0
-                for _b, bids, blens, boffs in buf.add(
-                    ids[valid], lens[valid], offsets[valid]
-                ):
-                    run_batch(bids, blens, boffs)
-            for _b, bids, blens, boffs in buf.flush():
-                run_batch(bids, blens, boffs)
-        if embs_out:
-            block_embs = np.concatenate(embs_out, axis=0).astype(np.float32, copy=False)
-            emb_dim = block_embs.shape[-1]
-            if storage_dtype == "bfloat16":
-                block_embs = block_embs.astype(storage_np)
-            if storage_dtype == "int8":
-                # fit on the first non-empty block (an unbiased i % num_blocks
-                # shard, the sample FAISS trains its quantizer on), save the
-                # sidecar the searcher folds into queries, clip later blocks'
-                # rare out-of-range values
-                if quantizer is None:
-                    quantizer = Int8Quantizer.fit(block_embs)
-                    if writer:
-                        quantizer.save(out_dir)
-                block_embs = quantizer.quantize_passages(block_embs)
-        else:
-            # empty round-robin shard (num_blocks > record count): keep the
-            # real embedding dim so downstream loads/search stay well-typed
-            empty = np.int8 if storage_dtype == "int8" else storage_np
-            block_embs = np.zeros((0, emb_dim), empty)
-        block_ids = (
-            np.concatenate(ids_out, axis=0) if ids_out else np.zeros((0,), np.int64)
-        )
-        if writer:
-            write_embedding_block(
-                out_dir, block_id, block_embs, block_ids,
-                emb_prefix=emb_prefix, embid_prefix=embid_prefix, fmt=block_format,
+            out = sharded_apply(mesh, data_axis, encode_rows, ids_t, lens_t)
+        with span("convdr.embed.readback"):
+            return out.cpu().numpy()
+
+    with span("convdr.embed.pass"):
+        writer = is_main_rank(mesh)
+
+        total_rows = 0
+        emb_dim = 0  # learned from the first encoded batch; used for empty shards
+        for block_id in range(num_blocks):
+            embs_out = []
+            ids_out = []
+
+            def run_batch(ids, lens, offsets):
+                with span("convdr.embed.batch"):
+                    out = encode(ids, lens)
+                    valid = offsets >= 0
+                    # multi-chunk [B, C, E] -> C rows per record. Under length
+                    # buckets only chunks covering real tokens are emitted.
+                    if out.ndim == 3:
+                        chunk_len = ids.shape[1] // out.shape[1]
+                        for chunk in range(out.shape[1]):
+                            keep = valid
+                            if length_buckets is not None:
+                                keep = valid & (lens > chunk * chunk_len)
+                            embs_out.append(out[keep, chunk, :])
+                            ids_out.append(offsets[keep])
+                    else:
+                        embs_out.append(out[valid])
+                        ids_out.append(offsets[valid])
+
+            batches = cache.iter_batches(
+                batch_size, shard_index=block_id, num_shards=num_blocks
             )
-        total_rows += block_embs.shape[0]
-        logger.info(
-            "wrote block %d: %d rows -> %s", block_id, block_embs.shape[0], out_dir
-        )
-    barrier(mesh)
+            if length_buckets is None:
+                for ids, lens, offsets in batches:
+                    run_batch(ids, lens, offsets)
+            else:
+                buf = _BucketBuffer(length_buckets, batch_size)
+                for ids, lens, offsets in batches:
+                    valid = offsets >= 0
+                    for _b, bids, blens, boffs in buf.add(
+                        ids[valid], lens[valid], offsets[valid]
+                    ):
+                        run_batch(bids, blens, boffs)
+                for _b, bids, blens, boffs in buf.flush():
+                    run_batch(bids, blens, boffs)
+            with span("convdr.embed.write_block"):
+                if embs_out:
+                    block_embs = np.concatenate(embs_out, axis=0).astype(np.float32, copy=False)
+                    emb_dim = block_embs.shape[-1]
+                    if storage_dtype == "bfloat16":
+                        block_embs = block_embs.astype(storage_np)
+                    if storage_dtype == "int8":
+                        # fit on the first non-empty block (an unbiased i % num_blocks
+                        # shard, the sample FAISS trains its quantizer on), save the
+                        # sidecar the searcher folds into queries, clip later blocks'
+                        # rare out-of-range values
+                        if quantizer is None:
+                            quantizer = Int8Quantizer.fit(block_embs)
+                            if writer:
+                                quantizer.save(out_dir)
+                        block_embs = quantizer.quantize_passages(block_embs)
+                else:
+                    # empty round-robin shard (num_blocks > record count): keep the
+                    # real embedding dim so downstream loads/search stay well-typed
+                    empty = np.int8 if storage_dtype == "int8" else storage_np
+                    block_embs = np.zeros((0, emb_dim), empty)
+                block_ids = (
+                    np.concatenate(ids_out, axis=0) if ids_out else np.zeros((0,), np.int64)
+                )
+                if writer:
+                    write_embedding_block(
+                        out_dir, block_id, block_embs, block_ids,
+                        emb_prefix=emb_prefix, embid_prefix=embid_prefix, fmt=block_format,
+                    )
+            total_rows += block_embs.shape[0]
+            logger.info(
+                "wrote block %d: %d rows -> %s", block_id, block_embs.shape[0], out_dir
+            )
+        barrier(mesh)
     return total_rows

@@ -33,6 +33,12 @@ Backends (the offline search family's):
     device; the offline path computes those tables on the host, so the two
     agree on result sets, not always on the order of near-ties.
 
+Spans (recorded only while a ``torch.profiler`` runs): ``convdr.serve.turn``
+covers a whole :meth:`OnlineSearcher.search_tokens`; a replay's
+``convdr.serve.copy_in`` (the pinned fills and the copies' enqueue),
+``convdr.serve.replay`` (``graph.replay()``) and ``convdr.serve.wait``
+(the copy-back's enqueue, the event wait, the numpy copies) sit inside it.
+
 Launch counts: the kernels' wrappers count a launch when they issue one,
 which under a capture records it into the graph. Each graph keeps the
 counts its capture recorded, and :meth:`OnlineSearcher.replayed_launches`
@@ -58,6 +64,7 @@ from convdr_torch.models.attention import flash_attention
 from convdr_torch.ops.exact_search import NEG_INF, flat_ip_topk
 from convdr_torch.ops.fused_search import ROW_TILE, fused_scores_groupmax
 from convdr_torch.ops.gather_groups import dma_gather_groups
+from convdr_torch.utils.observability import span
 
 logger = logging.getLogger(__name__)
 
@@ -468,17 +475,20 @@ class OnlineSearcher:
         sync), all under the lock that keeps the graph's buffers one turn's."""
         with self._lock:
             g = self.graphs.get(ids.shape[0]) or self._capture(ids.shape[0])
-            g.host_ids.copy_(torch.from_numpy(ids))
-            g.host_mask.copy_(torch.from_numpy(mask))
-            g.ids.copy_(g.host_ids, non_blocking=True)
-            g.mask.copy_(g.host_mask, non_blocking=True)
-            g.graph.replay()
-            g.host_scores.copy_(g.scores, non_blocking=True)
-            g.host_rows.copy_(g.rows, non_blocking=True)
-            g.done.record()
-            g.done.synchronize()
-            g.replays += 1
-            return g.host_scores.numpy().copy(), g.host_rows.numpy().copy()
+            with span("convdr.serve.copy_in"):
+                g.host_ids.copy_(torch.from_numpy(ids))
+                g.host_mask.copy_(torch.from_numpy(mask))
+                g.ids.copy_(g.host_ids, non_blocking=True)
+                g.mask.copy_(g.host_mask, non_blocking=True)
+            with span("convdr.serve.replay"):
+                g.graph.replay()
+            with span("convdr.serve.wait"):
+                g.host_scores.copy_(g.scores, non_blocking=True)
+                g.host_rows.copy_(g.rows, non_blocking=True)
+                g.done.record()
+                g.done.synchronize()
+                g.replays += 1
+                return g.host_scores.numpy().copy(), g.host_rows.numpy().copy()
 
     def rows_to_offsets(self, rows: np.ndarray) -> np.ndarray:
         """Device rows of the search -> token-cache offsets (int64, -1
@@ -523,20 +533,21 @@ class OnlineSearcher:
         the id mapping; :meth:`search` times the tokenizer in as well.
         """
         t0 = time.perf_counter()
-        ids = np.ascontiguousarray(ids, np.int32)
-        mask = np.ascontiguousarray(mask, np.int32)
-        if ids.ndim != 2 or ids.shape[1] != self.max_concat_length or mask.shape != ids.shape:
-            raise ValueError(
-                f"ids and mask must be [Q, {self.max_concat_length}], got "
-                f"{ids.shape} and {mask.shape}"
-            )
-        if self.device.type == "cuda":
-            s, i = self._replay(ids, mask)
-        else:
-            s, i = self.program(torch.from_numpy(ids).to(self.device),
-                                torch.from_numpy(mask).to(self.device))
-            s, i = s.cpu().numpy(), i.cpu().numpy()
-        i = self.rows_to_offsets(i)
+        with span("convdr.serve.turn"):
+            ids = np.ascontiguousarray(ids, np.int32)
+            mask = np.ascontiguousarray(mask, np.int32)
+            if ids.ndim != 2 or ids.shape[1] != self.max_concat_length or mask.shape != ids.shape:
+                raise ValueError(
+                    f"ids and mask must be [Q, {self.max_concat_length}], got "
+                    f"{ids.shape} and {mask.shape}"
+                )
+            if self.device.type == "cuda":
+                s, i = self._replay(ids, mask)
+            else:
+                s, i = self.program(torch.from_numpy(ids).to(self.device),
+                                    torch.from_numpy(mask).to(self.device))
+                s, i = s.cpu().numpy(), i.cpu().numpy()
+            i = self.rows_to_offsets(i)
         if record:
             self.stats.latencies.append(time.perf_counter() - t0)
         return s, i

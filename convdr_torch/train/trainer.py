@@ -29,6 +29,11 @@ seeded from ``(config.seed, step)`` for one step, after the JAX step's
 step, rank)``: the same seed repeats a run (torch draws other bits than
 JAX). Without it no site drops, though the step puts the student in
 ``train()`` mode.
+
+While a ``torch.profiler`` runs, a step is the span ``convdr.train.step``
+around ``convdr.train.student_fwd``, ``convdr.train.teacher_targets``,
+``convdr.train.teacher_docs``, ``convdr.train.backward`` (``loss.backward()``)
+and ``convdr.train.optimizer`` (the gradient norm and the update).
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from convdr_torch.train.losses import (
     ranking_nll_multichunk_loss,
 )
 from convdr_torch.train.optimizer import ClipAdamW, global_norm, make_optimizer
+from convdr_torch.utils.observability import span
 
 
 @dataclasses.dataclass
@@ -121,6 +127,10 @@ def make_train_step(student: nn.Module, teacher: nn.Module, tx: ClipAdamW,
     rank = None if mesh is None else axis_index(mesh, data_axis)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        with span("convdr.train.step"):
+            return run(state, batch)
+
+    def run(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.model
         model.train()
         teacher.eval()
@@ -131,20 +141,21 @@ def make_train_step(student: nn.Module, teacher: nn.Module, tx: ClipAdamW,
             set_dropout_generator(model, dropout_generator(
                 config.seed, state.step, batch["concat_ids"].device, rank))
         try:
-            embs = student_apply(batch["concat_ids"], batch["concat_mask"], True)
+            with span("convdr.train.student_fwd"):
+                embs = student_apply(batch["concat_ids"], batch["concat_mask"], True)
         finally:
             set_dropout_generator(model, None)
         metrics: Dict[str, torch.Tensor] = {}
         loss = torch.zeros((), device=embs.device)
         if use_mse:
-            with torch.no_grad():
+            with torch.no_grad(), span("convdr.train.teacher_targets"):
                 teacher_embs = teacher.query_emb(batch["target_ids"], batch["target_mask"])
             mse = kd_mse_loss(embs, teacher_embs)
             loss = loss + mse
             metrics["mse_loss"] = mse.detach()
         if use_ranking:
             b, k, length = batch["doc_ids"].shape
-            with torch.no_grad():
+            with torch.no_grad(), span("convdr.train.teacher_docs"):
                 doc_embs = teacher.body_emb(
                     batch["doc_ids"].reshape(b * k, length),
                     batch["doc_mask"].reshape(b * k, length),
@@ -162,7 +173,8 @@ def make_train_step(student: nn.Module, teacher: nn.Module, tx: ClipAdamW,
             loss = loss + rank_loss
             metrics["ranking_loss"] = rank_loss.detach()
         metrics["loss"] = loss.detach()
-        loss.backward()
+        with span("convdr.train.backward"):
+            loss.backward()
         grads = {
             n: p.grad if p.grad is not None else torch.zeros_like(p)
             for n, p in params.items()
@@ -173,8 +185,9 @@ def make_train_step(student: nn.Module, teacher: nn.Module, tx: ClipAdamW,
             values = torch.stack([metrics[n] for n in names])
             _mean_over_axis(mesh, data_axis, [values])
             metrics = dict(zip(names, values.unbind()))
-        metrics["grad_norm"] = global_norm(grads.values())
-        tx.update(grads, state.opt_state, params)
+        with span("convdr.train.optimizer"):
+            metrics["grad_norm"] = global_norm(grads.values())
+            tx.update(grads, state.opt_state, params)
         state.step += 1
         return state, metrics
 

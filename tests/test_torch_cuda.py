@@ -1658,6 +1658,39 @@ def test_concurrent_turns_get_their_own_results(cuda, serve_dirs):
     assert searcher.graphs[1].replays == len(inputs) + 1
 
 
+def test_traced_turn_spans_hold_the_replays_launches(cuda, serve_dirs, tmp_path):
+    """Under the profiler one Q=1 turn records one ``convdr.serve.replay``
+    span whose launches (the graph's kernels, under ``cudaGraphLaunch``'s
+    correlation id) are at least the counted kernels the graph recorded,
+    with device time; the turn holds the copy-in, the replay and the wait."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from h100_bench import devtrace
+    from h100_bench.spans import read_spans
+
+    searcher = serve_searcher(serve_dirs, "flat_float32", cuda)
+    searcher.warmup()
+    ids, mask = turn_inputs(searcher, SERVE_HISTORIES[1])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function(devtrace.SPAN):
+            searcher.search_tokens(ids, mask)
+            torch.cuda.synchronize()
+    path = tmp_path / "turn.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    (seg,) = [e for e in events if e.get("name") == devtrace.SPAN
+              and e.get("cat") == "user_annotation"]
+    spans = read_spans(events, seg["ts"], seg["ts"] + seg["dur"], [], pid=seg["pid"])
+    for name in ("turn", "copy_in", "replay", "wait"):
+        assert spans[f"convdr.serve.{name}"]["count"] == 1, name
+    replay = spans["convdr.serve.replay"]
+    assert replay["launches"] >= sum(searcher.graphs[1].launches.values()) > 0
+    assert replay["device_s"] > 0
+    assert spans["convdr.serve.turn"]["launches"] >= replay["launches"] + 4  # + the copies
+
+
 def test_failed_capture_raises_without_fallback(cuda, serve_dirs):
     """A program that waits on the host cannot be captured: the call
     raises, and nothing serves it eagerly."""
