@@ -3258,7 +3258,7 @@ def serve_backend(name, make, histories, plain=None):
     torch.cuda.synchronize()
     build_s = time.time() - t0
     searcher.warmup()
-    graph = searcher.graphs[1]
+    graph = searcher.graphs[(1, None)]
     searcher.stats.latencies.clear()
     served = [searcher.search(h) for h in histories]
     lat_search = list(searcher.stats.latencies)
@@ -3864,7 +3864,7 @@ def precision_path(paths, q_embs):
             if not same_bits(got, (s.cpu().numpy(), searcher.rows_to_offsets(i.cpu().numpy()))):
                 raise AssertionError(f"serving at {prec}: a replay differs from the eager program")
             turns.append(got[1][0])
-        g = searcher.graphs[1]
+        g = searcher.graphs[(1, None)]
         served[prec] = {"rows": torch.from_numpy(np.stack(turns)),
                         "search": latency_ms(searcher.stats.latencies),
                         "launches_per_replay": dict(g.launches), "replays": g.replays,

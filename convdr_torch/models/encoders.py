@@ -16,16 +16,29 @@ model/models.py):
   * :class:`DPRBiEncoder` == ``BiEncoder`` (models.py:219-262): two
     independent BERT towers (``question_model.*``, ``ctx_model.*``), CLS
     pooling (models.py:210).
+
+``query_emb`` takes an optional :class:`~convdr_torch.models.transformer.
+Packing` of the batch's valid tokens: the tower then runs on the packed
+rows, first-token pooling reads each sequence's first packed row and
+masked-mean pooling averages the same valid tokens, spread back to their
+padded positions (zero elsewhere).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from convdr_torch.core.config import ModelConfig
 from convdr_torch.models.attention import at_least_f32
-from convdr_torch.models.transformer import CastLinear, LayerNorm32, TransformerEncoder
+from convdr_torch.models.transformer import (
+    CastLinear,
+    LayerNorm32,
+    Packing,
+    TransformerEncoder,
+)
 
 CHUNK_MASK_BIAS = -9999.0
 
@@ -44,6 +57,19 @@ def pool(seq: torch.Tensor, mask: torch.Tensor, use_mean: bool) -> torch.Tensor:
     return seq[:, 0]
 
 
+def pool_packed(rows: torch.Tensor, mask: torch.Tensor, packing: Packing,
+                use_mean: bool) -> torch.Tensor:
+    """:func:`pool` of a packed forward's rows [capacity, H]: each
+    sequence's first packed row, or the masked mean of its valid rows
+    spread back to their padded positions over zeros (rows past the valid
+    tokens go to a scratch row that is dropped)."""
+    if not use_mean:
+        return rows[packing.first]
+    b, t = mask.shape
+    seq = rows.new_zeros((b * t + 1, rows.shape[1])).index_copy_(0, packing.index, rows)
+    return masked_mean(seq[: b * t].view(b, t, -1), mask)
+
+
 class AnceEncoder(nn.Module):
     """Shared-tower dot-product encoder with projection head + LayerNorm."""
 
@@ -57,16 +83,19 @@ class AnceEncoder(nn.Module):
             )
             self.norm = LayerNorm32(config.embedding_dim, eps=1e-5)
 
-    def _encode(self, input_ids, attention_mask):
-        seq = self.roberta(input_ids, attention_mask)
-        emb = pool(seq, attention_mask, self.config.use_mean)
+    def _encode(self, input_ids, attention_mask, packing=None):
+        seq = self.roberta(input_ids, attention_mask, packing=packing)
+        if packing is None:
+            emb = pool(seq, attention_mask, self.config.use_mean)
+        else:
+            emb = pool_packed(seq, attention_mask, packing, self.config.use_mean)
         if self.config.projection_head:
             # the head in the compute dtype, its LayerNorm in f32
             emb = self.norm(self.embeddingHead(emb))
         return at_least_f32(emb)
 
-    def query_emb(self, input_ids, attention_mask):
-        return self._encode(input_ids, attention_mask)
+    def query_emb(self, input_ids, attention_mask, packing: Optional[Packing] = None):
+        return self._encode(input_ids, attention_mask, packing)
 
     def body_emb(self, input_ids, attention_mask):
         if not self.config.multi_chunk:
@@ -109,8 +138,11 @@ class DPRBiEncoder(nn.Module):
         self.question_model = TransformerEncoder(config.arch)
         self.ctx_model = TransformerEncoder(config.arch)
 
-    def query_emb(self, input_ids, attention_mask):
-        return at_least_f32(self.question_model(input_ids, attention_mask)[:, 0])
+    def query_emb(self, input_ids, attention_mask, packing: Optional[Packing] = None):
+        if packing is None:
+            return at_least_f32(self.question_model(input_ids, attention_mask)[:, 0])
+        rows = self.question_model(input_ids, attention_mask, packing=packing)
+        return at_least_f32(pool_packed(rows, attention_mask, packing, use_mean=False))
 
     def body_emb(self, input_ids, attention_mask):
         return at_least_f32(self.ctx_model(input_ids, attention_mask)[:, 0])

@@ -21,6 +21,17 @@ reach the parameters are f32. Attention takes the [B, T] 0/1 mask as
 segment ids (:mod:`convdr_torch.models.attention`); in training its
 gradient goes through the flash backward.
 
+A forward may take a :class:`Packing` of the call's valid tokens (the
+serving front builds one on the host for a large batch). The embeddings,
+every linear layer, GELU, dropout site and LayerNorm then run on the packed
+rows alone, each valid token with the values it has in the padded forward
+(position ids and token types are taken at its padded position). Around
+the attention kernel each layer scatters packed Q, K and V into zeroed
+padded [B, T, heads, D] buffers, made once a forward, and gathers the
+context back to packed rows; the kernel and its segment ids are those of
+the padded forward. The output is then the packed rows [capacity, H]; rows
+past the valid tokens (the sentinel's) hold values no output reads.
+
 Dropout sits at the JAX package's sites (the embeddings' output, the
 attention probabilities, the attention and FFN outputs) and drops only in
 ``train()`` mode while a generator is set (:func:`set_dropout_generator`,
@@ -32,6 +43,7 @@ einsum with dropout on the probabilities, the JAX package's own dispatch
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -160,10 +172,19 @@ class Embeddings(nn.Module):
             attention_mask.shape
         )
 
-    def forward(self, input_ids, attention_mask, token_type_ids=None):
-        hidden = self.word_embeddings(input_ids) + self.position_embeddings(
-            self.position_ids(attention_mask)
-        )
+    def forward(self, input_ids, attention_mask, token_type_ids=None, packed=None):
+        if packed is None:
+            hidden = self.word_embeddings(input_ids) + self.position_embeddings(
+                self.position_ids(attention_mask)
+            )
+        else:
+            # every valid token's id, position and type, as in the padded forward
+            input_ids = packed.take(input_ids)
+            if token_type_ids is not None:
+                token_type_ids = packed.take(token_type_ids)
+            hidden = self.word_embeddings(input_ids) + self.position_embeddings(
+                packed.take(self.position_ids(attention_mask))
+            )
         if self.cfg.type_vocab_size > 0:
             if token_type_ids is None:
                 token_type_ids = torch.zeros_like(input_ids)
@@ -202,17 +223,22 @@ class Attention(nn.Module):
         self.output = DenseNorm(cfg.hidden_size, cfg.hidden_size, cfg.layer_norm_eps,
                                 cfg.hidden_dropout)
 
-    def forward(self, hidden, attention_mask):
-        b, t, h = hidden.shape
-        shape = (b, t, self.num_heads, h // self.num_heads)
-        q = self.self.query(hidden).view(shape)
-        k = self.self.key(hidden).view(shape)
-        v = self.self.value(hidden).view(shape)
+    def forward(self, hidden, attention_mask, packed=None):
+        if packed is None:
+            b, t, h = hidden.shape
+            shape = (b, t, self.num_heads, h // self.num_heads)
+            q = self.self.query(hidden).view(shape)
+            k = self.self.key(hidden).view(shape)
+            v = self.self.value(hidden).view(shape)
+        else:
+            q, k, v = (packed.spread(i, x(hidden), self.num_heads) for i, x in
+                       enumerate((self.self.query, self.self.key, self.self.value)))
         if self.self.dropout.active():
             ctx = dropout_attention_plain(q, k, v, attention_mask, self.self.dropout)
         else:
             ctx = flash_attention(q, k, v, attention_mask)
-        return self.output(ctx.reshape(b, t, h), hidden)
+        ctx = ctx.reshape(b, t, h) if packed is None else packed.take(ctx).flatten(1)
+        return self.output(ctx, hidden)
 
 
 class Intermediate(nn.Module):
@@ -234,8 +260,8 @@ class EncoderLayer(nn.Module):
             cfg.intermediate_size, cfg.hidden_size, cfg.layer_norm_eps, cfg.hidden_dropout
         )
 
-    def forward(self, hidden, attention_mask):
-        hidden = self.attention(hidden, attention_mask)
+    def forward(self, hidden, attention_mask, packed=None):
+        hidden = self.attention(hidden, attention_mask, packed)
         return self.output(self.intermediate(hidden), hidden)
 
 
@@ -247,8 +273,50 @@ class LayerStack(nn.Module):
         )
 
 
+@dataclass(frozen=True)
+class Packing:
+    """A call's valid tokens as packed rows, for the padded [B, T] layout.
+
+    ``index`` (int64 [capacity]): each packed row's flat position ``b * T +
+    t`` in [B * T], the valid tokens first, then the sentinel ``B * T`` to
+    the capacity. ``first`` (int64 [B]): each sequence's first token among
+    the packed rows, where first-token pooling reads it."""
+
+    index: torch.Tensor
+    first: torch.Tensor
+
+
+class PackedRows:
+    """What the layers of one packed forward share: the packing's index,
+    its twin for reads (sentinels read the last position; no output reads
+    their rows) and the three zeroed [B * T + 1, H] buffers that attention's
+    operands are scattered into, made once a forward (row B * T is the
+    sentinels' scratch row; pad positions stay zero)."""
+
+    def __init__(self, packing: Packing, batch: int, seq: int):
+        self.shape = (batch, seq)
+        self.index = packing.index
+        self.read = packing.index.clamp(max=batch * seq - 1)
+        self.buffers = None
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, T, ...] -> the packed rows [capacity, ...]."""
+        b, t = self.shape
+        return x.reshape(b * t, *x.shape[2:])[self.read]
+
+    def spread(self, i: int, rows: torch.Tensor, heads: int) -> torch.Tensor:
+        """Packed rows [capacity, H] -> buffer ``i`` as [B, T, heads, H / heads],
+        each row at its padded position."""
+        b, t = self.shape
+        if self.buffers is None:
+            self.buffers = [rows.new_zeros((b * t + 1, rows.shape[1])) for _ in range(3)]
+        buf = self.buffers[i].index_copy_(0, self.index, rows)
+        return buf[: b * t].view(b, t, heads, -1)
+
+
 class TransformerEncoder(nn.Module):
-    """Token ids + mask -> contextual sequence output [B, T, H]."""
+    """Token ids + mask -> contextual sequence output [B, T, H], or the
+    packed rows [capacity, H] under a :class:`Packing`."""
 
     def __init__(self, cfg: EncoderArchConfig):
         super().__init__()
@@ -261,10 +329,12 @@ class TransformerEncoder(nn.Module):
         input_ids: torch.Tensor,
         attention_mask: torch.Tensor,
         token_type_ids: Optional[torch.Tensor] = None,
+        packing: Optional[Packing] = None,
     ) -> torch.Tensor:
-        hidden = self.embeddings(input_ids, attention_mask, token_type_ids)
+        packed = None if packing is None else PackedRows(packing, *input_ids.shape)
+        hidden = self.embeddings(input_ids, attention_mask, token_type_ids, packed)
         # the attention kernels take int32 segment ids: made once a forward
         seg = attention_mask.to(torch.int32).contiguous()
         for layer in self.encoder.layer:
-            hidden = layer(hidden, seg)
+            hidden = layer(hidden, seg, packed)
         return hidden

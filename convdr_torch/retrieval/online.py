@@ -8,17 +8,29 @@ one jitted program so that a turn costs one dispatch:
     token ids -> encoder forward -> [Q, D] embedding -> query-side prep
     (the SQ8 fold or the ADC tables) -> resident-index search -> (scores, rows)
 
-Here that program is one ``torch.cuda.CUDAGraph`` per distinct Q (the JAX
-program compiles once per distinct Q), captured by :meth:`OnlineSearcher.
-warmup` or at the first call with that Q. A turn copies its ids and mask
-into the graph's static inputs through pinned host buffers, replays the
-graph, copies the results back and waits once; rows map to token-cache
-offsets on the host. The graph launches the port's kernels as the eager
-program does (the attention forward in every layer; on the flat backends
-the score kernel and the group gather), so a replay's results equal the
-eager program's bit for bit. On the card there is no eager fallback: a
-capture or a replay that fails raises. CPU tensors (``device="cpu"``, the
-tests) run the same program eagerly, through the kernels' plain versions.
+Here that program is a ``torch.cuda.CUDAGraph`` keyed by (Q, capacity),
+captured by :meth:`OnlineSearcher.warmup` or at the first call that needs
+it (the JAX program compiles once per distinct Q). A call whose rows are
+all ConvDR's prefix layout (a run of valid tokens from position 0) and
+whose valid tokens, rounded up to ``PACK_STEP``, number fewer than Q * T
+packs: the host builds the index of its valid tokens (:func:`fill_packing`)
+and the encoder's per-token layers run on those rows alone
+(:class:`~convdr_torch.models.transformer.Packing`). It replays the
+smallest packed graph of its Q whose capacity holds its tokens, captured at
+its own capacity where none does; every other call (a Q=1 turn always)
+replays the padded graph of its Q (capacity None). The graphs of one Q
+share one memory pool, which is safe because replays are serialized and
+each one's outputs are read back before the next. A call copies its ids,
+mask and any token index into the graph's static inputs through pinned
+host buffers, replays the graph, copies the results back and waits once;
+rows map to token-cache offsets on the host. The graph launches the
+port's kernels as the eager program does (the attention forward in every
+layer; on the flat backends the score kernel and the group gather), so a
+replay's results equal the eager program's on the same inputs and packing
+bit for bit. On the card there is no eager fallback: a capture or a replay
+that fails raises. CPU tensors (``device="cpu"``, the tests) run the same
+program eagerly, packed by the same rule, through the kernels' plain
+versions.
 
 Backends (the offline search family's):
 
@@ -42,7 +54,9 @@ covers a whole :meth:`OnlineSearcher.search_tokens`; a replay's
 Launch counts: the kernels' wrappers count a launch when they issue one,
 which under a capture records it into the graph. Each graph keeps the
 counts its capture recorded, and :meth:`OnlineSearcher.replayed_launches`
-multiplies them by the graph's replays.
+multiplies them by the graph's replays. :meth:`OnlineSearcher.
+packing_stats` counts the calls that packed and the share of their
+graphs' capacity that valid tokens filled.
 """
 
 from __future__ import annotations
@@ -61,6 +75,7 @@ from convdr_torch.core.loading import load_model_and_params, make_apply_fn
 from convdr_torch.data.conv_dataset import _concat_conversation_ids
 from convdr_torch.data.padding import pad_input_ids_with_mask
 from convdr_torch.models.attention import flash_attention
+from convdr_torch.models.transformer import Packing
 from convdr_torch.ops.exact_search import NEG_INF, flat_ip_topk
 from convdr_torch.ops.fused_search import ROW_TILE, fused_scores_groupmax
 from convdr_torch.ops.gather_groups import dma_gather_groups
@@ -80,13 +95,16 @@ def _launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in COUNTED_KERNELS.items()}
 
 
-def capture(fn: Callable, device: torch.device):
+def capture(fn: Callable, device: torch.device, pool=None):
     """Capture ``fn()`` into a new CUDA graph. One eager run on a side
     stream first builds and binds the kernels and warms cuBLAS, as a
     capture needs; then the capture records every launch into the graph,
-    which draws its intermediates from its own memory pool. -> (graph,
-    ``fn``'s outputs in that pool, the counted kernels' launches the graph
-    records, the pool's bytes)."""
+    which draws its intermediates from its own memory pool, or from
+    ``pool`` (another graph's ``graph.pool()``), which the two then share:
+    such graphs must not replay concurrently, and each one's outputs must
+    be read before another replays. -> (graph, ``fn``'s outputs in that
+    pool, the counted kernels' launches the graph records, the bytes the
+    capture reserved)."""
     side = torch.cuda.Stream(device)
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
@@ -99,7 +117,7 @@ def capture(fn: Callable, device: torch.device):
     before = _launch_counts()
     reserved = torch.cuda.memory_reserved(device)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, pool=pool):
         out = fn()
     after = _launch_counts()
     launches = {k: after[k] - before[k] for k in after}
@@ -150,6 +168,70 @@ def _fold_int8_queries(q: torch.Tensor, scales: torch.Tensor):
     return q_int, t
 
 
+# a packed call's capacity: its valid tokens rounded up to a multiple of this
+PACK_STEP = 4096
+
+
+def packed_capacity(mask: np.ndarray) -> Optional[int]:
+    """The capacity a call's valid tokens pack into, or None where the call
+    keeps the padded program: the valid count rounded up to ``PACK_STEP``
+    must be below Q * T (so a Q=1 turn never packs), and every row must be
+    ConvDR's prefix layout, a run of at least one valid token from position
+    0 and pads after it, as ``pad_input_ids_with_mask`` and a cut from the
+    front make."""
+    q, t = mask.shape
+    lengths = mask.sum(axis=1)
+    capacity = -(-int(lengths.sum()) // PACK_STEP) * PACK_STEP
+    if capacity >= q * t or lengths.min() < 1:
+        return None
+    if not np.array_equal(mask, np.arange(t)[None, :] < lengths[:, None]):
+        return None
+    return capacity
+
+
+def fill_packing(mask: np.ndarray, index: np.ndarray, first: np.ndarray) -> int:
+    """Write a prefix-layout call's token index: ``index`` (int64
+    [capacity]) gets the flat positions ``b * T + t`` of its valid tokens,
+    then the sentinel Q * T to the end; ``first`` (int64 [Q]) each row's
+    first token among them. -> the number of valid tokens."""
+    q, t = mask.shape
+    valid = np.flatnonzero(mask)
+    index[: len(valid)] = valid
+    index[len(valid):] = q * t
+    first[0] = 0
+    np.cumsum(mask[:-1].sum(axis=1), out=first[1:])
+    return len(valid)
+
+
+@dataclass
+class PackingStats:
+    """Serving calls by encoder path: every call, the packed ones, and the
+    valid tokens the packed ones carried against the capacity they ran."""
+
+    calls: int = 0
+    packed_calls: int = 0
+    packed_tokens: int = 0
+    packed_capacity: int = 0
+
+    def record(self, capacity: Optional[int], valid: int) -> None:
+        self.calls += 1
+        if capacity is not None:
+            self.packed_calls += 1
+            self.packed_tokens += valid
+            self.packed_capacity += capacity
+
+    def summary(self) -> dict:
+        """Counts, the share of calls packed and the share of the packed
+        calls' capacity that valid tokens filled (None before any)."""
+        return {
+            "calls": self.calls,
+            "packed_calls": self.packed_calls,
+            "packed_call_share": self.packed_calls / self.calls if self.calls else None,
+            "token_share": (self.packed_tokens / self.packed_capacity
+                            if self.packed_capacity else None),
+        }
+
+
 @dataclass
 class ServeStats:
     """Wall-clock latencies (seconds) of completed ``search`` calls."""
@@ -176,9 +258,11 @@ class ServeStats:
 
 @dataclass
 class ServeGraph:
-    """One captured serving program for one Q: its static inputs and
-    outputs on the card, pinned host buffers for the copies, and what its
-    capture recorded."""
+    """One captured serving program for one Q and capacity: its static
+    inputs and outputs on the card, pinned host buffers for the copies, and
+    what its capture recorded. A packed graph (``capacity`` tokens) also
+    takes the call's token index and first rows; a padded one has capacity
+    None and no index."""
 
     graph: torch.cuda.CUDAGraph
     ids: torch.Tensor
@@ -193,6 +277,10 @@ class ServeGraph:
     capture_s: float
     pool_bytes: int
     launches: Dict[str, int]
+    capacity: Optional[int] = None
+    packing: Optional[Packing] = None
+    host_index: Optional[torch.Tensor] = None
+    host_first: Optional[torch.Tensor] = None
     replays: int = 0
 
 
@@ -222,8 +310,9 @@ class OnlineSearcher:
     card.
 
     A graph's static inputs, outputs and pinned buffers are shared by every
-    call with its Q, so a lock serializes the card's turns: calls from
-    several threads are correct, and served one at a time.
+    call it serves, and the graphs of one Q share a memory pool, so a lock
+    serializes the card's turns: calls from several threads are correct,
+    and served one at a time.
     """
 
     def __init__(
@@ -249,9 +338,11 @@ class OnlineSearcher:
         self.max_concat_length = max_concat_length
         self.device = device
         self._rowid_to_offset = rowid_to_offset
-        self.graphs: Dict[int, ServeGraph] = {}
+        self.graphs: Dict[Tuple[int, Optional[int]], ServeGraph] = {}
+        self._pools: Dict[int, object] = {}
         self._lock = threading.Lock()
         self.stats = ServeStats([])
+        self.packing = PackingStats()
 
     @property
     def resident_bytes(self) -> int:
@@ -432,27 +523,51 @@ class OnlineSearcher:
         )
 
     # -- the program --------------------------------------------------------
-    def encode(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """Query embeddings [Q, D] f32 of device ids and mask."""
-        return self._apply(ids, mask, True).float()
+    def encode(self, ids: torch.Tensor, mask: torch.Tensor,
+               packing: Optional[Packing] = None) -> torch.Tensor:
+        """Query embeddings [Q, D] f32 of device ids and mask; under a
+        ``packing`` of the mask's valid tokens the encoder's per-token
+        layers run on the packed rows alone."""
+        if packing is None:
+            return self._apply(ids, mask, True).float()
+        with torch.inference_mode():
+            return self.model.query_emb(ids, mask, packing=packing).float()
 
-    def program(self, ids: torch.Tensor, mask: torch.Tensor):
+    def program(self, ids: torch.Tensor, mask: torch.Tensor,
+                packing: Optional[Packing] = None):
         """The serving program, run eagerly on device tensors: encode, the
         query-side prep and the search -> (scores [Q, k] f32, rows [Q, k])."""
-        return self.search_embeddings(self.encode(ids, mask))
+        return self.search_embeddings(self.encode(ids, mask, packing))
 
-    def _capture(self, q: int) -> ServeGraph:
-        """Capture the program for ``q`` queries (:func:`capture`), on
-        static ids and mask that each replay refills."""
+    def _graph(self, q: int, capacity: Optional[int]) -> ServeGraph:
+        """The graph a call of ``q`` rows replays: the padded one (capacity
+        None), or the smallest packed one whose capacity holds ``capacity``
+        tokens; captured where there is none."""
+        if capacity is None:
+            return self.graphs.get((q, None)) or self._capture(q, None)
+        fits = [c for gq, c in self.graphs if gq == q and c is not None and c >= capacity]
+        return self.graphs[(q, min(fits))] if fits else self._capture(q, capacity)
+
+    def _capture(self, q: int, capacity: Optional[int]) -> ServeGraph:
+        """Capture the program for ``q`` queries (:func:`capture`), padded
+        or packed into ``capacity`` rows, on static inputs that each replay
+        refills, in the memory pool of the graphs of ``q``."""
         dev = self.device
         shape = (q, self.max_concat_length)
         ids = torch.zeros(shape, dtype=torch.int32, device=dev)
         mask = torch.zeros(shape, dtype=torch.int32, device=dev)
         ids[:, 0] = self.tokenizer.cls_token_id
         mask[:, 0] = 1
+        packing = None
+        if capacity is not None:
+            index = torch.full((capacity,), ids.numel(), dtype=torch.int64, device=dev)
+            first = torch.arange(q, dtype=torch.int64, device=dev)
+            index[:q] = first * shape[1]
+            packing = Packing(index, first)
         t0 = time.perf_counter()
         graph, (scores, rows), launches, pool_bytes = capture(
-            lambda: self.program(ids, mask), dev)
+            lambda: self.program(ids, mask, packing), dev, self._pools.get(q))
+        self._pools.setdefault(q, graph.pool())
 
         def pinned(t):
             return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -462,24 +577,34 @@ class OnlineSearcher:
             host_ids=pinned(ids), host_mask=pinned(mask), host_scores=pinned(scores),
             host_rows=pinned(rows), done=torch.cuda.Event(),
             capture_s=time.perf_counter() - t0, pool_bytes=pool_bytes,
-            launches=launches,
+            launches=launches, capacity=capacity, packing=packing,
         )
-        self.graphs[q] = entry
-        logger.info("captured the serving program for Q=%d in %.2f s (graph pool %.1f MiB, "
-                    "launches a replay %s)", q, entry.capture_s, pool_bytes / 2 ** 20,
-                    entry.launches)
+        if packing is not None:
+            entry.host_index, entry.host_first = pinned(packing.index), pinned(packing.first)
+        self.graphs[(q, capacity)] = entry
+        logger.info("captured the serving program for Q=%d, capacity %s in %.2f s (graph "
+                    "pool grew %.1f MiB, launches a replay %s)", q, capacity, entry.capture_s,
+                    pool_bytes / 2 ** 20, entry.launches)
         return entry
 
     def _replay(self, ids: np.ndarray, mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Copy in, replay, copy back, wait once (the turn's only host
-        sync), all under the lock that keeps the graph's buffers one turn's."""
+        sync), all under the lock that keeps the graphs' buffers and pool
+        one turn's."""
+        capacity = packed_capacity(mask)
         with self._lock:
-            g = self.graphs.get(ids.shape[0]) or self._capture(ids.shape[0])
+            g = self._graph(ids.shape[0], capacity)
             with span("convdr.serve.copy_in"):
                 g.host_ids.copy_(torch.from_numpy(ids))
                 g.host_mask.copy_(torch.from_numpy(mask))
                 g.ids.copy_(g.host_ids, non_blocking=True)
                 g.mask.copy_(g.host_mask, non_blocking=True)
+                valid = 0
+                if g.packing is not None:
+                    valid = fill_packing(mask, g.host_index.numpy(), g.host_first.numpy())
+                    g.packing.index.copy_(g.host_index, non_blocking=True)
+                    g.packing.first.copy_(g.host_first, non_blocking=True)
+            self.packing.record(g.capacity, valid)
             with span("convdr.serve.replay"):
                 g.graph.replay()
             with span("convdr.serve.wait"):
@@ -490,6 +615,22 @@ class OnlineSearcher:
                 g.replays += 1
                 return g.host_scores.numpy().copy(), g.host_rows.numpy().copy()
 
+    def _eager(self, ids: np.ndarray, mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """The program run eagerly (CPU tensors), packed by the replay's
+        rule at the call's own capacity."""
+        dev = self.device
+        capacity = packed_capacity(mask)
+        packing, valid = None, 0
+        if capacity is not None:
+            index, first = np.empty(capacity, np.int64), np.empty(len(mask), np.int64)
+            valid = fill_packing(mask, index, first)
+            packing = Packing(torch.from_numpy(index).to(dev), torch.from_numpy(first).to(dev))
+        with self._lock:
+            self.packing.record(capacity, valid)
+        s, i = self.program(torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
+                            packing)
+        return s.cpu().numpy(), i.cpu().numpy()
+
     def rows_to_offsets(self, rows: np.ndarray) -> np.ndarray:
         """Device rows of the search -> token-cache offsets (int64, -1
         kept): flat rows map through the blocks' emb2offset; IVF rowids are
@@ -497,6 +638,11 @@ class OnlineSearcher:
         if self._rowid_to_offset is not None:
             rows = np.where(rows >= 0, self._rowid_to_offset[np.clip(rows, 0, None)], -1)
         return rows.astype(np.int64)
+
+    def packing_stats(self) -> dict:
+        """:meth:`PackingStats.summary` of every call so far."""
+        with self._lock:
+            return self.packing.summary()
 
     def replayed_launches(self) -> Dict[str, int]:
         """Kernel launches the replays issued: each graph's recorded
@@ -527,8 +673,9 @@ class OnlineSearcher:
         """(ids [Q, L], mask [Q, L]) -> (scores, offsets): one replay on the
         card, the eager program on the CPU.
 
-        Each distinct Q is captured once (L is fixed at construction);
-        online serving is Q=1 a turn, an evaluation replay may batch. The
+        L is fixed at construction; each Q is captured padded, and packed at
+        each capacity its calls need (see the module's notes); online
+        serving is Q=1 a turn, an evaluation replay may batch. The
         recorded latency covers the copies, the replay, the read-back and
         the id mapping; :meth:`search` times the tokenizer in as well.
         """
@@ -544,9 +691,7 @@ class OnlineSearcher:
             if self.device.type == "cuda":
                 s, i = self._replay(ids, mask)
             else:
-                s, i = self.program(torch.from_numpy(ids).to(self.device),
-                                    torch.from_numpy(mask).to(self.device))
-                s, i = s.cpu().numpy(), i.cpu().numpy()
+                s, i = self._eager(ids, mask)
             i = self.rows_to_offsets(i)
         if record:
             self.stats.latencies.append(time.perf_counter() - t0)

@@ -1501,7 +1501,7 @@ def test_ivf_search_peak_stays_near_the_candidate_budget(cuda, storage):
 
 
 # ---------------------------------------------------------------------------
-# online serving: one captured CUDA graph a Q (tiny width, seeded weights)
+# online serving: one captured CUDA graph a (Q, capacity) (tiny width, seeded weights)
 # ---------------------------------------------------------------------------
 SERVE_HISTORIES = [
     ["tell me about coral reefs", "where are they found"],
@@ -1569,7 +1569,7 @@ def test_captured_serve_equals_eager_program(cuda, serve_dirs, backend):
     graph records kernel 1 (and, on the flat backends, kernels 2 and 5)."""
     searcher = serve_searcher(serve_dirs, backend, cuda)
     searcher.warmup()
-    assert list(searcher.graphs) == [1]
+    assert list(searcher.graphs) == [(1, None)]
     results = []
     for history in SERVE_HISTORIES + SERVE_HISTORIES[:1]:
         ids, mask = turn_inputs(searcher, history)
@@ -1579,7 +1579,7 @@ def test_captured_serve_equals_eager_program(cuda, serve_dirs, backend):
         results.append(got)
     assert not np.array_equal(results[0][1], results[1][1])  # turns differ
     assert np.array_equal(results[0][1], results[-1][1])
-    g = searcher.graphs[1]
+    g = searcher.graphs[(1, None)]
     assert g.replays == len(SERVE_HISTORIES) + 2  # the warm-up call replays too
     assert g.launches["flash_attention_fwd"] == 2  # the tiny model's two layers
     flat = backend.startswith("flat")
@@ -1599,10 +1599,10 @@ def test_distinct_q_captures_its_own_graph(cuda, serve_dirs):
     mask = np.concatenate([x[1] for x in inputs])
     got = searcher.search_tokens(ids, mask)
     want = eager_turn(searcher, ids, mask)
-    assert sorted(searcher.graphs) == [1, 3]
+    assert sorted(searcher.graphs) == [(1, None), (3, None)]
     assert got[0].tobytes() == want[0].tobytes() and np.array_equal(got[1], want[1])
     one = searcher.search_tokens(*inputs[1])
-    assert searcher.graphs[1].replays == 2 and searcher.graphs[3].replays == 1
+    assert searcher.graphs[(1, None)].replays == 2 and searcher.graphs[(3, None)].replays == 1
     assert one[0].tobytes() == eager_turn(searcher, *inputs[1])[0].tobytes()
 
 
@@ -1622,6 +1622,126 @@ def test_replay_issues_no_host_sync(cuda, serve_dirs):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert got[0].tobytes() == want[0].tobytes() and np.array_equal(got[1], want[1])
+
+
+def batch_call(searcher, seed, lengths):
+    """Seeded ids and prefix-layout mask of one batched call: row r holds
+    ``lengths[r]`` valid tokens at the searcher's concat length."""
+    t = searcher.max_concat_length
+    rng = np.random.RandomState(seed)
+    lengths = np.asarray(lengths)
+    mask = (np.arange(t)[None, :] < lengths[:, None]).astype(np.int32)
+    vocab = searcher.model.config.arch.vocab_size
+    ids = rng.randint(4, vocab, size=mask.shape).astype(np.int32) * mask
+    return ids, mask
+
+
+def eager_packed_turn(searcher, ids, mask, capacity):
+    """The serving program run eagerly on the packing a graph of
+    ``capacity`` rows replays, its rows mapped as ``search_tokens`` maps
+    them."""
+    from convdr_torch.models.transformer import Packing
+    from convdr_torch.retrieval.online import fill_packing
+
+    dev = searcher.device
+    index, first = np.empty(capacity, np.int64), np.empty(len(mask), np.int64)
+    fill_packing(mask, index, first)
+    packing = Packing(torch.from_numpy(index).to(dev), torch.from_numpy(first).to(dev))
+    s, i = searcher.program(torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
+                            packing)
+    return s.cpu().numpy(), searcher.rows_to_offsets(i.cpu().numpy())
+
+
+def test_packed_replay_equals_eager_packed_and_padded_programs(cuda, serve_dirs):
+    """A Q=512 call of prefix rows packs: its replay equals the eager packed
+    program bit for bit, and judged against the padded program's embeddings
+    (exact f64 scores of the corpus) its scores and ranks lie within the
+    benchmark's ``correct`` limits (1.5e-5 of |q| sqrt(D)), rows distinct."""
+    from convdr_torch.retrieval.online import PACK_STEP, packed_capacity
+
+    searcher = serve_searcher(serve_dirs, "flat_float32", cuda)
+    lengths = np.random.RandomState(21).randint(1, 33, size=512)
+    ids, mask = batch_call(searcher, 22, lengths)
+    capacity = packed_capacity(mask)
+    assert capacity == -(-int(lengths.sum()) // PACK_STEP) * PACK_STEP < mask.size
+    got = searcher.search_tokens(ids, mask)
+    assert list(searcher.graphs) == [(512, capacity)]
+    want = eager_packed_turn(searcher, ids, mask, capacity)
+    assert got[0].tobytes() == want[0].tobytes() and np.array_equal(got[1], want[1])
+    g = searcher.graphs[(512, capacity)]
+    assert g.capacity == capacity and g.packing.index.shape == (capacity,)
+    assert g.launches["flash_attention_fwd"] == 2
+
+    corpus = searcher._operands[0][:3000].double()
+    q_pad = searcher.encode(torch.from_numpy(ids).to(cuda),
+                            torch.from_numpy(mask).to(cuda)).double()
+    exact = q_pad @ corpus.T
+    unit = q_pad.norm(dim=1, keepdim=True) * corpus.shape[1] ** 0.5
+    rows = torch.from_numpy(got[1] - 1000).to(cuda)  # the blocks' offsets start at 1000
+    given = exact.gather(1, rows)
+    best = exact.topk(rows.shape[1], dim=1).values
+    score_gap = ((torch.from_numpy(got[0]).to(cuda).double() - given).abs() / unit).max()
+    rank_gap = ((best - given) / unit).max()
+    assert score_gap < 1.5e-5 and rank_gap < 1.5e-5, (score_gap, rank_gap)
+    assert all(len(set(r.tolist())) == len(r) for r in got[1])
+
+
+def test_packed_graphs_by_capacity_share_one_pool(cuda, serve_dirs):
+    """Calls of one capacity replay one graph; a call that fits a captured
+    capacity replays it; a larger capacity captures its own, in the pool of
+    its Q; a call that would not save rows keeps the padded graph; a Q=1
+    turn still captures one padded graph. Each replay equals the eager
+    program on its graph's packing bit for bit; the counter reads the
+    packed calls and their token share."""
+    searcher = serve_searcher(serve_dirs, "flat_float32", cuda)
+    searcher.warmup()
+    calls = [(16, 8192), (15, 8192), (6, 8192), (20, 12288), (32, None)]
+    for seed, (length, graph_capacity) in enumerate(calls):
+        ids, mask = batch_call(searcher, 30 + seed, [length] * 512)
+        got = searcher.search_tokens(ids, mask)
+        want = (eager_turn(searcher, ids, mask) if graph_capacity is None else
+                eager_packed_turn(searcher, ids, mask, graph_capacity))
+        assert got[0].tobytes() == want[0].tobytes() and np.array_equal(got[1], want[1])
+    assert sorted(searcher.graphs, key=str) == [(1, None), (512, 12288), (512, 8192),
+                                                (512, None)]
+    replays = {k: g.replays for k, g in searcher.graphs.items()}
+    assert replays == {(1, None): 1, (512, 8192): 3, (512, 12288): 1, (512, None): 1}
+    pools = {searcher.graphs[k].graph.pool() for k in [(512, 8192), (512, 12288), (512, None)]}
+    assert len(pools) == 1 and searcher.graphs[(1, None)].graph.pool() not in pools
+    stats = searcher.packing_stats()
+    assert stats["calls"] == 6 and stats["packed_calls"] == 4
+    assert stats["token_share"] == 512 * (16 + 15 + 6 + 20) / (3 * 8192 + 12288)
+
+
+def test_packed_replay_issues_no_host_sync(cuda, serve_dirs):
+    """A packed call builds its token index on the host and copies it in
+    through pinned buffers: between the copy-in and the read-back it waits
+    for nothing (the debug mode reports no sync)."""
+    searcher = serve_searcher(serve_dirs, "flat_float32", cuda)
+    ids, mask = batch_call(searcher, 40, np.random.RandomState(41).randint(1, 33, size=512))
+    want = searcher.search_tokens(ids, mask)
+    assert searcher.packing_stats()["packed_calls"] == 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = searcher.search_tokens(ids, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got[0].tobytes() == want[0].tobytes() and np.array_equal(got[1], want[1])
+    assert searcher.packing_stats()["packed_calls"] == 2
+
+
+def test_q1_turns_capture_one_padded_graph(cuda, serve_dirs):
+    """Q=1 turns never pack, the longest included: one padded graph, no
+    token index, no packed call counted."""
+    searcher = serve_searcher(serve_dirs, "flat_float32", cuda)
+    searcher.warmup()
+    for history in SERVE_HISTORIES + [["a long question"] * 12]:
+        searcher.search_tokens(*turn_inputs(searcher, history))
+    assert list(searcher.graphs) == [(1, None)]
+    g = searcher.graphs[(1, None)]
+    assert g.capacity is None and g.packing is None and g.replays == len(SERVE_HISTORIES) + 2
+    assert searcher.packing_stats()["packed_calls"] == 0
 
 
 def test_fold_int8_queries_on_card_bit_equal_to_host(cuda):
@@ -1655,7 +1775,7 @@ def test_concurrent_turns_get_their_own_results(cuda, serve_dirs):
         got = list(pool.map(lambda x: searcher.search_tokens(*x), inputs))
     for g, w in zip(got, want):
         assert g[0].tobytes() == w[0].tobytes() and np.array_equal(g[1], w[1])
-    assert searcher.graphs[1].replays == len(inputs) + 1
+    assert searcher.graphs[(1, None)].replays == len(inputs) + 1
 
 
 def test_traced_turn_spans_hold_the_replays_launches(cuda, serve_dirs, tmp_path):
@@ -1686,7 +1806,7 @@ def test_traced_turn_spans_hold_the_replays_launches(cuda, serve_dirs, tmp_path)
     for name in ("turn", "copy_in", "replay", "wait"):
         assert spans[f"convdr.serve.{name}"]["count"] == 1, name
     replay = spans["convdr.serve.replay"]
-    assert replay["launches"] >= sum(searcher.graphs[1].launches.values()) > 0
+    assert replay["launches"] >= sum(searcher.graphs[(1, None)].launches.values()) > 0
     assert replay["device_s"] > 0
     assert spans["convdr.serve.turn"]["launches"] >= replay["launches"] + 4  # + the copies
 
@@ -1874,7 +1994,7 @@ def test_online_searcher_reduced_precision_replays_bit_equal_to_eager(cuda, serv
         got = searcher.search_tokens(ids, mask)
         want = eager_turn(searcher, ids, mask)
         assert got[0].tobytes() == want[0].tobytes() and np.array_equal(got[1], want[1])
-    g = searcher.graphs[1]
+    g = searcher.graphs[(1, None)]
     assert g.launches["fused_scores_groupmax"] == 0 and g.launches["dma_gather_groups"] > 0
     assert torch.get_float32_matmul_precision() == "highest"
     again = [exact.search_tokens(*turn_inputs(exact, h)) for h in SERVE_HISTORIES]
