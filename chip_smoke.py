@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of convdr_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--decoder_only]
 
 1. Prints the card's name and power limit, whether ``regex`` imports,
    ``nvcc -Xptxas -v``'s register / shared-memory / spill lines for each
@@ -230,6 +230,21 @@ O. (after 4) The JAX package's orbax checkpoints: (a) the committed
    read s, the decoder's MB/s, the peak RSS over the read, the driver's
    ``checkpoint-4`` (both formats) and ``final/`` write seconds and the
    phase's seconds; kernels 1, 1b, 2 and 5 are counted from zero around it.
+D. (last; alone under ``--decoder_only``) DeepSeek-V2-Lite as a RepLLaMA
+   encoder at its published widths: kernel 1's causal (192, 128) bf16
+   variant against ``causal_attention_plain`` at B=1024 T=128 and B=256
+   T=512 (16 heads, ragged right padding; every element within one bf16
+   step; causal SDPA's valid rows within 1% of it as a whole), timed beside
+   the plain version, SDPA ``is_causal`` and the bound of the valid work;
+   the grouped expert kernels against ``grouped_swiglu_plain`` at 100,000
+   tokens, 64 experts, top-6, H=2048, I=1408 (as far from the f64
+   products as the plain loop, 99% of elements within one bf16 step of
+   it), timed beside the plain loop, cuBLAS's dense products of the same
+   shapes and the bound; then ``rep_deepseek_v2`` with the decoder cell's
+   seeded weights streamed through ``load_decoder`` -> ``make_apply_fn``
+   -> ``generate_embeddings`` over 512 passages: the two kernels' launches
+   zeroed just before and read just after (27 and 52 a batch), no SDPA
+   operation in the path's profile.
 5. Prints the training ms per step and examples/s, a ``{"kernels": [...]}``
    line (launches, max error, kernel / plain / library / bound times in ms,
    CUDA-event timed after warm-up), and last ``{"ok": true, "device": ...}``.
@@ -4108,9 +4123,255 @@ def multi_gpu_path(paths, gen):
             "search": search, "dp_step": step, "phase_s": time.time() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# phase D: DeepSeek-V2-Lite as a RepLLaMA encoder (``rep_deepseek_v2``) at
+# its published widths: kernel 1's causal (192, 128) variant at the corpus
+# rungs of the decoder cell's batch, the grouped expert kernels at ~100k
+# tokens (64 experts, top-6), and the registry's path over a token cache
+# ---------------------------------------------------------------------------
+
+DEC_CAUSAL_SHAPES, DEC_HEADS, DEC_QK, DEC_V = [(1024, 128), (256, 512)], 16, 192, 128
+DEC_TOKENS, DEC_EXPERTS, DEC_TOP_K, DEC_H, DEC_I = 100_000, 64, 6, 2048, 1408
+DEC_PASSAGES, DEC_BATCH, DEC_MAX_T = 512, 256, 512
+DEC_CONFIG = os.path.join(REPO, "h100_bench", "configs", "dsv2lite-cast.json")
+
+
+def causal_valid_work(lens):
+    """(operations, bytes) the causal (192, 128) forward needs over valid
+    rows of ``lens`` tokens: q k and p v over each row's causal pairs, q,
+    k, v and the output each moved once over the valid tokens."""
+    pairs = sum(n * (n + 1) / 2 for n in lens)
+    flops = 2.0 * DEC_HEADS * (DEC_QK + DEC_V) * pairs
+    return flops, 2.0 * sum(lens) * DEC_HEADS * (2 * DEC_QK + 2 * DEC_V)
+
+
+def check_and_time_causal(gen):
+    """Kernel 1's causal variant against ``causal_attention_plain`` at the
+    decoder cell's rungs (B=1024 T=128, B=256 T=512; 16 heads, ragged right
+    padding): every element within 2^-7 of the plain version's magnitude
+    (one bf16 step), causal SDPA's valid rows within 1% of it; timed
+    beside the plain version, causal SDPA (right padding leaves its valid
+    rows as the kernel's) and the bound of the valid work."""
+    from convdr_torch.models.attention import causal_attention, causal_attention_plain
+
+    scale = 192 ** -0.5
+    by_shape, worst = {}, 0.0
+    for b, t in DEC_CAUSAL_SHAPES:
+        q, k = (torch.randn((b, t, DEC_HEADS, DEC_QK), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        v = torch.randn((b, t, DEC_HEADS, DEC_V), generator=gen, device="cuda").to(torch.bfloat16)
+        lens = torch.randint(16, t + 1, (b,), generator=gen, device="cuda")
+        mask = (torch.arange(t, device="cuda")[None, :] < lens[:, None]).int()
+        out = causal_attention(q, k, v, mask, scale).float()
+        ref = causal_attention_plain(q, k, v, mask, scale).float()
+        err = (out - ref).abs().max().item()
+        if not bool(((out - ref).abs() <= 1e-6 + 2.0 ** -7 * ref.abs()).all()):
+            raise AssertionError(f"causal kernel B={b} T={t}: off the plain version ({err:.3g})")
+        qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=scale)
+
+        # SDPA rounds P to bf16, so it is held to the plain version on the
+        # valid rows as a whole (relative Frobenius), not element by element
+        valid = mask.bool()
+        lib = library().transpose(1, 2).float()[valid]
+        lib_rel = (torch.linalg.vector_norm(lib - ref[valid])
+                   / torch.linalg.vector_norm(ref[valid])).item()
+        rel = (torch.linalg.vector_norm(out[valid] - ref[valid])
+               / torch.linalg.vector_norm(ref[valid])).item()
+        if lib_rel > 1e-2:
+            raise AssertionError(f"causal SDPA B={b} T={t}: valid rows {lib_rel:.3g} off the plain "
+                                 f"version's")
+        worst = max(worst, err)
+        del out, ref, lib
+        flops, nbytes = causal_valid_work(lens.tolist())
+        ops_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+
+        def kernel():
+            return causal_attention(q, k, v, mask, scale)
+
+        row = {"ms": cuda_ms(kernel, iters=20), "device_ms": device_ms(kernel),
+               "plain_ms": cuda_ms(lambda: causal_attention_plain(q, k, v, mask, scale),
+                                   iters=3, warmup=1),
+               "library_ms": cuda_ms(library, iters=20), "library": "SDPA is_causal",
+               "bound_ms": max(ops_ms, bytes_ms),
+               "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+               "valid_tokens": int(lens.sum()), "rel_err": rel, "library_rel_err": lib_rel}
+        by_shape[f"B{b}_T{t}"] = row
+        log(f"  flash_fwd_causal B={b} T={t} H={DEC_HEADS} (192, 128) bf16: {row['ms']:.4f} ms "
+            f"({row['device_ms']:.4f} on the device), plain {row['plain_ms']:.3f}, SDPA causal "
+            f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']}); "
+            f"max abs error {err:.3g} from the plain version (relative {rel:.3g}; SDPA "
+            f"{lib_rel:.3g})")
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+    main_row = by_shape[f"B{DEC_CAUSAL_SHAPES[0][0]}_T{DEC_CAUSAL_SHAPES[0][1]}"]
+    return {"name": "flash_fwd_causal", "max_err": worst, "by_shape": by_shape,
+            **{key: main_row[key] for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                                              "library", "bound_ms", "bound_by")}}
+
+
+def check_and_time_grouped(gen):
+    """The grouped expert kernels (``_swiglu_gate_up``, ``_swiglu_down``)
+    against ``grouped_swiglu_plain`` (a loop of per-expert products) at
+    ~100k tokens, 64 experts, top-6, H=2048, I=1408, under a seeded router:
+    as far from the exact (f64) products as the plain version, and 99% of
+    the elements within one bf16 step of it; timed beside the plain loop,
+    the library's dense products of the same shapes with no routing, and
+    the bound of the grouped work."""
+    from convdr_torch.ops import moe
+
+    n, e, k, h, inter = DEC_TOKENS, DEC_EXPERTS, DEC_TOP_K, DEC_H, DEC_I
+    x = torch.randn((n, h), generator=gen, device="cuda").to(torch.bfloat16)
+    w_gate, w_up = (torch.randn((e, inter, h), generator=gen, device="cuda").mul(h ** -0.5)
+                    .to(torch.bfloat16) for _ in range(2))
+    w_down = torch.randn((e, h, inter), generator=gen, device="cuda").mul(inter ** -0.5) \
+        .to(torch.bfloat16)
+    gate = torch.randn((e, h), generator=gen, device="cuda").mul(h ** -0.5)
+    weights, experts = moe.route(x, gate, k)
+    slots, counts, row_off, tile_off = moe.order_by_expert(experts, e)
+
+    def kernel():
+        return moe.grouped_swiglu(x, slots, row_off, tile_off, weights, w_gate, w_up, w_down)
+
+    def plain():
+        return moe.grouped_swiglu_plain(x, slots, row_off, weights, w_gate, w_up, w_down)
+
+    y, ref = kernel(), plain()
+    truth = moe.grouped_swiglu_plain(x.double(), slots, row_off, weights.double(),
+                                     w_gate.double(), w_up.double(), w_down.double())
+    err = err_plain = inside = 0.0
+    for lo in range(0, truth.shape[0], 1 << 16):  # f64 temporaries a chunk of rows
+        t, yc, rc = truth[lo:lo + (1 << 16)], y[lo:lo + (1 << 16)].double(), \
+            ref[lo:lo + (1 << 16)].double()
+        rms = t.pow(2).mean(1, keepdim=True).sqrt()
+        err = max(err, ((yc - t).abs() / rms).max().item())
+        err_plain = max(err_plain, ((rc - t).abs() / rms).max().item())
+        inside += ((yc - rc).abs() <= 2.0 ** -7 * rc.abs()).sum().item()
+    within = inside / y.numel()
+    del truth, y, ref, t, yc, rc
+    torch.cuda.empty_cache()
+    if not (err <= err_plain + 2.0 ** -8 and within >= 0.99):
+        raise AssertionError(f"grouped kernels off the plain version: error {err:.3g} against "
+                             f"the plain loop's {err_plain:.3g}, {within:.4f} within one step")
+    rows = n * k
+    a, act = x.repeat_interleave(k, 0), x.new_zeros((rows, inter))
+    w_gu, w_d = torch.cat([w_gate[0], w_up[0]]).T.contiguous(), w_down[0].T.contiguous()
+
+    def library():
+        torch.mm(a, w_gu)
+        return torch.mm(act, w_d)
+
+    flops = 6.0 * h * inter * rows
+    nbytes = 2.0 * (n * h + 3 * e * h * inter + rows * h)
+    ops_ms = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"name": "grouped_swiglu", "max_err": err, "max_err_plain": err_plain,
+           "within_one_step": within, "ms": cuda_ms(kernel, iters=20),
+           "device_ms": device_ms(kernel), "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+           "library_ms": cuda_ms(library, iters=20),
+           "library": "cuBLAS dense products of the same shapes, no routing",
+           "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+           "rows_per_expert_max_mean": (counts.max() / counts.float().mean()).item()}
+    log(f"  grouped_swiglu N={n} E={e} top-{k} H={h} I={inter} bf16: {row['ms']:.3f} ms "
+        f"({row['device_ms']:.3f} on the device), plain loop {row['plain_ms']:.3f}, dense "
+        f"cuBLAS {row['library_ms']:.3f}, bound {row['bound_ms']:.3f} ({row['bound_by']}); "
+        f"error {err:.3g} (plain {err_plain:.3g}) of the rows' rms, {100 * within:.2f}% "
+        f"within one bf16 step of the plain version")
+    return row
+
+
+def decoder_path():
+    """``rep_deepseek_v2`` at published widths with the decoder cell's
+    seeded weights (``h100_bench/weights_llm.py``, streamed through
+    ``load_decoder``) -> ``make_apply_fn`` -> ``generate_embeddings`` over a
+    512-passage token cache (batch 256, auto length rungs): the kernels'
+    launch counts zeroed just before it and read just after (27 causal and
+    52 grouped a batch), and no SDPA operation in its profile."""
+    from convdr_torch.core.loading import load_decoder, make_apply_fn
+    from convdr_torch.models.attention import causal_attention
+    from convdr_torch.ops import moe
+    from convdr_torch.retrieval.embed_corpus import generate_embeddings
+    from h100_bench import weights_llm
+
+    with open(DEC_CONFIG) as f:
+        cfg = dict(json.load(f), compute_dtype="bfloat16")
+    mc = get_model_config("rep_deepseek_v2")
+    t0 = time.time()
+    _mc, _tok, model = load_decoder(mc, None, device=torch.device("cuda"), dtype=torch.bfloat16,
+                                    leaves=weights_llm.leaves(cfg, 30, torch.device("cuda")))
+    t_load = time.time() - t0
+    rng = np.random.default_rng(30)
+    lens = np.clip(np.round(np.exp(rng.normal(np.log(80), 0.6, DEC_PASSAGES))), 16, 510)
+    work = os.path.join(WORK, "decoder")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cache_dir, out_dir = os.path.join(work, "cache"), os.path.join(work, "emb")
+    with TokenCacheWriter(cache_dir, DEC_MAX_T) as w:
+        for n in lens.astype(int):
+            w.write([100000] + rng.integers(0, 100000, n).tolist() + [100001])
+    apply = make_apply_fn(model)
+    calls = [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return apply(*args, **kwargs)
+
+    causal_attention.launches = moe.grouped_swiglu.launches = 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        t0 = time.time()
+        rows = generate_embeddings(counted, TokenCache(cache_dir), out_dir,
+                                   device=torch.device("cuda"), batch_size=DEC_BATCH,
+                                   length_buckets=(64, 128, 256, 384, 512))
+        torch.cuda.synchronize()
+        t_embed = time.time() - t0
+    launches = {"flash_fwd_causal": causal_attention.launches,
+                "grouped_swiglu": moe.grouped_swiglu.launches}
+    sdpa = sum(e.count for e in prof.key_averages() if "scaled_dot_product" in e.key)
+    layers, moe_layers = cfg["num_hidden_layers"], \
+        cfg["num_hidden_layers"] - cfg["first_k_dense_replace"]
+    log(f"  decoder path: load {t_load:.1f} s; {rows} passages in {t_embed:.1f} s over "
+        f"{calls[0]} batches; launches {launches}; SDPA operations {sdpa}")
+    if rows != DEC_PASSAGES or launches["flash_fwd_causal"] != layers * calls[0] or \
+            launches["grouped_swiglu"] != 2 * moe_layers * calls[0] or sdpa:
+        raise AssertionError(f"decoder path off its kernels: {rows} rows, {calls[0]} batches, "
+                             f"{launches}, SDPA {sdpa}")
+    for _block, emb, _ids in iter_embedding_blocks(out_dir, max_blocks=1):
+        norms = np.linalg.norm(emb, axis=1)
+        if emb.shape != (DEC_PASSAGES, 2048) or not np.allclose(norms, 1.0, atol=1e-3):
+            raise AssertionError(f"decoder path: bad embeddings {emb.shape}")
+    del model, apply
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches": launches, "batches": calls[0], "load_s": t_load, "embed_s": t_embed}
+
+
+def decoder_phase(gen):
+    """Phase D's two kernel entries, each with its launches on the path."""
+    log("phase D, DeepSeek-V2-Lite as a RepLLaMA encoder (published widths, seeded weights): "
+        "kernel 1's causal variant and the grouped expert kernels against their plain "
+        "versions, then the registry's path:")
+    t0 = time.time()
+    causal = check_and_time_causal(gen)
+    grouped = check_and_time_grouped(gen)
+    torch.cuda.empty_cache()
+    path = decoder_path()
+    causal["ptxas"] = ptxas_summary("flash_attention")
+    for entry in (causal, grouped):
+        entry["launches"] = path["launches"][entry["name"]]
+        entry["launches_by_path"] = {"decoder_embed": entry["launches"]}
+    log(f"phase D {time.time() - t0:.1f} s")
+    return [causal, grouped], path
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", default="", help="also write all results as JSON here")
+    parser.add_argument("--decoder_only", action="store_true",
+                        help="run phase D (the decoder's kernels and path) alone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4118,6 +4379,8 @@ def main(argv=None):
     set_exact_matmul()
     t_start = time.time()
     smi = gpu_header()
+    if args.decoder_only:
+        return decoder_only(args, smi, t_start)
     configs = build_kernels()
     gen = torch.Generator(device="cuda").manual_seed(0)
     log("kernel checks against the plain versions:")
@@ -4252,6 +4515,8 @@ def main(argv=None):
     for entry, source in zip(bf16["kernels"], ("flash_attention", "flash_attention_bwd")):
         entry["ptxas"] = ptxas_summary(source)
     kernels.extend(bf16["kernels"])
+    decoder_kernels, decoder = decoder_phase(gen)
+    kernels.extend(decoder_kernels)
     # phase C: the torchrun ranks' and this process's launches
     for entry, kernel in ((fwd, "flash_attention_fwd"), (bwd, "flash_attention_bwd"),
                           (search, "fused_scores_groupmax"), (k5, "dma_gather_groups")):
@@ -4310,10 +4575,31 @@ def main(argv=None):
                        "raw_input_chain": raw_chain, "precision": precision,
                        "data_plane": data_plane, "rehearsal": rehearsed, "ann": ann,
                        "serving": serving, "multi_gpu": multi, "orbax": orbax,
+                       "decoder_path": decoder,
                        "total_s": time.time() - t_start}, f, indent=1)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+def decoder_only(args, smi, t_start):
+    """``--decoder_only``: kernel 1's source built, phase D, its kernels line."""
+    cuda_build.build(["flash_attention"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    try:
+        kernels, decoder = decoder_phase(gen)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    log(f"chip_smoke --decoder_only total {time.time() - t_start:.1f} s")
+    log(json.dumps({"kernels": kernels}))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"kernels": kernels, "card": smi, "decoder_path": decoder,
+                       "total_s": time.time() - t_start}, f, indent=1)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -10,7 +10,7 @@ set of flags means the same model and search in both.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +72,56 @@ def key_len(base: EncoderArchConfig, n: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class DecoderArchConfig:
+    """A DeepSeek-V2 decoder stack (defaults: DeepSeek-V2-Lite's published
+    ``config.json``): multi-head latent attention with no q-LoRA, YaRN
+    rotary positions, a leading dense SwiGLU layer and then layers of a
+    softmax router over routed experts beside always-on shared experts.
+    Used as a RepLLaMA-style encoder (causal mask, last-token pooling)."""
+
+    vocab_size: int = 102400
+    hidden_size: int = 2048
+    num_layers: int = 27
+    num_heads: int = 16
+    q_lora_rank: Optional[int] = None
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    intermediate_size: int = 10944
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 1.0
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    # rope_scaling {"type": "yarn", ...}
+    rope_factor: float = 40.0
+    rope_original_max_position: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 0.707
+    rope_mscale_all_dim: float = 0.707
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @staticmethod
+    def tiny(vocab_size: int = 256) -> "DecoderArchConfig":
+        """A miniature config for tests: hidden 64, one dense and three
+        expert layers of 8 experts, top-2, one shared expert."""
+        return DecoderArchConfig(
+            vocab_size=vocab_size, hidden_size=64, num_layers=4, num_heads=2,
+            kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+            intermediate_size=96, moe_intermediate_size=32, n_routed_experts=8,
+            n_shared_experts=1, num_experts_per_tok=2,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """A retrieval model = encoder arch + head + pooling choices.
 
@@ -81,7 +131,7 @@ class ModelConfig:
     """
 
     name: str
-    arch: EncoderArchConfig
+    arch: Union[EncoderArchConfig, DecoderArchConfig]
     embedding_dim: int = 768
     use_mean: bool = False
     # ANCE-style projection head + LayerNorm (models.py:136-137); DPR has none.
@@ -91,7 +141,9 @@ class ModelConfig:
     # Multi-chunk FirstP long-document handling (models.py:159-188).
     multi_chunk: bool = False
     chunk_len: int = 512
-    tokenizer_kind: str = "roberta"  # "roberta" (byte BPE) | "bert" (WordPiece)
+    # "roberta" (byte BPE) | "bert" (WordPiece) | "deepseek" (its files are
+    # not in the repository: the decoder is fed token ids)
+    tokenizer_kind: str = "roberta"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,6 +11,17 @@ flavors:
   * **fresh init** -- checkpoint path ``None``/"init", seeded with an
     explicit ``torch.Generator``.
 
+  * **DeepSeek-V2 checkpoints** (``rep_deepseek_v2``) -- Hugging Face
+    leaves by their own names (``model.layers.N.self_attn.
+    kv_a_proj_with_mqa.weight``, ``mlp.experts.E.gate_proj.weight``, ...),
+    from ``pytorch_model.bin``, ``model.safetensors`` or the shards a
+    ``model.safetensors.index.json`` lists, streamed one leaf at a time
+    into the encoder's parameters (built empty on the device in the
+    compute dtype) or stacked expert slices
+    (:meth:`~convdr_torch.models.deepseek_v2.DeepseekV2Encoder.
+    load_hf_leaves`); no seeded init: fresh weights come as a leaf
+    source; the family's tokenizer files are not in the repository, so it
+    is fed token ids;
   * **the JAX package's orbax dirs** -- ``final/`` of a train run (or the
     dir itself), read without orbax by
     :func:`convdr_torch.train.checkpoint.read_orbax_tree` and mapped by
@@ -24,14 +35,15 @@ colocated with the checkpoint, an explicit path, or the deterministic
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from convdr_torch.core.config import EncoderArchConfig, ModelConfig
+from convdr_torch.core.config import DecoderArchConfig, EncoderArchConfig, ModelConfig
 from convdr_torch.core.registry import get_model_config
 from convdr_torch.data.tokenizers import ByteLevelBPETokenizer, WordPieceTokenizer
 from convdr_torch.models.encoders import build_model
@@ -193,6 +205,9 @@ def load_model_and_params(
     man_can / auto_can query modes) and the word embeddings grow to match.
     """
     config = get_model_config(model_type)
+    if isinstance(config.arch, DecoderArchConfig):
+        return load_decoder(config, checkpoint_path, device=device, dtype=dtype,
+                            arch_preset=arch_preset, arch_overrides=arch_overrides)
     tokenizer = load_tokenizer_for(config, tokenizer_path or checkpoint_path)
     for tok in extra_tokens:
         tokenizer.add_tokens([tok])
@@ -245,6 +260,78 @@ def load_model_and_params(
     model = (cast_at_use if f32_params else to_compute_dtype)(model, dtype)
     model = model.to(device).eval()
     return config, tokenizer, model
+
+
+def _safetensors_files(path: str) -> Optional[list]:
+    """The safetensors files of a checkpoint, in order: the shards a
+    ``model.safetensors.index.json`` lists, else ``model.safetensors``
+    (when no ``pytorch_model.bin`` is beside it), else ``path`` itself if
+    it is one; None for a torch pickle."""
+    if not os.path.isdir(path):
+        return [path] if path.endswith(".safetensors") else None
+    index = os.path.join(path, "model.safetensors.index.json")
+    if os.path.exists(index):
+        with open(index) as f:
+            shards = sorted(set(json.load(f)["weight_map"].values()))
+        return [os.path.join(path, shard) for shard in shards]
+    single = os.path.join(path, "model.safetensors")
+    if os.path.exists(single) and not os.path.exists(os.path.join(path, "pytorch_model.bin")):
+        return [single]
+    return None
+
+
+def hf_checkpoint_leaves(path: str) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, tensor) of every leaf of a Hugging Face checkpoint, on the
+    CPU: from safetensors files one leaf at a time; a ``pytorch_model.bin``
+    is read whole, as ``torch.load`` must."""
+    files = _safetensors_files(path)
+    if files is None:
+        yield from load_torch_state_dict(path).items()
+        return
+    from safetensors import safe_open
+
+    for file in files:
+        with safe_open(file, framework="pt") as f:
+            for name in f.keys():
+                yield name, f.get_tensor(name)
+
+
+def load_decoder(
+    config: ModelConfig,
+    checkpoint_path: Optional[str],
+    *,
+    device: torch.device,
+    dtype: torch.dtype = torch.float32,
+    arch_preset: Optional[str] = None,
+    arch_overrides: Optional[dict] = None,
+    leaves: Optional[Iterable[Tuple[str, torch.Tensor]]] = None,
+) -> Tuple[ModelConfig, Any, nn.Module]:
+    """(config, None, model) of a decoder used as an encoder.
+
+    The model is built on the meta device with its linear layers, embedding
+    and experts in ``dtype`` (the norms and the router f32), its storage
+    made on ``device`` uninitialised, then filled leaf by leaf from
+    ``leaves`` (``(Hugging Face name, tensor)`` pairs, such as a seeded
+    source's) or else from the checkpoint at ``checkpoint_path``
+    (:func:`hf_checkpoint_leaves`): no whole state dict and no f32 copy of
+    the model is held, so the 15.5 B-parameter model loads straight onto
+    one card. Every leaf must come exactly once. There is no seeded init:
+    fresh weights come as ``leaves``. No tokenizer: the family's files are
+    not in the repository, so callers feed token ids."""
+    if leaves is None:
+        if checkpoint_path in (None, "init"):
+            raise ValueError("a decoder loads its leaves from a checkpoint or from `leaves`: "
+                             "it has no seeded init")
+        leaves = hf_checkpoint_leaves(checkpoint_path)
+    arch = DecoderArchConfig.tiny() if arch_preset == "tiny" else config.arch
+    if arch_overrides:
+        arch = dataclasses.replace(arch, **arch_overrides)
+    config = dataclasses.replace(config, arch=arch, embedding_dim=arch.hidden_size)
+    with torch.device("meta"):
+        model = to_compute_dtype(build_model(config), dtype)
+    model = model.to_empty(device=device)
+    model.load_hf_leaves(leaves)
+    return config, None, model.eval()
 
 
 def make_apply_fn(model: nn.Module, *, grad: bool = False) -> Callable:

@@ -8,6 +8,12 @@ entries are preserved:
   * ``rdot_nll``             -- ANCE RoBERTa dot-product encoder
   * ``rdot_nll_multi_chunk`` -- same, with FirstP multi-chunk long documents
   * ``dpr``                  -- BERT bi-encoder (two towers)
+
+and one decoder used as a RepLLaMA-style encoder (arXiv:2310.08319):
+
+  * ``rep_deepseek_v2``      -- DeepSeek-V2(-Lite): one shared tower, causal
+                                attention, the appended end-of-sequence
+                                token's final hidden state, L2-normalised
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from convdr_torch.core.config import EncoderArchConfig, ModelConfig
+from convdr_torch.core.config import DecoderArchConfig, EncoderArchConfig, ModelConfig
 
 
 def _build_registry() -> Dict[str, ModelConfig]:
@@ -46,6 +52,15 @@ def _build_registry() -> Dict[str, ModelConfig]:
             two_tower=True,
             multi_chunk=False,
             tokenizer_kind="bert",
+        ),
+        "rep_deepseek_v2": ModelConfig(
+            name="rep_deepseek_v2",
+            arch=DecoderArchConfig(),
+            embedding_dim=2048,
+            projection_head=False,
+            two_tower=False,
+            multi_chunk=False,
+            tokenizer_kind="deepseek",
         ),
     }
 

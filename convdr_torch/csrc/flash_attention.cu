@@ -133,6 +133,10 @@
 //     in a row's segment leaves that row's m, l and o as they were (alpha
 //     = 1, p = 0): so both block shapes give the same out and lse bit for
 //     bit, and the card tests hold them to that (torch.equal).
+// * bf16 causal, (192, 128) head dims (a decoder's latent attention,
+//   convdr_flash_attention_causal_fwd): the bf16 kernel's design
+//   over 64-column sub-tiles, a causal mask beside the segment rule; see
+//   flash_fwd_causal_kernel.
 //
 // All keep the online softmax in the log2 domain (scores scaled by
 // log2(e)/sqrt(d) in the exponent's FFMA, ex2.approx) with f32 running max
@@ -476,6 +480,313 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   named_barrier(1, Tl::kThreads);
   if (tid == 0) {
     tma_store_4d(&out_map, smem, 0, h, q0, b);
+    tma_store_commit();
+    tma_store_wait_read();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 causal, query/key head dim 192 and value head dim 128: latent
+// attention (DeepSeek-V2's MLA) as a decoder encodes a passage
+// ---------------------------------------------------------------------------
+// The bf16 kernel's design at wider heads, with a causal mask: query t sees
+// key s iff s <= t and seg[b, t] == seg[b, s] (right padding keeps every
+// valid token's keys valid; a pad sees the pads up to itself, so no row is
+// empty). A row of Q or K is 384 bytes, more than one 128-byte swizzle
+// atom, so every tile is held as 64-column sub-tiles of 128-byte rows
+// (Q and K three, V and out two), each a box of its own under the 128-byte
+// swizzle: S is the sum of three sub-tiles' Q K^T (4 k-steps each), P V
+// two m64n64 products, one for each half of V's columns, with P's three
+// truncated terms as the bf16 kernel has them. A block of 64 queries
+// plans only the key tiles at or below its diagonal (tile index <=
+// blockIdx.x: keys and queries are tiled alike) and masks by position only
+// in the diagonal tile. O is 64 f32 registers a thread, so two blocks
+// share an SM (the loop's registers are capped at 255).
+constexpr int kCausalMinBlocks = 2;
+
+struct CausalTile {
+  static constexpr int kQkDim = 192;
+  static constexpr int kVDim = 128;
+  static constexpr int kSub = kWgKeys * 128;              // a [64][64] bf16 sub-tile
+  static constexpr int kQkSubs = kQkDim / 64;             // 3
+  static constexpr int kVSubs = kVDim / 64;               // 2
+  static constexpr int kThreads = 128;                    // one warpgroup: 64 query rows
+  static constexpr int kKBytes = kQkSubs * kSub;          // a K (or Q) tile
+  static constexpr int kVBytes = kVSubs * kSub;           // a V (or out) tile
+  static constexpr int kStage = kKBytes + kVBytes;
+  static constexpr int kRingOff = kKBytes;                // after the Q tile
+  static constexpr int kIdsOff = kRingOff + kWgStages * kStage;
+  static constexpr int kBarOff = kIdsOff + kWgStages * kWgKeys * 4;
+  static constexpr int kPlanOff = kBarOff + (2 * kWgStages + 1) * 8;
+  static constexpr int kAcc = kVDim / 2;  // O's f32 registers a thread
+  __host__ __device__ static int flush_off(int seq) {
+    return kPlanOff + (plan_bytes(seq, kWgKeys) + 15) / 16 * 16;
+  }
+  static int smem_bytes(int seq) {
+    const int nt = (seq + kWgKeys - 1) / kWgKeys;
+    return 1024 + flush_off(seq) + (nt > kFlushTiles ? 4 * kAcc * kThreads : 0);
+  }
+};
+
+__global__ void __launch_bounds__(CausalTile::kThreads, kCausalMinBlocks)
+flash_fwd_causal_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap out_map,
+                        const int* __restrict__ seg, int seq, float scale) {
+  using Tl = CausalTile;
+  constexpr int kAcc = Tl::kAcc;
+  constexpr int kHalf = kAcc / 2;  // registers of one 64-column half of O
+  extern __shared__ __align__(16) unsigned char cf_smem[];
+  unsigned char* smem = cf_smem + ((1024u - (shared_addr(cf_smem) & 1023u)) & 1023u);
+  int* ids = reinterpret_cast<int*>(smem + Tl::kIdsOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Tl::kBarOff);
+  uint64_t* empty = full + kWgStages;
+  uint64_t* q_full = empty + kWgStages;
+  int* plan = reinterpret_cast<int*>(smem + Tl::kPlanOff);
+  float* flushed_o = reinterpret_cast<float*>(smem + Tl::flush_off(seq));  // [i][tid]
+
+  const int tid = threadIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int* segb = seg + static_cast<long long>(b) * seq;
+  const int q0 = blockIdx.x * kWgRows;
+
+  if (tid == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full + s, 1 + 32);  // the TMA's bytes, then each lane's key ids
+      mbar_init(empty + s, 4);      // each warp
+    }
+    mbar_init(q_full, 1);
+    mbar_fence_init();
+    mbar_arrive_expect_tx(q_full, Tl::kKBytes);
+#pragma unroll
+    for (int c = 0; c < Tl::kQkSubs; ++c)
+      tma_load_4d(smem + c * Tl::kSub, &q_map, q_full, 64 * c, h, q0, b);
+  }
+  int n = plan_tiles<kWgRows, kWgKeys, Tl::kThreads>(segb, seq, q0, plan);
+  // the plan is in order: the tiles past the block's diagonal go
+  while (n > 0 && plan[n - 1] > static_cast<int>(blockIdx.x)) --n;
+
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  auto load_tile = [&](int idx) {
+    const int st = idx % kWgStages;
+    const int k0 = plan[idx] * kWgKeys;
+    if (lane == 0) {
+      unsigned char* kv = smem + Tl::kRingOff + st * Tl::kStage;
+      mbar_arrive_expect_tx(full + st, Tl::kStage);
+#pragma unroll
+      for (int c = 0; c < Tl::kQkSubs; ++c)
+        tma_load_4d(kv + c * Tl::kSub, &k_map, full + st, 64 * c, h, k0, b);
+#pragma unroll
+      for (int c = 0; c < Tl::kVSubs; ++c)
+        tma_load_4d(kv + Tl::kKBytes + c * Tl::kSub, &v_map, full + st, 64 * c, h, k0, b);
+    }
+    int* sk = ids + st * kWgKeys;
+    if (k0 + lane < seq) cp_async4(sk + lane, segb + k0 + lane);
+    if (k0 + lane + 32 < seq) cp_async4(sk + lane + 32, segb + k0 + lane + 32);
+    mbar_arrive_cp_async(full + st);
+  };
+  if (warp == 0)
+    for (int idx = 0; idx < min(n, kWgStages); ++idx) load_tile(idx);
+
+  const int g = lane / 4;
+  const int t = lane % 4;
+  int rows[2];
+  int segq[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rows[r] = q0 + 16 * warp + g + 8 * r;
+    segq[r] = rows[r] < seq ? segb[rows[r]] : 0;
+  }
+  int wlo = INT_MAX;
+  int whi = INT_MIN;
+#pragma unroll
+  for (int c = lane; c < kWgRows; c += 32)
+    if (q0 + c < seq) {
+      wlo = min(wlo, segb[q0 + c]);
+      whi = max(whi, segb[q0 + c]);
+    }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    wlo = min(wlo, __shfl_xor_sync(0xffffffffu, wlo, off));
+    whi = max(whi, __shfl_xor_sync(0xffffffffu, whi, off));
+  }
+
+  const uint32_t base = shared_addr(smem);
+  float o0[kHalf];  // O's columns 0..63, the accumulator fragments of [64][64]
+  float o1[kHalf];  // and 64..127
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) o0[i] = o1[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+  float since_flush[2] = {1.f, 1.f};
+  int tiles = 0;
+  bool flushed = false;
+  const float scale_log2 = scale * kLog2e;
+  mbar_wait(q_full, 0);
+
+  for (int idx = 0; idx < n; ++idx) {
+    const int st = idx % kWgStages;
+    mbar_wait(full + st, (idx / kWgStages) & 1);
+    const int k0 = plan[idx] * kWgKeys;
+    const int lim = seq - k0;
+    const int* sk = ids + st * kWgKeys;
+    const int sa = lane < lim ? sk[lane] : kNoSegment;
+    const int sb = lane + 32 < lim ? sk[lane + 32] : kNoSegment;
+    auto refill = [&]() {
+      if (lane == 0) mbar_arrive(empty + st);
+      if (warp == 0 && idx + kWgStages < n) {
+        mbar_wait(empty + st, (idx / kWgStages) & 1);
+        load_tile(idx + kWgStages);
+      }
+    };
+    if (!__any_sync(0xffffffffu, (sa >= wlo && sa <= whi) || (sb >= wlo && sb <= whi))) {
+      refill();
+      continue;
+    }
+    // below the diagonal tile every key precedes every row of the block
+    const bool unmasked = plan[idx] < static_cast<int>(blockIdx.x) && wlo == whi &&
+                          __all_sync(0xffffffffu, sa == wlo && sb == wlo);
+    const uint32_t kv = base + Tl::kRingOff + st * Tl::kStage;
+
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < Tl::kQkSubs; ++c) {
+      const uint64_t qd = wgmma_desc(base + c * Tl::kSub, 128);
+      const uint64_t kd = wgmma_desc(kv + c * Tl::kSub, 128);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_n64(s, qd + 2 * kk, kd + 2 * kk, c + kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(s);
+
+    float tile_max[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    if (unmasked) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) tile_max[(i >> 1) & 1] = fmaxf(tile_max[(i >> 1) & 1], s[i]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int key = 8 * j + 2 * t;
+        int2 sg = *reinterpret_cast<const int2*>(sk + key);
+        if (key >= lim) sg.x = kNoSegment;
+        if (key + 1 >= lim) sg.y = kNoSegment;
+#pragma unroll
+        for (int i = 4 * j; i < 4 * j + 4; ++i) {
+          const int r = (i >> 1) & 1;
+          const int e = i & 1;
+          const bool allowed = (e ? sg.y : sg.x) == segq[r] && k0 + key + e <= rows[r];
+          s[i] = allowed ? s[i] : -CUDART_INF_F;
+          tile_max[r] = fmaxf(tile_max[r], s[i]);
+        }
+      }
+    }
+    float base_max[2];
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 1));
+      tile_max[r] = fmaxf(tile_max[r], __shfl_xor_sync(0xffffffffu, tile_max[r], 2));
+      const float m_new = fmaxf(m[r], tile_max[r] * scale_log2);
+      base_max[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      alpha[r] = fast_exp2(m[r] - base_max[r]);
+      l[r] *= alpha[r];
+      m[r] = m_new;
+    }
+    if (tiles == kFlushTiles) {
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) {
+        float* f0 = flushed_o + i * Tl::kThreads + tid;
+        float* f1 = flushed_o + (kHalf + i) * Tl::kThreads + tid;
+        *f0 = flushed ? fmaf(*f0, since_flush[(i >> 1) & 1], o0[i]) : o0[i];
+        *f1 = flushed ? fmaf(*f1, since_flush[(i >> 1) & 1], o1[i]) : o1[i];
+        o0[i] = o1[i] = 0.f;
+      }
+      since_flush[0] = since_flush[1] = 1.f;
+      tiles = 0;
+      flushed = true;
+    }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < kHalf; ++i) {
+        o0[i] *= alpha[(i >> 1) & 1];
+        o1[i] *= alpha[(i >> 1) & 1];
+      }
+      since_flush[0] *= alpha[0];
+      since_flush[1] *= alpha[1];
+    }
+
+    uint32_t pa[kParts][4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = 8 * kk + 2 * q;
+        const int r = q & 1;
+        float x = fast_exp2(fmaf(s[i], scale_log2, -base_max[r]));
+        float y = fast_exp2(fmaf(s[i + 1], scale_log2, -base_max[r]));
+        l[r] += x + y;
+#pragma unroll
+        for (int part = 0; part < kParts; ++part) {
+          pa[part][kk][q] = pack_trunc(x, y);
+          if (part + 1 < kParts) {
+            x = trunc_rest(x);
+            y = trunc_rest(y);
+          }
+        }
+      }
+    // O += P V: each half of V's columns an MN-major B of 128-byte rows,
+    // k-steps of 16 keys at +16 rows
+    constexpr uint32_t kStep = 16 * 128 >> 4;
+    const uint64_t v0 = wgmma_desc(kv + Tl::kKBytes, 128);
+    const uint64_t v1 = wgmma_desc(kv + Tl::kKBytes + Tl::kSub, 128);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int part = 0; part < kParts; ++part) {
+        wgmma_rs<64>(o0, pa[part][kk], v0 + kk * kStep, 1);
+        wgmma_rs<64>(o1, pa[part][kk], v1 + kk * kStep, 1);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs(o0);
+    wgmma_fence_regs(o1);
+    refill();
+    ++tiles;
+  }
+  if (flushed) {
+#pragma unroll
+    for (int i = 0; i < kHalf; ++i) {
+      o0[i] = fmaf(flushed_o[i * Tl::kThreads + tid], since_flush[(i >> 1) & 1], o0[i]);
+      o1[i] = fmaf(flushed_o[(kHalf + i) * Tl::kThreads + tid], since_flush[(i >> 1) & 1], o1[i]);
+    }
+  }
+
+  // out in bf16 into the Q tile's first two sub-tiles, stored by TMA
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    const int row = 16 * warp + g + 8 * r;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(smem + swizzled_chunk_offset(row, j, 128) + 4 * t) =
+          pack_bf16(o0[4 * j + 2 * r] * inv, o0[4 * j + 2 * r + 1] * inv);
+      *reinterpret_cast<uint32_t*>(smem + Tl::kSub + swizzled_chunk_offset(row, j, 128) + 4 * t) =
+          pack_bf16(o1[4 * j + 2 * r] * inv, o1[4 * j + 2 * r + 1] * inv);
+    }
+  }
+  fence_shared_to_async();
+  named_barrier(1, Tl::kThreads);
+  if (tid == 0) {
+    tma_store_4d(&out_map, smem, 0, h, q0, b);
+    tma_store_4d(&out_map, smem + Tl::kSub, 64, h, q0, b);
     tma_store_commit();
     tma_store_wait_read();
   }
@@ -923,6 +1234,46 @@ cudaError_t launch_config(const Config& cfg, const void* q, const void* k, const
   return cudaGetLastError();
 }
 
+// The map of a contiguous [B, T, H, D] bf16 tensor whose box is `rows`
+// consecutive t of one (b, h) and 64 columns of d (128 bytes, swizzled by
+// 128 bytes): a row wider than one swizzle atom is loaded or stored as
+// D / 64 boxes. Rows past T arrive as zeros and are not stored.
+bool encode_bthd_cols_map(CUtensorMap* map, const void* base, int batch, int seq, int heads,
+                          int head_dim, int rows) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t row = 2ull * head_dim;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * seq};
+  const cuuint32_t box[4] = {64u, 1u, static_cast<cuuint32_t>(rows), 1u};
+  const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_causal(const void* q, const void* k, const void* v, const int* seg, void* out,
+                          int batch, int seq, int heads, float scale, cudaStream_t stream) {
+  using Tl = CausalTile;
+  const void* fn = reinterpret_cast<const void*>(flash_fwd_causal_kernel);
+  const int smem = Tl::smem_bytes(seq);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  alignas(64) CUtensorMap maps[4] = {};
+  const void* bases[4] = {q, k, v, out};
+  const int dims[4] = {Tl::kQkDim, Tl::kQkDim, Tl::kVDim, Tl::kVDim};
+  for (int i = 0; i < 4; ++i)
+    if (!encode_bthd_cols_map(&maps[i], bases[i], batch, seq, heads, dims[i], kWgKeys))
+      return cudaErrorInvalidValue;
+  const dim3 grid((seq + kWgRows - 1) / kWgRows, heads, batch);
+  void* args[] = {&maps[0], &maps[1], &maps[2], &maps[3], &seg, &seq, &scale};
+  err = cudaLaunchKernel(fn, grid, dim3(Tl::kThreads), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 
@@ -967,3 +1318,18 @@ extern "C" int convdr_flash_attention_fwd_config(int batch, int seq,
   return static_cast<int>(err);
 }
 
+
+// The causal bf16 variant: q, k [B, T, H, 192], v and out [B, T, H, 128],
+// bf16, contiguous and 16-byte aligned; seg [B, T] int32; query t sees key
+// s iff s <= t and seg[b, t] == seg[b, s]; `scale` multiplies the scores
+// inside the softmax. Returns a cudaError_t (0 = launched).
+extern "C" int convdr_flash_attention_causal_fwd(const void* q, const void* k, const void* v,
+                                                 const void* seg, void* out, int batch, int seq,
+                                                 int heads, int qk_dim, int v_dim, float scale,
+                                                 void* stream) {
+  if (batch <= 0 || seq <= 0 || heads <= 0 || batch > 65535 || heads > 65535 ||
+      qk_dim != CausalTile::kQkDim || v_dim != CausalTile::kVDim)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_causal(q, k, v, static_cast<const int*>(seg), out, batch, seq,
+                                        heads, scale, static_cast<cudaStream_t>(stream)));
+}

@@ -21,6 +21,12 @@ TPU kernel's gate (T >= 256, T % 128 == 0) does not apply, every length
 goes through the kernels. Training with attention dropout takes
 :func:`dropout_attention_plain` instead, as the JAX package takes its
 plain einsum there.
+
+:func:`causal_attention` is a decoder's attention (DeepSeek-V2's latent
+attention, used as an encoder): a causal mask beside the segment rule,
+query/key head dim 192 and value head dim 128, an explicit softmax scale;
+bf16 CUDA tensors launch the kernel's causal variant, CPU tensors take
+:func:`causal_attention_plain`.
 """
 
 from __future__ import annotations
@@ -303,3 +309,66 @@ def flash_attention(q, k, v, attention_mask):
 
 
 flash_attention.launches = 0
+
+
+CAUSAL_DIMS = (192, 128)  # (query/key, value) head dims of the causal kernel
+_CAUSAL_ARGTYPES = [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR]
+
+
+def causal_attention_plain(q, k, v, attention_mask, scale: float):
+    """Causal segment-equality softmax attention in PyTorch, f32
+    arithmetic (f64 for f64 operands): query t sees key s iff s <= t and
+    their segments (the 0/1 mask) are equal, so a right-padded pad sees
+    the pads up to itself and no row is empty.
+
+    q, k [B, T, H, Dqk], v [B, T, H, Dv], attention_mask [B, T] ->
+    [B, T, H, Dv] in q's dtype."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", at_least_f32(q), at_least_f32(k)) * scale
+    seg = attention_mask.to(torch.int32)
+    t = q.shape[1]
+    pos = torch.arange(t, device=q.device)
+    allowed = (seg[:, None, :, None] == seg[:, None, None, :]) & (pos[None, None, None, :]
+                                                                  <= pos[None, None, :, None])
+    probs = torch.softmax(scores.masked_fill(~allowed, float("-inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, at_least_f32(v)).to(q.dtype)
+
+
+def causal_attention_fwd(q, k, v, attention_mask, scale: float):
+    """Launch kernel 1's causal variant (``csrc/flash_attention.cu``) on
+    bf16 CUDA tensors q, k [B, T, H, 192] and v [B, T, H, 128]."""
+    b, t, h, dqk = q.shape
+    dv = v.shape[-1]
+    if (dqk, dv) != CAUSAL_DIMS or tuple(k.shape) != (b, t, h, dqk) or \
+            tuple(v.shape[:3]) != (b, t, h):
+        raise ValueError(f"causal_attention takes q, k [B, T, H, {CAUSAL_DIMS[0]}] and v "
+                         f"[B, T, H, {CAUSAL_DIMS[1]}], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
+        raise ValueError("causal_attention's kernel takes bf16 operands")
+    if not all(x.is_contiguous() for x in (q, k, v)) or any(
+            x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("causal_attention needs contiguous 16-byte aligned operands")
+    seg = attention_mask.to(torch.int32).contiguous()
+    out = torch.empty((b, t, h, dv), device=q.device, dtype=q.dtype)
+    fn = cuda_build.bind("flash_attention", "convdr_flash_attention_causal_fwd",
+                         _CAUSAL_ARGTYPES)
+    rc = cuda_build.launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           seg.data_ptr(), out.data_ptr(), b, t, h, dqk, dv, float(scale))
+    if rc != 0:
+        raise RuntimeError(f"causal attention kernel launch failed: CUDA error {rc}")
+    causal_attention.launches += 1
+    return out
+
+
+def causal_attention(q, k, v, attention_mask, scale: float):
+    """q, k [B, T, H, Dqk], v [B, T, H, Dv] + [B, T] 0/1 mask -> [B, T, H,
+    Dv]: CUDA tensors through the kernel's causal variant (inference only,
+    (192, 128) head dims, bf16), CPU tensors through
+    :func:`causal_attention_plain`. ``causal_attention.launches`` counts
+    kernel launches."""
+    if q.device.type == "cpu":
+        return causal_attention_plain(q, k, v, attention_mask, scale)
+    return causal_attention_fwd(q, k, v, attention_mask, scale)
+
+
+causal_attention.launches = 0

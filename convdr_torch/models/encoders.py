@@ -31,8 +31,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from convdr_torch.core.config import ModelConfig
+from convdr_torch.core.config import DecoderArchConfig, ModelConfig
 from convdr_torch.models.attention import at_least_f32
+from convdr_torch.models.deepseek_v2 import DeepseekV2Encoder
 from convdr_torch.models.transformer import (
     CastLinear,
     LayerNorm32,
@@ -154,7 +155,11 @@ class DPRBiEncoder(nn.Module):
 
 
 def build_model(config: ModelConfig) -> nn.Module:
-    """Registry config -> module (f32 parameters on the CPU)."""
+    """Registry config -> module (f32 parameters on the CPU): a decoder
+    architecture builds :class:`~convdr_torch.models.deepseek_v2.
+    DeepseekV2Encoder`."""
+    if isinstance(config.arch, DecoderArchConfig):
+        return DeepseekV2Encoder(config)
     if config.two_tower:
         return DPRBiEncoder(config)
     return AnceEncoder(config)

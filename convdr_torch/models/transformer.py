@@ -97,11 +97,12 @@ class CastEmbedding(nn.Embedding):
 
 
 def to_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast linear layers and embeddings to ``dtype``; LayerNorms stay f32
-    (the JAX package keeps parameters f32 and runs LayerNorm in f32). For
-    inference and the frozen teacher."""
+    """Cast linear layers and embeddings (and modules marked
+    ``cast_with_linears``, such as stacked expert weights) to ``dtype``;
+    LayerNorms stay f32 (the JAX package keeps parameters f32 and runs
+    LayerNorm in f32). For inference and the frozen teacher."""
     for m in model.modules():
-        if isinstance(m, (nn.Linear, nn.Embedding)):
+        if isinstance(m, (nn.Linear, nn.Embedding)) or getattr(m, "cast_with_linears", False):
             m.to(dtype)
     return model
 

@@ -34,6 +34,7 @@ from convdr_torch.ops.exact_search import NEG_INF, flat_ip_topk, stable_topk
 from convdr_torch.ops.pq import pq_flat_topk
 from convdr_torch.parallel.mesh import all_gather_rows, axis_index, axis_size
 from convdr_torch.retrieval.ivf import MAX_CANDIDATE_BYTES, _ivf_search_dev
+from convdr_torch.utils.observability import span
 
 
 def merge_shard_topk(
@@ -51,8 +52,10 @@ def merge_shard_topk(
 
 def gather_and_merge(mesh, axis: str, s: torch.Tensor, i: torch.Tensor, k: int):
     """Every rank's local top-k along ``axis``, merged (the same on every
-    rank)."""
-    return merge_shard_topk(all_gather_rows(mesh, axis, s), all_gather_rows(mesh, axis, i), k)
+    rank); the span ``convdr.shard.gather_merge`` while a profiler runs."""
+    with span("convdr.shard.gather_merge"):
+        return merge_shard_topk(all_gather_rows(mesh, axis, s),
+                                all_gather_rows(mesh, axis, i), k)
 
 
 def _to_global(s: torch.Tensor, i: torch.Tensor, base: int):

@@ -28,6 +28,13 @@ nesting):
   * corpus embedding (``retrieval/embed_corpus.py``): ``convdr.embed.pass``
     around ``convdr.embed.batch`` (which holds ``convdr.embed.readback``)
     and ``convdr.embed.write_block``;
+  * a decoder encoder (``models/deepseek_v2.py``): ``convdr.mla.attention``
+    around each latent-attention block, ``convdr.moe.experts`` around each
+    expert layer, ``convdr.moe.route`` inside it around the router and the
+    ordering of its routed rows;
+  * sharded search (``parallel/sharded_search.py``):
+    ``convdr.shard.gather_merge`` around the ``all_gather`` of the shards'
+    top-k lists and their merge;
   * ``convdr.phase.<name>``: a :class:`PhaseTimer`'s phase.
 
 No span sits inside a CUDA-graph capture.
